@@ -11,13 +11,21 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc`` itself.
 Phases, each printed on its own line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: both kernels compiled in parallel with ``nvcc``;
+2. build: the three kernel sources compiled in parallel with ``nvcc``;
 3. the split-KV decode kernel against its plain PyTorch version at
    yi-9b's head shapes (B=8, H=32, Hkv=4, Dh=128, bf16): Skv 4096 and
    4095, per-slot positions spread over the cache, Sq 1 and 4, no window
    and a 256-row window, one split and the default split count; and a
    2048-row cache read up to the serving path's occupancy bounds (kv_len
    472 and 301, rounded up to 128-row blocks, and 301 unrounded);
+3a. the paged decode kernel against its plain version at the same head
+   shapes: pages of 8, 16 and 256 rows under a randomly permuted table,
+   dead table columns naming a NaN scratch page, Sq 1 and 4, no window
+   and 256, one and the default split count, a kv_len cut below the
+   horizon; and against the dense kernel on the same logical cache;
+3b. the flash-attention kernel against its plain version at yi-9b
+   prefill shapes (B=1, H=32, Hkv=4, Dh=128), S 512, 2048 and 509,
+   causal and causal with a 256-row window, in fp32 and bf16;
 4. the KV row writer against its plain version, both store flavors,
    byte for byte, with a clamped overshoot row, in place;
 5. the full-width 48-layer yi-9b ``ServeEngine`` (random weights from a
@@ -28,12 +36,24 @@ Phases, each printed on its own line:
    against the same step with ``impl="ref"`` for four prompt sets, and a
    smoke-size fp32 engine's greedy streams on the card against the same
    engine on the CPU;
+5b. the flash-attention entry point (``ops.flash_attention_bshd``) on
+   layer 0's queries, keys and values of a 2048-token prompt, launch
+   counts zeroed before and read after;
+5c. the full-width ``PagedServeEngine`` with the same weights: page 16,
+   320 pages, 16 greedy requests sharing a 256-token prefix (plus 0-256
+   tokens each, 64 new), one forked after its first chunk and one
+   cancelled. Launch counts zeroed before and read after, the pool
+   checked after every round; then one decode step through the paged
+   kernel against the dense kernel on the same prompts, and a smoke-size
+   fp32 paged engine's greedy streams on the card against the CPU and
+   against the dense engine;
 6. per kernel its time at the path's shapes, its bound, its plain
-   version's time and a library call's time, then two full-width decode
-   dispatches of the same 8 requests timed once on the wall clock and
-   once under the profiler: the device's busy time per step, its idle
-   share and where the time goes; the ``kernels`` JSON line comes last
-   but one.
+   version's time and a library call's time (none for the paged kernel:
+   no single PyTorch call reads a paged cache), then, for the dense and
+   the paged engine, two full-width decode dispatches of the same 8
+   requests timed once on the wall clock and once under the profiler:
+   the device's busy time per step, its idle share and where the time
+   goes; the ``kernels`` JSON line comes last but one.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 references on the
 card run in full fp32. Any failed phase raises and the script exits
@@ -56,6 +76,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 
 # yi-9b head shapes of the serving path
 B, H, HKV, DH = 8, 32, 4, 128
@@ -78,6 +99,11 @@ BF16_OUT_TOL = 2 ** -6
 # caught at 1e-4 by the kernel cases of phase 3, not here.
 LOGITS_REL_TOL = 5e-2
 LOGITS_SEEDS = (11, 12, 13)       # prompt sets beside the served prompts
+# flash attention in fp32 against its plain version: both sum the same
+# products in fp32 in different orders over up to 2048 keys; the outputs
+# (weighted means of unit normals) agree to ~1e-6
+FLASH_F32_TOL = 1e-4
+PROFILE_ATTEMPTS = 3              # profiler windows before a timing fails
 
 
 class PhaseError(RuntimeError):
@@ -101,26 +127,51 @@ def device_us(prof) -> dict:
     return out
 
 
+def profiled(torch, run, what: str, setup=None) -> dict:
+    """Device microseconds by name over one ``run()``, under
+    ``torch.profiler``; ``setup()``, when given, runs before each window,
+    outside it.
+
+    Rarely a profile on the card records no device event at all (seen
+    once on an H100); such a window is taken again, up to
+    ``PROFILE_ATTEMPTS`` windows in all, and said so. If no window sees
+    device time the phase fails: there is no fallback to another clock.
+    """
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if setup is not None:
+            setup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_name = device_us(prof)
+        if sum(by_name.values()) > 0:
+            if attempt > 1:
+                print(f"{what}: the profiler saw no device time in "
+                      f"{attempt - 1} window(s); measured in window "
+                      f"{attempt}")
+            return by_name
+    raise PhaseError(f"{what}: the profiler saw no device time in "
+                     f"{PROFILE_ATTEMPTS} windows")
+
+
 def timed(torch, fn, iters: int, warmup: int = 3) -> float:
     """Milliseconds of device work per ``fn()`` call.
 
     The device time of every kernel, copy and fill that ``iters`` calls
-    launch, summed from ``torch.profiler``, over ``iters``: host launch
-    overhead between calls does not count. A profile with no device time
-    fails the phase.
+    launch, summed from ``torch.profiler`` (see :func:`profiled`), over
+    ``iters``: host launch overhead between calls does not count.
     """
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(device_us(prof).values())
-    check(us > 0, "timing: the profiler saw no device time")
-    return us / 1e3 / iters
+
+    return sum(profiled(torch, run, "timing").values()) / 1e3 / iters
 
 
 # --- phase 1: device -------------------------------------------------------
@@ -490,7 +541,456 @@ def phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err) -> list:
     return [decode_row, writer_row]
 
 
-def phase_trace(torch, serve, eng, reqs) -> None:
+# --- phase 3a: paged decode kernel ----------------------------------------
+
+def _paged_pools(torch, k, v, ps, gen):
+    """The slot caches k, v (B, S, Hkv, Dh) as page pools under a randomly
+    permuted block table, plus a scratch page of NaN at the end (the page
+    dead table columns name; never read)."""
+    b, skv, hkv, dh = k.shape
+    nb = -(-skv // ps)
+    perm = torch.randperm(b * nb, generator=gen, device="cuda")
+    pad = (0, 0, 0, 0, 0, nb * ps - skv)
+    pools = []
+    for x in (k, v):
+        pool = torch.full((b * nb + 1, ps, hkv, dh), float("nan"),
+                          dtype=x.dtype, device="cuda")
+        pool[perm] = torch.nn.functional.pad(x, pad).reshape(b * nb, ps, hkv,
+                                                             dh)
+        pools.append(pool)
+    return pools[0], pools[1], perm.reshape(b, nb).int()
+
+
+def phase_paged_decode(torch, D, ops) -> float:
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    skv = 2048
+    k = torch.randn(B, skv, HKV, DH, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, skv, HKV, DH, generator=gen, device="cuda").bfloat16()
+    worst, worst_dense, cases = 0.0, 0.0, 0
+    for ps in (8, 16, 256):
+        kp, vp, table = _paged_pools(torch, k, v, ps, gen)
+        for sq in (1, 4):
+            pos = torch.linspace(0, skv - 600 - sq, B,
+                                 device="cuda").round().int()
+            q = torch.randn(B, sq, H, DH, generator=gen,
+                            device="cuda").bfloat16()
+            # dead columns past each slot's last live row name the scratch
+            bt = table.clone()
+            for i, last in enumerate((pos + sq - 1).tolist()):
+                bt[i, last // ps + 1:] = kp.shape[0] - 1
+            full = bt.shape[1]
+            cut = -(-(int(pos.max()) + sq) // ps)         # a kv_len bound
+            for window in (None, 256):
+                for ns, n_blocks in ((1, full), (None, full), (None, cut)):
+                    bound, split_len, n = D.paged_split_plan(
+                        B, HKV, ps, n_blocks, ns)
+                    kw = dict(window=window, split_len=split_len,
+                              n_splits=n, bound=bound)
+                    ok_, mk, lk = D.decode_paged_partials(
+                        q, kp, vp, bt, pos, impl="cuda", **kw)
+                    orf, mr, lr = D.decode_paged_partials(
+                        q, kp, vp, bt, pos, impl="ref", **kw)
+                    torch.cuda.synchronize()
+                    got = D.combine_splits(ok_, mk, lk)
+                    err = (got - D.combine_splits(orf, mr, lr)).abs().max()
+                    what = (f"page={ps} sq={sq} window={window} "
+                            f"n_splits={n} bound={bound}")
+                    check(torch.equal(lk == 0, lr == 0),
+                          f"paged decode: dead splits differ ({what})")
+                    check(err.item() <= DECODE_TOL, f"paged decode: max err "
+                          f"{err.item():.3g} > {DECODE_TOL} at {what}")
+                    worst = max(worst, err.item())
+                    cases += 1
+                # the same logical cache through the dense kernel
+                b_, sl, nd = D.split_plan(B, HKV, skv, 128, None, None)
+                dense = D.combine_splits(*D.decode_partials(
+                    q, k, v, pos, window=window, split_len=sl, n_splits=nd,
+                    bound=b_, impl="cuda"))
+                paged = D.combine_splits(*D.decode_paged_partials(
+                    q, kp, vp, bt, pos, impl="cuda", window=window,
+                    **dict(zip(("bound", "split_len", "n_splits"),
+                               D.paged_split_plan(B, HKV, ps, full,
+                                                  None)))))
+                err = (paged - dense).abs().max().item()
+                check(err <= DECODE_TOL, f"paged decode vs dense kernel: "
+                      f"{err:.3g} > {DECODE_TOL} at page={ps} sq={sq}")
+                worst_dense = max(worst_dense, err)
+        # the router's page bound reaches the same result
+        got = ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=cut * ps - 3,
+                                     impl="cuda").float()
+        want = D.ref_decode(q.float(), k.float(), v.float(), pos)
+        err = (got - want).abs().max().item()
+        check(err <= BF16_OUT_TOL, f"paged decode: ops.flash_decode_paged "
+              f"err {err:.3g} > {BF16_OUT_TOL} at page={ps}")
+    print(f"paged decode kernel: {cases} cases vs plain version (pages 8, "
+          f"16, 256; permuted tables, dead columns on a NaN scratch page; "
+          f"Sq 1/4; window none/256; one/default splits; a kv_len cut), max "
+          f"abs err {worst:.3g}; vs the dense kernel on the same logical "
+          f"cache {worst_dense:.3g} (tol {DECODE_TOL}, fp32 outputs)")
+    return worst
+
+
+# --- phase 3b: flash attention kernel --------------------------------------
+
+def phase_flash(torch, ops, R) -> float:
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    for s in (512, 2048, 509):
+        q = torch.randn(1, H, s, DH, generator=gen, device="cuda")
+        k = torch.randn(1, HKV, s, DH, generator=gen, device="cuda")
+        v = torch.randn(1, HKV, s, DH, generator=gen, device="cuda")
+        for window in (None, 256):
+            want = R.attention(q, k, v, window=window)
+            got = ops.flash_attention(q, k, v, window=window, impl="cuda")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(err <= FLASH_F32_TOL, f"flash: fp32 err {err:.3g} > "
+                  f"{FLASH_F32_TOL} at S={s} window={window}")
+            worst = max(worst, err)
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            want = R.attention(qb.float(), kb.float(), vb.float(),
+                               window=window)
+            got = ops.flash_attention(qb, kb, vb, window=window,
+                                      impl="cuda").float()
+            err = (got - want).abs().max().item()
+            check(err <= BF16_OUT_TOL, f"flash: bf16 err {err:.3g} > "
+                  f"{BF16_OUT_TOL} at S={s} window={window}")
+    print(f"flash attention kernel: S 512/2048/509, causal and window 256, "
+          f"B=1 H={H} Hkv={HKV} Dh={DH}: fp32 max abs err {worst:.3g} (tol "
+          f"{FLASH_F32_TOL}); bf16 within {BF16_OUT_TOL} of the fp32 plain "
+          f"result")
+    return worst
+
+
+# --- phase 5b: prefill attention through the flash entry point -------------
+
+def phase_prefill_attention(torch, np, cfg, M, L, K, ops, R, params) -> dict:
+    """Layer 0's queries, keys and values of a 2048-token prompt on the
+    full-width model, in the model's (B, S, H, Dh) layout, through
+    ``ops.flash_attention_bshd``: the kernel's own entry point (the
+    model's prefill keeps ``chunked_causal_attention``, as the
+    reference's does). Launch counts are zeroed before and read after."""
+    s = 2048
+    toks = torch.tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (1, s)), device="cuda")
+    p = {n: t[0] for n, t in params["scan"]["0"].items()
+         if not isinstance(t, dict)}
+    mix = {n: t[0] for n, t in params["scan"]["0"]["mixer"].items()}
+    x = L.rms_norm(params["tok_embed"][toks], p["ln1"], cfg.norm_eps)
+    rope = L.rope_tables(torch.arange(s, device="cuda")[None],
+                         cfg.head_dim_eff, cfg.rope_theta)
+    q = L.rotate(M._project(x, mix["wq"]), *rope)
+    k = L.rotate(M._project(x, mix["wk"]), *rope)
+    v = M._project(x, mix["wv"])
+    K.reset_launches()
+    out = ops.flash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches["flash_attention"] == 1, f"prefill attention: "
+          f"flash_attention launched {launches['flash_attention']} times")
+    check(tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype
+          and bool(torch.isfinite(out).all()),
+          "prefill attention: bad output")
+    want = R.attention(*(t.transpose(1, 2).float() for t in (q, k, v)))
+    err = (out.transpose(1, 2).float() - want).abs().max().item()
+    check(err <= BF16_OUT_TOL, f"prefill attention: err {err:.3g} > "
+          f"{BF16_OUT_TOL}")
+    print(f"prefill attention: yi-9b layer 0, S={s}, through "
+          f"ops.flash_attention_bshd: launches {launches['flash_attention']}"
+          f", max abs err {err:.3g} vs fp32 plain (tol {BF16_OUT_TOL})")
+    return launches
+
+
+# --- phase 5c: full-width paged serving -------------------------------------
+
+def serve_schedule(eng, reqs, *, fork: bool, cancel_after: int,
+                   on_round=None) -> dict:
+    """Serve ``reqs``: all but one slot admitted, one chunk, then (paged
+    engines, ``fork``) the first request forked into the free slot;
+    admissions as slots free; ``reqs[1]`` cancelled after
+    ``cancel_after`` more dispatches. Returns {rid: token list}, the
+    cancelled stream included. ``on_round(eng)`` runs after every
+    admission round and dispatch."""
+    pending = list(reqs)
+    out = {}
+    for _ in range(eng.max_slots - 1):
+        eng.admit(pending.pop(0))
+    if on_round:
+        on_round(eng)
+    out.update((r, t.tolist()) for r, t in eng.step())
+    if fork:
+        eng.fork(reqs[0].rid, f"{reqs[0].rid}-fork")
+    rounds = 0
+    while pending or any(s is not None for s in eng.slots):
+        for slot in eng.free_slots():
+            if pending:
+                eng.admit(pending.pop(0), slot)
+        if on_round:
+            on_round(eng)
+        out.update((r, t.tolist()) for r, t in eng.step())
+        if on_round:
+            on_round(eng)
+        rounds += 1
+        if rounds == cancel_after:
+            got = eng.cancel(reqs[1].rid)
+            check(got is not None, "serve: the request to cancel retired")
+            out[reqs[1].rid] = got.tolist()
+    return out
+
+
+def paged_requests(np, serve, vocab: int, n: int, seed: int, system: int,
+                   suffix: int, new: int) -> list:
+    """``n`` requests sharing a ``system``-token prefix, each with its own
+    0..``suffix``-token tail and ``new`` tokens to generate."""
+    rng = np.random.default_rng(seed)
+    prefix = tuple(int(t) for t in rng.integers(0, vocab, system))
+    return [serve.Request(f"p{i}", prefix + tuple(
+        int(t) for t in rng.integers(0, vocab, m)), new)
+        for i, m in enumerate(rng.integers(0, suffix + 1, n))]
+
+
+def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
+                       dense_st):
+    cfg = cfg_mod.get_config("yi-9b")
+    n_pages, ps = 320, 16
+    reqs = paged_requests(np, serve, cfg.vocab_size, 16, 5, 256, 256, 64)
+    eng = serve.PagedServeEngine(cfg, params, page_size=ps, n_pages=n_pages,
+                                 max_slots=8, max_len=2048, chunk=8,
+                                 device="cuda")
+    peak = [0]
+
+    def held(e):
+        peak[0] = max(peak[0], sum(1 for rc in e.pool.refcount if rc))
+        e.check_pool()
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = serve_schedule(eng, reqs, fork=True, cancel_after=4,
+                         on_round=held)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st, pool = eng.stats(), dict(eng.pool.stats)
+    steps = st["decode_tokens"]
+    eng.check_pool()
+    done = [r for r in res if r != reqs[1].rid]
+    check(len(res) == 17 and all(len(res[r]) == 64 for r in done)
+          and len(res[reqs[1].rid]) < 64,
+          "paged engine: not every request got its tokens")
+    check(all(0 <= min(t) and max(t) < cfg.vocab_size for t in res.values()),
+          "paged engine: token id out of vocab")
+    check(res[reqs[0].rid] == res[f"{reqs[0].rid}-fork"],
+          "paged engine: the greedy fork diverged from its parent")
+    check(launches["flash_decode_paged"] == cfg.n_layers * steps > 0
+          and launches["flash_decode"] == 0
+          and launches["kv_row_update"] == 0,
+          f"paged engine: launches {launches}, expected flash_decode_paged "
+          f"{cfg.n_layers} x {steps} and no dense kernel")
+    check(pool["shared_maps"] > 0 and pool["cow_copies"] >= 1
+          and pool["recycled_allocs"] > 0,
+          f"paged engine: pool stats {pool}")
+    check(st["quarantined"] == 0, "paged engine: non-finite logits")
+    n_tok = sum(len(v) for v in res.values())
+    page_bytes = PG.paged_kv_bytes(cfg, 1, ps)
+    print(f"paged engine: yi-9b, page {ps}, {n_pages} + 1 pages "
+          f"({PG.paged_kv_bytes(cfg, n_pages + 1, ps) / 2**20:.1f} MiB pool "
+          f"vs {PG.dense_kv_bytes(cfg, 8, 2048) / 2**20:.1f} MiB dense 8 x "
+          f"2048 cache); 16 requests of a shared 256-token prefix + 0-256 "
+          f"tokens, 64 new each, one forked after its first chunk, one "
+          f"cancelled")
+    print(f"paged engine: peak pages held {peak[0]} = "
+          f"{peak[0] * page_bytes / 2**20:.1f} MiB (dense_kv_bytes "
+          f"{PG.dense_kv_bytes(cfg, 8, 2048) / 2**20:.1f} MiB); pool stats "
+          f"{pool}; gather_pages {eng.gather_pages}")
+    print(f"paged engine: {n_tok} tokens in {wall:.2f} s = "
+          f"{n_tok / wall:.1f} tok/s; prefill {st['prefill_s']:.2f} s "
+          f"({st['prefill_dispatches']} dispatches), decode "
+          f"{st['decode_s']:.2f} s ({st['decode_dispatches']} dispatches, "
+          f"{steps} steps, {st['decode_s'] / steps * 1e3:.2f} ms/step) vs "
+          f"dense {dense_st['decode_s'] / dense_st['decode_tokens'] * 1e3:.2f}"
+          f" ms/step")
+    print(f"paged engine: launches {launches} (expected flash_decode_paged "
+          f"{cfg.n_layers} x {steps} = {cfg.n_layers * steps})")
+    rel, agree = _paged_vs_dense_logits(torch, cfg, M, PG, params,
+                                        [r.prompt for r in reqs[:8]])
+    print(f"paged engine: one decode step, paged kernel vs dense kernel on "
+          f"the same prompts, max |diff| / max |logit| {rel:.4g} (greedy "
+          f"argmax agreement {agree:.3f}); tol {LOGITS_REL_TOL}")
+    check(rel <= LOGITS_REL_TOL, f"paged engine: paged vs dense logits "
+          f"{rel:.3g} > {LOGITS_REL_TOL}")
+    _small_paged_check(torch, np, cfg_mod, M, serve)
+    return eng, launches
+
+
+def _paged_vs_dense_logits(torch, cfg, M, PG, params, prompts) -> tuple:
+    """The prompts prefilled into a dense 8 x 2048 cache and into page
+    pools under a shuffled table, then one decode step through each
+    layout's kernels. Returns (max |diff| / max |logit|, argmax
+    agreement)."""
+    from repro_torch.serve.slots import insert
+    from repro_torch.train.serve import make_prefill_step
+    ps = 16
+    nb = 2048 // ps
+    dense = M.init_cache(cfg, 8, 2048, "cuda")
+    pools = PG.init_paged_cache(cfg, 8 * nb + 1, ps, "cuda")
+    perm = torch.randperm(8 * nb, generator=torch.Generator().manual_seed(12))
+    bt = perm.reshape(8, nb).int().cuda()
+    pre_dense = make_prefill_step(cfg, cache_len=2048)
+    pre_exact = make_prefill_step(cfg, cache_len=None)
+    toks = []
+    for i, p in enumerate(prompts):
+        t = torch.tensor([p], dtype=torch.int64, device="cuda")
+        lg, one = pre_dense(params, {"tokens": t})
+        insert(dense, one, i)
+        _, one = pre_exact(params, {"tokens": t})
+        npg = -(-len(p) // ps)
+        PG.paged_insert(pools, one, bt[i, :npg].long(),
+                        torch.arange(npg, device="cuda"))
+        toks.append(int(lg[0, -1].argmax()))
+    del one
+    tok = torch.tensor(toks, dtype=torch.int64, device="cuda")[:, None]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    kv_len = int(pos.max()) + 1
+    ld, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                         cache=dense, pos=pos, kv_len=kv_len)
+    lp, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                         cache=pools, pos=pos, kv_len=kv_len,
+                         block_tables=bt)
+    ld, lp = ld.float(), lp.float()
+    check(bool(torch.isfinite(lp).all()), "paged engine: non-finite logits")
+    rel = ((lp - ld).abs().max() / ld.abs().max()).item()
+    agree = (lp.argmax(-1) == ld.argmax(-1)).float().mean().item()
+    return rel, agree
+
+
+def _small_paged_check(torch, np, cfg_mod, M, serve) -> None:
+    """Smoke-size fp32 paged engine on the card: greedy streams equal to
+    the paged engine on the CPU (fork and cancel on the way) and to the
+    dense engine on the card (the same schedule without the fork)."""
+    cfg = dataclasses.replace(cfg_mod.get_smoke_config("yi-9b"),
+                              param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    reqs = paged_requests(np, serve, cfg.vocab_size, 6, 7, 8, 12, 12)
+    kw = dict(max_slots=3, max_len=40, chunk=3)
+
+    def paged(dev, fork):
+        eng = serve.PagedServeEngine(cfg, _to(params, dev), page_size=4,
+                                     device=dev, **kw)
+        out = serve_schedule(eng, reqs, fork=fork, cancel_after=2)
+        eng.check_pool()
+        check(eng.pool.stats["shared_maps"] > 0,
+              "paged engine: smoke run shared no prefix")
+        return out
+
+    card = paged("cuda", True)
+    check(card == paged("cpu", True),
+          "paged engine: smoke fp32 streams differ card vs CPU")
+    dense = serve_schedule(serve.ServeEngine(cfg, _to(params, "cuda"),
+                                             device="cuda", **kw),
+                           reqs, fork=False, cancel_after=2)
+    check(paged("cuda", False) == dense,
+          "paged engine: smoke fp32 paged streams differ from dense")
+    print("paged engine: smoke-size fp32 greedy streams identical on the "
+          "card and the CPU (6 requests sharing a prefix, 3 slots, chunk 3, "
+          "a fork and a cancel) and paged == dense on the card")
+
+
+def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
+                      flash_launches, flash_err) -> list:
+    """The paged decode kernel at page 16 and the dense timing's live rows,
+    and the flash-attention kernel at yi-9b prefill shapes."""
+    F = torch.nn.functional
+    pool = peng.cache["scan"]["0"]
+    n_layers, n_pages, ps = pool["k"].shape[:3]
+    pos = torch.tensor([len(r.prompt) + 32 for r in reqs[:B]],
+                       dtype=torch.int32, device="cuda")
+    kv_len = int(pos.max()) + 1
+    n_blocks = -(-kv_len // ps)
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(13))
+    bt = perm[:B * n_blocks].reshape(B, n_blocks).int().cuda()
+    bound, split_len, n_splits = D.paged_split_plan(B, HKV, ps, n_blocks,
+                                                    None)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q = torch.randn(B, 1, H, DH, generator=gen, device="cuda").bfloat16()
+    kw = dict(window=None, split_len=split_len, n_splits=n_splits,
+              bound=bound)
+    layer = [0]
+
+    def next_pool():
+        i = layer[0] = (layer[0] + 1) % n_layers
+        return pool["k"][i], pool["v"][i]
+
+    def kern():
+        kp, vp = next_pool()
+        D.decode_paged_partials(q, kp, vp, bt, pos, impl="cuda", **kw)
+
+    def plain():
+        kp, vp = next_pool()
+        D.decode_paged_partials(q, kp, vp, bt, pos, impl="ref", **kw)
+
+    ms = timed(torch, kern, 480)
+    plain_ms = timed(torch, plain, 48)
+    live_b = (pos + 1).clamp(max=bound)
+    live = live_b.sum().item()
+    n_table = ((live_b + ps - 1) // ps).sum().item()       # entries read
+    n_read = B * H * DH * 2 + live * HKV * DH * 2 * 2 + n_table * 4 + B * 4
+    n_write = n_splits * B * H * (DH + 2) * 4
+    flops = live * H * DH * 4
+    t_bytes = (n_read + n_write) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    paged_row = {
+        "name": "flash_decode_paged", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode.cu",
+        "replaces": "src/repro/kernels/attention/decode.py:267",
+        "launches": paged_launches["flash_decode_paged"],
+        "max_abs_err": paged_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"timing: flash_decode_paged at B={B} Sq=1 page={ps} kv_len="
+          f"{kv_len} ({n_blocks} table columns, permuted) n_splits="
+          f"{n_splits} ({live} live rows, {n_table} table entries): "
+          f"{ms * 1e3:.2f} us, bound {paged_row['bound_ms'] * 1e3:.2f} us, "
+          f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call reads a "
+          f"paged cache, so no library time (device time by profiler)")
+
+    rows = []
+    for s in (512, 2048):
+        q = torch.randn(1, H, s, DH, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(1, HKV, s, DH, generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn(1, HKV, s, DH, generator=gen,
+                        device="cuda").bfloat16()
+        fk = timed(torch, lambda: ops.flash_attention(q, k, v, impl="cuda"),
+                   20)
+        fp = timed(torch, lambda: R.attention(q, k, v), 5)
+        fl = timed(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50)
+        n_bytes = (2 * H + 2 * HKV) * s * DH * 2
+        flops = 4 * (s * (s + 1) // 2) * H * DH
+        tb = n_bytes / HBM_BYTES_PER_S * 1e3
+        to = flops / BF16_FLOPS * 1e3
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "replaces": "src/repro/kernels/attention/flash.py:115",
+            "launches": flash_launches["flash_attention"],
+            "max_abs_err": flash_err, "ms": fk, "plain_ms": fp,
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": fl})
+        print(f"timing: flash_attention at B=1 S={s} H={H} Hkv={HKV} "
+              f"Dh={DH} bf16 causal: {fk * 1e3:.1f} us, bound "
+              f"{max(tb, to) * 1e3:.2f} us ({'bytes' if tb >= to else 'ops'}"
+              f"; {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+              f"{BF16_FLOPS / 1e12:.0f} TFLOP/s), plain {fp * 1e3:.1f} us, "
+              f"sdpa {fl * 1e3:.2f} us (device time by profiler)")
+    return [paged_row, rows[-1]]
+
+
+def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     """Where a full-width decode step's device time goes, and the
     device's idle share over the same steps.
 
@@ -500,8 +1000,7 @@ def phase_trace(torch, serve, eng, reqs) -> None:
     Greedy decoding repeats the same tokens, positions and occupancy
     bounds, so both passes do the same work.
     """
-    from torch.profiler import ProfilerActivity, profile
-    check(not any(eng.slots), "trace: engine not idle")
+    check(not any(eng.slots), f"{label}: engine not idle")
 
     def admit_and_warm(tag):
         # 1 token from the prefill and 3 chunks: the warm dispatch, then
@@ -519,24 +1018,30 @@ def phase_trace(torch, serve, eng, reqs) -> None:
     eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    check(not any(eng.slots), "trace: requests did not retire")
-    admit_and_warm("trace")
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    check(not any(eng.slots), f"{label}: requests did not retire")
+    passes = []
+
+    def run():
+        t0 = time.perf_counter()
         eng.step()
         eng.step()
         torch.cuda.synchronize()
-    prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    by_name = device_us(prof)
+        passes.append((time.perf_counter() - t0) / steps * 1e3)
+
+    # a window taken again serves the requests once more, from idle
+    by_name = profiled(torch, run, label, setup=lambda: admit_and_warm(
+        f"trace{len(passes)}"))
+    check(not any(eng.slots), f"{label}: requests did not retire")
+    prof_wall_ms = passes[-1]
     total = sum(by_name.values())
-    check(total > 0, "trace: the profiler saw no device time")
-    groups = {"flash_decode": 0.0, "kv_row_update": 0.0, "matmul": 0.0,
-              "other": 0.0}
+    groups = {"flash_decode": 0.0, "flash_decode_paged": 0.0,
+              "kv_row_update": 0.0, "matmul": 0.0, "other": 0.0}
     for name, us in by_name.items():
         low = name.lower()
         if "decode_partials_kernel" in name:
-            groups["flash_decode"] += us
+            # one kernel body, instantiated with PAGED = false and true
+            paged = ", true>(" in name
+            groups["flash_decode_paged" if paged else "flash_decode"] += us
         elif "kv_rows_kernel" in name:
             groups["kv_row_update"] += us
         elif any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_",
@@ -545,17 +1050,17 @@ def phase_trace(torch, serve, eng, reqs) -> None:
         else:
             groups["other"] += us
     dev_ms = total / 1e3 / steps
-    print(f"trace: full-width decode step, 8 slots (2 dispatches of "
+    print(f"{label}: full-width decode step, 8 slots (2 dispatches of "
           f"{eng.chunk} tokens, same requests twice): device busy "
           f"{dev_ms:.2f} ms/step (profiled pass) of {wall_ms:.2f} ms/step "
           f"wall (unprofiled pass), idle share {1 - dev_ms / wall_ms:.3f}; "
           f"under the profiler {prof_wall_ms:.2f} ms/step wall")
-    print("trace: device time by group: " + ", ".join(
+    print(f"{label}: device time by group: " + ", ".join(
         f"{g} {us / 1e3 / steps:.3f} ms/step ({us / total:.3f})"
         for g, us in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     for name, us in top:
-        print(f"trace: {us / 1e3 / steps:8.3f} ms/step  {name[:100]}")
+        print(f"{label}: {us / 1e3 / steps:8.3f} ms/step  {name[:100]}")
 
 
 def main() -> int:
@@ -574,8 +1079,9 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch import serve
     from repro_torch.kernels import build, stores as S_
-    from repro_torch.kernels.attention import decode as D, ops
-    from repro_torch.models import model as M
+    from repro_torch.kernels.attention import decode as D, ops, ref as R
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.serve import pages as PG
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -583,10 +1089,21 @@ def main() -> int:
     name = phase_device(torch)
     phase_build(build)
     decode_err = phase_decode(torch, D, ops)
+    paged_err = phase_paged_decode(torch, D, ops)
+    flash_err = phase_flash(torch, ops, R)
     phase_stores(torch, S_)
     eng, reqs, launches = phase_engine(torch, np, cfg_mod, M, K, serve)
+    flash_launches = phase_prefill_attention(torch, np, eng.cfg, M, L, K,
+                                             ops, R, eng.params)
+    peng, paged_launches = phase_paged_engine(
+        torch, np, cfg_mod, M, K, serve, PG, eng.params, eng.stats())
     rows = phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err)
-    phase_trace(torch, serve, eng, reqs)
+    rows += phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches,
+                              paged_err, flash_launches, flash_err)
+    phase_trace(torch, serve, eng, reqs, "trace")
+    phase_trace(torch, serve, peng,
+                paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256,
+                               256, 64), "paged trace")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

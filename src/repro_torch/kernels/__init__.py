@@ -24,7 +24,8 @@ import torch
 IMPLS = ("ref", "cuda", "auto")
 
 #: kernel launches since the last :func:`reset_launches`, by kernel name
-LAUNCHES = {"flash_decode": 0, "kv_row_update": 0}
+LAUNCHES = {"flash_decode": 0, "kv_row_update": 0, "flash_decode_paged": 0,
+            "flash_attention": 0}
 
 
 def use_kernel(impl: str, x: torch.Tensor) -> bool:

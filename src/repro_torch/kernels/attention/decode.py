@@ -1,19 +1,25 @@
-"""Split-KV flash decode (GQA, per-slot positions): the CUDA kernel's
-wrapper, its plain PyTorch version, and the split combine.
+"""Split-KV flash decode (GQA, per-slot positions) over a dense slot cache
+or a paged KV pool: the CUDA kernels' wrappers, their plain PyTorch
+versions, and the split combine.
 
-The counterpart of ``repro/kernels/attention/decode.py``. The kernel
-(``csrc/decode.cu``) replaces the Pallas TPU kernel
-``decode.py:flash_decode`` (body ``_decode_kernel``): one thread block
-per (KV head, split, slot) walks only the live rows of its split — rows
-past ``pos + Sq - 1``, before the sliding window, or past the occupancy
-bound are never read — and writes an fp32 partial softmax state
-``(o, m, l)`` per split. :func:`combine_splits` merges the partials by
-log-sum-exp. On the H100 the kernel is bound by the bytes of the KV rows
-it reads; see the source for its design.
+The counterpart of ``repro/kernels/attention/decode.py``. The kernels
+(``csrc/decode.cu``, one body templated on its row addressing) replace
+the Pallas TPU kernels ``decode.py:flash_decode`` (body
+``_decode_kernel``) and ``decode.py:flash_decode_paged`` (body
+``_paged_decode_kernel``): one thread block per (KV head, split, slot)
+walks only the live rows of its split — rows past ``pos + Sq - 1``,
+before the sliding window, or past the occupancy bound are never read —
+and writes an fp32 partial softmax state ``(o, m, l)`` per split.
+:func:`combine_splits` merges the partials by log-sum-exp. On the H100
+the kernels are bound by the bytes of the KV rows they read; see the
+source for their design.
 
 The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
-horizon is copied or padded on any layer of any token.
+horizon is copied or padded on any layer of any token. The paged kernel
+takes the page pools whole as well, with the (B, NB) block table: each
+tile of 128 logical rows looks up its rows' physical pages itself, so
+any page size works and no gathered copy of a slot's cache is made.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L,
                               _I, _I, _I, _I, ctypes.c_float, _P],
+    "flash_decode_paged_partials": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I,
+                                    _L, _L, _L, _L,
+                                    _I, _I, _I, _I, ctypes.c_float, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,8 +123,10 @@ def ref_decode_partials(q, k, v, pos, *, window, split_len: int,
 
 
 def _check_kernel_inputs(q, k, v, pos, window) -> None:
-    """Raise on anything the CUDA kernel does not take."""
-    b, sq, h, dh = q.shape
+    """Raise on anything the CUDA kernels do not take. ``k``/``v`` are
+    (B, S, Hkv, Dh) slot caches or (P, page, Hkv, Dh) page pools: either
+    way their rows must be contiguous and 16-byte aligned."""
+    sq, h, dh = q.shape[1:]
     hkv = k.shape[2]
     for name, x in (("k", k), ("v", v), ("pos", pos)):
         if x.device != q.device:
@@ -134,9 +147,9 @@ def _check_kernel_inputs(q, k, v, pos, window) -> None:
         raise ValueError("flash_decode kernel needs a contiguous q")
     vec = 16 // q.element_size()
     for name, x in (("k", k), ("v", v)):
-        if x.shape != (b, k.shape[1], hkv, dh):
+        if x.shape != k.shape or x.shape[3] != dh:
             raise ValueError(f"{name} shape {tuple(x.shape)} does not match "
-                             f"k {tuple(k.shape)}")
+                             f"k {tuple(k.shape)} and head_dim {dh}")
         if x.stride(3) != 1 or x.stride(2) != dh \
                 or x.stride(0) % vec or x.stride(1) % vec \
                 or x.data_ptr() % 16:
@@ -163,6 +176,8 @@ def decode_partials(q, k, v, pos, *, window=None, split_len: int,
                                    split_len=split_len, n_splits=n_splits,
                                    bound=bound)
     _check_kernel_inputs(q, k, v, pos, window)
+    if k.shape[0] != b:
+        raise ValueError(f"k has {k.shape[0]} slots, q {b}")
     lib = build.load("decode", _SIGNATURES)
     o = torch.empty((n_splits, b, sq, h, dh), dtype=torch.float32,
                     device=q.device)
@@ -245,3 +260,130 @@ def ref_decode(q, k, v, pos, *, window: int | None = None,
     p = torch.softmax(st, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged pool
+# ---------------------------------------------------------------------------
+
+def paged_split_plan(b: int, hkv: int, page_size: int, n_blocks: int,
+                     n_splits: int | None) -> tuple:
+    """``(bound, split_len, n_splits)`` of the paged TPU kernel's grid.
+
+    The first ``n_blocks`` table columns (pages) are read, so ``bound =
+    n_blocks * page_size`` logical rows; the pages are cut into
+    ``n_splits`` contiguous splits of ``ceil(n_blocks / n_splits)`` pages
+    each, as the TPU wrapper cuts them (``n_splits`` at most
+    ``n_blocks``; ``None`` picks :func:`default_splits`).
+    """
+    n_blocks = max(1, int(n_blocks))
+    if n_splits is None:
+        n_splits = default_splits(b, hkv, n_blocks)
+    n_splits = max(1, min(n_splits, n_blocks))
+    bps = math.ceil(n_blocks / n_splits)
+    return n_blocks * page_size, bps * page_size, n_splits
+
+
+def gather_pages(pages, block_tables, n_blocks: int | None = None):
+    """A slot cache (B, n_blocks * page, Hkv, Dh) from a page pool (P,
+    page, Hkv, Dh): each slot's first ``n_blocks`` logical pages (all
+    columns with ``None``) in logical order, table entries clipped into
+    ``[0, P - 1]`` as the kernel clips them."""
+    bt = block_tables[:, :n_blocks].long().clamp(0, pages.shape[0] - 1)
+    return pages[bt].reshape(bt.shape[0], -1, *pages.shape[2:])
+
+
+def ref_decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
+                              window, split_len: int, n_splits: int,
+                              bound: int):
+    """Plain PyTorch version of the paged kernel: the same per-split
+    partials. The first ``bound / page`` pages of each slot are gathered
+    in logical order and go through :func:`ref_decode_partials` with the
+    kernel's split boundaries, in logical rows."""
+    nb = bound // k_pages.shape[1]
+    k = gather_pages(k_pages, block_tables, nb)
+    v = gather_pages(v_pages, block_tables, nb)
+    return ref_decode_partials(q, k, v, pos, window=window,
+                               split_len=split_len, n_splits=n_splits,
+                               bound=bound)
+
+
+def decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
+                          window=None, split_len: int, n_splits: int,
+                          bound: int, impl: str = "auto"):
+    """Per-split partials ``(o, m, l)`` over a page pool: the paged
+    kernel, or its plain version (:func:`ref_decode_paged_partials`).
+
+    ``bound`` is a whole number of pages, at most the table's columns
+    times the page size; no table column past it is read. ``impl``
+    routes as in ``repro_torch.kernels``.
+    """
+    b, sq, h, dh = q.shape
+    n_pages, ps = k_pages.shape[0], k_pages.shape[1]
+    if bound % ps or bound > block_tables.shape[1] * ps:
+        raise ValueError(f"bound {bound} is not a whole number of pages "
+                         f"within the table ({block_tables.shape[1]} x {ps})")
+    pos = pos_vector(pos, b, q.device)
+    if not use_kernel(impl, q):
+        return ref_decode_paged_partials(q, k_pages, v_pages, block_tables,
+                                         pos, window=window,
+                                         split_len=split_len,
+                                         n_splits=n_splits, bound=bound)
+    _check_kernel_inputs(q, k_pages, v_pages, pos, window)
+    if block_tables.device != q.device or block_tables.dtype != torch.int32 \
+            or block_tables.shape[0] != b or block_tables.stride(1) != 1:
+        raise ValueError("block_tables must be a (B, NB) int32 tensor on "
+                         f"{q.device} with contiguous rows")
+    lib = build.load("decode", _SIGNATURES)
+    o = torch.empty((n_splits, b, sq, h, dh), dtype=torch.float32,
+                    device=q.device)
+    m = torch.empty((n_splits, b, sq, h), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    rc = lib.flash_decode_paged_partials(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, sq, h, k_pages.shape[2], dh,
+        block_tables.stride(0), n_pages, ps,
+        k_pages.stride(0), k_pages.stride(1),
+        v_pages.stride(0), v_pages.stride(1),
+        n_splits, split_len, bound, window or 0, 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, "flash_decode_paged")
+    LAUNCHES["flash_decode_paged"] += 1
+    return o, m, l
+
+
+def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
+                       window: int | None = None,
+                       n_splits: int | None = None,
+                       n_blocks: int | None = None,
+                       impl: str = "auto") -> torch.Tensor:
+    """Split-KV flash decode against a paged KV pool.
+
+    q: (B, Sq, H, Dh); ``k_pages``/``v_pages``: (P, page, Hkv, Dh)
+    physical page pools shared by every slot; ``block_tables``: (B, NB)
+    int32 mapping each slot's logical page ``i`` (cache rows ``i*page ..
+    (i+1)*page-1``) to a physical page. Only the first ``n_blocks``
+    columns (all with ``None``) are read, and of those only the pages
+    holding rows the slot can see: columns past ``pos`` may hold any
+    page id. Entries are clipped into ``[0, P - 1]``. Returns (B, Sq, H,
+    Dh) in q's dtype.
+    """
+    n_blocks = block_tables.shape[1] if n_blocks is None else n_blocks
+    bound, split_len, n_splits = paged_split_plan(
+        q.shape[0], k_pages.shape[2], k_pages.shape[1], n_blocks, n_splits)
+    o, m, l = decode_paged_partials(q, k_pages, v_pages, block_tables, pos,
+                                    window=window, split_len=split_len,
+                                    n_splits=n_splits, bound=bound, impl=impl)
+    return combine_splits(o, m, l).to(q.dtype)
+
+
+def ref_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
+                     window: int | None = None) -> torch.Tensor:
+    """Dense paged oracle (mirror of JAX ``ref_decode_paged``): gather
+    each slot's pages in logical order and run :func:`ref_decode`."""
+    return ref_decode(q, gather_pages(k_pages, block_tables),
+                      gather_pages(v_pages, block_tables), pos,
+                      window=window)

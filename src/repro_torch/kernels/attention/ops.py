@@ -2,12 +2,14 @@
 
 The counterpart of ``repro/kernels/attention/ops.py``. Tiles are explicit
 arguments with documented defaults (``bk=128``, ``n_splits`` from
-``decode.default_splits``); the MemTier autotuner that picks them in the
-JAX package is not ported yet. ``impl`` follows ``repro_torch.kernels``:
-``"ref"`` runs the kernel's plain PyTorch version, ``"cuda"`` the
-kernel, ``"auto"`` the kernel on a CUDA tensor and the plain version on
-a CPU tensor. The dense oracle ``decode.ref_decode`` (the JAX package's
-``ref_decode``) is what tests hold both against.
+``decode.default_splits``; the paged kernel's block is the page; flash
+attention's ``bq``/``bk`` from ``flash``); the MemTier autotuner that
+picks them in the JAX package is not ported yet. ``impl`` follows
+``repro_torch.kernels``: ``"ref"`` runs the kernel's plain PyTorch
+version, ``"cuda"`` the kernel, ``"auto"`` the kernel on a CUDA tensor
+and the plain version on a CPU tensor. The dense oracle
+``decode.ref_decode`` (the JAX package's ``ref_decode``) is what tests
+hold both against.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import math
 
 from repro_torch.kernels.attention import decode as D
+from repro_torch.kernels.attention import flash as F
 
 
 def validate_tp_heads(h: int, hkv: int, dh: int, tp: int, *,
@@ -65,3 +68,38 @@ def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
         bound = min(math.ceil(bound / bk) * bk, skv)
     return D.flash_decode(q, k, v, pos, window=window, bk=bk,
                           n_splits=n_splits, kv_len=bound, impl=impl)
+
+
+def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
+                       window=None, impl: str = "auto",
+                       n_splits: int | None = None,
+                       kv_len: int | None = None):
+    """Paged split-KV decode against a shared page pool, impl-routed.
+
+    q: (B, Sq, H, Dh); ``k_pages``/``v_pages``: (P, page, Hkv, Dh);
+    ``block_tables``: (B, NB) int32 (see ``decode.flash_decode_paged``).
+    ``kv_len`` bounds occupancy at page granularity: only the first
+    ``ceil(kv_len / page)`` table columns are ever read, the paged
+    analogue of the dense router's block rounding. It reaches the kernel
+    as an integer; the table is not sliced.
+    """
+    ps, nb = k_pages.shape[1], block_tables.shape[1]
+    if kv_len is not None:
+        nb = max(1, min(math.ceil(int(kv_len) / ps), nb))
+    return D.flash_decode_paged(q, k_pages, v_pages, block_tables, pos,
+                                window=window, n_splits=n_splits,
+                                n_blocks=nb, impl=impl)
+
+
+#: flash attention forward, impl-routed: q (B, H, S, Dh); k, v (B, Hkv,
+#: S, Dh) -> (B, H, S, Dh); ``bq``/``bk`` are the kernel's tiles and any
+#: ``S`` works (see ``flash.flash_attention``)
+flash_attention = F.flash_attention
+
+
+def flash_attention_bshd(q, k, v, **kw):
+    """(B, S, H, Dh) adapter of :func:`flash_attention`: the kernel reads
+    the transposed views through their strides, so nothing is copied."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw)
+    return o.transpose(1, 2)

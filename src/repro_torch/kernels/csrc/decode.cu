@@ -1,7 +1,11 @@
-// Split-KV flash decode for Hopper (sm_90a), GQA heads packed per KV head.
+// Split-KV flash decode for Hopper (sm_90a), GQA heads packed per KV head,
+// over a dense slot cache or a paged KV pool.
 //
-// Replaces the Pallas TPU kernel repro/kernels/attention/decode.py:
-// flash_decode (body _decode_kernel). One thread block per
+// Replaces the Pallas TPU kernels repro/kernels/attention/decode.py:
+// flash_decode (body _decode_kernel) and flash_decode_paged (body
+// _paged_decode_kernel). One kernel body serves both, templated on its
+// row-addressing rule (PAGED); the load, score, softmax and value code is
+// shared. One thread block per
 // (kv_head, split, batch row). The TPU grid's sequential KV dimension
 // becomes a loop inside the block over the split's live rows: the block
 // reads pos[b] itself (the TPU kernel's scalar prefetch) and visits only
@@ -25,6 +29,19 @@
 // packed rows (K staged in shared memory with rows padded by 16 bytes so
 // the per-thread row reads are free of bank conflicts) and owns output
 // column t in the value product.
+//
+// Paged pool. On the TPU the KV block equals the page and a BlockSpec
+// index map fetches one page per grid step. Here a page of 8 or 16 rows
+// would leave a 128-row tile nearly empty, so the tile stays 128 rows and
+// spans 128/page pages: before staging a tile, thread t looks up the
+// physical page of the tile's row t (table[b, row / page], clipped into
+// [0, P-1] as the TPU wrapper's jnp.clip does) and leaves the row's
+// element offsets in shared memory, so any page size works. Masking stays
+// in logical row coordinates, so the block still visits only the live
+// rows [max(split_lo, pos-window+1), min(split_hi, bound, pos+Sq)): table
+// columns past pos (dead, or garbage page ids) are never read, and
+// out-of-order tables cost nothing but the scattered 256-byte row loads.
+// The paged kernel reads bound/page table columns at most (4 bytes each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,27 +80,41 @@ template <> struct Vec<__nv_bfloat16> {
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // shared memory layout, in bytes: q (R*DH f32) | p (R*DH f32) | m, l, alpha
-// (R f32 each) | K tile (DH rows of DH+VEC elements) | V tile (DH*DH)
+// (R f32 each) | K tile (DH rows of DH+VEC elements) | V tile (DH*DH) |
+// paged only: K and V row offsets of the tile (DH long long each)
 template <typename T, int DH>
 __host__ __device__ inline size_t kv_offset(int R) {
   return align16(sizeof(float) * (size_t(R) * DH * 2 + 3 * size_t(R)));
 }
 
 template <typename T, int DH>
-__host__ __device__ inline size_t smem_bytes(int R) {
+__host__ __device__ inline size_t off_offset(int R) {
   constexpr int KSTR = DH + Vec<T>::N;
   return kv_offset<T, DH>(R) + sizeof(T) * size_t(DH) * (KSTR + DH);
 }
 
-template <typename T, int DH, int MAXR>
+template <typename T, int DH, bool PAGED>
+__host__ __device__ inline size_t smem_bytes(int R) {
+  return off_offset<T, DH>(R) + (PAGED ? 2 * sizeof(long long) * DH : 0);
+}
+
+// Row addressing. Dense cache (B, S, Hkv, DH): row r of slot b sits at
+// b * s0 + r * s1 elements (batch and sequence strides). Paged pool (P,
+// page, Hkv, DH): logical row r of slot b sits in page p = table[b, r /
+// page] (clipped into [0, n_pages - 1]) at p * s0 + (r % page) * s1 (page
+// and row strides); before staging a tile, thread t looks up row t's page
+// and leaves the row's K and V offsets in shared memory. The dense
+// instantiation reads no table and adds no barrier.
+template <typename T, int DH, int MAXR, bool PAGED>
 __global__ void __launch_bounds__(DH)
 decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ pos,
                        float* __restrict__ o_part, float* __restrict__ m_part,
                        float* __restrict__ l_part, int B, int Sq, int H,
-                       int Hkv, long long k_sb, long long k_ss, long long v_sb,
-                       long long v_ss, int split_len, int bound, int window,
-                       float scale) {
+                       int Hkv, long long k_s0, long long k_s1, long long v_s0,
+                       long long v_s1, int split_len, int bound, int window,
+                       float scale, const int* __restrict__ table, int t_stride,
+                       int n_pages, int ps) {
   constexpr int NT = DH;             // threads per block
   constexpr int BK = DH;             // keys per tile
   constexpr int VEC = Vec<T>::N;
@@ -101,6 +132,8 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* a_s = l_s + R;
   T* k_s = reinterpret_cast<T*>(smem + kv_offset<T, DH>(R));
   T* v_s = k_s + BK * KSTR;
+  long long* ko_s = reinterpret_cast<long long*>(smem + off_offset<T, DH>(R));
+  long long* vo_s = ko_s + BK;
 
   const int p0 = pos[b];
   const int lo = s * split_len;
@@ -124,18 +157,31 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
   __syncthreads();
 
-  const T* kb = k + b * k_sb + size_t(kvh) * DH;
-  const T* vb = v + b * v_sb + size_t(kvh) * DH;
+  const T* kb = k + (PAGED ? 0 : b * k_s0) + size_t(kvh) * DH;
+  const T* vb = v + (PAGED ? 0 : b * v_s0) + size_t(kvh) * DH;
   const int warp = t >> 5, lane = t & 31;
   constexpr int NWARPS = NT / 32;
 
   for (int t0 = start; t0 < end; t0 += BK) {
     const int n = min(BK, end - t0);
+    if constexpr (PAGED) {
+      if (t < n) {
+        const int row = t0 + t;
+        int p = __ldg(table + size_t(b) * t_stride + row / ps);
+        p = min(max(p, 0), n_pages - 1);
+        const int in_page = row - (row / ps) * ps;
+        ko_s[t] = p * k_s0 + in_page * k_s1;
+        vo_s[t] = p * v_s0 + in_page * v_s1;
+      }
+      __syncthreads();
+    }
     // stage the tile's K and V rows, 16 bytes a thread per step
     for (int i = t; i < n * VPR; i += NT) {
       const int row = i / VPR, c = i - row * VPR;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kb + (t0 + row) * k_ss + c * VEC);
-      const uint4 vv = *reinterpret_cast<const uint4*>(vb + (t0 + row) * v_ss + c * VEC);
+      const long long ko = PAGED ? ko_s[row] : (t0 + row) * k_s1;
+      const long long vo = PAGED ? vo_s[row] : (t0 + row) * v_s1;
+      const uint4 kv = *reinterpret_cast<const uint4*>(kb + ko + c * VEC);
+      const uint4 vv = *reinterpret_cast<const uint4*>(vb + vo + c * VEC);
       *reinterpret_cast<uint4*>(k_s + row * KSTR + c * VEC) = kv;
       *reinterpret_cast<uint4*>(v_s + row * DH + c * VEC) = vv;
     }
@@ -243,15 +289,23 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH, int MAXR>
-int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* o, void* m, void* l, int B, int Sq, int H, int Hkv,
-           long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-           int n_splits, int split_len, int bound, int window, float scale,
-           cudaStream_t stream) {
-  auto kern = decode_partials_kernel<T, DH, MAXR>;
-  const int R = (H / Hkv) * Sq;
-  const size_t shm = smem_bytes<T, DH>(R);
+// Kernel arguments after the query/cache/output pointers, passed through
+// the launch helpers unchanged.
+struct Args {
+  int B, Sq, H, Hkv;
+  long long k_s0, k_s1, v_s0, v_s1;
+  int n_splits, split_len, bound, window;
+  float scale;
+  const int* table;
+  int t_stride, n_pages, ps;
+};
+
+template <typename T, int DH, int MAXR, bool PAGED>
+int launch(const void* q, const void* k, const void* v, const void* pos, void* o,
+           void* m, void* l, const Args& a, cudaStream_t stream) {
+  auto kern = decode_partials_kernel<T, DH, MAXR, PAGED>;
+  const int R = (a.H / a.Hkv) * a.Sq;
+  const size_t shm = smem_bytes<T, DH, PAGED>(R);
   static bool configured = false;   // once per instantiation
   if (!configured) {
     int dev = 0, optin = 0;
@@ -262,52 +316,45 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
     if (e != cudaSuccess) return int(e);
     configured = true;
   }
-  const dim3 grid(Hkv, n_splits, B);
+  const dim3 grid(a.Hkv, a.n_splits, a.B);
   kern<<<grid, DH, shm, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(pos), static_cast<float*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), B, Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, split_len,
-      bound, window, scale);
+      static_cast<float*>(l), a.B, a.Sq, a.H, a.Hkv, a.k_s0, a.k_s1, a.v_s0, a.v_s1,
+      a.split_len, a.bound, a.window, a.scale, a.table, a.t_stride, a.n_pages, a.ps);
   return int(cudaGetLastError());
 }
 
-template <typename T, int DH>
-int launch_rows(int R, const void* q, const void* k, const void* v, const void* pos,
-                void* o, void* m, void* l, int B, int Sq, int H, int Hkv,
-                long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-                int n_splits, int split_len, int bound, int window, float scale,
-                cudaStream_t st) {
-  if (R <= 8)
-    return launch<T, DH, 8>(q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss, v_sb,
-                            v_ss, n_splits, split_len, bound, window, scale, st);
-  if (R <= 16)
-    return launch<T, DH, 16>(q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss, v_sb,
-                             v_ss, n_splits, split_len, bound, window, scale, st);
-  if (R <= 32)
-    return launch<T, DH, 32>(q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss, v_sb,
-                             v_ss, n_splits, split_len, bound, window, scale, st);
+template <typename T, int DH, bool PAGED>
+int launch_rows(const void* q, const void* k, const void* v, const void* pos, void* o,
+                void* m, void* l, const Args& a, cudaStream_t st) {
+  const int R = (a.H / a.Hkv) * a.Sq;
+  if (R <= 8) return launch<T, DH, 8, PAGED>(q, k, v, pos, o, m, l, a, st);
+  if (R <= 16) return launch<T, DH, 16, PAGED>(q, k, v, pos, o, m, l, a, st);
+  if (R <= 32) return launch<T, DH, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
   return int(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int launch_dh(int Dh, int R, const void* q, const void* k, const void* v,
-              const void* pos, void* o, void* m, void* l, int B, int Sq, int H,
-              int Hkv, long long k_sb, long long k_ss, long long v_sb,
-              long long v_ss, int n_splits, int split_len, int bound, int window,
-              float scale, cudaStream_t st) {
+template <typename T, bool PAGED>
+int launch_dh(int Dh, const void* q, const void* k, const void* v, const void* pos,
+              void* o, void* m, void* l, const Args& a, cudaStream_t st) {
   switch (Dh) {
-    case 32:
-      return launch_rows<T, 32>(R, q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss,
-                                v_sb, v_ss, n_splits, split_len, bound, window, scale, st);
-    case 64:
-      return launch_rows<T, 64>(R, q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss,
-                                v_sb, v_ss, n_splits, split_len, bound, window, scale, st);
-    case 128:
-      return launch_rows<T, 128>(R, q, k, v, pos, o, m, l, B, Sq, H, Hkv, k_sb, k_ss,
-                                 v_sb, v_ss, n_splits, split_len, bound, window, scale, st);
-    default:
-      return int(cudaErrorInvalidValue);
+    case 32: return launch_rows<T, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
+    case 64: return launch_rows<T, 64, PAGED>(q, k, v, pos, o, m, l, a, st);
+    case 128: return launch_rows<T, 128, PAGED>(q, k, v, pos, o, m, l, a, st);
+    default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <bool PAGED>
+int launch_dtype(int dtype, int Dh, const void* q, const void* k, const void* v,
+                 const void* pos, void* o, void* m, void* l, const Args& a,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dh<float, PAGED>(Dh, q, k, v, pos, o, m, l, a, st);
+  if (dtype == 1)
+    return launch_dh<__nv_bfloat16, PAGED>(Dh, q, k, v, pos, o, m, l, a, st);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -322,17 +369,27 @@ int flash_decode_partials(const void* q, const void* k, const void* v,
                           int Dh, long long k_sb, long long k_ss, long long v_sb,
                           long long v_ss, int n_splits, int split_len, int bound,
                           int window, float scale, void* stream) {
-  const int R = (H / Hkv) * Sq;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float>(Dh, R, q, k, v, pos, o_part, m_part, l_part, B, Sq, H,
-                            Hkv, k_sb, k_ss, v_sb, v_ss, n_splits, split_len, bound,
-                            window, scale, st);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(Dh, R, q, k, v, pos, o_part, m_part, l_part, B,
-                                    Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, n_splits,
-                                    split_len, bound, window, scale, st);
-  return int(cudaErrorInvalidValue);
+  const Args a{B, Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, n_splits, split_len, bound,
+               window, scale, nullptr, 0, 0, 1};
+  return launch_dtype<false>(dtype, Dh, q, k, v, pos, o_part, m_part, l_part, a, stream);
+}
+
+// The same over page pools k, v (P, page, Hkv, Dh) through the (B, NB)
+// int32 block table `table` (row stride t_stride). Page and row strides
+// are in elements; bound is the number of logical rows that may be read
+// (at most the table's columns times page_size).
+int flash_decode_paged_partials(const void* q, const void* k, const void* v,
+                                const void* table, const void* pos, void* o_part,
+                                void* m_part, void* l_part, int dtype, int B, int Sq,
+                                int H, int Hkv, int Dh, int t_stride, int n_pages,
+                                int page_size, long long k_ps, long long k_rs,
+                                long long v_ps, long long v_rs, int n_splits,
+                                int split_len, int bound, int window, float scale,
+                                void* stream) {
+  const Args a{B, Sq, H, Hkv, k_ps, k_rs, v_ps, v_rs, n_splits, split_len, bound,
+               window, scale, static_cast<const int*>(table), t_stride, n_pages,
+               page_size};
+  return launch_dtype<true>(dtype, Dh, q, k, v, pos, o_part, m_part, l_part, a, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -113,8 +113,8 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
-                     impl: str = "auto",
-                     kv_len: int | None = None) -> torch.Tensor:
+                     impl: str = "auto", kv_len: int | None = None,
+                     block_tables=None) -> torch.Tensor:
     """Decode: q (B, Sq, H, Dh) against the slot cache (B, Skv, Hkv, Dh).
 
     ``pos`` (B,) is each slot's position of the first query token; cache
@@ -122,6 +122,23 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
     ``kernels.attention.ops.flash_decode``: ``"auto"`` runs the split-KV
     kernel on a CUDA tensor and its plain version on a CPU tensor,
     ``"ref"`` always the plain version. ``kv_len`` bounds the rows read.
+
+    ``block_tables`` switches to the paged layout: the caches are page
+    pools (P, page, Hkv, Dh) and ``block_tables`` (B, NB) int32 maps each
+    slot's logical pages to physical ones (``serve.pages``). A routed
+    impl or a ``kv_len`` runs ``ops.flash_decode_paged``; ``"ref"`` with
+    no bound gathers the pages in logical order and falls through to the
+    dense computation, as the reference does.
     """
+    if block_tables is not None:
+        if impl != "ref" or kv_len is not None:
+            return kops.flash_decode_paged(q, k_cache, v_cache, block_tables,
+                                           pos, window=window, impl=impl,
+                                           kv_len=kv_len)
+        b = q.shape[0]
+        hkv, dh = k_cache.shape[2], k_cache.shape[3]
+        bt = block_tables.long()
+        k_cache = k_cache[bt].reshape(b, -1, hkv, dh)
+        v_cache = v_cache[bt].reshape(b, -1, hkv, dh)
     return kops.flash_decode(q, k_cache, v_cache, pos, window=window,
                              impl=impl, kv_len=kv_len)

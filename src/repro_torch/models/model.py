@@ -232,14 +232,34 @@ def _project(x, w):
 
 def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
                 rope, cache, pos, cache_len, impl: str, kv_len,
-                store_flavor):
+                store_flavor, block_tables):
     b, s, _ = x.shape
     q = L.rotate(_project(x, p["wq"]), *rope)
     k = L.rotate(_project(x, p["wk"]), *rope)
     v = _project(x, p["wv"])
     window = cfg.sliding_window if local else None
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and block_tables is not None:
+        # paged cache: the leaves are physical page pools (P, page, Hkv,
+        # Dh) shared by all slots; each slot's new row goes to the page
+        # its block table names for the current logical page. The engine
+        # has made every page a chunk writes exist and be exclusively
+        # held (copy on write done), so the in-place write never reaches
+        # a shared page. A plain index write, as the reference's scatter.
+        ps = cache["k"].shape[1]
+        nb = block_tables.shape[1]
+        p1 = pos.long()
+        lp = torch.clamp(p1 // ps, max=nb - 1)   # overshoot-retiring clamp
+        phys = block_tables[torch.arange(b, device=x.device), lp].long()
+        row = p1 % ps
+        cache["k"][phys, row] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][phys, row] = v[:, 0].to(cache["v"].dtype)
+        y = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
+                                      window=window, impl=impl,
+                                      kv_len=kv_len,
+                                      block_tables=block_tables)
+        new_cache = cache
+    elif mode == "decode":
         # in-place KV row writes through the store door, then attention
         # over the whole cache bounded by kv_len (no slice, no copy)
         stores_lib.kv_row_update(cache["k"], cache["v"], k, v, pos,
@@ -265,7 +285,7 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
 
 def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 rope, cache, pos, cache_len=None, impl: str = "auto",
-                kv_len=None, store_flavor=None):
+                kv_len=None, store_flavor=None, block_tables=None):
     """One ``attn:dense`` block; returns (x_out, new_cache)."""
     mixer, ffn = blk.split(":")
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -273,7 +293,8 @@ def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                                local=(mixer == "attn_local"), mode=mode,
                                rope=rope, cache=cache, pos=pos,
                                cache_len=cache_len, impl=impl, kv_len=kv_len,
-                               store_flavor=store_flavor)
+                               store_flavor=store_flavor,
+                               block_tables=block_tables)
     x = x + y
     if ffn != "none":
         x = x + L.dense_ffn(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
@@ -296,7 +317,8 @@ def _unstack(tree: dict, n: int) -> list:
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "prefill", cache: dict | None = None, pos=None,
             cache_len: int | None = None, impl: str = "auto",
-            kv_len: int | None = None, store_flavor: str | None = None):
+            kv_len: int | None = None, store_flavor: str | None = None,
+            block_tables: torch.Tensor | None = None):
     """Run the model; returns ``(logits, aux, cache)``.
 
     batch: ``{"tokens": (B, S) integer tensor}``.
@@ -311,6 +333,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     attention): ``"auto"`` runs them on a CUDA tensor and their plain
     versions on a CPU tensor; ``"ref"`` always runs the plain versions.
     ``store_flavor`` picks the KV store path (``kernels.stores``).
+    ``block_tables`` ((B, NB) int32) switches decode to the paged cache
+    (``serve.pages``): every cache leaf is then a page pool, row ``pos``
+    of slot ``b`` lives in page ``block_tables[b, pos // page]``, the KV
+    rows are written there with a plain index write (not through the row
+    writer) and attention runs the paged decode kernel, with ``kv_len``
+    bounding the table columns read.
     ``aux`` is a zero scalar (no MoE blocks).
     """
     if mode not in ("prefill", "decode"):
@@ -332,7 +360,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()
     kw = dict(mode=mode, rope=rope, pos=pos, cache_len=cache_len, impl=impl,
-              kv_len=kv_len, store_flavor=store_flavor)
+              kv_len=kv_len, store_flavor=store_flavor,
+              block_tables=block_tables)
     new_cache: dict = {"tail": {}}
     if n_rep > 0:
         layer_params = _unstack(params["scan"], n_rep)

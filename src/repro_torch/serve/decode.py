@@ -35,7 +35,8 @@ def sample(logits: torch.Tensor, temperature: float,
 
 def make_chunked_decode_step(cfg: ModelConfig, n_tokens: int,
                              temperature: float = 0.0, impl: str = "auto",
-                             store_flavor: str | None = None):
+                             store_flavor: str | None = None,
+                             paged: bool = False):
     """Build the n-token decode chunk.
 
     Returns ``step(params, cache, tokens, pos, generators=None,
@@ -50,6 +51,12 @@ def make_chunked_decode_step(cfg: ModelConfig, n_tokens: int,
     ``ok`` (B,) bool is False for a slot whose logits went non-finite at
     any token of the chunk; such a slot feeds token 0 for the rest of the
     chunk so the next embedding lookup stays in range.
+
+    ``paged=True`` builds the step over a paged cache (``serve.pages``):
+    ``step(params, cache, block_tables, tokens, pos, generators=None,
+    kv_len=None)``, with ``block_tables`` (B, NB) int32 on the cache's
+    device passed to every token of the chunk (``kv_len`` then bounds
+    the table columns read).
     """
     if not cfg.embed_inputs:
         raise ValueError("chunked decode needs a token embedding")
@@ -57,7 +64,8 @@ def make_chunked_decode_step(cfg: ModelConfig, n_tokens: int,
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
 
     @torch.no_grad()
-    def step(params, cache, tokens, pos, generators=None, kv_len=None):
+    def step(params, cache, tokens, pos, generators=None, kv_len=None,
+             block_tables=None):
         ok = torch.ones(tokens.shape[0], dtype=torch.bool,
                         device=tokens.device)
         out = []
@@ -65,7 +73,8 @@ def make_chunked_decode_step(cfg: ModelConfig, n_tokens: int,
         for _ in range(n_tokens):
             logits, _, cache = M.forward(
                 cfg, params, {"tokens": tok}, mode="decode", cache=cache,
-                pos=pos, impl=impl, kv_len=kv_len, store_flavor=store_flavor)
+                pos=pos, impl=impl, kv_len=kv_len, store_flavor=store_flavor,
+                block_tables=block_tables)
             lg = logits[:, 0]
             nxt = sample(lg, temperature, generators)
             ok &= torch.isfinite(lg).all(-1)
@@ -75,4 +84,12 @@ def make_chunked_decode_step(cfg: ModelConfig, n_tokens: int,
             pos = pos + 1
         return torch.stack(out, dim=1), cache, pos, ok
 
-    return step
+    if not paged:
+        return step
+
+    def paged_step(params, cache, block_tables, tokens, pos,
+                   generators=None, kv_len=None):
+        return step(params, cache, tokens, pos, generators, kv_len,
+                    block_tables=block_tables)
+
+    return paged_step

@@ -1,12 +1,21 @@
-"""Continuous-batching serve engine: fixed KV slots, admit/evict per
+"""Continuous-batching serve engines: fixed KV slots, admit/evict per
 decode round, chunked decode.
 
-The counterpart of the dense ``ServeEngine`` in ``repro/serve/engine.py``.
-A request waits until a slot frees, is prefilled (batch 1, cache built
-at the full horizon) and copied into its slot in place, then decodes
-with every other active slot, each at its own position, ``chunk`` tokens
-a dispatch. When its budget is spent it retires and the slot is free
-for the next admission; the slot cache is never reallocated.
+The counterpart of ``ServeEngine`` and ``PagedServeEngine`` in
+``repro/serve/engine.py``. A request waits until a slot frees, is
+prefilled (batch 1) and landed in its slot in place, then decodes with
+every other active slot, each at its own position, ``chunk`` tokens a
+dispatch. When its budget is spent it retires and the slot is free for
+the next admission; the cache is never reallocated. Two cache layouts
+share the engine skeleton:
+
+- :class:`ServeEngine`: dense per-slot KV, every slot owning a
+  ``max_len`` stripe, built at the full horizon at admission;
+- :class:`PagedServeEngine`: paged KV (``serve.pages``), attention KV in
+  fixed-size physical pages mapped through per-slot block tables,
+  allocated lazily as positions advance, shared by refcount between
+  identical prompt prefixes (copy on write at the first divergent
+  write), and returned at retirement without a zero-fill.
 
 Each dispatch reads back the chunk's tokens once. Inside the chunk
 nothing leaves the device; the attention occupancy bound ``kv_len`` is
@@ -18,8 +27,9 @@ per request, seeded from the engine seed and the request id, so a
 request's stream does not depend on its slot, its admission order or its
 batchmates. They cannot match ``jax.random``'s streams.
 
-Pipelined dispatch, prompt staging, the chunk planner, meshes, snapshots
-and fault injection of the JAX engine are not ported yet (ROADMAP).
+Pipelined dispatch (dense and paged), prompt staging, the chunk
+planner, meshes, snapshots and fault injection of the JAX engine are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -33,9 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.serve import pages as pages_lib
 from repro_torch.serve.decode import make_chunked_decode_step, sample
 from repro_torch.serve.slots import insert
-from repro_torch.models import model as M
 from repro_torch.train import serve as serve_lib
 
 
@@ -64,7 +75,16 @@ class ServeEngine:
     hand-written kernels on a CUDA device). ``device`` is where the cache
     lives and must hold ``params``. ``run(requests)`` drives admit ->
     decode-chunk -> retire rounds until every request has its tokens.
+
+    Subclass hooks (:class:`PagedServeEngine` overrides all five):
+    ``_build_state`` allocates the cache and builds the steps,
+    ``_insert_prefilled`` lands one prefilled request in a slot,
+    ``_release_slot`` retires a slot, ``_pre_dispatch`` runs host-side
+    bookkeeping before each chunk, ``_decode_args`` gives the chunk's
+    leading arguments.
     """
+
+    paged = False
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int,
                  max_len: int, chunk: int, temperature: float = 0.0,
@@ -80,10 +100,7 @@ class ServeEngine:
         self.chunk = max(1, int(chunk))
         self.temperature = float(temperature)
         self.seed = int(seed)
-        self.cache = M.init_cache(cfg, max_slots, max_len, self.device)
-        self._decode = make_chunked_decode_step(cfg, self.chunk,
-                                                self.temperature)
-        self._prefill = serve_lib.make_prefill_step(cfg, cache_len=max_len)
+        self._build_state()
         # feeds the rows of free slots when sampling (their tokens are
         # discarded)
         self._idle_gen = self._generator(f"\0idle:{self.seed}")
@@ -98,6 +115,33 @@ class ServeEngine:
         # ends in a token readback, so device work is included
         self.prefill_s = 0.0
         self.decode_s = 0.0
+
+    # -- layout hooks -------------------------------------------------------
+    def _build_state(self) -> None:
+        """Allocate the cache and build the prefill and decode steps."""
+        self.cache = M.init_cache(self.cfg, self.max_slots, self.max_len,
+                                  self.device)
+        self._decode = make_chunked_decode_step(self.cfg, self.chunk,
+                                                self.temperature)
+        self._prefill = serve_lib.make_prefill_step(self.cfg,
+                                                    cache_len=self.max_len)
+
+    def _insert_prefilled(self, slot: int, one: dict, prompt: tuple) -> None:
+        """Land one prefilled (batch-1) request cache in ``slot``."""
+        insert(self.cache, one, slot)
+
+    def _release_slot(self, i: int) -> None:
+        """Retire slot ``i`` and free whatever it held."""
+        self.slots[i] = None
+
+    def _pre_dispatch(self) -> None:
+        """Host-side bookkeeping before a chunk (none for dense slots)."""
+
+    def _decode_args(self) -> tuple:
+        """Leading arguments of one decode dispatch."""
+        return (self.params, self.cache,
+                torch.from_numpy(self._tok).to(self.device),
+                torch.from_numpy(self._pos).to(self.device))
 
     # -- helpers ------------------------------------------------------------
     def _generator(self, rid: str) -> torch.Generator:
@@ -152,7 +196,7 @@ class ServeEngine:
         self.prefill_dispatches += 1
         gen = self._generator(req.rid) if self.temperature > 0 else None
         tok0 = int(self._first_tokens(logits[:, -1], [gen])[0])
-        insert(self.cache, one, slot)
+        self._insert_prefilled(slot, one, tuple(int(t) for t in req.prompt))
         self.prefill_s += time.perf_counter() - t0
         self.slots[slot] = _Slot(req.rid, req.max_new_tokens - 1, [tok0],
                                  gen)
@@ -164,10 +208,11 @@ class ServeEngine:
         """Admit a full batch at once (all slots free, equal prompt lens).
 
         One batched prefill builds the whole slot cache; any other batch
-        is admitted request by request.
+        is admitted request by request, as is every batch of a paged
+        engine (admission is where prefix matching happens).
         """
         lens = {len(r.prompt) for r in reqs}
-        if (len(reqs) != self.max_slots or len(lens) != 1
+        if (self.paged or len(reqs) != self.max_slots or len(lens) != 1
                 or any(s is not None for s in self.slots)):
             for r in reqs:
                 self.admit(r)
@@ -191,10 +236,14 @@ class ServeEngine:
             self._pos[i] = s
 
     def cancel(self, rid: str):
-        """Abort an active request; returns its tokens so far, or None."""
+        """Abort an active request; returns its tokens so far, or None.
+
+        On the paged engine the request's pages go straight back to the
+        pool, with no zero-fill, and the next admission may recycle them.
+        """
         for i, st in enumerate(self.slots):
             if st is not None and st.rid == rid:
-                self.slots[i] = None
+                self._release_slot(i)
                 return np.asarray(st.out, np.int32)
         return None
 
@@ -209,10 +258,11 @@ class ServeEngine:
             if st is not None and st.remaining <= 0:   # 1-token budgets:
                 # the prefill already yielded their only token
                 retired.append((st.rid, np.asarray(st.out, np.int32)))
-                self.slots[i] = None
+                self._release_slot(i)
         active = [i for i, st in enumerate(self.slots) if st is not None]
         if not active:
             return retired
+        self._pre_dispatch()
         # rows any kept token can reach this chunk: pos + chunk at most
         kv_len = min(self.max_len,
                      int(self._pos[active].max()) + self.chunk)
@@ -221,10 +271,7 @@ class ServeEngine:
             gens = [st.generator if st is not None else self._idle_gen
                     for st in self.slots]
         t0 = time.perf_counter()
-        out = self._decode(self.params, self.cache,
-                           torch.from_numpy(self._tok).to(self.device),
-                           torch.from_numpy(self._pos).to(self.device),
-                           gens, kv_len)
+        out = self._decode(*self._decode_args(), gens, kv_len)
         self.decode_dispatches += 1
         self.decode_tokens += self.chunk
         toks = out[0].cpu().numpy()
@@ -237,7 +284,7 @@ class ServeEngine:
                 # with its pre-chunk tokens instead of self-feeding NaNs
                 self.quarantined.append((st.rid, np.asarray(st.out,
                                                             np.int32)))
-                self.slots[i] = None
+                self._release_slot(i)
                 continue
             take = min(self.chunk, st.remaining)
             st.out.extend(int(t) for t in toks[i, :take])
@@ -246,7 +293,7 @@ class ServeEngine:
             self._pos[i] += self.chunk
             if st.remaining <= 0:
                 retired.append((st.rid, np.asarray(st.out, np.int32)))
-                self.slots[i] = None
+                self._release_slot(i)
         return retired
 
     def stats(self) -> dict:
@@ -276,3 +323,155 @@ class ServeEngine:
             for rid, toks in self.step():
                 results[rid] = toks
         return results
+
+
+class PagedServeEngine(ServeEngine):
+    """Paged-KV serve engine: block tables, prefix sharing, CoW forks.
+
+    Attention KV leaves are physical page pools of ``n_pages + 1`` pages
+    of ``page_size`` rows. The extra page is a write-off scratch page:
+    unmapped table entries point at it, so the rows free slots write and
+    the overshoot writes of retiring slots land somewhere harmless and
+    position-masked. Per-slot block tables live on the host
+    (``block_tables``, -1 = unmapped) and are shipped each dispatch, a
+    few KiB against the KV traffic they steer.
+
+    What the dense engine builds eagerly, this engine allocates lazily:
+    pages appear only when a slot's position advances into them
+    (``_pre_dispatch``), admissions map shared prompt prefixes instead
+    of copying them (``share_prefixes``), :meth:`fork` clones a stream
+    for the cost of refcounts, and retirement returns pages with their
+    stale contents: recycling skips the zero-fill a dense admission
+    pays. ``gather_pages`` sums the live pages each dispatch reads.
+    """
+
+    paged = True
+
+    def __init__(self, cfg: ModelConfig, params: dict, *,
+                 page_size: int = 8, n_pages: int | None = None,
+                 share_prefixes: bool = True, **kw):
+        self.page_size = int(page_size)
+        self.pages_per_slot = pages_lib.pages_per_slot(kw["max_len"],
+                                                       self.page_size)
+        # dense-equivalent capacity by default: sharing and laziness can
+        # only ever need fewer pages than one stripe per slot
+        self.n_pages = int(n_pages) if n_pages is not None \
+            else kw["max_slots"] * self.pages_per_slot
+        self.share_prefixes = bool(share_prefixes)
+        super().__init__(cfg, params, **kw)
+
+    # -- layout hooks -------------------------------------------------------
+    def _build_state(self) -> None:
+        ps = self.page_size
+        self.pool = pages_lib.PagePool(self.n_pages, ps)
+        self._scratch = self.n_pages          # physical index of scratch
+        self.cache = pages_lib.init_paged_cache(self.cfg, self.n_pages + 1,
+                                                ps, self.device)
+        self.block_tables = np.full((self.max_slots, self.pages_per_slot),
+                                    -1, np.int32)
+        self._decode = make_chunked_decode_step(self.cfg, self.chunk,
+                                                self.temperature, paged=True)
+        # prefill at exactly the prompt length: no horizon zero-fill;
+        # fresh pages get real rows, recycled pages keep stale ones
+        self._prefill = serve_lib.make_prefill_step(self.cfg, cache_len=None)
+        self.gather_pages = 0                 # live pages read, summed
+                                              # over dispatches
+
+    def _insert_prefilled(self, slot: int, one: dict, prompt: tuple) -> None:
+        ps = self.page_size
+        s = len(prompt)
+        npg = -(-s // ps)
+        shared = self.pool.match_prefix(prompt) if self.share_prefixes \
+            else []
+        fresh = self.pool.allocate(npg - len(shared))
+        held = list(shared) + list(fresh)
+        if self.share_prefixes:
+            # full prompt pages become matchable by later admissions
+            self.pool.register_prefix(prompt, held[:s // ps])
+        self.block_tables[slot, :] = -1
+        self.block_tables[slot, :npg] = held
+        pages_lib.paged_insert(
+            self.cache, one,
+            torch.tensor(fresh, dtype=torch.int64, device=self.device),
+            torch.arange(len(shared), npg, device=self.device))
+
+    def _release_slot(self, i: int) -> None:
+        self.pool.release([int(p) for p in self.block_tables[i] if p >= 0])
+        self.block_tables[i, :] = -1
+        self.slots[i] = None
+
+    def _pre_dispatch(self) -> None:
+        """Make every page the coming chunk writes exist and be ours.
+
+        For each active slot: allocate the pages its next ``min(chunk,
+        remaining)`` positions touch, and copy on write any that are
+        shared (prefix index, forks). After this the chunk's in-place
+        row writes never land on a page another holder can see.
+        Overshoot writes past ``remaining`` hit either an exclusively
+        held page (rows masked after retirement) or the scratch page.
+        """
+        ps, pps = self.page_size, self.pages_per_slot
+        for i, st in enumerate(self.slots):
+            if st is None:
+                continue
+            p0 = int(self._pos[i])
+            take = min(self.chunk, st.remaining)
+            l_lo = min(p0 // ps, pps - 1)
+            l_hi = min((p0 + take - 1) // ps, pps - 1)
+            for lg in range(l_lo, l_hi + 1):
+                phys = int(self.block_tables[i, lg])
+                if phys < 0:
+                    self.block_tables[i, lg] = self.pool.allocate(1)[0]
+                    continue
+                page, copied = self.pool.prepare_write(phys)
+                if copied:
+                    pages_lib.page_copy(self.cache, phys, page)
+                self.block_tables[i, lg] = page
+        live = self.block_tables[[i for i, st in enumerate(self.slots)
+                                  if st is not None]]
+        self.gather_pages += int((live >= 0).sum())
+
+    def _decode_args(self) -> tuple:
+        bt = np.where(self.block_tables < 0, self._scratch,
+                      self.block_tables).astype(np.int32)
+        params, cache, tok, pos = super()._decode_args()
+        return (params, cache, torch.from_numpy(bt).to(self.device), tok,
+                pos)
+
+    # -- paged-only surface -------------------------------------------------
+    def fork(self, rid: str, new_rid: str,
+             max_new_tokens: int | None = None) -> int:
+        """Clone an active stream into a free slot, copy-on-write.
+
+        The clone maps the same physical pages (refcounted); divergent
+        writes copy per page at the next ``_pre_dispatch``. Sampled
+        clones draw from their own generator. Returns the clone's slot.
+        """
+        src = next((i for i, st in enumerate(self.slots)
+                    if st is not None and st.rid == rid), None)
+        if src is None:
+            raise KeyError(f"no active request {rid!r}")
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slot")
+        dst = free[0]
+        self.pool.fork([int(p) for p in self.block_tables[src] if p >= 0])
+        self.block_tables[dst] = self.block_tables[src]
+        # recurrent (mamba/xLSTM) slot rows would be copied here, as the
+        # reference's make_slot_copy_step does; the port's models have
+        # none yet (ROADMAP queue 1 item 4)
+        st = self.slots[src]
+        self.slots[dst] = _Slot(
+            new_rid,
+            st.remaining if max_new_tokens is None else max_new_tokens,
+            list(st.out),
+            self._generator(new_rid) if self.temperature > 0 else None)
+        self._tok[dst] = self._tok[src]
+        self._pos[dst] = self._pos[src]
+        return dst
+
+    def check_pool(self) -> None:
+        """Assert page-conservation invariants over the live block tables."""
+        self.pool.check_conservation(
+            [[int(p) for p in self.block_tables[i] if p >= 0]
+             for i, st in enumerate(self.slots) if st is not None])

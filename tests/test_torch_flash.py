@@ -1,0 +1,105 @@
+"""Flash attention of the PyTorch port against the JAX package.
+
+On the CPU ``ops.flash_attention`` runs the CUDA kernel's plain version,
+``ref.attention`` (exact masked softmax in (B, H, S, Dh) layout). It is
+held against JAX's Pallas ``flash_attention`` in interpret mode and its
+oracle ``ref.attention`` over the reference's matrix (causal, windowed,
+GQA, fp32 and bf16; ``tests/test_kernels_attention.py``). fp32 agrees
+within 2e-5, as the reference's own test holds its kernel. In bf16 both
+sides compute in fp32 from the same bf16 inputs and round the output
+once, so they agree within one bf16 ulp at |x| < 4 (2^-6).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention import flash as JF
+from repro.kernels.attention import ops as JOPS
+from repro.kernels.attention import ref as JR
+from repro_torch import kernels as K
+from repro_torch.kernels.attention import ops
+from repro_torch.kernels.attention import ref as R
+
+from _torch_common import f32
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=0, atol=2 ** -6)
+
+CASES = [
+    # (h, hkv, s, dh, window, bq, bk): the reference's kernel matrix
+    (4, 2, 256, 64, None, 64, 64),
+    (8, 8, 128, 32, None, 32, 64),
+    (4, 1, 256, 64, 96, 64, 32),
+    (2, 2, 192, 128, None, 64, 64),
+    (8, 4, 128, 64, 64, 32, 32),
+]
+
+
+def _qkv(h, hkv, s, dh, seed=0, b=2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(sh).astype(np.float32) for sh in
+            ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh))]
+
+
+@pytest.mark.parametrize("h,hkv,s,dh,window,bq,bk", CASES)
+def test_attention_matches_jax_kernel(h, hkv, s, dh, window, bq, bk):
+    q, k, v = _qkv(h, hkv, s, dh)
+    want = JF.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), bq=bq,
+                              bk=bk, window=window, interpret=True)
+    K.reset_launches()
+    got = ops.flash_attention(*(torch.tensor(x) for x in (q, k, v)),
+                              window=window, bq=bq, bk=bk)
+    assert K.LAUNCHES["flash_attention"] == 0   # the plain version ran
+    np.testing.assert_allclose(f32(got), f32(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("s", [77, 128])
+def test_attention_matches_jax_oracle(causal, window, s):
+    """Ragged S, causal or not, with and without a window, GQA g=4."""
+    q, k, v = _qkv(8, 2, s, 32, seed=1)
+    want = JR.attention(*(jnp.asarray(x) for x in (q, k, v)), causal=causal,
+                        window=window)
+    got = R.attention(*(torch.tensor(x) for x in (q, k, v)), causal=causal,
+                      window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_attention_bf16_matches_jax(window):
+    q, k, v = _qkv(4, 2, 128, 64, seed=2, b=1)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = JF.flash_attention(jq, jk, jv, bq=64, bk=64, window=window,
+                              interpret=True)
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(got), f32(want), **BF16_TOL)
+    oracle = JR.attention(jq, jk, jv, window=window)
+    np.testing.assert_allclose(f32(got), f32(oracle), **BF16_TOL)
+
+
+def test_bshd_adapter_matches_jax():
+    q, k, v = _qkv(4, 2, 96, 32, seed=3)
+    t = [np.swapaxes(x, 1, 2).copy() for x in (q, k, v)]
+    want = JOPS.flash_attention_bshd(*(jnp.asarray(x) for x in t),
+                                     impl="ref", window=24)
+    got = ops.flash_attention_bshd(*(torch.tensor(x) for x in t), window=24)
+    assert tuple(got.shape) == t[0].shape
+    np.testing.assert_allclose(f32(got), f32(want), **F32_TOL)
+
+
+def test_flash_impl_routing_on_cpu():
+    q, k, v = (torch.tensor(x) for x in _qkv(2, 1, 16, 32))
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        ops.flash_attention(q, k, v, impl="cuda")
+    np.testing.assert_array_equal(
+        f32(ops.flash_attention(q, k, v, impl="ref")),
+        f32(ops.flash_attention(q, k, v, impl="auto")))

@@ -15,8 +15,10 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import stores
 from repro_torch.kernels.attention import decode as D
+from repro_torch.kernels.attention import ops
+from repro_torch.kernels.attention import ref as R
 from repro_torch.models import model as M
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
 torch.set_num_threads(1)
 
@@ -125,3 +127,142 @@ def test_engine_on_card_matches_cpu(cuda):
                           chunk=3, device=d).run(reqs) for d in ("cpu", cuda)}
     for r in reqs:
         assert out["cpu"][r.rid].tolist() == out[cuda][r.rid].tolist()
+
+
+def _paged_layout(k, v, ps, gen, dead_to):
+    """The slot caches k, v (B, S, Hkv, Dh) as page pools under a randomly
+    permuted block table, with one extra pool page ``dead_to`` points
+    into: table columns past ``dead_to[b]`` rows name it."""
+    b, skv, hkv, dh = k.shape
+    nb = -(-skv // ps)
+    perm = torch.randperm(b * nb, generator=gen, device="cpu")
+    pad = (0, 0, 0, 0, 0, nb * ps - skv)
+    pools = []
+    for x in (k, v):
+        pages = torch.nn.functional.pad(x, pad).reshape(b * nb, ps, hkv, dh)
+        pool = torch.empty((b * nb + 1, ps, hkv, dh), dtype=x.dtype,
+                           device=x.device)
+        pool[perm.to(x.device)] = pages
+        pool[-1] = float("nan")                      # never read
+        pools.append(pool)
+    bt = perm.reshape(b, nb).clone()
+    for i, last in enumerate(dead_to):
+        bt[i, last // ps + 1:] = b * nb              # the NaN page
+    return pools[0], pools[1], bt.int().to(k.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,ps,ns", [
+    (2, 77, 4, 2, 32, 1, None, 4, 3),       # smoke shapes, ragged
+    (3, 200, 8, 2, 64, 3, 40, 16, 4),       # Sq=3, window
+    (8, 1024, 32, 4, 128, 1, None, 16, None),   # yi-9b heads
+    (8, 1024, 32, 4, 128, 4, 256, 256, None),   # page 256, Sq=4, window
+])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
+                                           sq, window, ps, ns):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(b, sq, h, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    pos = torch.linspace(0, skv - sq, b, device=cuda).round().int()
+    kp, vp, bt = _paged_layout(k, v, ps, torch.Generator().manual_seed(6),
+                               (pos + sq - 1).tolist())
+    for n_blocks in (bt.shape[1], -(-(int(pos.max()) + sq) // ps)):
+        bound, split_len, n = D.paged_split_plan(b, hkv, ps, n_blocks, ns)
+        kw = dict(window=window, split_len=split_len, n_splits=n,
+                  bound=bound)
+        K.reset_launches()
+        got = D.decode_paged_partials(q, kp, vp, bt, pos, impl="cuda", **kw)
+        want = D.decode_paged_partials(q, kp, vp, bt, pos, impl="ref", **kw)
+        assert K.LAUNCHES["flash_decode_paged"] == 1
+        torch.testing.assert_close(D.combine_splits(*got),
+                                   D.combine_splits(*want), rtol=1e-4,
+                                   atol=1e-4)
+        assert torch.equal(got[2] == 0, want[2] == 0)     # dead splits
+    # the same logical cache through the dense kernel
+    dense = D.flash_decode(q, k, v, pos, window=window, impl="cuda")
+    paged = ops.flash_decode_paged(q, kp, vp, bt, pos, window=window,
+                                   impl="cuda")
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    torch.testing.assert_close(paged.float(), dense.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,s,dh,window,bq,bk", [
+    (4, 2, 77, 32, None, None, 64),        # ragged S
+    (8, 2, 200, 64, 40, 8, 32),            # window, bk 32
+    (32, 4, 509, 128, None, None, 64),     # yi-9b heads, ragged
+    (32, 4, 512, 128, 256, None, 64),      # yi-9b heads, window
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, h, hkv, s, dh,
+                                              window, bq, bk):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(1, h, s, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, hkv, s, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, hkv, s, dh, generator=g, device=cuda).to(dtype)
+    K.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window, bq=bq, bk=bk,
+                              impl="cuda")
+    assert K.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    want = R.attention(q.float(), k.float(), v.float(), window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    # the (B, S, H, Dh) adapter reads strided views, no copy
+    got_bshd = ops.flash_attention_bshd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), window=window, bq=bq, bk=bk,
+        impl="cuda")
+    assert torch.equal(got_bshd.transpose(1, 2), got)
+
+
+def _paged_schedule(eng, prompts, fork: bool) -> dict:
+    """Admit, fork (paged only), cancel and drain; {rid: tokens}."""
+    eng.admit(Request("0", prompts[0], 10))
+    out = {r: t.tolist() for r, t in eng.step()}
+    if fork:
+        eng.fork("0", "fork")
+    pending = [Request(str(i), p, 7) for i, p in enumerate(prompts)][1:]
+    steps = 0
+    while pending or any(eng.slots):
+        for slot in eng.free_slots():
+            if pending:
+                eng.admit(pending.pop(0), slot)
+        out.update({r: t.tolist() for r, t in eng.step()})
+        steps += 1
+        if steps == 2:
+            got = eng.cancel("1")
+            out["1"] = None if got is None else got.tolist()
+    return out
+
+
+def test_paged_engine_on_card_matches_dense_and_cpu(cuda):
+    """Smoke fp32 paged engine on the card: the same greedy streams as
+    the paged engine on the CPU (prefix sharing, a fork and a cancel on
+    the way) and as the dense engine on the card (no fork)."""
+    cfg = dataclasses.replace(get_smoke_config("yi-9b"),
+                              param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    rng = np.random.default_rng(4)
+    system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    prompts = [system + tuple(int(t) for t in
+                              rng.integers(0, cfg.vocab_size, n))
+               for n in (1, 5, 0, 9)]
+    to = lambda t, d: {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                       for k, v in t.items()}
+    kw = dict(max_slots=2, max_len=40, chunk=3)
+
+    def paged(dev, fork):
+        eng = PagedServeEngine(cfg, to(params, dev), page_size=4,
+                               device=dev, **kw)
+        out = _paged_schedule(eng, prompts, fork)
+        eng.check_pool()
+        assert eng.pool.stats["shared_maps"] > 0
+        return out
+
+    card = paged(cuda, True)
+    assert card == paged("cpu", True)
+    assert card["fork"] == card["0"]
+    dense = _paged_schedule(ServeEngine(cfg, to(params, cuda), device=cuda,
+                                        **kw), prompts, False)
+    assert paged(cuda, False) == dense
