@@ -11,7 +11,21 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc`` itself.
 Phases, each printed on its own line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the three kernel sources compiled in parallel with ``nvcc``;
+2. build: the five kernel sources compiled in parallel with ``nvcc``,
+   one line of ptxas's register and spill report for each;
+2a. the stream suite (``repro_torch.kernels.stream.ops``, impl="auto"):
+   each of its 16 kernels against its plain version at an aligned and a
+   ragged shape (the elementwise family in f32, bit for bit, and in
+   bf16, within one bf16 ulp of the plain version computed in fp32; the
+   NT flavors through ``flavor="nt"``); then its main path, every kernel
+   once at HBM-resident sizes (2^28 f32 an array, pi at n = 2^28, Jacobi
+   at (16386, 16384) and (514, 512, 1024), Gauss-Seidel at (4098, 4096)
+   with 2 sweeps), launch counts zeroed before and read after, each
+   output held against its plain version; then each kernel's time
+   beside its bound, its plain version's and one PyTorch call's, the
+   three INITs' GB/s, standard against NT stores, and copy, add and
+   triad at 2^21 f32 an array (L2-resident). Its buffers are freed
+   before the serving phases;
 3. the split-KV decode kernel against its plain PyTorch version at
    yi-9b's head shapes (B=8, H=32, Hkv=4, Dh=128, bf16): Skv 4096 and
    4095, per-slot positions spread over the cache, Sq 1 and 4, no window
@@ -53,7 +67,8 @@ Phases, each printed on its own line:
    the paged engine, two full-width decode dispatches of the same 8
    requests timed once on the wall clock and once under the profiler:
    the device's busy time per step, its idle share and where the time
-   goes; the ``kernels`` JSON line comes last but one.
+   goes; the ``kernels`` JSON line (all 20 kernels, phase 2a's among
+   them) comes last but one.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 references on the
 card run in full fp32. Any failed phase raises and the script exits
@@ -66,7 +81,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,22 +132,36 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def device_us(prof) -> dict:
+def device_us(prof, counts: dict | None = None) -> dict:
     """Device microseconds by name: every kernel, copy and fill the
     profile saw on the card (host-side operator rows are left out, so
-    no kernel is counted twice)."""
+    no kernel is counted twice). ``counts``, when given, gets the number
+    of events by name.
+
+    Read from the profiler's raw Kineto events, filtered and named as
+    ``prof.events()`` names them: building that Python event tree costs
+    seconds for a window of tens of thousands of launches, and these
+    sums need none of it."""
+    from torch._C import _demangle
     from torch.autograd import DeviceType
-    out = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    out, names = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA \
+                or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        raw = ev.name()
+        if raw not in names:
+            names[raw] = _demangle(raw)
+        out[names[raw]] = out.get(names[raw], 0.0) + ev.duration_ns() / 1e3
+        if counts is not None:
+            counts[names[raw]] = counts.get(names[raw], 0) + 1
     return out
 
 
-def profiled(torch, run, what: str, setup=None) -> dict:
+def profiled(torch, run, what: str, setup=None, counts=None) -> dict:
     """Device microseconds by name over one ``run()``, under
     ``torch.profiler``; ``setup()``, when given, runs before each window,
-    outside it.
+    outside it. ``counts``, when given, gets the window's events by name.
 
     Rarely a profile on the card records no device event at all (seen
     once on an H100); such a window is taken again, up to
@@ -145,7 +176,9 @@ def profiled(torch, run, what: str, setup=None) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        by_name = device_us(prof)
+        if counts is not None:
+            counts.clear()
+        by_name = device_us(prof, counts)
         if sum(by_name.values()) > 0:
             if attempt > 1:
                 print(f"{what}: the profiler saw no device time in "
@@ -160,8 +193,14 @@ def timed(torch, fn, iters: int, warmup: int = 3) -> float:
     """Milliseconds of device work per ``fn()`` call.
 
     The device time of every kernel, copy and fill that ``iters`` calls
-    launch, summed from ``torch.profiler`` (see :func:`profiled`), over
-    ``iters``: host launch overhead between calls does not count.
+    launch, from ``torch.profiler`` (see :func:`profiled`): host launch
+    overhead between calls does not count. The profiler on the H100
+    misses some of a window's events (seen: 477 of 480 decode launches in
+    every window, 4 of 5 of one elementwise kernel, three 1 GiB copies
+    summing to one copy's time), so each name counts its mean event time
+    times its events a call (its count over ``iters``, rounded, at least
+    1), not its sum over ``iters``. A name that misses more than a tenth
+    of its events is said so.
     """
     for _ in range(warmup):
         fn()
@@ -171,7 +210,16 @@ def timed(torch, fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
-    return sum(profiled(torch, run, "timing").values()) / 1e3 / iters
+    counts = {}
+    by_name = profiled(torch, run, "timing", counts=counts)
+    us = 0.0
+    for name, total in by_name.items():
+        a_call = max(1, round(counts[name] / iters))
+        if counts[name] < 0.9 * a_call * iters:
+            print(f"timing: the profiler recorded {counts[name]} of "
+                  f"{a_call * iters} events of {name[:60]}")
+        us += total / counts[name] * a_call
+    return us / 1e3
 
 
 # --- phase 1: device -------------------------------------------------------
@@ -197,10 +245,369 @@ def phase_build(build) -> None:
     print(f"build: compiled {built or 'nothing (up to date)'} in {dt:.1f} s")
     for name in build.SOURCES:
         log = build.library_path(name).with_name(
-            build.library_path(name).name + ".log")
-        for ln in log.read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"build: {name}: {ln.strip()}")
+            build.library_path(name).name + ".log").read_text()
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)] or [0]
+        print(f"build: {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spills} bytes of spill stores and loads, at most "
+              f"{max(smem)} bytes of static shared memory (ptxas -v)")
+
+
+# --- phase 2a: the stream suite --------------------------------------------
+
+STREAM_CHECK_SHAPES = ((256, 512), (253, 484))   # aligned and ragged
+STREAM_HBM_SHAPE = (16384, 16384)    # 2^28 f32 = 1 GiB an array, >> L2
+STREAM_L2_SHAPE = (2048, 1024)       # 2^21 f32 = 8 MiB an array, in L2
+JACOBI_2D_SHAPE = (16386, 16384)
+JACOBI_3D_SHAPE = (514, 512, 1024)
+GS_SHAPE, GS_SWEEPS = (4098, 4096), 2
+PI_N = 2 ** 28
+STREAM_S = 2.0                       # the UPDATE and triad scalar
+STREAM_SUM_RTOL = 1e-5
+STENCIL_TOL = 1e-6
+PI_OPS_PER_POINT = 6                 # +0.5, /n, x*x, 1+, 4/, the sum
+STREAM_KPY = "src/repro/kernels/stream/kernels.py"
+# name: (line of its pallas_call or function in STREAM_KPY, CUDA source)
+STREAM_KERNELS = {
+    "init_store": (94, "stream"), "init_partial": (112, "stream"),
+    "init_nt": (120, "stream"), "copy_nt": (136, "stream"),
+    "update_nt": (170, "stream"), "stream_triad_nt": (191, "stream"),
+    "copy": (146, "stream"), "add": (160, "stream"),
+    "update": (180, "stream"), "stream_triad": (202, "stream"),
+    "schoenauer_triad": (218, "stream"), "sum_reduction": (233, "stream"),
+    "pi_integration": (252, "stream"), "jacobi_2d5pt": (283, "stencil"),
+    "jacobi_3d7pt": (313, "stencil"), "gauss_seidel_2d5pt": (347, "stencil"),
+}
+
+
+def bf16_ulps(torch, got, want_f32) -> float:
+    """max |got - want| in bf16 ulps at |want|, ``want`` the fp32 result
+    rounded once to bf16."""
+    want = want_f32.bfloat16().float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
+#: the PyTorch call timed beside each elementwise kernel (NT and standard)
+STREAM_LIBRARY = {"copy": "copy_", "add": "torch.add(out=)",
+                  "update": "torch.mul(out=)",
+                  "stream_triad": "torch.add(alpha=, out=)",
+                  "schoenauer_triad": "torch.addcmul(out=)"}
+
+
+def stream_elementwise(torch, SO, SR) -> dict:
+    """name: (inputs, call through ``ops``, plain version, library call
+    into ``out``, fp32 operations an element) for the elementwise family
+    with tensor inputs."""
+    s = STREAM_S
+    return {
+        "copy": (1, lambda x: SO.copy(x[0]), lambda x: SR.copy(x[0]),
+                 lambda x, o: o.copy_(x[0]), 0),
+        "copy_nt": (1, lambda x: SO.copy(x[0], flavor="nt"),
+                    lambda x: SR.copy(x[0]), lambda x, o: o.copy_(x[0]), 0),
+        "add": (2, lambda x: SO.add(x[0], x[1]),
+                lambda x: SR.add(x[0], x[1]),
+                lambda x, o: torch.add(x[0], x[1], out=o), 1),
+        "update": (1, lambda x: SO.update(x[0], s),
+                   lambda x: SR.update(x[0], s),
+                   lambda x, o: torch.mul(x[0], s, out=o), 1),
+        "update_nt": (1, lambda x: SO.update(x[0], s, flavor="nt"),
+                      lambda x: SR.update(x[0], s),
+                      lambda x, o: torch.mul(x[0], s, out=o), 1),
+        "stream_triad": (2, lambda x: SO.stream_triad(x[0], x[1], s),
+                         lambda x: SR.stream_triad(x[0], x[1], s),
+                         lambda x, o: torch.add(x[0], x[1], alpha=s, out=o),
+                         2),
+        "stream_triad_nt": (2, lambda x: SO.stream_triad(x[0], x[1], s,
+                                                         flavor="nt"),
+                            lambda x: SR.stream_triad(x[0], x[1], s),
+                            lambda x, o: torch.add(x[0], x[1], alpha=s,
+                                                   out=o), 2),
+        "schoenauer_triad": (3, lambda x: SO.schoenauer_triad(*x[:3]),
+                             lambda x: SR.schoenauer_triad(*x[:3]),
+                             lambda x, o: torch.addcmul(x[0], x[1], x[2],
+                                                        out=o), 2),
+    }
+
+
+def stream_inits(SO) -> dict:
+    """name: call (shape, dtype) through ``ops`` for the three INITs."""
+    return {
+        "init_store": lambda sh, dt: SO.init(sh, STREAM_S, dt,
+                                             device="cuda"),
+        "init_partial": lambda sh, dt: SO.init_partial(sh, STREAM_S, dt,
+                                                       device="cuda"),
+        "init_nt": lambda sh, dt: SO.init(sh, STREAM_S, dt, flavor="nt",
+                                          device="cuda"),
+    }
+
+
+def phase_stream_check(torch, K, SO, SR) -> dict:
+    """Every stream kernel through ``ops`` (impl="auto") on CUDA tensors
+    at an aligned and a ragged shape, against its plain version: f32
+    elementwise bit for bit, bf16 within one bf16 ulp of the plain
+    version computed in fp32 from the same bf16 inputs (the kernels round
+    once), sums at rtol 1e-5 (bf16 against the fp32-accumulated plain
+    sum), stencils at 1e-6, each also on a view whose data start 4 bytes
+    past a 16-byte boundary, Gauss-Seidel also with one interior row and
+    more than one sweep. Launch counts zeroed before, read after.
+    Returns the largest absolute error by kernel."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    errs = {}
+
+    def note(name, err, ok, what):
+        check(ok, f"stream: {name} {what}: error {err:.3g}")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    K.reset_launches()
+    elementwise = stream_elementwise(torch, SO, SR)
+    for shape in STREAM_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(3)]
+            for name, (n, call, plain, _, _) in elementwise.items():
+                got = call(xs[:n])
+                check(got.dtype == dtype and tuple(got.shape) == shape,
+                      f"stream: {name} returned {got.dtype} {got.shape}")
+                if dtype == torch.float32:
+                    want = plain(xs[:n])
+                    err = (got - want).abs().max().item()
+                    note(name, err, torch.equal(got, want),
+                         f"f32 {shape} not bit-identical to plain")
+                else:
+                    want = plain([x.float() for x in xs[:n]])
+                    ulps = bf16_ulps(torch, got, want)
+                    note(name, (got.float() - want).abs().max().item(),
+                         ulps <= 1.0, f"bf16 {shape} {ulps:.2f} ulp")
+            for name, call in stream_inits(SO).items():
+                got = call(shape, dtype)
+                want = SR.init(shape, STREAM_S, dtype, "cuda")
+                note(name, (got.float() - want.float()).abs().max().item(),
+                     torch.equal(got, want), f"{dtype} {shape} differs")
+            got = SO.sum_reduction(xs[0])
+            want = SR.sum_reduction(xs[0].float())
+            err = (got - want).abs().item()
+            note("sum_reduction", err, got.dtype == torch.float32 and
+                 err <= STREAM_SUM_RTOL * want.abs().item(),
+                 f"{dtype} {shape}")
+    for n in (262144, 262143):
+        got = SO.pi_integration(n, device="cuda")
+        want = SR.pi_integration(n, device="cuda")
+        err = (got - want).abs().item()
+        note("pi_integration", err, err <= STREAM_SUM_RTOL * want.item()
+             and abs(got.item() - math.pi) < 1e-4 * math.pi, f"n={n}")
+    for name, shape, args in (
+            ("jacobi_2d5pt", (258, 514), ()), ("jacobi_2d5pt", (253, 484), ()),
+            ("jacobi_3d7pt", (18, 34, 130), ()),
+            ("jacobi_3d7pt", (17, 29, 101), ()),
+            ("gauss_seidel_2d5pt", (34, 128), (2,)),
+            ("gauss_seidel_2d5pt", (33, 101), (1,)),
+            ("gauss_seidel_2d5pt", (3, 2500), (2,)),   # one interior row
+            ("gauss_seidel_2d5pt", (3, 101), (3,))):
+        # the grid itself, then a contiguous view at an offset that is no
+        # multiple of 16 bytes (the stencils load one float at a time)
+        base = torch.randn((shape[0] + 1,) + shape[1:], generator=gen,
+                           device="cuda")
+        for u, what in ((base[:-1], f"{shape}"),
+                        (base[1:], f"{shape} view at a 4-byte offset")):
+            got = getattr(SO, name)(u, *args)
+            want = getattr(SR, name)(u, *args)
+            err = (got - want).abs().max().item()
+            note(name, err, got.shape == want.shape and err <= STENCIL_TOL,
+                 what)
+    torch.cuda.synchronize()
+    moved = {n: K.LAUNCHES[n] for n in STREAM_KERNELS}
+    check(all(moved.values()), f"stream: kernels never launched: "
+          f"{[n for n, c in moved.items() if not c]}")
+    print(f"stream kernels: 16 kernels through ops (impl='auto') vs plain "
+          f"at {STREAM_CHECK_SHAPES[0]} and {STREAM_CHECK_SHAPES[1]} "
+          f"(stencils and pi at their own aligned and ragged sizes): f32 "
+          f"elementwise bit-identical, bf16 within 1 ulp of the fp32 plain "
+          f"result, sums rtol {STREAM_SUM_RTOL}, stencils {STENCIL_TOL}; "
+          f"launches {moved}")
+    print("stream kernels: max abs err " + ", ".join(
+        f"{n} {e:.3g}" for n, e in errs.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+def phase_stream(torch, K, SO, SR, errs) -> list:
+    """The suite's main path at HBM-resident sizes: each of the 16
+    kernels once through ``ops`` (impl="auto"), launch counts zeroed
+    before and read after, each output held against its plain version;
+    then each kernel's device time beside its bound, its plain version's
+    and one PyTorch call's, the three INITs' GB/s, standard against NT
+    stores, and copy, add and triad at an L2-resident size."""
+    t0 = time.perf_counter()
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    xs = [torch.randn(STREAM_HBM_SHAPE, generator=gen, device="cuda")
+          for _ in range(3)]
+    n_el = xs[0].numel()
+    j2 = torch.randn(JACOBI_2D_SHAPE, generator=gen, device="cuda")
+    j3 = torch.randn(JACOBI_3D_SHAPE, generator=gen, device="cuda")
+    gs = torch.randn(GS_SHAPE, generator=gen, device="cuda")
+    elementwise = stream_elementwise(torch, SO, SR)
+    inits = stream_inits(SO)
+    stencils = {"jacobi_2d5pt": (j2, ()), "jacobi_3d7pt": (j3, ()),
+                "gauss_seidel_2d5pt": (gs, (GS_SWEEPS,))}
+
+    # the main path: every kernel once, launch counts zeroed before
+    K.reset_launches()
+    outs = {n: call(xs[:k]) for n, (k, call, _, _, _) in elementwise.items()}
+    outs.update((n, call(STREAM_HBM_SHAPE, torch.float32))
+                for n, call in inits.items())
+    outs["sum_reduction"] = SO.sum_reduction(xs[0])
+    outs["pi_integration"] = SO.pi_integration(PI_N, device="cuda")
+    outs.update((n, getattr(SO, n)(u, *a)) for n, (u, a) in stencils.items())
+    torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in STREAM_KERNELS}
+    check(all(c == 1 for c in launches.values()),
+          f"stream: main path launches {launches}, expected 1 each")
+    for n, (k, _, plain, _, _) in elementwise.items():
+        check(torch.equal(outs.pop(n), plain(xs[:k])),
+              f"stream: {n} at {STREAM_HBM_SHAPE} not bit-identical")
+    full = SR.init(STREAM_HBM_SHAPE, STREAM_S, torch.float32, "cuda")
+    for n in inits:
+        check(torch.equal(outs.pop(n), full), f"stream: {n} at "
+              f"{STREAM_HBM_SHAPE} differs")
+    del full
+    for n, want in (("sum_reduction", SR.sum_reduction(xs[0])),
+                    ("pi_integration", SR.pi_integration(PI_N,
+                                                         device="cuda"))):
+        err = (outs.pop(n) - want).abs().item()
+        check(err <= STREAM_SUM_RTOL * abs(want.item()),
+              f"stream: {n} main path error {err:.3g}")
+    for n, (u, a) in stencils.items():
+        err = (outs.pop(n) - getattr(SR, n)(u, *a)).abs().max().item()
+        check(err <= STENCIL_TOL, f"stream: {n} main path error {err:.3g}")
+        errs[n] = max(errs[n], err)
+    print(f"stream main path: 16 kernels through ops (impl='auto') at "
+          f"2^{int(math.log2(n_el))} f32 an array {STREAM_HBM_SHAPE}, pi "
+          f"n=2^{int(math.log2(PI_N))}, jacobi "
+          f"{JACOBI_2D_SHAPE} and {JACOBI_3D_SHAPE}, gauss-seidel "
+          f"{GS_SHAPE} x {GS_SWEEPS} sweeps: every output held against its "
+          f"plain version; launches {launches}")
+
+    # timings
+    o = torch.empty_like(xs[0])
+    rows, ms_of = [], {}
+
+    def row(name, kern, plain, library, lib_name, n_bytes, n_ops, *,
+            iters=10, plain_iters=3, plain_warmup=3, what=""):
+        ms = timed(torch, kern, iters)
+        plain_ms = timed(torch, plain, plain_iters, warmup=plain_warmup)
+        lib_ms = None if library is None else timed(torch, library, iters)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / FP32_FLOPS * 1e3
+        line, src = STREAM_KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"{STREAM_KPY}:{line}", "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+        ms_of[name] = ms
+        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+        rate = (f"{n_bytes / ms / 1e6:.0f} GB/s" if t_bytes >= t_ops else
+                f"{n_ops / ms / 1e9:.0f} GFLOP/s")
+        print(f"timing: {name} {what}: {ms * 1e3:.1f} us = {rate}, bound "
+              f"{rows[-1]['bound_ms'] * 1e3:.1f} us "
+              f"({rows[-1]['bound_by']}), plain {plain_ms * 1e3:.1f} us, "
+              f"{lib_name} {lib} (device time by profiler)")
+
+    for name, call in inits.items():
+        row(name, lambda c=call: c(STREAM_HBM_SHAPE, torch.float32),
+            lambda: SR.init(STREAM_HBM_SHAPE, STREAM_S, torch.float32,
+                            "cuda"), lambda: o.fill_(STREAM_S), "fill_",
+            n_el * 4, 0, what=f"f32 {STREAM_HBM_SHAPE}")
+    for name, (k, call, plain, lib, flops) in elementwise.items():
+        row(name, lambda c=call, k=k: c(xs[:k]),
+            lambda p=plain, k=k: p(xs[:k]),
+            lambda f=lib, k=k: f(xs[:k], o),
+            STREAM_LIBRARY[name.removesuffix("_nt")],
+            n_el * 4 * (k + 1), n_el * flops, what=f"f32 {STREAM_HBM_SHAPE}")
+    row("sum_reduction", lambda: SO.sum_reduction(xs[0]),
+        lambda: SR.sum_reduction(xs[0]), lambda: torch.sum(xs[0]),
+        "torch.sum", n_el * 4, n_el, what=f"f32 {STREAM_HBM_SHAPE}")
+    row("pi_integration", lambda: SO.pi_integration(PI_N, device="cuda"),
+        lambda: SR.pi_integration(PI_N, device="cuda"), None,
+        "no single PyTorch call:", -(-PI_N // 4096) * 4,   # its partials
+        PI_N * PI_OPS_PER_POINT, what=f"n={PI_N} ({PI_OPS_PER_POINT} fp32 "
+        f"operations a point)")
+    w2 = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                       [0.0, 0.25, 0.0]], device="cuda")[None, None]
+    w3 = torch.zeros(1, 1, 3, 3, 3, device="cuda")
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w3[(0, 0) + idx] = 1.0 / 6.0
+    h, w = JACOBI_2D_SHAPE
+    row("jacobi_2d5pt", lambda: SO.jacobi_2d5pt(j2),
+        lambda: SR.jacobi_2d5pt(j2), lambda: F.conv2d(j2[None, None], w2),
+        "conv2d", (h * w + (h - 2) * (w - 2)) * 4, (h - 2) * (w - 2) * 4,
+        what=f"{JACOBI_2D_SHAPE}")
+    d, h, w = JACOBI_3D_SHAPE
+    row("jacobi_3d7pt", lambda: SO.jacobi_3d7pt(j3),
+        lambda: SR.jacobi_3d7pt(j3), lambda: F.conv3d(j3[None, None], w3),
+        "conv3d", (d * h * w + (d - 2) * (h - 2) * (w - 2)) * 4,
+        (d - 2) * (h - 2) * (w - 2) * 6, iters=5,
+        what=f"{JACOBI_3D_SHAPE}")
+    h, w = GS_SHAPE
+    row("gauss_seidel_2d5pt", lambda: SO.gauss_seidel_2d5pt(gs, GS_SWEEPS),
+        lambda: SR.gauss_seidel_2d5pt(gs, GS_SWEEPS), None,
+        "no single PyTorch call:", h * w * 4 * 2,
+        (h - 2) * (w - 2) * 4 * GS_SWEEPS, iters=3, plain_iters=1,
+        plain_warmup=0,   # its ~41,000 launches ran once in the check above
+        what=f"{GS_SHAPE} x {GS_SWEEPS} sweeps")
+    print(f"timing: gauss_seidel_2d5pt: "
+          f"{ms_of['gauss_seidel_2d5pt'] * 1e6 / ((h - 2) * GS_SWEEPS):.0f} "
+          f"ns a row step of the one-block wavefront (its measured time over "
+          f"{h - 2} rows x {GS_SWEEPS} sweeps)")
+
+    gbs = {n: n_el * 4 / ms_of[n] / 1e6 for n in inits}
+    print(f"stream: INIT at {n_el} f32 ({n_el * 4 / 2**30:g} GiB "
+          f"written), effective GB/s: "
+          f"init_store {gbs['init_store']:.0f}, init_partial "
+          f"{gbs['init_partial']:.0f} (7 x 100 blocks, half of them "
+          f"sector-misaligned), init_nt {gbs['init_nt']:.0f}; bound "
+          f"{HBM_BYTES_PER_S / 1e9:.0f}")
+    print("stream: standard vs NT (st.global.cs) stores, device us: "
+          + ", ".join(f"{n} {ms_of[n] * 1e3:.1f} vs {ms_of[nt] * 1e3:.1f}"
+                      for n, nt in (("init_store", "init_nt"),
+                                    ("copy", "copy_nt"),
+                                    ("update", "update_nt"),
+                                    ("stream_triad", "stream_triad_nt"))))
+    del o, j2, j3, gs
+    ls = [x[:STREAM_L2_SHAPE[0] * STREAM_L2_SHAPE[1]].reshape(
+        STREAM_L2_SHAPE).clone() for x in (xs[0].view(-1), xs[1].view(-1))]
+    del xs
+    lo = torch.empty_like(ls[0])
+    n_l2 = ls[0].numel()
+    rung = []
+    for name, k, lib in (("copy", 1, lambda: lo.copy_(ls[0])),
+                         ("add", 2, lambda: torch.add(ls[0], ls[1], out=lo)),
+                         ("stream_triad", 2, lambda: torch.add(
+                             ls[0], ls[1], alpha=STREAM_S, out=lo))):
+        call = elementwise[name][1]
+        ms = timed(torch, lambda c=call, k=k: c(ls[:k]), 200)
+        lib_ms = timed(torch, lib, 200)
+        b = n_l2 * 4 * (k + 1)
+        rung.append(f"{name} {ms * 1e3:.2f} us = {b / ms / 1e6:.0f} GB/s "
+                    f"(library {lib_ms * 1e3:.2f} us = "
+                    f"{b / lib_ms / 1e6:.0f} GB/s)")
+    print(f"stream: L2 rung, {n_l2} f32 ({n_l2 * 4 / 2**20:g} MiB) an "
+          f"array, back to back: "
+          + "; ".join(rung))
+    del ls, lo
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"stream phase: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # --- phase 3: decode kernel ------------------------------------------------
@@ -1080,6 +1487,7 @@ def main() -> int:
     from repro_torch import serve
     from repro_torch.kernels import build, stores as S_
     from repro_torch.kernels.attention import decode as D, ops, ref as R
+    from repro_torch.kernels.stream import ops as SO, ref as SR
     from repro_torch.models import layers as L, model as M
     from repro_torch.serve import pages as PG
 
@@ -1092,6 +1500,8 @@ def main() -> int:
     paged_err = phase_paged_decode(torch, D, ops)
     flash_err = phase_flash(torch, ops, R)
     phase_stores(torch, S_)
+    stream_rows = phase_stream(torch, K, SO, SR,
+                               phase_stream_check(torch, K, SO, SR))
     eng, reqs, launches = phase_engine(torch, np, cfg_mod, M, K, serve)
     flash_launches = phase_prefill_attention(torch, np, eng.cfg, M, L, K,
                                              ops, R, eng.params)
@@ -1100,6 +1510,7 @@ def main() -> int:
     rows = phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err)
     rows += phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches,
                               paged_err, flash_launches, flash_err)
+    rows += stream_rows
     phase_trace(torch, serve, eng, reqs, "trace")
     phase_trace(torch, serve, peng,
                 paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256,

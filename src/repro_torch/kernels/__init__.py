@@ -25,23 +25,32 @@ IMPLS = ("ref", "cuda", "auto")
 
 #: kernel launches since the last :func:`reset_launches`, by kernel name
 LAUNCHES = {"flash_decode": 0, "kv_row_update": 0, "flash_decode_paged": 0,
-            "flash_attention": 0}
+            "flash_attention": 0,
+            # the stream suite (kernels/stream)
+            "init_store": 0, "init_partial": 0, "init_nt": 0, "copy_nt": 0,
+            "update_nt": 0, "stream_triad_nt": 0, "copy": 0, "add": 0,
+            "update": 0, "stream_triad": 0, "schoenauer_triad": 0,
+            "sum_reduction": 0, "pi_integration": 0, "jacobi_2d5pt": 0,
+            "jacobi_3d7pt": 0, "gauss_seidel_2d5pt": 0}
 
 
-def use_kernel(impl: str, x: torch.Tensor) -> bool:
+def use_kernel(impl: str, x) -> bool:
     """Resolve ``impl`` for a tensor to "launch the hand-written kernel?".
 
-    Unknown impl strings raise, so typos fail loudly.
+    ``x`` is the tensor, or the device the output goes to for an entry
+    point that takes no tensor. Unknown impl strings raise, so typos fail
+    loudly.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} "
                          "(expected 'ref', 'cuda', or 'auto')")
     if impl == "ref":
         return False
-    if impl == "cuda" and not x.is_cuda:
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    if impl == "cuda" and dev.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got one on "
-                         f"{x.device}")
-    return x.is_cuda
+                         f"{dev}")
+    return dev.type == "cuda"
 
 
 def pos_vector(pos, b: int, device) -> torch.Tensor:

@@ -52,6 +52,16 @@ def resolve_flavor(flavor: str | None) -> str:
     return "standard" if flavor == "auto" else flavor
 
 
+def executed_flavor(flavor: str | None) -> str:
+    """The flavor the runtime path executes: the port of
+    ``repro/kernels/stores.py:executed_flavor``. JAX executes a
+    machine-selected ``"auto"`` only on a TPU and ``"standard"``
+    elsewhere; with no H100 machine model to select from (ROADMAP queue 1
+    item 3) this is :func:`resolve_flavor`, until such a model gives the
+    two functions different jobs."""
+    return resolve_flavor(flavor)
+
+
 def ref_kv_row_update(k_cache, v_cache, k_new, v_new, pos) -> None:
     """Plain PyTorch version of the kernel, in place.
 

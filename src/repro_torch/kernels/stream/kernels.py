@@ -1,0 +1,314 @@
+"""The stream suite's CUDA kernels: ctypes wrappers, one for each Pallas
+TPU kernel of ``repro/kernels/stream/kernels.py``.
+
+Sources: ``csrc/stream.cu`` (the elementwise family with standard and
+streaming stores, the misaligned INIT and the two reductions) and
+``csrc/stencil.cu`` (Jacobi 2-D and 3-D, Gauss-Seidel); their notes say
+what bounds each kernel on the H100 and how it is built. Each wrapper
+launches its kernel on PyTorch's current stream, adds one to
+``LAUNCHES[<its name>]`` and returns a new tensor. It raises on what its
+kernel does not take: a tensor that is not on a CUDA device, another
+dtype, mismatched shapes, a non-contiguous tensor, or, for the
+elementwise kernels and the sum, which load and store 16 bytes a thread,
+one whose data do not start 16-byte aligned (a view at an odd offset;
+PyTorch's allocations are aligned). The plain versions are in ``ref``;
+``ops`` routes between the two.
+
+Unlike the TPU kernels, any shape works: the standard kernels need no
+exact (256, 512) block tiling, and the NT kernels write the ``(m, n)``
+output directly where the TPU's ``_nt_call`` pads every operand to whole
+(8, 128) tiles and slices the result (on the H100 what makes a store
+streaming is the instruction, ``st.global.cs``; padding would cost two
+more passes over device memory).
+
+Elementwise kernels and ``sum_reduction`` take float32 and bfloat16 and
+compute in fp32, rounding once to the output dtype (``sum_reduction``
+returns its fp32 sum, where JAX's ``jnp.sum`` of a bfloat16 array keeps
+bfloat16); the stencils and Gauss-Seidel take float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_STREAM_SIGNATURES = {
+    "stream_elementwise": [_I, _I, _I, _P, _P, _P, _P, _L, _F, _P],
+    "stream_init_partial": [_I, _P, _L, _L, _F, _P],
+    "stream_sum_partials": [_I, _P, _L, _P, _I, _P],
+    "stream_pi_partials": [_L, _I, _P, _P],
+}
+_STENCIL_SIGNATURES = {
+    "stencil_jacobi_2d5pt": [_P, _P, _I, _I, _P],
+    "stencil_jacobi_3d7pt": [_P, _P, _I, _I, _I, _P],
+    "stencil_gauss_seidel_2d5pt": [_P, _P, _I, _I, _I, _P],
+}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# operation codes of csrc/stream.cu
+_FILL, _COPY, _SCALE, _ADD, _TRIAD, _SCHOENAUER = range(6)
+
+#: init_partial's block, the TPU kernel's misaligned 7 x 100
+PARTIAL_BLOCK = (7, 100)
+#: points per pi_integration block partial (the TPU kernel's ``bn``)
+PI_BLOCK = 4096
+#: interior columns a Gauss-Seidel launch takes (1024 threads x 16)
+GS_MAX_INTERIOR_COLS = 16384
+_INT_MAX = 2 ** 31 - 1
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the stream kernels run on a CUDA device, got "
+                         f"{dev}")
+    return dev
+
+
+def _check_inputs(name: str, xs, dtypes=tuple(_DTYPE_CODES), *,
+                  aligned: bool = True) -> None:
+    """Raise unless ``xs`` are contiguous CUDA tensors of one shape, one
+    device and one of ``dtypes``, their data 16-byte aligned where
+    ``aligned`` (the vectorised kernels)."""
+    x0 = xs[0]
+    _cuda_device(x0.device)
+    if x0.dtype not in dtypes:
+        raise ValueError(f"{name} kernel takes {dtypes}, got {x0.dtype}")
+    for x in xs:
+        if x.device != x0.device or x.dtype != x0.dtype \
+                or x.shape != x0.shape:
+            raise ValueError(f"{name} kernel takes operands of one device, "
+                             f"dtype and shape, got {x.device}/{x.dtype}/"
+                             f"{tuple(x.shape)} beside {x0.device}/"
+                             f"{x0.dtype}/{tuple(x0.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors")
+        if aligned and x.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes tensors whose data start "
+                             "16-byte aligned")
+
+
+def _elementwise(name: str, op: int, nt: bool, xs, scalar: float = 0.0, *,
+                 shape=None, dtype=None, device=None) -> torch.Tensor:
+    """Launch the elementwise kernel: o = op(*xs, scalar), o shaped like
+    ``xs[0]`` or, for a fill, ``shape``/``dtype`` on ``device``."""
+    if xs:
+        _check_inputs(name, xs)
+        shape, dtype, device = xs[0].shape, xs[0].dtype, xs[0].device
+    elif dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} kernel takes {tuple(_DTYPE_CODES)}, got "
+                         f"{dtype}")
+    device = _cuda_device(device)
+    o = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if o.numel() == 0:
+        return o
+    lib = build.load("stream", _STREAM_SIGNATURES)
+    ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
+    rc = lib.stream_elementwise(op, int(nt), _DTYPE_CODES[dtype], *ptrs,
+                                o.data_ptr(), o.numel(), float(scalar),
+                                _stream(device))
+    build.check(lib, rc, name)
+    LAUNCHES[name] += 1
+    return o
+
+
+# --- the elementwise family -----------------------------------------------
+
+def init_store(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
+    """a[:] = s with plain stores, 16 bytes a thread (the aligned INIT)."""
+    return _elementwise("init_store", _FILL, False, (), scalar, shape=shape,
+                        dtype=dtype, device=device)
+
+
+def init_partial(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
+    """a[:] = s written in 7 x 100 blocks, one thread block each: rows of
+    400 bytes (f32) that start in the middle of a 32-byte sector every
+    other block (the full write-allocate subject)."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"init_partial kernel takes {tuple(_DTYPE_CODES)}, "
+                         f"got {dtype}")
+    if len(shape) != 2:
+        raise ValueError(f"init_partial kernel takes a 2-D shape, got "
+                         f"{tuple(shape)}")
+    device = _cuda_device(device)
+    m, n = shape
+    o = torch.empty((m, n), dtype=dtype, device=device)
+    if o.numel() == 0:
+        return o
+    bm, bn = PARTIAL_BLOCK
+    if -(-m // bm) * -(-n // bn) > _INT_MAX:
+        raise ValueError(f"init_partial kernel: {shape} needs more than "
+                         f"2^31 - 1 blocks")
+    lib = build.load("stream", _STREAM_SIGNATURES)
+    rc = lib.stream_init_partial(_DTYPE_CODES[dtype], o.data_ptr(), m, n,
+                                 float(scalar), _stream(device))
+    build.check(lib, rc, "init_partial")
+    LAUNCHES["init_partial"] += 1
+    return o
+
+
+def init_nt(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
+    """INIT with streaming stores (``st.global.cs``), any shape."""
+    return _elementwise("init_nt", _FILL, True, (), scalar, shape=shape,
+                        dtype=dtype, device=device)
+
+
+def copy(x):
+    """COPY: o = x, plain stores."""
+    return _elementwise("copy", _COPY, False, (x,))
+
+
+def copy_nt(x):
+    """COPY with streaming stores."""
+    return _elementwise("copy_nt", _COPY, True, (x,))
+
+
+def add(a, b):
+    """ADD: o = a + b."""
+    return _elementwise("add", _ADD, False, (a, b))
+
+
+def update(a, s=2.0):
+    """UPDATE: o = s * a, plain stores."""
+    return _elementwise("update", _SCALE, False, (a,), s)
+
+
+def update_nt(a, s=2.0):
+    """UPDATE with streaming stores."""
+    return _elementwise("update_nt", _SCALE, True, (a,), s)
+
+
+def stream_triad(b, c, s=2.0):
+    """STREAM triad: o = b + s * c, plain stores."""
+    return _elementwise("stream_triad", _TRIAD, False, (b, c), s)
+
+
+def stream_triad_nt(b, c, s=2.0):
+    """STREAM triad with streaming stores."""
+    return _elementwise("stream_triad_nt", _TRIAD, True, (b, c), s)
+
+
+def schoenauer_triad(b, c, d):
+    """Schoenauer triad: o = b + c * d (three loads, one store)."""
+    return _elementwise("schoenauer_triad", _SCHOENAUER, False, (b, c, d))
+
+
+# --- reductions -----------------------------------------------------------
+
+def sum_reduction(x):
+    """fp32 block partials of ``x`` in the kernel (8 blocks an SM), their
+    sum outside it, as the JAX package sums its partials outside Pallas.
+    Returns a 0-d float32 tensor."""
+    _check_inputs("sum_reduction", (x,))
+    if x.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    vec = 16 // x.element_size()
+    n_parts = min(-(-x.numel() // (256 * vec)), 8 * torch.cuda
+                  .get_device_properties(x.device).multi_processor_count)
+    parts = torch.empty(n_parts, dtype=torch.float32, device=x.device)
+    lib = build.load("stream", _STREAM_SIGNATURES)
+    rc = lib.stream_sum_partials(_DTYPE_CODES[x.dtype], x.data_ptr(),
+                                 x.numel(), parts.data_ptr(), n_parts,
+                                 _stream(x.device))
+    build.check(lib, rc, "sum_reduction")
+    LAUNCHES["sum_reduction"] += 1
+    return parts.sum()
+
+
+def pi_integration(n: int, *, device="cuda"):
+    """Midpoint-rule quadrature of 4/(1+x^2) on [0,1) with ``n`` points:
+    one fp32 partial a block of ``PI_BLOCK`` points (the last one masked,
+    so any ``n`` works where the TPU wrapper asserts ``n % 4096 == 0``),
+    summed and divided by ``n`` outside the kernel. Returns a 0-d float32
+    tensor."""
+    device = _cuda_device(device)
+    n = int(n)
+    if n < 1 or -(-n // PI_BLOCK) > _INT_MAX:
+        raise ValueError(f"pi_integration kernel takes 1 <= n <= "
+                         f"{_INT_MAX * PI_BLOCK}, got {n}")
+    parts = torch.empty(-(-n // PI_BLOCK), dtype=torch.float32,
+                        device=device)
+    lib = build.load("stream", _STREAM_SIGNATURES)
+    rc = lib.stream_pi_partials(n, PI_BLOCK, parts.data_ptr(),
+                                _stream(device))
+    build.check(lib, rc, "pi_integration")
+    LAUNCHES["pi_integration"] += 1
+    return parts.sum() / n
+
+
+# --- stencils -------------------------------------------------------------
+
+def _check_grid(name: str, u, ndim: int) -> None:
+    _check_inputs(name, (u,), (torch.float32,), aligned=False)
+    if u.dim() != ndim or min(u.shape) < 3:
+        raise ValueError(f"{name} kernel takes a {ndim}-D grid at least 3 "
+                         f"points on a side, got {tuple(u.shape)}")
+    if max(u.shape) > _INT_MAX:
+        raise ValueError(f"{name} kernel: a side above 2^31 - 1")
+
+
+def jacobi_2d5pt(u):
+    """(H, W) -> (H-2, W-2) interior 5-point mean, any H, W >= 3."""
+    _check_grid("jacobi_2d5pt", u, 2)
+    h, w = u.shape
+    if (h - 2) * -(-(w - 2) // 256) > _INT_MAX:
+        raise ValueError(f"jacobi_2d5pt kernel: {tuple(u.shape)} needs "
+                         "more than 2^31 - 1 blocks")
+    o = torch.empty((h - 2, w - 2), dtype=u.dtype, device=u.device)
+    lib = build.load("stencil", _STENCIL_SIGNATURES)
+    rc = lib.stencil_jacobi_2d5pt(u.data_ptr(), o.data_ptr(), h, w,
+                                  _stream(u.device))
+    build.check(lib, rc, "jacobi_2d5pt")
+    LAUNCHES["jacobi_2d5pt"] += 1
+    return o
+
+
+def jacobi_3d7pt(u):
+    """(D, H, W) -> (D-2, H-2, W-2) interior 7-point mean, any D, H, W
+    >= 3."""
+    _check_grid("jacobi_3d7pt", u, 3)
+    d, h, w = u.shape
+    if (d - 2) * (h - 2) * -(-(w - 2) // 256) > _INT_MAX:
+        raise ValueError(f"jacobi_3d7pt kernel: {tuple(u.shape)} needs "
+                         "more than 2^31 - 1 blocks")
+    o = torch.empty((d - 2, h - 2, w - 2), dtype=u.dtype, device=u.device)
+    lib = build.load("stencil", _STENCIL_SIGNATURES)
+    rc = lib.stencil_jacobi_3d7pt(u.data_ptr(), o.data_ptr(), d, h, w,
+                                  _stream(u.device))
+    build.check(lib, rc, "jacobi_3d7pt")
+    LAUNCHES["jacobi_3d7pt"] += 1
+    return o
+
+
+def gauss_seidel_2d5pt(u, sweeps: int = 1):
+    """``sweeps`` row-wavefront Gauss-Seidel sweeps of ``u`` (H, W) in one
+    thread block; returns a new (H, W) tensor, ``u`` is not modified.
+    Takes W - 2 <= ``GS_MAX_INTERIOR_COLS``."""
+    _check_inputs("gauss_seidel_2d5pt", (u,), (torch.float32,),
+                  aligned=False)
+    if u.dim() != 2 or u.numel() == 0:
+        raise ValueError(f"gauss_seidel_2d5pt kernel takes a non-empty 2-D "
+                         f"grid, got {tuple(u.shape)}")
+    h, w = u.shape
+    if w - 2 > GS_MAX_INTERIOR_COLS or h > _INT_MAX:
+        raise ValueError(f"gauss_seidel_2d5pt kernel takes at most "
+                         f"{GS_MAX_INTERIOR_COLS} interior columns, got "
+                         f"{w - 2}")
+    if sweeps < 0:
+        raise ValueError(f"sweeps must be >= 0, got {sweeps}")
+    o = torch.empty_like(u)
+    lib = build.load("stencil", _STENCIL_SIGNATURES)
+    rc = lib.stencil_gauss_seidel_2d5pt(u.data_ptr(), o.data_ptr(), h, w,
+                                        int(sweeps), _stream(u.device))
+    build.check(lib, rc, "gauss_seidel_2d5pt")
+    LAUNCHES["gauss_seidel_2d5pt"] += 1
+    return o

@@ -17,6 +17,8 @@ from repro_torch.kernels import stores
 from repro_torch.kernels.attention import decode as D
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention import ref as R
+from repro_torch.kernels.stream import ops as SO
+from repro_torch.kernels.stream import ref as SR
 from repro_torch.models import model as M
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
@@ -266,3 +268,161 @@ def test_paged_engine_on_card_matches_dense_and_cpu(cuda):
     dense = _paged_schedule(ServeEngine(cfg, to(params, cuda), device=cuda,
                                         **kw), prompts, False)
     assert paged(cuda, False) == dense
+
+
+# --- the stream suite -------------------------------------------------------
+
+STREAM_SHAPES = [(256, 512), (253, 484)]      # aligned and ragged
+
+
+def _within_bf16_ulp(got, want_f32) -> bool:
+    """``got`` (bf16) within one bf16 ulp of the fp32 result ``want_f32``
+    rounded once to bf16."""
+    want = want_f32.bfloat16().float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return bool(((got.float() - want).abs() <= ulp).all())
+
+
+# name: (call through ops, plain version, number of inputs)
+STREAM_ELEMENTWISE = {
+    "copy": (lambda x: SO.copy(x[0]), lambda x: SR.copy(x[0]), 1),
+    "copy_nt": (lambda x: SO.copy(x[0], flavor="nt"),
+                lambda x: SR.copy(x[0]), 1),
+    "add": (lambda x: SO.add(x[0], x[1]), lambda x: SR.add(x[0], x[1]), 2),
+    "update": (lambda x: SO.update(x[0], 1.5),
+               lambda x: SR.update(x[0], 1.5), 1),
+    "update_nt": (lambda x: SO.update(x[0], 1.5, flavor="nt"),
+                  lambda x: SR.update(x[0], 1.5), 1),
+    "stream_triad": (lambda x: SO.stream_triad(x[0], x[1], 2.5),
+                     lambda x: SR.stream_triad(x[0], x[1], 2.5), 2),
+    "stream_triad_nt": (lambda x: SO.stream_triad(x[0], x[1], 2.5,
+                                                  flavor="nt"),
+                        lambda x: SR.stream_triad(x[0], x[1], 2.5), 2),
+    "schoenauer_triad": (lambda x: SO.schoenauer_triad(*x[:3]),
+                         lambda x: SR.schoenauer_triad(*x[:3]), 3),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+@pytest.mark.parametrize("name", list(STREAM_ELEMENTWISE))
+def test_stream_elementwise_kernel_matches_plain(cuda, name, shape, dtype):
+    """f32: bit-identical to the plain version; bf16: within one bf16 ulp
+    of the plain version computed in fp32 from the same bf16 inputs."""
+    call, plain, n = STREAM_ELEMENTWISE[name]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    xs = [torch.randn(shape, generator=g, device=cuda).to(dtype)
+          for _ in range(n)]
+    K.reset_launches()
+    got = call(xs)
+    assert K.LAUNCHES[name] == 1 and sum(K.LAUNCHES.values()) == 1
+    assert got.dtype == dtype and got.shape == shape
+    if dtype == torch.float32:
+        assert torch.equal(got, plain(xs))
+    else:
+        assert _within_bf16_ulp(got, plain([x.float() for x in xs]))
+
+
+def test_stream_elementwise_ragged_tail(cuda):
+    """Lengths that are no multiple of a 16-byte vector: the tail is
+    written one element a step."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for n in (1, 3, 1001):
+        b, c = (torch.randn(n, generator=g, device=cuda) for _ in range(2))
+        for flavor in ("standard", "nt"):
+            assert torch.equal(SO.stream_triad(b, c, 2.5, flavor=flavor),
+                               SR.stream_triad(b, c, 2.5))
+        assert torch.equal(SO.copy(b.bfloat16()), b.bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES + [(7, 100), (8, 101)])
+@pytest.mark.parametrize("name", ["init_store", "init_partial", "init_nt"])
+def test_stream_init_kernels_match_plain(cuda, name, shape, dtype):
+    call = {"init_store": lambda: SO.init(shape, 2.5, dtype, device=cuda),
+            "init_nt": lambda: SO.init(shape, 2.5, dtype, flavor="nt",
+                                       device=cuda),
+            "init_partial": lambda: SO.init_partial(shape, 2.5, dtype,
+                                                    device=cuda)}[name]
+    K.reset_launches()
+    got = call()
+    assert K.LAUNCHES[name] == 1
+    assert torch.equal(got, SR.init(shape, 2.5, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_sum_kernel_matches_plain(cuda, shape, dtype):
+    """fp32 partials: held against the plain fp32-accumulated sum (for
+    bf16 too: JAX would round each partial to bf16, the port does not)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    K.reset_launches()
+    got = SO.sum_reduction(x)
+    assert K.LAUNCHES["sum_reduction"] == 1 and got.dtype == torch.float32
+    want = SR.sum_reduction(x.float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [262144, 262143])
+def test_stream_pi_kernel_matches_plain(cuda, n):
+    K.reset_launches()
+    got = SO.pi_integration(n, device=cuda)
+    assert K.LAUNCHES["pi_integration"] == 1
+    want = SR.pi_integration(n, device=cuda)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert abs(got.item() - np.pi) < 1e-4 * np.pi
+
+
+@pytest.mark.parametrize("name,shape,sweeps", [
+    ("jacobi_2d5pt", (258, 514), None), ("jacobi_2d5pt", (253, 484), None),
+    ("jacobi_3d7pt", (18, 34, 130), None), ("jacobi_3d7pt", (17, 29, 101),
+                                            None),
+    ("gauss_seidel_2d5pt", (34, 128), 2), ("gauss_seidel_2d5pt", (33, 101), 1),
+    ("gauss_seidel_2d5pt", (20, 2500), 3),   # 3 columns a thread
+    ("gauss_seidel_2d5pt", (3, 2500), 2),    # one interior row, two sweeps
+    ("gauss_seidel_2d5pt", (3, 101), 3),
+])
+def test_stream_stencil_kernels_match_plain(cuda, name, shape, sweeps):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    u = torch.randn(shape, generator=g, device=cuda)
+    args = () if sweeps is None else (sweeps,)
+    K.reset_launches()
+    got = getattr(SO, name)(u, *args)
+    assert K.LAUNCHES[name] == 1
+    want = getattr(SR, name)(u, *args)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,shape,sweeps", [
+    ("jacobi_2d5pt", (17, 101), None), ("jacobi_3d7pt", (6, 9, 13), None),
+    ("gauss_seidel_2d5pt", (17, 101), 2),
+])
+def test_stream_stencils_take_offset_views(cuda, name, shape, sweeps):
+    """The stencils load and store one float at a time, so a contiguous
+    view whose data start off a 16-byte boundary is served."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    u = torch.randn((shape[0] + 1,) + shape[1:], generator=g, device=cuda)[1:]
+    assert u.is_contiguous() and u.data_ptr() % 16
+    args = () if sweeps is None else (sweeps,)
+    K.reset_launches()
+    got = getattr(SO, name)(u, *args)
+    assert K.LAUNCHES[name] == 1
+    torch.testing.assert_close(got, getattr(SR, name)(u, *args), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_stream_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 4, device=cuda)
+    with pytest.raises(ValueError, match="one device, dtype and shape"):
+        SO.add(x, torch.zeros(4, 5, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        SO.copy(x.t()[:, :3])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        SO.copy(x.view(-1)[1:])
+    with pytest.raises(ValueError, match="takes"):
+        SO.jacobi_2d5pt(x.double())
+    with pytest.raises(ValueError, match="interior columns"):
+        SO.gauss_seidel_2d5pt(torch.zeros(3, 16387, device=cuda))

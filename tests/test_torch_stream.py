@@ -1,0 +1,341 @@
+"""The stream kernel suite of the PyTorch port against the JAX package.
+
+On the CPU ``repro_torch.kernels.stream.ops`` runs the CUDA kernels'
+plain versions (``ref``). They are held against JAX's Pallas kernels in
+interpret mode and against JAX's ``ops`` over the reference's matrix
+(``tests/test_kernels_stream.py`` and the stream cases of
+``tests/test_stores.py``), with inputs made by numpy from a seed. fp32
+agrees within 1e-5, as the reference holds its kernels. bf16 is held at
+the reference's own 2e-2: XLA rounds ``s * c`` to bf16 before the add,
+where the port's plain version (PyTorch) rounds the product too but the
+CUDA kernel rounds once.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.stream import kernels as JK
+from repro.kernels.stream import ops as JOPS
+from repro.kernels.stream import ref as JR
+from repro_torch import kernels as KN
+from repro_torch.kernels import stores
+from repro_torch.kernels.stream import kernels as K
+from repro_torch.kernels.stream import ops
+from repro_torch.kernels.stream import ref as R
+
+from _torch_common import f32
+
+torch.set_num_threads(1)
+
+SHAPES_2D = [(256, 512), (512, 1024), (64, 128)]
+NT_SHAPES = [(16, 256), (20, 300), (7, 100)]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype: str) -> dict:
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(shape, n, dtype="float32", seed=0):
+    """``n`` standard normal arrays, as (JAX arrays, torch tensors) of
+    ``dtype`` holding the same values."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+    jd, td = DTYPES[dtype]
+    return ([jnp.asarray(x).astype(jd) for x in xs],
+            [torch.tensor(x).to(td) for x in xs])
+
+
+# (port op, JAX kernel, number of inputs, extra arguments)
+ELEMENTWISE = {
+    "copy": (ops.copy, JK.copy, 1, ()),
+    "add": (ops.add, JK.add, 2, ()),
+    "update": (ops.update, JK.update, 1, (1.5,)),
+    "stream_triad": (ops.stream_triad, JK.stream_triad, 2, (2.5,)),
+    "schoenauer_triad": (ops.schoenauer_triad, JK.schoenauer_triad, 3, ()),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES_2D)
+@pytest.mark.parametrize("name", list(ELEMENTWISE))
+def test_elementwise_matches_jax_kernel(name, shape, dtype):
+    port, jax_kernel, n, extra = ELEMENTWISE[name]
+    js, ts = _inputs(shape, n, dtype)
+    KN.reset_launches()
+    got = port(*ts, *extra)
+    assert KN.LAUNCHES[name] == 0               # the plain version ran
+    assert got.dtype == ts[0].dtype and tuple(got.shape) == shape
+    want = jax_kernel(*js, *extra, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), **_tol(dtype))
+
+
+# (port op with flavor="nt", JAX NT kernel, number of inputs)
+NT_KERNELS = {
+    "copy_nt": (ops.copy, JK.copy_nt, 1),
+    "update_nt": (ops.update, JK.update_nt, 1),
+    "stream_triad_nt": (ops.stream_triad, JK.stream_triad_nt, 2),
+}
+
+
+@pytest.mark.parametrize("shape", NT_SHAPES + SHAPES_2D[2:])
+@pytest.mark.parametrize("name", list(NT_KERNELS))
+def test_nt_flavor_matches_jax_nt_kernel(name, shape):
+    port, jax_kernel, n = NT_KERNELS[name]
+    js, ts = _inputs(shape, n, seed=1)
+    got = port(*ts, flavor="nt")
+    np.testing.assert_allclose(f32(got), f32(jax_kernel(*js, interpret=True)),
+                               rtol=1e-6, atol=1e-6)
+    # the same values as the standard flavor (in JAX and here)
+    assert torch.equal(got, port(*ts))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES_2D)
+def test_init_variants_match_jax(shape, dtype):
+    jd, td = DTYPES[dtype]
+    full = ops.init(shape, 3.5, td, device="cpu")
+    np.testing.assert_array_equal(f32(full),
+                                  f32(JK.init_store(shape, 3.5, jd,
+                                                    interpret=True)))
+    m, n = shape[0] - 3, shape[1] - 28          # ragged: not 7 x 100 blocks
+    part = ops.init_partial((m, n), 2.5, td, device="cpu")
+    np.testing.assert_array_equal(f32(part),
+                                  f32(JK.init_partial((m, n), 2.5, jd,
+                                                      interpret=True)))
+    nt = ops.init((m, n), 2.5, td, flavor="nt", device="cpu")
+    np.testing.assert_array_equal(f32(nt), f32(JK.init_nt((m, n), 2.5, jd,
+                                                          interpret=True)))
+    assert nt.shape == (m, n) and nt.dtype == td
+
+
+@pytest.mark.parametrize("shape", SHAPES_2D)
+def test_sum_reduction_matches_jax_kernel(shape):
+    js, ts = _inputs(shape, 1, seed=2)
+    got = ops.sum_reduction(ts[0])
+    want = JK.sum_reduction(js[0], interpret=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+    np.testing.assert_allclose(float(got), float(JR.sum_reduction(js[0])),
+                               rtol=1e-4)
+
+
+def test_sum_reduction_bf16_matches_fp32_sum():
+    """bf16 input: the plain version keeps bf16 (as ``jnp.sum``) and
+    lands within one bf16 rounding of the fp32 sum of the same values,
+    which is what the kernel returns."""
+    js, ts = _inputs((64, 128), 1, "bfloat16", seed=3)
+    got = ops.sum_reduction(ts[0])
+    assert got.dtype == torch.bfloat16
+    exact = float(ts[0].double().sum())
+    np.testing.assert_allclose(float(got), exact, rtol=2 ** -8)
+    np.testing.assert_allclose(float(got), float(JR.sum_reduction(js[0])),
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("n", [65536, 262144])
+def test_pi_matches_jax_kernel(n):
+    got = ops.pi_integration(n, device="cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got),
+                               float(JK.pi_integration(n, interpret=True)),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got), np.pi, rtol=1e-4)
+
+
+def test_pi_index_is_float32_above_2_24():
+    """The index is built in float32, as in both JAX versions: above 2^24
+    consecutive points share a value, and the port keeps that."""
+    n = 2 ** 24 + 8
+    i = torch.arange(n, dtype=torch.float32)
+    assert float(i[-1]) != n - 1                     # inexact up there
+    np.testing.assert_allclose(float(R.pi_integration(n)),
+                               float(JR.pi_integration(n)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(130, 256), (66, 384), (258, 128)])
+def test_jacobi_2d_matches_jax_kernel(shape):
+    js, ts = _inputs(shape, 1, seed=4)
+    got = ops.jacobi_2d5pt(ts[0])
+    assert tuple(got.shape) == (shape[0] - 2, shape[1] - 2)
+    np.testing.assert_allclose(f32(got),
+                               f32(JK.jacobi_2d5pt(js[0], interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(18, 32, 128), (10, 16, 256)])
+def test_jacobi_3d_matches_jax_kernel(shape):
+    js, ts = _inputs(shape, 1, seed=5)
+    got = ops.jacobi_3d7pt(ts[0])
+    np.testing.assert_allclose(f32(got),
+                               f32(JK.jacobi_3d7pt(js[0], interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,sweeps", [((20, 128), 1), ((34, 128), 2),
+                                          ((9, 13), 3), ((3, 128), 2),
+                                          ((3, 13), 3)])
+def test_gauss_seidel_matches_jax_kernel(shape, sweeps):
+    js, ts = _inputs(shape, 1, seed=6)
+    u = ts[0].clone()
+    got = ops.gauss_seidel_2d5pt(ts[0], sweeps)
+    assert torch.equal(ts[0], u)                     # input untouched
+    np.testing.assert_allclose(
+        f32(got), f32(JK.gauss_seidel_2d5pt(js[0], sweeps, interpret=True)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_gauss_seidel_reads_old_left_neighbours():
+    """Row i's left neighbour is its value before the sweep: a sweep that
+    wrote as it went (updated left neighbours) gives other numbers."""
+    u = torch.zeros(3, 5)
+    u[1, 1] = 4.0
+    got = R.gauss_seidel_2d5pt(u)
+    # interior row 1: new[j] = (up + down + old[j-1] + old[j+1]) / 4
+    assert got[1].tolist() == [0.0, 0.0, 1.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("name", ["jacobi_3d11pt", "jacobi_3d27pt"])
+def test_ref_only_stencils_match_jax(name):
+    js, ts = _inputs((12, 14, 16), 1, seed=7)
+    np.testing.assert_allclose(f32(getattr(R, name)(ts[0])),
+                               f32(getattr(JR, name)(js[0])),
+                               rtol=1e-5, atol=1e-5)
+    ones = torch.ones(12, 12, 12)
+    side = 8 if name == "jacobi_3d11pt" else 10
+    np.testing.assert_allclose(f32(getattr(R, name)(ones)),
+                               np.ones((side,) * 3), rtol=1e-6)
+
+
+def _suite_call(pkg, name, xs):
+    """One call of a KERNELS_13 entry of ``pkg`` (the JAX or the port's
+    ``ops``/``ref``) on inputs ``xs``."""
+    if name == "init":
+        return pkg.init((32, 48), 1.25)
+    if name == "pi_integration":
+        return pkg.pi_integration(8192)
+    if name in ("jacobi_3d7pt", "jacobi_3d11pt", "jacobi_3d27pt"):
+        return getattr(pkg, name)(xs[0].reshape(8, 12, 16))
+    if name == "gauss_seidel_2d5pt":
+        return pkg.gauss_seidel_2d5pt(xs[0], 2)
+    n = {"add": 2, "stream_triad": 2, "schoenauer_triad": 3}.get(name, 1)
+    return getattr(pkg, name)(*xs[:n])
+
+
+@pytest.mark.parametrize("name", list(R.KERNELS_13))
+def test_suite_matches_jax_ops(name):
+    """The slice as a whole: every kernel of the paper's 13-kernel suite,
+    through JAX's ``ops`` (its oracle on the CPU, or ``ref`` for the two
+    ref-only stencils) and through the port's (plain versions on CPU
+    tensors; ``device="cpu"`` for the tensorless ones)."""
+    assert R.KERNELS_13 == JR.KERNELS_13
+    js, ts = _inputs((32, 48), 3, seed=8)
+    jpkg = JOPS if hasattr(JOPS, name) else JR
+    want = _suite_call(jpkg, name, js)
+
+    class _Port:                     # the port's entry points, on the CPU
+        def __getattr__(self, attr):
+            fn = getattr(ops, attr, None) or getattr(R, attr)
+            if attr in ("init", "pi_integration"):
+                return lambda *a: fn(*a, device="cpu")
+            return fn
+
+    got = _suite_call(_Port(), name, ts)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_ops_flavor_routing():
+    """As ``tests/test_stores.py::test_ops_flavor_routing``: "nt" gives the
+    standard numbers, "auto" executes the standard path."""
+    a = torch.ones(16, 256)
+    assert torch.equal(ops.copy(a, flavor="nt"), ops.copy(a))
+    assert torch.equal(ops.update(a, flavor="nt"), ops.update(a))
+    assert torch.equal(ops.stream_triad(a, a, flavor="nt"),
+                       ops.stream_triad(a, a))
+    assert torch.equal(ops.init((16, 256), flavor="nt", device="cpu"),
+                       ops.init((16, 256), device="cpu"))
+    assert torch.equal(ops.copy(a, flavor="auto"), a)
+    with pytest.raises(ValueError, match="unknown store flavor"):
+        ops.copy(a, flavor="streaming")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.add(a, a, impl="pallas")
+
+
+@pytest.mark.parametrize("flavor,want", [("nt", "nt"),
+                                         ("standard", "standard"),
+                                         ("auto", "standard")])
+def test_executed_flavor(flavor, want):
+    from repro.kernels.stores import executed_flavor as jax_executed
+    assert stores.executed_flavor(flavor) == want
+    assert jax_executed(flavor) == want        # JAX off the TPU agrees
+
+
+def test_executed_flavor_rejects_unknown():
+    for bad in ("fast", "streaming"):
+        with pytest.raises(ValueError, match="unknown store flavor"):
+            stores.executed_flavor(bad)
+
+
+@pytest.mark.parametrize("flavor", [None, "nt", "standard", "auto"])
+def test_executed_flavor_is_resolve_flavor(flavor):
+    """With no H100 machine model the port executes what it resolves."""
+    assert stores.executed_flavor(flavor) == stores.resolve_flavor(flavor)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: ops.init((4, 4)),
+    lambda: ops.init((4, 4), impl="ref"),
+    lambda: ops.init((4, 4), flavor="nt"),
+    lambda: ops.init_partial((4, 4)),
+    lambda: ops.pi_integration(4096),
+])
+def test_tensorless_entry_points_need_a_card(call, monkeypatch):
+    """Without a card, leaving ``device`` out raises; nothing runs quietly
+    on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: ops.copy(x, impl="cuda"),
+    lambda x: ops.gauss_seidel_2d5pt(x, impl="cuda"),
+    lambda x: ops.init((4, 4), impl="cuda", device="cpu"),
+    lambda x: ops.pi_integration(4096, impl="cuda", device="cpu"),
+])
+def test_impl_cuda_refuses_the_cpu(call):
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        call(torch.zeros(4, 4))
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: K.copy(x), lambda x: K.copy_nt(x), lambda x: K.add(x, x),
+    lambda x: K.update(x), lambda x: K.update_nt(x),
+    lambda x: K.stream_triad(x, x), lambda x: K.stream_triad_nt(x, x),
+    lambda x: K.schoenauer_triad(x, x, x), lambda x: K.sum_reduction(x),
+    lambda x: K.jacobi_2d5pt(x), lambda x: K.jacobi_3d7pt(x[None]),
+    lambda x: K.gauss_seidel_2d5pt(x),
+    lambda x: K.init_store((4, 4), device="cpu"),
+    lambda x: K.init_partial((4, 4), device="cpu"),
+    lambda x: K.init_nt((4, 4), device="cpu"),
+    lambda x: K.pi_integration(4096, device="cpu"),
+])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """The kernels' wrappers launch or raise: a CPU tensor raises before
+    any build is tried (there is no fallback)."""
+    KN.reset_launches()
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(torch.zeros(4, 4))
+    assert not any(KN.LAUNCHES.values())
+
+
+def test_launch_counters_cover_the_suite():
+    names = {"init_store", "init_partial", "init_nt", "copy_nt", "update_nt",
+             "stream_triad_nt", "copy", "add", "update", "stream_triad",
+             "schoenauer_triad", "sum_reduction", "pi_integration",
+             "jacobi_2d5pt", "jacobi_3d7pt", "gauss_seidel_2d5pt"}
+    assert names <= set(KN.LAUNCHES)
+    assert all(callable(getattr(K, n)) for n in names)
