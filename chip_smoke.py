@@ -63,9 +63,14 @@ Phases, each printed on its own line:
    against the dense engine;
 6. per kernel its time at the path's shapes, its bound, its plain
    version's time and a library call's time (none for the paged kernel:
-   no single PyTorch call reads a paged cache), then, for the dense and
-   the paged engine, two full-width decode dispatches of the same 8
-   requests timed once on the wall clock and once under the profiler:
+   no single PyTorch call reads a paged cache), with the achieved GB/s
+   (decode) or TFLOP/s (flash attention) and their share of the card's
+   peak; the whole ``ops.flash_decode`` (partials and the plain
+   combine, a finished output as sdpa's) beside the partials, and the
+   paged kernel at 4 splits (one block an SM) beside its default 5;
+   then, for the dense and the paged engine, two full-width decode
+   dispatches of the same 8 requests timed once on the wall clock and
+   once under the profiler:
    the device's busy time per step, its idle share and where the time
    goes; the ``kernels`` JSON line (all 20 kernels, phase 2a's among
    them) comes last but one.
@@ -846,7 +851,8 @@ def _to(tree, dev):
 
 # --- phase 6: kernel timings -----------------------------------------------
 
-def phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err) -> list:
+def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
+                  decode_err) -> list:
     F = torch.nn.functional
     cache = eng.cache["scan"]["0"]
     n_layers = cache["k"].shape[0]
@@ -886,9 +892,15 @@ def phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err) -> list:
             qt, k[:, :bound].transpose(1, 2), v[:, :bound].transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
+    def whole():
+        # the router's finished output: partials, then the plain combine
+        k, v = next_kv()
+        ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda")
+
     ms = timed(torch, kern, 480)
     plain_ms = timed(torch, plain, 48)
     lib_ms = timed(torch, library, 480)
+    whole_ms = timed(torch, whole, 480)
     live = (pos + 1).clamp(max=bound).sum().item()       # KV rows read
     n_read = B * H * DH * 2 + live * HKV * DH * 2 * 2 + B * 4
     n_write = n_splits * B * H * (DH + 2) * 4
@@ -904,10 +916,13 @@ def phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err) -> list:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms}
     print(f"timing: flash_decode at B={B} Sq=1 kv_len={kv_len} "
-          f"n_splits={n_splits} ({live} live rows): {ms * 1e3:.2f} us, "
+          f"n_splits={n_splits} ({live} live rows): {ms * 1e3:.2f} us = "
+          f"{(n_read + n_write) / ms / 1e6:.0f} GB/s "
+          f"({t_bytes / ms:.3f} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
           f"bound {decode_row['bound_ms'] * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us "
-          f"(device time by profiler)")
+          f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us; the whole "
+          f"ops.flash_decode (partials + combine_splits, finished output "
+          f"as sdpa's) {whole_ms * 1e3:.2f} us (device time by profiler)")
 
     # KV writer: one layer's K and V rows per launch, at a decode position
     kn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
@@ -1339,6 +1354,12 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
 
     ms = timed(torch, kern, 480)
     plain_ms = timed(torch, plain, 48)
+    # the same rows cut into 128-row splits: B*Hkv*4 = 128 blocks, one an
+    # SM, where the default 5 splits put two blocks on 28 of the 132 SMs
+    b4, sl4, n4 = D.paged_split_plan(B, HKV, ps, n_blocks, 4)
+    ms4 = timed(torch, lambda: D.decode_paged_partials(
+        q, *next_pool(), bt, pos, window=None, split_len=sl4, n_splits=n4,
+        bound=b4, impl="cuda"), 480)
     live_b = (pos + 1).clamp(max=bound)
     live = live_b.sum().item()
     n_table = ((live_b + ps - 1) // ps).sum().item()       # entries read
@@ -1359,9 +1380,13 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
     print(f"timing: flash_decode_paged at B={B} Sq=1 page={ps} kv_len="
           f"{kv_len} ({n_blocks} table columns, permuted) n_splits="
           f"{n_splits} ({live} live rows, {n_table} table entries): "
-          f"{ms * 1e3:.2f} us, bound {paged_row['bound_ms'] * 1e3:.2f} us, "
+          f"{ms * 1e3:.2f} us = {(n_read + n_write) / ms / 1e6:.0f} GB/s "
+          f"({t_bytes / ms:.3f} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"bound {paged_row['bound_ms'] * 1e3:.2f} us, "
           f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call reads a "
-          f"paged cache, so no library time (device time by profiler)")
+          f"paged cache, so no library time (device time by profiler); "
+          f"at {n4} splits of {sl4} rows ({B * HKV * n4} blocks) "
+          f"{ms4 * 1e3:.2f} us")
 
     rows = []
     for s in (512, 2048):
@@ -1389,7 +1414,9 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
             "bound_by": "bytes" if tb >= to else "operations",
             "library_ms": fl})
         print(f"timing: flash_attention at B=1 S={s} H={H} Hkv={HKV} "
-              f"Dh={DH} bf16 causal: {fk * 1e3:.1f} us, bound "
+              f"Dh={DH} bf16 causal: {fk * 1e3:.1f} us = "
+              f"{flops / fk / 1e9:.1f} TFLOP/s ({to / fk:.3f} of "
+              f"{BF16_FLOPS / 1e12:.0f}), bound "
               f"{max(tb, to) * 1e3:.2f} us ({'bytes' if tb >= to else 'ops'}"
               f"; {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
               f"{BF16_FLOPS / 1e12:.0f} TFLOP/s), plain {fp * 1e3:.1f} us, "
@@ -1507,7 +1534,8 @@ def main() -> int:
                                              ops, R, eng.params)
     peng, paged_launches = phase_paged_engine(
         torch, np, cfg_mod, M, K, serve, PG, eng.params, eng.stats())
-    rows = phase_timings(torch, np, D, S_, eng, reqs, launches, decode_err)
+    rows = phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
+                         decode_err)
     rows += phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches,
                               paged_err, flash_launches, flash_err)
     rows += stream_rows

@@ -11,14 +11,18 @@ walks only the live rows of its split — rows past ``pos + Sq - 1``,
 before the sliding window, or past the occupancy bound are never read —
 and writes an fp32 partial softmax state ``(o, m, l)`` per split.
 :func:`combine_splits` merges the partials by log-sum-exp. On the H100
-the kernels are bound by the bytes of the KV rows they read; see the
-source for their design.
+the kernels are bound by the bytes of the KV rows they read, so a block
+issues its K and V rows all at once as ``cp.async`` copies and 8 warps
+split the keys, each with its own softmax state. In bf16 the warps run
+both products on the tensor cores (exact bf16 products, P kept at fp32
+precision) and merge once a split; fp32 stays on the CUDA cores; see
+the source.
 
 The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
 horizon is copied or padded on any layer of any token. The paged kernel
-takes the page pools whole as well, with the (B, NB) block table: each
-tile of 128 logical rows looks up its rows' physical pages itself, so
+takes the page pools whole as well, with the (B, NB) block table: the
+thread that copies a logical row looks up its physical page itself, so
 any page size works and no gathered copy of a slot's cache is made.
 """
 
@@ -222,8 +226,8 @@ def flash_decode(q, k, v, pos, *, window: int | None = None, bk: int = 128,
     ``< kv_len`` are ever read (default: the whole horizon).
 
     The rows are cut into splits by :func:`split_plan`, as the TPU
-    kernel's grid cuts them; ``bk=128`` matches the kernel's key tile at
-    yi-9b's head_dim. Returns (B, Sq, H, Dh) in q's dtype.
+    kernel's grid cuts them; ``bk=128`` rows a block, which the kernel's
+    own tiles (64 rows in bf16, 32 in fp32) divide. Returns (B, Sq, H, Dh) in q's dtype.
     """
     bound, split_len, n_splits = split_plan(q.shape[0], k.shape[2],
                                             k.shape[1], bk, n_splits, kv_len)

@@ -9,8 +9,11 @@ heads of its KV head, so each K/V tile is read once for all of them,
 keeps the online-softmax state and the accumulator in fp32, and visits
 only the key tiles the causal mask and the window leave live. Its plain
 version is ``ref.attention``. On the H100 the kernel is bound by
-operations; this first version runs them as scalar fp32 FMAs (see the
-source).
+operations. In bf16 both products run on the tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulators, P kept at fp32 precision as
+a bf16 hi/lo pair) over K/V tiles that ``cp.async`` loads into a
+two-stage ring; fp32 inputs keep a scalar fp32 body, since the tensor
+cores would round them to TF32 (see the source).
 
 Unlike the TPU kernel, any ``S`` works: the kernel masks its ragged
 query and key tiles itself, where the TPU wrapper asserts

@@ -8,66 +8,61 @@
 // carry nothing, so the KV axis becomes a loop inside one block per
 // (query tile, KV head, batch row), and the G query heads that share a KV
 // head are packed into that block: each K/V tile is loaded from device
-// memory once for all G heads instead of once per head.
+// memory once for all G heads instead of once per head. Packed rows
+// r = i*G + g (query position q0+i, head kvh*G+g), R = bq*G <= 128. The
+// tile range is the reference's causal and window block skip made exact:
+// keys [max(0, q0-window+1), q_hi] (causal) are the only ones loaded.
+// Masked keys (causal, window, past S) get -inf and weigh exactly 0. The
+// output is acc / max(l, 1e-30), written in q's dtype.
 //
 // Bound on the H100: at prefill lengths the work is 4*S*S/2*H*Dh flops
-// against O(S*H*Dh) bytes, far above the card's ridge, so operations
-// bound it. This first version runs them as scalar fp32 FMAs out of
-// shared memory (the tensor cores, wgmma and TMA are later work), which
-// caps it near the 67 TFLOP/s fp32 rate rather than the 989 TFLOP/s bf16
-// tensor-core rate its bound is taken against.
+// against O(S*H*Dh) bytes, far above the card's ridge, so the tensor
+// cores' rate bounds it. Two bodies:
 //
-// Block: 256 threads as a 16x16 grid (ty, tx). Packed rows r = i*G + g
-// (query position q0+i, head kvh*G+g), R = bq*G <= 128. Per KV tile of
-// BK = 32 or 64 keys (64 by default):
-//   * K and V rows are staged in shared memory as fp32 (K rows padded by
-//     4 floats so the float4 row reads of a warp spread over the banks);
-//   * scores: thread (ty, tx) computes rows ty+16i (i < 8) x keys tx+16j
-//     (j < BK/16), float4 along DH; masked keys (causal, window, past S) get
-//     -inf, so they weigh exactly 0;
-//   * online softmax: one warp per row, fp32 running max m and sum l;
-//   * values: thread (ty, tx) owns rows ty+16i x output columns tx+16j
-//     (j < DH/16) of the fp32 accumulator, in registers.
-// The tile range is the reference's causal and window block skip made
-// exact: keys [max(0, q_lo-window+1), q_hi] (causal) are the only ones
-// loaded. The output is acc / max(l, 1e-30), written in q's dtype.
+// bf16 (the served dtype): both products on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands from shared
+// memory by ldmatrix (.trans for V), the FlashAttention-2 layout. 8
+// warps, each owning 16 packed rows (two 16-row tiles a warp, 4 warps,
+// measured no faster). S = Q.K^T stays in registers; the online softmax
+// (running max and sum, fp32, base-2 exponent, the scale folded in)
+// works on the accumulator fragments with quad shuffles, masking only the tiles the causal or
+// window edge crosses; the fragments become P's A operand in registers,
+// with no round trip through shared memory. P is carried as a bf16 pair
+// hi = bf16(P), lo = bf16(P - hi) and multiplied by V twice, so the value
+// product keeps P at fp32 precision (about 2^-16 relative, as the TPU
+// kernel's f32 P) at 1.5x the tensor work of one product. The 1/sqrt(Dh)
+// scale is applied to the fp32 scores, not to q. K and V stay bf16 in
+// shared memory, rows padded by 16 bytes so ldmatrix is free of bank
+// conflicts, in a ring of two stages filled by 16-byte cp.async copies:
+// tile j+1 loads while tile j is multiplied. Q is loaded once. Shared
+// memory is 102 KB at Dh=128 and 64-key tiles; one block an SM, whose
+// registers then need no spill. Rows and keys past S are zero-filled by
+// the copies.
+//
+// fp32: the scalar body. The tensor cores would run fp32 as TF32, whose
+// 10-bit mantissa fails the 1e-4 the fp32 path is held to, so fp32 keeps
+// scalar fp32 FMAs out of shared memory (256 threads as a 16x16 grid; per
+// 32- or 64-key tile: K and V staged as fp32, scores, a warp a row for the
+// online softmax, the values into a register accumulator), capped near
+// the 67 TFLOP/s fp32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async.cuh"
+
 namespace {
 
 constexpr int NT = 256;          // threads per block
 constexpr int MAXR = 128;        // packed query rows per block
-constexpr int RPT = MAXR / 16;   // rows per thread
+constexpr int RPT = MAXR / 16;   // rows per thread (fp32 body)
 constexpr float kNegInit = -1e30f;
 
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;    // elements in 16 bytes
-  __device__ static void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
-  __device__ static float out(float x) { return x; }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static __nv_bfloat16 out(float x) { return __float2bfloat16(x); }
-};
+// ---------------------------------------------------------------------------
+// fp32: the scalar body
+// ---------------------------------------------------------------------------
 
 // shared memory, in floats: q (MAXR x DH+4) | k (BK x DH+4) | v (BK x DH)
 // | p (MAXR x BK+4) | m, l, alpha (MAXR each)
@@ -77,35 +72,27 @@ __host__ __device__ constexpr size_t smem_floats() {
          size_t(MAXR) * (BK + 4) + 3 * size_t(MAXR);
 }
 
-// Stage a KV tile: BK rows of DH elements, row r at src + r * stride, into
-// shared memory as fp32 rows of `dst_stride` floats. Rows past `valid` are
+// Stage a KV tile: BK rows of DH floats, row r at src + r * stride, into
+// shared memory rows of `dst_stride` floats. Rows past `valid` are
 // zero-filled without a read, so masked keys add exactly 0 to the values.
-template <typename T, int DH, int BK>
-__device__ void stage_tile(const T* __restrict__ src, long long stride, int valid,
+template <int DH, int BK>
+__device__ void stage_tile(const float* __restrict__ src, long long stride, int valid,
                            float* dst, int dst_stride, int t) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int VPR = DH / VEC;
+  constexpr int VPR = DH / 4;
   for (int i = t; i < BK * VPR; i += NT) {
     const int r = i / VPR, c = i - r * VPR;
-    float f[VEC];
-    if (r < valid) {
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(src + r * stride + c * VEC), f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-    }
-    float* d = dst + r * dst_stride + c * VEC;
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4)
-      *reinterpret_cast<float4*>(d + e) = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    const float4 f = r < valid
+        ? *reinterpret_cast<const float4*>(src + r * stride + c * 4)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * dst_stride + c * 4) = f;
   }
 }
 
-template <typename T, int DH, int BK>
+template <int DH, int BK>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hkv, int S,
-                 long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int Hkv,
+                 int S, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                  long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                  long long v_ss, int bq, int causal, int window, float scale) {
   constexpr int QSTR = DH + 4, KSTR = DH + 4, PSTR = BK + 4;
@@ -130,25 +117,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* a_s = l_s + MAXR;
 
   // packed query rows, scaled; rows past R or past S are zero
-  {
-    constexpr int VEC = Vec<T>::N, VPR = DH / VEC;
-    for (int idx = t; idx < MAXR * VPR; idx += NT) {
-      const int r = idx / VPR, c = idx - r * VPR;
-      const int i = r / G, g = r - i * G;
-      float f[VEC];
-      if (r < R && q0 + i < S) {
-        const T* src = q + b * q_sb + (kvh * G + g) * q_sh + (q0 + i) * q_ss + c * VEC;
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(src), f);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-      }
-      float* d = q_s + r * QSTR + c * VEC;
-#pragma unroll
-      for (int e = 0; e < VEC; e += 4)
-        *reinterpret_cast<float4*>(d + e) = make_float4(
-            f[e] * scale, f[e + 1] * scale, f[e + 2] * scale, f[e + 3] * scale);
-    }
+  for (int idx = t; idx < MAXR * DH / 4; idx += NT) {
+    const int r = idx / (DH / 4), c = idx - r * (DH / 4);
+    const int i = r / G, g = r - i * G;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < R && q0 + i < S)
+      f = *reinterpret_cast<const float4*>(q + b * q_sb + (kvh * G + g) * q_sh +
+                                           (q0 + i) * q_ss + c * 4);
+    *reinterpret_cast<float4*>(q_s + r * QSTR + c * 4) =
+        make_float4(f.x * scale, f.y * scale, f.z * scale, f.w * scale);
   }
   for (int r = t; r < MAXR; r += NT) {
     m_s[r] = kNegInit;
@@ -162,14 +139,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_end = causal ? q_hi + 1 : S;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
   __syncthreads();
 
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     const int n = min(BK, k_end - t0);
-    stage_tile<T, DH, BK>(kb + t0 * k_ss, k_ss, n, k_s, KSTR, t);
-    stage_tile<T, DH, BK>(vb + t0 * v_ss, v_ss, n, v_s, DH, t);
+    stage_tile<DH, BK>(kb + t0 * k_ss, k_ss, n, k_s, KSTR, t);
+    stage_tile<DH, BK>(vb + t0 * v_ss, v_ss, n, v_s, DH, t);
     __syncthreads();
 
     // scores of rows ty+16i against keys tx+16j
@@ -268,19 +245,235 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = r / G, g = r - qi * G;
     if (r < R && q0 + qi < S) {
       const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-      T* dst = o + ((size_t(b) * H + kvh * G + g) * S + q0 + qi) * DH;
+      float* dst = o + ((size_t(b) * H + kvh * G + g) * S + q0 + qi) * DH;
 #pragma unroll
-      for (int j = 0; j < CO; ++j) dst[tx + 16 * j] = Vec<T>::out(acc[i][j] * inv);
+      for (int j = 0; j < CO; ++j) dst[tx + 16 * j] = acc[i][j] * inv;
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+// shared memory, in bf16 elements: q (MAXR rows) | k (2 stages of BK
+// rows) | v (2 stages of BK rows), every row DH + 8 elements long. Three
+// or four stages ran no faster on the H100, where the body is bound by
+// the latency of its own math, not by its loads.
+template <int DH, int BK>
+__host__ __device__ constexpr size_t bf16_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t(MAXR) + 4 * size_t(BK)) * (DH + 8);
+}
+
+// One block an SM: the body then keeps its ~190 registers a thread with no
+// spill, which ran faster on the H100 than two blocks an SM held to 128
+// registers (and spilling) at Dh=128.
+template <int DH, int BK>
+__global__ void __launch_bounds__(NT, 1)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                  int H, int Hkv, int S, long long q_sb, long long q_sh, long long q_ss,
+                  long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                  long long v_sh, long long v_ss, int bq, int causal, int window,
+                  float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int STR = DH + 8;      // shared-memory row, in elements
+  constexpr int CPR = DH / 8;      // 16-byte chunks a row
+  constexpr int NB = BK / 8;       // score fragments of 8 keys
+  constexpr int ND = DH / 8;       // output fragments of 8 columns
+  static_assert(NT / 32 * 16 == MAXR, "a warp a 16-row tile covers the packed rows");
+  // the longest query tiles (most keys under the causal mask) go first
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int G = H / Hkv, R = bq * G;
+  const int q0 = qt * bq;
+  const int q_hi = min(q0 + bq, S) - 1;
+  const float sl2 = scale * 1.4426950408889634f;   // scores to base-2 exponents
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + MAXR * STR;
+  bf16* v_s = k_s + 2 * BK * STR;
+
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? q_hi + 1 : S;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+
+  // issue tile j's K and V rows into stage j % 2; keys past k_end are
+  // zero-filled, so their (masked) weights multiply zeros
+  auto load_tile = [&](int j) {
+    const int t0 = k_begin + j * BK, n = min(BK, k_end - t0);
+    bf16* ks = k_s + (j & 1) * BK * STR;
+    bf16* vs = v_s + (j & 1) * BK * STR;
+    for (int i = t; i < BK * CPR; i += NT) {
+      const int r = i / CPR, c = (i - r * CPR) * 8;
+      const bool ok = r < n;
+      const long long row = ok ? t0 + r : 0;
+      cp16(ks + r * STR + c, kb + row * k_ss + c, ok);
+      cp16(vs + r * STR + c, vb + row * v_ss + c, ok);
+    }
+  };
+
+  // packed query rows, once; rows past R or past S are zero
+  for (int i = t; i < MAXR * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * 8;
+    const int qi = r / G, g = r - qi * G;
+    const bool ok = r < R && q0 + qi < S;
+    const bf16* src = ok ? q + b * q_sb + (kvh * G + g) * q_sh + (q0 + qi) * q_ss + c : q;
+    cp16(q_s + r * STR + c, src, ok);
+  }
+  load_tile(0);
+  cp_commit();
+
+  // warp w owns packed rows 16w..16w+15; this thread holds rows 16w +
+  // lane/4 (h = 0) and that + 8 (h = 1), columns 2*(lane%4) + {0, 1} of
+  // every fragment
+  const bool active = warp * 16 < R;
+  const int g8 = lane >> 2, tig = lane & 3;
+  int qp[2];
+  float m[2], l[2];
+  float acc[ND][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qp[h] = q0 + (warp * 16 + g8 + 8 * h) / G;
+    m[h] = kNegInit;
+    l[h] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<0>();
+    __syncthreads();             // tile j is in; stage (j + 1) % 2 is free
+    if (j + 1 < n_tiles) load_tile(j + 1);
+    cp_commit();
+    if (!active) continue;
+    const int t0 = k_begin + j * BK, n = min(BK, k_end - t0);
+    const bf16* ks = k_s + (j & 1) * BK * STR;
+    const bf16* vs = v_s + (j & 1) * BK * STR;
+
+    // S = Q K^T, fp32 in registers
+    float sc[NB][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 +
+                     (lane >> 4) * 8);
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + (nb * 8 + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[nb], a, bb[0], bb[1]);
+        mma_bf16(sc[nb + 1], a, bb[2], bb[3]);
+      }
+    }
+
+    // mask (only the tiles the causal or window edge crosses, or past
+    // k_end), then the online softmax on the fragments, the scale folded
+    // into the exponent: p = 2^(s * scale * log2(e) - m)
+    const bool full = n == BK && (!causal || t0 + BK - 1 <= q0) &&
+                      (window <= 0 || t0 > q_hi - window);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = i * 8 + tig * 2 + e, kp = t0 + c;
+          if (!full && !(c < n && (!causal || kp <= qp[h]) &&
+                         (window <= 0 || kp > qp[h] - window)))
+            sc[i][2 * h + e] = -INFINITY;
+          mx = fmaxf(mx, sc[i][2 * h + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[h], mx * sl2);
+      const float al = exp2f(m[h] - mn);
+      m[h] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[i][2 * h + e] = exp2f(fmaf(sc[i][2 * h + e], sl2, -mn));
+          sum += sc[i][2 * h + e];
+        }
+      }
+      l[h] = l[h] * al + sum;    // this thread's columns; a quad sums at the end
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        acc[i][2 * h] *= al;
+        acc[i][2 * h + 1] *= al;
+      }
+    }
+
+    // O += P V, P as the bf16 pair hi + lo straight from the S fragments
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[2 * kc][0], sc[2 * kc][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kc][2], sc[2 * kc][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t bb[4];
+        ldsm_x4_trans(bb, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+                              nd * 8 + (lane >> 4) * 8);
+        mma_bf16(acc[nd], ph, bb[0], bb[1]);
+        mma_bf16(acc[nd], pl, bb[0], bb[1]);
+        mma_bf16(acc[nd + 1], ph, bb[2], bb[3]);
+        mma_bf16(acc[nd + 1], pl, bb[2], bb[3]);
+      }
+    }
+  }
+  if (!active) return;
+
+  // o (B, H, S, DH), contiguous; a quad holds a row's partial sums of l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = warp * 16 + g8 + 8 * h;
+    if (r >= R || qp[h] >= S) continue;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int g = r - (r / G) * G;
+    bf16* dst = o + ((size_t(b) * H + kvh * G + g) * S + qp[h]) * DH + tig * 2;
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + i * 8) =
+          __floats2bfloat162_rn(acc[i][2 * h] * inv, acc[i][2 * h + 1] * inv);
+  }
+}
+
+// the body and its shared memory for each dtype
+template <typename T, int DH, int BK> struct Body;
+
+template <int DH, int BK> struct Body<float, DH, BK> {
+  static constexpr auto kern = flash_f32_kernel<DH, BK>;
+  static constexpr size_t smem = sizeof(float) * smem_floats<DH, BK>();
+};
+
+template <int DH, int BK> struct Body<__nv_bfloat16, DH, BK> {
+  static constexpr auto kern = flash_bf16_kernel<DH, BK>;
+  static constexpr size_t smem = bf16_smem_bytes<DH, BK>();
+};
 
 template <typename T, int DH, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
            int S, const long long* st, int bq, int causal, int window, float scale,
            cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, DH, BK>;
-  const size_t shm = sizeof(float) * smem_floats<DH, BK>();
+  auto kern = Body<T, DH, BK>::kern;
+  const size_t shm = Body<T, DH, BK>::smem;
   static bool configured = false;   // once per instantiation
   if (!configured) {
     const cudaError_t e =

@@ -8,6 +8,8 @@ compute in fp32 and round the output once, so they agree within one
 bf16 ulp at |x| < 2 (1e-2).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,8 @@ from repro_torch.kernels.attention import decode as D
 from repro_torch.kernels.attention import ops
 
 from _torch_common import f32
+
+NEG_INF = D.NEG_INF
 
 torch.set_num_threads(1)
 
@@ -175,3 +179,70 @@ def test_default_splits_cover_the_sms():
     assert D.default_splits(8, 4, 3) == 3          # no more than blocks
     bound, split_len, n = D.split_plan(8, 4, 2048, 128, None, 600)
     assert (bound, n) == (600, 5) and split_len * n >= bound
+
+
+def _warp_merge_rounding(q, k, v, pos, *, window, bk=64, kpw=8):
+    """In plain torch and fp32, the order in which the kernel sums: each
+    slot's live rows in tiles of ``bk`` keys, each tile scored by warps of
+    ``kpw`` keys that take their own max ``m_w`` (at least -1e30) and sum
+    ``l_w``, merged once a tile with the running state by the factors
+    exp(m_w - m_new). One split over the whole cache; fp32 out."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, sq, hkv, g, dh) * (1.0 / math.sqrt(dh))
+    out = torch.zeros(b, sq, hkv, g, dh)
+    for s in range(b):
+        p0 = int(pos[s])
+        start = 0 if window is None else max(0, p0 - window + 1)
+        m = torch.full((sq, hkv, g), NEG_INF)
+        l = torch.zeros(sq, hkv, g)
+        acc = torch.zeros(sq, hkv, g, dh)
+        qp = p0 + torch.arange(sq)
+        for t0 in range(start, p0 + sq, bk):
+            kp = torch.arange(t0, t0 + bk)
+            ok = kp < p0 + sq
+            kt = torch.zeros(bk, hkv, dh)
+            vt = torch.zeros(bk, hkv, dh)
+            kt[ok] = k[s, kp[ok]].float()
+            vt[ok] = v[s, kp[ok]].float()
+            live = ok[None] & (kp[None] <= qp[:, None])
+            if window is not None:
+                live &= kp[None] > qp[:, None] - window
+            sc = torch.einsum("jhgd,khd->jhgk", qf[s], kt)
+            sc = sc.masked_fill(~live[:, None, None], -math.inf)
+            sw = sc.reshape(sq, hkv, g, bk // kpw, kpw)
+            mw = sw.amax(-1).clamp_min(NEG_INF)
+            pw = torch.exp(sw - mw[..., None])
+            m_new = torch.maximum(m, mw.amax(-1))
+            alpha = torch.exp(m - m_new)
+            cw = torch.exp(mw - m_new[..., None])
+            vw = vt.reshape(bk // kpw, kpw, hkv, dh)
+            part = torch.einsum("jhgwk,wkhd->jhgwd", pw, vw)
+            acc = acc * alpha[..., None] + (cw[..., None] * part).sum(-2)
+            l = l * alpha + (cw * pw.sum(-1)).sum(-1)
+            m = m_new
+        out[s] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, sq, h, dh)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("skv", [509, 512])
+def test_warp_merge_within_decode_budget(skv, window):
+    """The kernel's summation order (64-key tiles, 8-key warps, one merge
+    a tile) at yi-9b head shapes (H=32, Hkv=4, Dh=128), Sq 1 and 4, bf16
+    inputs: within the unchanged 1e-4 of JAX's fp32 oracle on the same
+    values, and of its Pallas kernel in interpret mode."""
+    for sq in (1, 4):
+        q, k, v = _case(2, skv, 32, 4, 128, sq, seed=6)
+        tq, tk, tv = _torch(q, k, v, dtype=torch.bfloat16)
+        pos = [skv // 3, skv - sq]
+        got = f32(_warp_merge_rounding(tq, tk, tv, pos, window=window))
+        jx = _jax(f32(tq), f32(tk), f32(tv))
+        jpos = jnp.asarray(pos, jnp.int32)
+        oracle = JD.ref_decode(*jx, jpos, window=window)
+        assert np.abs(got - f32(oracle)).max() <= 1e-4
+        if sq == 1:
+            kern = JD.flash_decode(*jx, jpos, window=window, bk=128,
+                                   n_splits=2, interpret=True)
+            assert np.abs(got - f32(kern)).max() <= 1e-4

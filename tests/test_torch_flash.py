@@ -10,6 +10,8 @@ sides compute in fp32 from the same bf16 inputs and round the output
 once, so they agree within one bf16 ulp at |x| < 4 (2^-6).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,3 +105,47 @@ def test_flash_impl_routing_on_cpu():
     np.testing.assert_array_equal(
         f32(ops.flash_attention(q, k, v, impl="ref")),
         f32(ops.flash_attention(q, k, v, impl="auto")))
+
+
+def _tensor_core_rounding(q, k, v, *, window):
+    """In plain torch, what the bf16 kernel rounds: bf16 q.k products
+    summed in fp32, 1/sqrt(Dh) on the fp32 scores, an fp32 softmax whose
+    unnormalised weights P go to the value product as the bf16 pair
+    hi = bf16(P), lo = bf16(P - hi), fp32 accumulators, one bf16
+    rounding of the output. Causal, (B, H, S, Dh) bf16 in."""
+    b, h, s, dh = q.shape
+    g = h // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    sc = (q.float() @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    i = torch.arange(s)
+    live = i[None, :] <= i[:, None]
+    if window is not None:
+        live &= i[None, :] > i[:, None] - window
+    sc = sc.masked_fill(~live, -math.inf)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    o = (hi @ vf + lo @ vf) / p.sum(-1, keepdim=True)
+    return o.bfloat16()
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("s", [509, 512])
+def test_tensor_core_rounding_within_bf16_budget(s, window):
+    """The bf16 kernel's roundings at yi-9b head shapes (H=32, Hkv=4,
+    Dh=128) stay within the unchanged 2^-6 of the fp32 oracle on the same
+    bf16 inputs (the port's ``ref.attention`` and JAX's), and of JAX's
+    Pallas kernel in interpret mode where S tiles (512)."""
+    q, k, v = _qkv(32, 4, s, 128, seed=5, b=1)
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    got = f32(_tensor_core_rounding(tq, tk, tv, window=window))
+    want = R.attention(tq.float(), tk.float(), tv.float(), window=window)
+    assert np.abs(got - f32(want)).max() <= 2 ** -6
+    jq, jk, jv = (jnp.asarray(f32(x)) for x in (tq, tk, tv))
+    oracle = JR.attention(jq, jk, jv, window=window)
+    assert np.abs(got - f32(oracle)).max() <= 2 ** -6
+    if s % 512 == 0:
+        kern = JF.flash_attention(jq, jk, jv, bq=512, bk=512, window=window,
+                                  interpret=True)
+        assert np.abs(got - f32(kern)).max() <= 2 ** -6

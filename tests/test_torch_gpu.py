@@ -41,6 +41,11 @@ def cuda():
     (2, 77, 4, 2, 32, 1, None, 3),      # smoke shapes, ragged, dead splits
     (3, 200, 8, 2, 64, 3, 40, 4),       # Sq=3, window
     (8, 1024, 32, 4, 128, 1, None, None),   # yi-9b heads, default splits
+] + [
+    # G=8 with Sq 1-4 (up to 32 packed rows, two mma row tiles): slot 0
+    # sees one row (Sq=1), 6 splits leave some ragged and some dead
+    (4, 300, 32, 4, 128, sq, window, 6) for sq in (1, 2, 3, 4)
+    for window in (None, 40)
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh, sq,
                                      window, ns):
@@ -159,6 +164,11 @@ def _paged_layout(k, v, ps, gen, dead_to):
     (3, 200, 8, 2, 64, 3, 40, 16, 4),       # Sq=3, window
     (8, 1024, 32, 4, 128, 1, None, 16, None),   # yi-9b heads
     (8, 1024, 32, 4, 128, 4, 256, 256, None),   # page 256, Sq=4, window
+] + [
+    # G=8 with Sq 1-4 (up to 32 packed rows), one live row in slot 0
+    # (Sq=1), ragged and dead splits, pages of 8, 16 and 256 rows
+    (4, 300, 32, 4, 128, sq, None, ps, 6) for sq in (1, 2, 3, 4)
+    for ps in (8, 16, 256)
 ])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
                                            sq, window, ps, ns):
@@ -191,30 +201,46 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hkv,s,dh,window,bq,bk", [
-    (4, 2, 77, 32, None, None, 64),        # ragged S
-    (8, 2, 200, 64, 40, 8, 32),            # window, bk 32
-    (32, 4, 509, 128, None, None, 64),     # yi-9b heads, ragged
-    (32, 4, 512, 128, 256, None, 64),      # yi-9b heads, window
+@pytest.mark.parametrize("h,hkv,s,dh,window,bq,bk,causal", [
+    (4, 2, 77, 32, None, None, 64, True),        # ragged S
+    (8, 2, 200, 64, 40, 8, 32, True),            # window, bk 32
+    (32, 4, 509, 128, None, None, 64, True),     # yi-9b heads, ragged
+    (32, 4, 512, 128, 256, None, 64, True),      # yi-9b heads, window
+] + [
+    # the edges of the tensor-core tiling (16 packed rows a warp, 32- or
+    # 64-key tiles), in both bodies (bf16 tensor cores, fp32 scalar): S
+    # of one row, around one and four mma tiles
+    (32, 4, s, 128, None, None, 64, True) for s in (1, 15, 16, 17, 63, 65)
+] + [
+    (2 * g, 2, 100, 64, None, None, 64, True) for g in (1, 2, 4, 8)  # G
+] + [
+    (8, 2, 130, dh, None, None, 32, True) for dh in (32, 64, 128)
+] + [
+    (6, 2, 90, 64, None, None, 64, True),   # G=3: 126 packed rows
+    (8, 1, 70, 128, None, 3, 64, True),     # bq=3 at G=8: 24 packed rows
+    (32, 4, 300, 128, 5, None, 64, True),   # windows smaller than a tile
+    (4, 2, 129, 32, 1, None, 32, True),
+    (8, 2, 100, 64, None, None, 64, False),  # no causal mask
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, h, hkv, s, dh,
-                                              window, bq, bk):
+                                              window, bq, bk, causal):
     g = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn(1, h, s, dh, generator=g, device=cuda).to(dtype)
     k = torch.randn(1, hkv, s, dh, generator=g, device=cuda).to(dtype)
     v = torch.randn(1, hkv, s, dh, generator=g, device=cuda).to(dtype)
     K.reset_launches()
-    got = ops.flash_attention(q, k, v, window=window, bq=bq, bk=bk,
-                              impl="cuda")
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, bq=bq,
+                              bk=bk, impl="cuda")
     assert K.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
-    want = R.attention(q.float(), k.float(), v.float(), window=window)
+    want = R.attention(q.float(), k.float(), v.float(), causal=causal,
+                       window=window)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     # the (B, S, H, Dh) adapter reads strided views, no copy
     got_bshd = ops.flash_attention_bshd(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), window=window, bq=bq, bk=bk,
-        impl="cuda")
+        v.transpose(1, 2).contiguous(), causal=causal, window=window, bq=bq,
+        bk=bk, impl="cuda")
     assert torch.equal(got_bshd.transpose(1, 2), got)
 
 
