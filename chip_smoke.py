@@ -20,7 +20,8 @@ Phases, each printed on its own line:
    NT flavors through ``flavor="nt"``); then its main path, every kernel
    once at HBM-resident sizes (2^28 f32 an array, pi at n = 2^28, Jacobi
    at (16386, 16384) and (514, 512, 1024), Gauss-Seidel at (4098, 4096)
-   with 2 sweeps), launch counts zeroed before and read after, each
+   with 2 sweeps; its checks also run Gauss-Seidel on rows of 20000 and
+   40002 columns), launch counts zeroed before and read after, each
    output held against its plain version; then each kernel's time
    beside its bound, its plain version's and one PyTorch call's, the
    three INITs' GB/s, standard against NT stores, and copy, add and
@@ -31,15 +32,19 @@ Phases, each printed on its own line:
    4095, per-slot positions spread over the cache, Sq 1 and 4, no window
    and a 256-row window, one split and the default split count; and a
    2048-row cache read up to the serving path's occupancy bounds (kv_len
-   472 and 301, rounded up to 128-row blocks, and 301 unrounded);
+   472 and 301, rounded up to 128-row blocks, and 301 unrounded); and
+   in bf16 and fp32 gemma3-4b's heads (H=8, Hkv=4, Dh=256) and G=16 at
+   Sq 1 and 4 (16 and 64 packed rows: one and two row groups);
 3a. the paged decode kernel against its plain version at the same head
    shapes: pages of 8, 16 and 256 rows under a randomly permuted table,
    dead table columns naming a NaN scratch page, Sq 1 and 4, no window
    and 256, one and the default split count, a kv_len cut below the
-   horizon; and against the dense kernel on the same logical cache;
+   horizon; against the dense kernel on the same logical cache; and the
+   Dh=256 and 64-packed-row shapes of phase 3;
 3b. the flash-attention kernel against its plain version at yi-9b
    prefill shapes (B=1, H=32, Hkv=4, Dh=128), S 512, 2048 and 509,
-   causal and causal with a 256-row window, in fp32 and bf16;
+   causal and causal with a 256-row window, in fp32 and bf16, and at
+   gemma3-4b's heads (H=8, Hkv=4, Dh=256), S 509 and 2048;
 4. the KV row writer against its plain version, both store flavors,
    byte for byte, with a clamped overshoot row, in place;
 5. the full-width 48-layer yi-9b ``ServeEngine`` (random weights from a
@@ -67,13 +72,20 @@ Phases, each printed on its own line:
    (decode) or TFLOP/s (flash attention) and their share of the card's
    peak; the whole ``ops.flash_decode`` (partials and the plain
    combine, a finished output as sdpa's) beside the partials, and the
-   paged kernel at 4 splits (one block an SM) beside its default 5;
-   then, for the dense and the paged engine, two full-width decode
-   dispatches of the same 8 requests timed once on the wall clock and
-   once under the profiler:
-   the device's busy time per step, its idle share and where the time
-   goes; the ``kernels`` JSON line (all 20 kernels, phase 2a's among
-   them) comes last but one.
+   paged kernel at 4 splits (one block an SM) beside its default 5; the
+   three attention kernels at gemma3-4b's heads (Dh=256) beside their
+   bounds and sdpa; then, for the dense and the paged engine, two
+   full-width decode dispatches of the same 8 requests timed once on the
+   wall clock and once under the profiler: the device's busy time per
+   step, its idle share and where the time goes; the ``kernels`` JSON
+   line (all 20 kernels, phase 2a's among them) comes last but one.
+
+Every timing is device time from ``torch.profiler``. A profiler window
+that reads a call under a bound that is a true floor (the bytes of an
+HBM-resident working set, or any operation count; ``under_bound``) is
+taken again and named, as an empty window is; the L2 rung and the decode
+kernels, whose working sets fit the 50 MB L2, are not held to their byte
+bounds.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 references on the
 card run in full fp32. Any failed phase raises and the script exits
@@ -126,6 +138,12 @@ LOGITS_SEEDS = (11, 12, 13)       # prompt sets beside the served prompts
 # (weighted means of unit normals) agree to ~1e-6
 FLASH_F32_TOL = 1e-4
 PROFILE_ATTEMPTS = 3              # profiler windows before a timing fails
+#: kinds of bound under which no reading can fall: the bytes of a working
+#: set that lives in device memory (far larger than the 50 MB L2), and
+#: any operation count. A bound of kind "l2" (the bytes of a working set
+#: that can stay in L2 between timed calls: the L2 rung, the decode
+#: kernels' ~6 MB of live rows) is no floor and is not checked.
+FLOOR_KINDS = ("hbm", "operations")
 
 
 class PhaseError(RuntimeError):
@@ -163,15 +181,34 @@ def device_us(prof, counts: dict | None = None) -> dict:
     return out
 
 
-def profiled(torch, run, what: str, setup=None, counts=None) -> dict:
+def under_bound(by_name_us: dict, bounds_us: dict) -> list:
+    """The readings that fall under a bound that is a true floor.
+
+    ``by_name_us`` maps a kernel (or call) to its reading in µs;
+    ``bounds_us`` maps it to ``(bound µs, kind)``, kind one of
+    :data:`FLOOR_KINDS` or ``"l2"``. Returns ``[(name, reading, bound)]``
+    for every name read under a bound of a kind in :data:`FLOOR_KINDS`,
+    in the order of ``bounds_us``; a name without a reading is skipped.
+    """
+    return [(name, by_name_us[name], bound)
+            for name, (bound, kind) in bounds_us.items()
+            if kind in FLOOR_KINDS and name in by_name_us
+            and by_name_us[name] < bound]
+
+
+def profiled(torch, run, what: str, setup=None, counts=None,
+             faults=None) -> dict:
     """Device microseconds by name over one ``run()``, under
     ``torch.profiler``; ``setup()``, when given, runs before each window,
     outside it. ``counts``, when given, gets the window's events by name.
 
     Rarely a profile on the card records no device event at all (seen
     once on an H100); such a window is taken again, up to
-    ``PROFILE_ATTEMPTS`` windows in all, and said so. If no window sees
-    device time the phase fails: there is no fallback to another clock.
+    ``PROFILE_ATTEMPTS`` windows in all, and said so. So is a window for
+    which ``faults(by_name, counts)``, when given, returns a non-empty
+    list of what is wrong with it (a reading under its bound; see
+    :func:`timed`), each named. If no window is free of both the phase
+    fails: there is no fallback to another clock.
     """
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
@@ -184,17 +221,24 @@ def profiled(torch, run, what: str, setup=None, counts=None) -> dict:
         if counts is not None:
             counts.clear()
         by_name = device_us(prof, counts)
-        if sum(by_name.values()) > 0:
-            if attempt > 1:
-                print(f"{what}: the profiler saw no device time in "
-                      f"{attempt - 1} window(s); measured in window "
-                      f"{attempt}")
-            return by_name
-    raise PhaseError(f"{what}: the profiler saw no device time in "
-                     f"{PROFILE_ATTEMPTS} windows")
+        if sum(by_name.values()) <= 0:
+            print(f"{what}: the profiler saw no device time in window "
+                  f"{attempt}")
+            continue
+        wrong = faults(by_name, counts) if faults is not None else []
+        if wrong:
+            print(f"{what}: window {attempt} taken again: "
+                  + "; ".join(wrong))
+            continue
+        if attempt > 1:
+            print(f"{what}: measured in window {attempt}")
+        return by_name
+    raise PhaseError(f"{what}: no usable profiler window in "
+                     f"{PROFILE_ATTEMPTS} (none saw device time, or every "
+                     f"one read under a bound)")
 
 
-def timed(torch, fn, iters: int, warmup: int = 3) -> float:
+def timed(torch, fn, iters: int, warmup: int = 3, bound=None) -> float:
     """Milliseconds of device work per ``fn()`` call.
 
     The device time of every kernel, copy and fill that ``iters`` calls
@@ -206,6 +250,11 @@ def timed(torch, fn, iters: int, warmup: int = 3) -> float:
     times its events a call (its count over ``iters``, rounded, at least
     1), not its sum over ``iters``. A name that misses more than a tenth
     of its events is said so.
+
+    ``bound``, when given, is ``(name, µs, kind)`` for the work of one
+    call (see :func:`under_bound`): a window that reads the call under a
+    bound that is a true floor is taken again, as an empty one is, and
+    named with its reading; if every window reads under, the phase fails.
     """
     for _ in range(warmup):
         fn()
@@ -215,16 +264,27 @@ def timed(torch, fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
+    def per_call_us(by_name, counts, say=False):
+        us = 0.0
+        for name, total in by_name.items():
+            a_call = max(1, round(counts[name] / iters))
+            if say and counts[name] < 0.9 * a_call * iters:
+                print(f"timing: the profiler recorded {counts[name]} of "
+                      f"{a_call * iters} events of {name[:60]}")
+            us += total / counts[name] * a_call
+        return us
+
+    def faults(by_name, counts):
+        name, bound_us, kind = bound
+        return [f"{n} read {r:.2f} us, under its {kind} bound {b:.2f} us"
+                for n, r, b in under_bound(
+                    {name: per_call_us(by_name, counts)},
+                    {name: (bound_us, kind)})]
+
     counts = {}
-    by_name = profiled(torch, run, "timing", counts=counts)
-    us = 0.0
-    for name, total in by_name.items():
-        a_call = max(1, round(counts[name] / iters))
-        if counts[name] < 0.9 * a_call * iters:
-            print(f"timing: the profiler recorded {counts[name]} of "
-                  f"{a_call * iters} events of {name[:60]}")
-        us += total / counts[name] * a_call
-    return us / 1e3
+    by_name = profiled(torch, run, "timing", counts=counts,
+                       faults=None if bound is None else faults)
+    return per_call_us(by_name, counts, say=True) / 1e3
 
 
 # --- phase 1: device -------------------------------------------------------
@@ -356,8 +416,9 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
     version computed in fp32 from the same bf16 inputs (the kernels round
     once), sums at rtol 1e-5 (bf16 against the fp32-accumulated plain
     sum), stencils at 1e-6, each also on a view whose data start 4 bytes
-    past a 16-byte boundary, Gauss-Seidel also with one interior row and
-    more than one sweep. Launch counts zeroed before, read after.
+    past a 16-byte boundary, Gauss-Seidel also with one interior row,
+    more than one sweep and rows wider than 16,384 interior columns (20000
+    and 40002). Launch counts zeroed before, read after.
     Returns the largest absolute error by kernel."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -411,7 +472,11 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
             ("gauss_seidel_2d5pt", (34, 128), (2,)),
             ("gauss_seidel_2d5pt", (33, 101), (1,)),
             ("gauss_seidel_2d5pt", (3, 2500), (2,)),   # one interior row
-            ("gauss_seidel_2d5pt", (3, 101), (3,))):
+            ("gauss_seidel_2d5pt", (3, 101), (3,)),
+            # wider than the 16,384 interior columns held in registers:
+            # the rest of each row is staged in the scratch row
+            ("gauss_seidel_2d5pt", (6, 20000), (2,)),
+            ("gauss_seidel_2d5pt", (5, 40002), (1,))):
         # the grid itself, then a contiguous view at an offset that is no
         # multiple of 16 bytes (the stencils load one float at a time)
         base = torch.randn((shape[0] + 1,) + shape[1:], generator=gen,
@@ -503,11 +568,17 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
 
     def row(name, kern, plain, library, lib_name, n_bytes, n_ops, *,
             iters=10, plain_iters=3, plain_warmup=3, what=""):
-        ms = timed(torch, kern, iters)
-        plain_ms = timed(torch, plain, plain_iters, warmup=plain_warmup)
-        lib_ms = None if library is None else timed(torch, library, iters)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP32_FLOPS * 1e3
+        # every array here lives in device memory (>> L2): the bound is a
+        # floor for the kernel, its plain version and the library call
+        bound = (name, max(t_bytes, t_ops) * 1e3,
+                 "hbm" if t_bytes >= t_ops else "operations")
+        ms = timed(torch, kern, iters, bound=bound)
+        plain_ms = timed(torch, plain, plain_iters, warmup=plain_warmup,
+                         bound=bound)
+        lib_ms = None if library is None else timed(torch, library, iters,
+                                                    bound=bound)
         line, src = STREAM_KERNELS[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -617,6 +688,10 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
 
 # --- phase 3: decode kernel ------------------------------------------------
 
+# (B, H, Hkv, Dh, Sq values) checked beside yi-9b's heads: gemma3-4b's
+# head_dim 256, and G = 16 (qwen3-moe-235b) at Sq = 4, 64 packed rows
+WIDE_DECODE_SHAPES = ((4, 8, 4, 256, (1, 4)), (2, 64, 4, 128, (1, 4)))
+
 def phase_decode(torch, D, ops) -> float:
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
@@ -680,9 +755,32 @@ def phase_decode(torch, D, ops) -> float:
                 err = (got - want).abs().max().item()
                 check(err <= BF16_OUT_TOL, f"decode: ops.flash_decode err "
                       f"{err:.3g} > {BF16_OUT_TOL} at kv_len={kv_len}")
+    # the head shapes past yi-9b's: gemma3-4b's Dh = 256 (8 heads over 4
+    # KV heads) and qwen3-moe-235b's G = 16 at Sq = 4 (64 packed rows, two
+    # row groups), in bf16 and fp32
+    for b, h, hkv, dh, sqs in WIDE_DECODE_SHAPES:
+        skv = 1000
+        for dtype in (torch.bfloat16, torch.float32):
+            k = torch.randn(b, skv, hkv, dh, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(b, skv, hkv, dh, generator=gen,
+                            device="cuda").to(dtype)
+            for sq in sqs:
+                pos = torch.linspace(0, skv - sq, b,
+                                     device="cuda").round().int()
+                q = torch.randn(b, sq, h, dh, generator=gen,
+                                device="cuda").to(dtype)
+                for window in (None, 256):
+                    for ns in (1, None):
+                        bound, split_len, n = D.split_plan(b, hkv, skv, 128,
+                                                           ns, None)
+                        case(q, k, v, pos, window, bound, split_len, n,
+                             f"H={h} Hkv={hkv} Dh={dh} {dtype} sq={sq} "
+                             f"window={window}")
     print(f"decode kernel: {cases} cases vs plain version, max abs err "
           f"{worst:.3g} (tol {DECODE_TOL}, fp32 outputs), incl. occupancy "
-          f"bounds 512, 384 and 301 of a 2048-row cache")
+          f"bounds 512, 384 and 301 of a 2048-row cache, Dh=256 and "
+          f"G*Sq=64 packed rows in bf16 and fp32")
     return worst
 
 
@@ -1044,9 +1142,39 @@ def phase_paged_decode(torch, D, ops) -> float:
         err = (got - want).abs().max().item()
         check(err <= BF16_OUT_TOL, f"paged decode: ops.flash_decode_paged "
               f"err {err:.3g} > {BF16_OUT_TOL} at page={ps}")
+    # Dh = 256 and 64 packed rows, pages of 16, in bf16 and fp32
+    for b, h, hkv, dh, sqs in WIDE_DECODE_SHAPES:
+        skv, ps = 1000, 16
+        for dtype in (torch.bfloat16, torch.float32):
+            kd = torch.randn(b, skv, hkv, dh, generator=gen,
+                             device="cuda").to(dtype)
+            vd = torch.randn(b, skv, hkv, dh, generator=gen,
+                             device="cuda").to(dtype)
+            kp, vp, table = _paged_pools(torch, kd, vd, ps, gen)
+            for sq in sqs:
+                pos = torch.linspace(0, skv - sq, b,
+                                     device="cuda").round().int()
+                q = torch.randn(b, sq, h, dh, generator=gen,
+                                device="cuda").to(dtype)
+                for window in (None, 256):
+                    bound, split_len, n = D.paged_split_plan(
+                        b, hkv, ps, table.shape[1], None)
+                    kw = dict(window=window, split_len=split_len,
+                              n_splits=n, bound=bound)
+                    got = D.combine_splits(*D.decode_paged_partials(
+                        q, kp, vp, table, pos, impl="cuda", **kw))
+                    want = D.combine_splits(*D.decode_paged_partials(
+                        q, kp, vp, table, pos, impl="ref", **kw))
+                    err = (got - want).abs().max().item()
+                    check(err <= DECODE_TOL, f"paged decode: max err "
+                          f"{err:.3g} > {DECODE_TOL} at H={h} Hkv={hkv} "
+                          f"Dh={dh} {dtype} sq={sq} window={window}")
+                    worst = max(worst, err)
+                    cases += 1
     print(f"paged decode kernel: {cases} cases vs plain version (pages 8, "
           f"16, 256; permuted tables, dead columns on a NaN scratch page; "
-          f"Sq 1/4; window none/256; one/default splits; a kv_len cut), max "
+          f"Sq 1/4; window none/256; one/default splits; a kv_len cut; "
+          f"Dh=256 and G*Sq=64 in bf16 and fp32), max "
           f"abs err {worst:.3g}; vs the dense kernel on the same logical "
           f"cache {worst_dense:.3g} (tol {DECODE_TOL}, fp32 outputs)")
     return worst
@@ -1077,8 +1205,30 @@ def phase_flash(torch, ops, R) -> float:
             err = (got - want).abs().max().item()
             check(err <= BF16_OUT_TOL, f"flash: bf16 err {err:.3g} > "
                   f"{BF16_OUT_TOL} at S={s} window={window}")
+    # gemma3-4b's heads: 8 over 4 KV heads, Dh = 256
+    for s in (509, 2048):
+        q = torch.randn(1, 8, s, 256, generator=gen, device="cuda")
+        k = torch.randn(1, 4, s, 256, generator=gen, device="cuda")
+        v = torch.randn(1, 4, s, 256, generator=gen, device="cuda")
+        for window in (None, 256):
+            want = R.attention(q, k, v, window=window)
+            got = ops.flash_attention(q, k, v, window=window, impl="cuda")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(err <= FLASH_F32_TOL, f"flash: fp32 err {err:.3g} > "
+                  f"{FLASH_F32_TOL} at Dh=256 S={s} window={window}")
+            worst = max(worst, err)
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            want = R.attention(qb.float(), kb.float(), vb.float(),
+                               window=window)
+            got = ops.flash_attention(qb, kb, vb, window=window,
+                                      impl="cuda").float()
+            err = (got - want).abs().max().item()
+            check(err <= BF16_OUT_TOL, f"flash: bf16 err {err:.3g} > "
+                  f"{BF16_OUT_TOL} at Dh=256 S={s} window={window}")
     print(f"flash attention kernel: S 512/2048/509, causal and window 256, "
-          f"B=1 H={H} Hkv={HKV} Dh={DH}: fp32 max abs err {worst:.3g} (tol "
+          f"B=1 H={H} Hkv={HKV} Dh={DH}, and S 509/2048 at H=8 Hkv=4 "
+          f"Dh=256: fp32 max abs err {worst:.3g} (tol "
           f"{FLASH_F32_TOL}); bf16 within {BF16_OUT_TOL} of the fp32 plain "
           f"result")
     return worst
@@ -1395,15 +1545,17 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
                         device="cuda").bfloat16()
         v = torch.randn(1, HKV, s, DH, generator=gen,
                         device="cuda").bfloat16()
-        fk = timed(torch, lambda: ops.flash_attention(q, k, v, impl="cuda"),
-                   20)
-        fp = timed(torch, lambda: R.attention(q, k, v), 5)
-        fl = timed(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50)
         n_bytes = (2 * H + 2 * HKV) * s * DH * 2
         flops = 4 * (s * (s + 1) // 2) * H * DH
         tb = n_bytes / HBM_BYTES_PER_S * 1e3
         to = flops / BF16_FLOPS * 1e3
+        # the operations are a floor; the bytes (a few MB, in L2) are not
+        floor = ("flash_attention", to * 1e3, "operations")
+        fk = timed(torch, lambda: ops.flash_attention(q, k, v, impl="cuda"),
+                   20, bound=floor)
+        fp = timed(torch, lambda: R.attention(q, k, v), 5, bound=floor)
+        fl = timed(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50, bound=floor)
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash.cu",
@@ -1422,6 +1574,96 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
               f"{BF16_FLOPS / 1e12:.0f} TFLOP/s), plain {fp * 1e3:.1f} us, "
               f"sdpa {fl * 1e3:.2f} us (device time by profiler)")
     return [paged_row, rows[-1]]
+
+
+def phase_wide_timings(torch, D, ops, R, reqs) -> None:
+    """The three attention kernels at gemma3-4b's head shapes (H=8, Hkv=4,
+    Dh=256, bf16), beside their bounds and sdpa: decode, dense and paged
+    (page 16), at B=8 over the dense timing's live rows, the caches of 16
+    layers cycled so every call reads cold rows; flash attention at B=1,
+    S=2048, causal. Printed only: the ``kernels`` line keeps the served
+    shapes."""
+    from repro_torch.kernels.attention import flash as FL
+    F = torch.nn.functional
+    b, h, hkv, dh, n_layers, skv, ps = 8, 8, 4, 256, 16, 2048, 16
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    pos = torch.tensor([len(r.prompt) + 32 for r in reqs[:b]],
+                       dtype=torch.int32, device="cuda")
+    kv_len = int(pos.max()) + 1
+    kc = torch.randn(n_layers, b, skv, hkv, dh, generator=gen,
+                     device="cuda").bfloat16()
+    vc = torch.randn_like(kc)
+    q = torch.randn(b, 1, h, dh, generator=gen, device="cuda").bfloat16()
+    bound, split_len, n_splits = D.split_plan(b, hkv, skv, 128, None, kv_len)
+    # the same rows as page pools under a shuffled table
+    kp = kc.view(n_layers, b * skv // ps, ps, hkv, dh)
+    vp = vc.view(n_layers, b * skv // ps, ps, hkv, dh)
+    nb = -(-kv_len // ps)
+    bt = torch.randperm(kp.shape[1], generator=torch.Generator().manual_seed(
+        16))[:b * nb].reshape(b, nb).int().cuda()
+    pbound, psl, pns = D.paged_split_plan(b, hkv, ps, nb, None)
+    layer = [0]
+
+    def nxt():
+        layer[0] = (layer[0] + 1) % n_layers
+        return layer[0]
+
+    mask = (torch.arange(bound, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    dense_ms = timed(torch, lambda: D.decode_partials(
+        q, kc[nxt()], vc[layer[0]], pos, window=None, split_len=split_len,
+        n_splits=n_splits, bound=bound, impl="cuda"), 480)
+    paged_ms = timed(torch, lambda: D.decode_paged_partials(
+        q, kp[nxt()], vp[layer[0]], bt, pos, window=None, split_len=psl,
+        n_splits=pns, bound=pbound, impl="cuda"), 480)
+    sdpa_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+        qt, kc[nxt()][:, :bound].transpose(1, 2),
+        vc[layer[0]][:, :bound].transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), 480)
+    live = (pos + 1).clamp(max=bound).sum().item()
+    for name, ms, ns, extra in (
+            ("flash_decode", dense_ms, n_splits, 0),
+            ("flash_decode_paged", paged_ms, pns,
+             ((pos + 1 + ps - 1) // ps).sum().item() * 4)):
+        n_bytes = (b * h * dh * 2 + live * hkv * dh * 2 * 2 + b * 4 + extra
+                   + ns * b * h * (dh + 2) * 4)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = live * h * dh * 4 / FP32_FLOPS * 1e3
+        print(f"timing: {name} at gemma3-4b heads (B={b} H={h} Hkv={hkv} "
+              f"Dh={dh} bf16, {live} live rows, n_splits={ns}): "
+              f"{ms * 1e3:.2f} us = {n_bytes / ms / 1e6:.0f} GB/s, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.2f} us "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), sdpa "
+              f"{sdpa_ms * 1e3:.2f} us (device time by profiler)")
+    del kc, vc, kp, vp
+    s = 2048
+    fq = torch.randn(1, h, s, dh, generator=gen, device="cuda").bfloat16()
+    fk = torch.randn(1, hkv, s, dh, generator=gen, device="cuda").bfloat16()
+    fv = torch.randn(1, hkv, s, dh, generator=gen, device="cuda").bfloat16()
+    n_bytes = (2 * h + 2 * hkv) * s * dh * 2
+    flops = 4 * (s * (s + 1) // 2) * h * dh
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = flops / BF16_FLOPS * 1e3
+    floor = ("flash_attention", to * 1e3, "operations")
+    fk_ms = timed(torch, lambda: ops.flash_attention(fq, fk, fv, impl="cuda"),
+                  20, bound=floor)
+    fp_ms = timed(torch, lambda: R.attention(fq, fk, fv), 5, bound=floor)
+    fl_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+        fq, fk, fv, is_causal=True, enable_gqa=True), 50, bound=floor)
+    tiles = {bk: timed(torch, lambda bk=bk: ops.flash_attention(
+        fq, fk, fv, bk=bk, impl="cuda"), 20, bound=floor)
+        for bk in FL.KERNEL_KEY_TILES}
+    print(f"timing: flash_attention at gemma3-4b heads (B=1 S={s} H={h} "
+          f"Hkv={hkv} Dh={dh} bf16 causal), default "
+          f"{FL.default_bk(torch.bfloat16, dh)}-key tiles: "
+          f"{fk_ms * 1e3:.1f} us = "
+          f"{flops / fk_ms / 1e9:.1f} TFLOP/s ({to / fk_ms:.3f} of "
+          f"{BF16_FLOPS / 1e12:.0f}), bound {max(tb, to) * 1e3:.2f} us "
+          f"({'bytes' if tb >= to else 'operations'}), plain "
+          f"{fp_ms * 1e3:.1f} us, sdpa {fl_ms * 1e3:.2f} us; by key tile "
+          + ", ".join(f"{bk} keys {ms * 1e3:.1f} us" for bk, ms in
+                      tiles.items()) + " (device time by profiler)")
 
 
 def phase_trace(torch, serve, eng, reqs, label: str) -> None:
@@ -1539,6 +1781,7 @@ def main() -> int:
     rows += phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches,
                               paged_err, flash_launches, flash_err)
     rows += stream_rows
+    phase_wide_timings(torch, D, ops, R, reqs)
     phase_trace(torch, serve, eng, reqs, "trace")
     phase_trace(torch, serve, peng,
                 paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256,

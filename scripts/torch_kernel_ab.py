@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Parent against change: the port's CUDA kernels of two checkouts timed
+in turns on one card, at chip_smoke's shapes.
+
+Run from the repository root of the change on a machine with the card
+and ``nvcc``, with a checkout of the parent commit unpacked somewhere
+(``git archive <parent> | tar -x -C <dir>``):
+
+    python3 scripts/torch_kernel_ab.py <dir>
+
+Both checkouts' ``stream``, ``stencil``, ``decode`` and ``flash``
+libraries are built from their own ``csrc``; the change's Python
+wrappers drive both, by swapping which library ``build.load`` hands
+them (the C interfaces are the same; Gauss-Seidel's parent entry point,
+which takes no scratch row, is called directly). Each kernel is timed
+parent, change, change, parent with ``chip_smoke.timed`` (device time by
+torch.profiler) and printed with its two means and their ratio.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+LIBS = ("stream", "stencil", "decode", "flash")
+
+
+def parent_lib(build, csrc: str, name: str, signatures: dict):
+    """csrc/<name>.cu of the parent, built beside the change's libraries
+    under a name of its own digest, with ``signatures`` bound."""
+    src = os.path.join(csrc, f"{name}.cu")
+    h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    h.update(open(src, "rb").read())
+    for hdr in sorted(os.listdir(csrc)):
+        if hdr.endswith(".cuh"):
+            h.update(open(os.path.join(csrc, hdr), "rb").read())
+    out = build.BUILD_DIR / f"libparent_{name}-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+                       check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def main() -> int:
+    import torch
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import decode as D
+    from repro_torch.kernels.attention import flash as FL
+    from repro_torch.kernels.stream import kernels as SK
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    csrc = os.path.join(sys.argv[1], "src", "repro_torch", "kernels", "csrc")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # the parent's Gauss-Seidel takes no scratch row
+    stencil_sigs = {"stencil_gauss_seidel_2d5pt": [P, P, I, I, I, P]}
+    sigs = {"stream": SK._STREAM_SIGNATURES,
+            "stencil": SK._STENCIL_SIGNATURES, "decode": D._SIGNATURES,
+            "flash": FL._SIGNATURES}
+    new = {n: build.load(n, sigs[n]) for n in LIBS}
+    old = {n: parent_lib(build, csrc, n, dict(sigs[n], **(
+        stencil_sigs if n == "stencil" else {}))) for n in LIBS}
+
+    def using(libs, fn):
+        def call():
+            build._LIBS.update(libs)
+            fn()
+        return call
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    sh = chip_smoke.STREAM_HBM_SHAPE
+    xs = [torch.randn(sh, generator=gen, device="cuda") for _ in range(3)]
+    cases = []   # (label, parent call, change call, iters)
+    for name, (k, _, _, _, _) in chip_smoke.stream_elementwise(
+            torch, None, None).items():
+        cases.append((f"{name} f32 {sh}",
+                      lambda f=getattr(SK, name), a=xs[:k]: f(*a), 10))
+    cases += [
+        ("init_store f32", lambda: SK.init_store(sh, 2.0), 10),
+        ("init_nt f32", lambda: SK.init_nt(sh, 2.0), 10),
+        ("init_partial f32", lambda: SK.init_partial(sh, 2.0), 10),
+        ("sum_reduction f32", lambda: SK.sum_reduction(xs[0]), 10),
+        ("pi_integration n=2^28",
+         lambda: SK.pi_integration(chip_smoke.PI_N), 10)]
+    j2 = torch.randn(chip_smoke.JACOBI_2D_SHAPE, generator=gen, device="cuda")
+    j3 = torch.randn(chip_smoke.JACOBI_3D_SHAPE, generator=gen, device="cuda")
+    gs = torch.randn(chip_smoke.GS_SHAPE, generator=gen, device="cuda")
+    cases += [("jacobi_2d5pt", lambda: SK.jacobi_2d5pt(j2), 10),
+              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5)]
+    timed = []
+    for label, fn, iters in cases:
+        timed.append((label, using(old, fn), using(new, fn), iters))
+    go = torch.empty_like(gs)
+    h, w = gs.shape
+
+    def gs_parent():
+        rc = old["stencil"].stencil_gauss_seidel_2d5pt(
+            gs.data_ptr(), go.data_ptr(), h, w, chip_smoke.GS_SWEEPS,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(old["stencil"], rc, "parent gauss_seidel_2d5pt")
+    timed.append((f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x "
+                  f"{chip_smoke.GS_SWEEPS}", gs_parent,
+                  using(new, lambda: SK.gauss_seidel_2d5pt(
+                      gs, chip_smoke.GS_SWEEPS)), 3))
+
+    # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
+    # live rows, 48 layers' caches cycled so every call reads cold rows
+    b, hq, hkv, dh, n_layers = 8, 32, 4, 128, 48
+    lens = [300, 410, 180, 471, 350, 260, 500, 433]
+    pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kv_len = int(pos.max()) + 1
+    kc = torch.randn(n_layers, b, 2048, hkv, dh, generator=gen,
+                     device="cuda").bfloat16()
+    vc = torch.randn_like(kc)
+    q = torch.randn(b, 1, hq, dh, generator=gen, device="cuda").bfloat16()
+    bound, sl, ns = D.split_plan(b, hkv, 2048, 128, None, kv_len)
+    layer = [0]
+
+    def dense():
+        i = layer[0] = (layer[0] + 1) % n_layers
+        D.decode_partials(q, kc[i], vc[i], pos, window=None, split_len=sl,
+                          n_splits=ns, bound=bound, impl="cuda")
+    ps, npg = 16, 8 * 2048 // 16
+    kp = kc.view(n_layers, -1, ps, hkv, dh)[:, :npg]
+    vp = vc.view(n_layers, -1, ps, hkv, dh)[:, :npg]
+    nb = -(-kv_len // ps)
+    bt = torch.randperm(npg - 1, generator=torch.Generator().manual_seed(13))[
+        :b * nb].reshape(b, nb).int().cuda()
+    pb, psl, pns = D.paged_split_plan(b, hkv, ps, nb, None)
+
+    def paged():
+        i = layer[0] = (layer[0] + 1) % n_layers
+        D.decode_paged_partials(q, kp[i], vp[i], bt, pos, window=None,
+                                split_len=psl, n_splits=pns, bound=pb,
+                                impl="cuda")
+    timed += [(f"flash_decode B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
+               using(old, dense), using(new, dense), 480),
+              ("flash_decode_paged page 16", using(old, paged),
+               using(new, paged), 480)]
+    for s in (512, 2048):
+        fq = torch.randn(1, hq, s, dh, generator=gen,
+                         device="cuda").bfloat16()
+        fk = torch.randn(1, hkv, s, dh, generator=gen,
+                         device="cuda").bfloat16()
+        fv = torch.randn(1, hkv, s, dh, generator=gen,
+                         device="cuda").bfloat16()
+        fn = lambda fq=fq, fk=fk, fv=fv: FL.flash_attention(fq, fk, fv)  # noqa: E731
+        timed.append((f"flash_attention S={s} H={hq} Hkv={hkv} Dh={dh} "
+                      f"bf16 causal", using(old, fn), using(new, fn), 20))
+
+    for label, p_fn, c_fn, iters in timed:
+        t = [chip_smoke.timed(torch, f, iters) * 1e3
+             for f in (p_fn, c_fn, c_fn, p_fn)]
+        par, chg = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"ab: {label}: parent {t[0]:.2f} / {t[3]:.2f} us, change "
+              f"{t[1]:.2f} / {t[2]:.2f} us, change / parent "
+              f"{chg / par:.4f} (device time by profiler)")
+    build._LIBS.update(new)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,7 +16,8 @@ issues its K and V rows all at once as ``cp.async`` copies and 8 warps
 split the keys, each with its own softmax state. In bf16 the warps run
 both products on the tensor cores (exact bf16 products, P kept at fp32
 precision) and merge once a split; fp32 stays on the CUDA cores; see
-the source.
+the source. Any number of packed query rows ``G * Sq`` works: a call of
+more than ``KERNEL_MAX_ROWS`` runs groups of that many rows side by side.
 
 The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
@@ -41,8 +42,10 @@ NEG_INF = -1e30
 #: makes ``B * Hkv * n_splits`` thread blocks cover them
 H100_SMS = 132
 
-#: head dims and packed query rows (G * Sq) the kernel is built for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+#: head dims the kernel is built for
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: packed query rows (G * Sq) a thread block takes; a call with more runs
+#: groups of this many side by side, each reading its split's rows
 KERNEL_MAX_ROWS = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -130,7 +133,7 @@ def _check_kernel_inputs(q, k, v, pos, window) -> None:
     """Raise on anything the CUDA kernels do not take. ``k``/``v`` are
     (B, S, Hkv, Dh) slot caches or (P, page, Hkv, Dh) page pools: either
     way their rows must be contiguous and 16-byte aligned."""
-    sq, h, dh = q.shape[1:]
+    h, dh = q.shape[2:]
     hkv = k.shape[2]
     for name, x in (("k", k), ("v", v), ("pos", pos)):
         if x.device != q.device:
@@ -143,10 +146,9 @@ def _check_kernel_inputs(q, k, v, pos, window) -> None:
     if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_decode kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {dh}")
-    if h % hkv or (h // hkv) * sq > KERNEL_MAX_ROWS:
-        raise ValueError(f"flash_decode kernel packs at most "
-                         f"{KERNEL_MAX_ROWS} query rows per KV head "
-                         f"(H={h}, Hkv={hkv}, Sq={sq})")
+    if h % hkv:
+        raise ValueError(f"flash_decode kernel takes whole query-head "
+                         f"groups a KV head (H={h}, Hkv={hkv})")
     if not q.is_contiguous():
         raise ValueError("flash_decode kernel needs a contiguous q")
     vec = 16 // q.element_size()

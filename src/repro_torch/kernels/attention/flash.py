@@ -19,8 +19,10 @@ Unlike the TPU kernel, any ``S`` works: the kernel masks its ragged
 query and key tiles itself, where the TPU wrapper asserts
 ``S % bq == 0``. The tiles are explicit arguments: ``bq`` query
 positions per block (``bq * G`` packed rows, at most 128; by default as
-many as fit) and ``bk`` keys per tile (32 or 64). The MemTier autotuner
-that picks them in the JAX package is not ported.
+many as fit) and ``bk`` keys per tile (32 or 64; by default 64, and 32
+for fp32 at Dh=256, the one case whose 64-key tile does not fit shared
+memory). Head dims 32, 64, 128 and 256. The MemTier autotuner that picks
+the tiles in the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from repro_torch.kernels import LAUNCHES, build, use_kernel
 from repro_torch.kernels.attention import ref as R
 
 #: head dims, key tiles and packed query rows the kernel is built for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_KEY_TILES = (32, 64)
 KERNEL_MAX_ROWS = 128
 
@@ -49,6 +51,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def default_bq(h: int, hkv: int) -> int:
     """Query positions per block: as many as fill 128 packed rows."""
     return max(1, KERNEL_MAX_ROWS // (h // hkv))
+
+
+def default_bk(dtype, dh: int) -> int:
+    """Keys per tile: 64, or 32 where the fp32 body's 64-key tile does not
+    fit shared memory (Dh=256)."""
+    return 32 if dtype == torch.float32 and dh > 128 else 64
 
 
 def _check_kernel_inputs(q, k, v, bq, bk, window) -> None:
@@ -73,9 +81,11 @@ def _check_kernel_inputs(q, k, v, bq, bk, window) -> None:
         raise ValueError(f"flash_attention kernel packs at most "
                          f"{KERNEL_MAX_ROWS} query rows a block "
                          f"(H={h}, Hkv={hkv}, bq={bq})")
-    if bk not in KERNEL_KEY_TILES:
+    if bk not in KERNEL_KEY_TILES or bk > default_bk(q.dtype, dh):
         raise ValueError(f"flash_attention kernel takes bk in "
-                         f"{KERNEL_KEY_TILES}, got {bk}")
+                         f"{KERNEL_KEY_TILES} (at most "
+                         f"{default_bk(q.dtype, dh)} for {q.dtype} at "
+                         f"head_dim {dh}), got {bk}")
     vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(x.stride(i) % vec for i in range(3)) \
@@ -88,7 +98,8 @@ def _check_kernel_inputs(q, k, v, bq, bk, window) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, bq: int | None = None,
-                    bk: int = 64, impl: str = "auto") -> torch.Tensor:
+                    bk: int | None = None,
+                    impl: str = "auto") -> torch.Tensor:
     """Flash attention forward: q (B, H, S, Dh); k, v (B, Hkv, S, Dh) ->
     (B, H, S, Dh) in q's dtype, contiguous.
 
@@ -102,6 +113,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     b, h, s, dh = q.shape
     hkv = k.shape[1]
     bq = default_bq(h, hkv) if bq is None else bq
+    bk = default_bk(q.dtype, dh) if bk is None else bk
     _check_kernel_inputs(q, k, v, bq, bk, window)
     lib = build.load("flash", _SIGNATURES)
     o = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)

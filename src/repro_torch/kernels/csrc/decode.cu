@@ -5,7 +5,7 @@
 // flash_decode (body _decode_kernel) and flash_decode_paged (body
 // _paged_decode_kernel). One kernel body serves both, templated on its
 // row-addressing rule (PAGED); the load, score, softmax and value code is
-// shared. One thread block per (kv_head, split, batch row). The TPU
+// shared. One thread block per (kv_head, row group, split, batch row). The TPU
 // grid's sequential KV dimension becomes a loop inside the block over the
 // split's live rows: the block reads pos[b] itself (the TPU kernel's
 // scalar prefetch) and visits only rows in [max(split_lo, pos-window+1),
@@ -38,6 +38,19 @@
 // through shared memory where K and V were. Up to 16 packed rows share
 // one row block of the mma tiles (R <= 16); R <= 32 takes two, each
 // served by 4 warps.
+//
+// Packed rows past 32 (G * Sq > 32, e.g. G = 16 at Sq = 4): the grid's x
+// dimension runs over (KV head, group of 32 packed rows), and each group's
+// block reads its split's K and V rows itself. A call of at most 32
+// packed rows is one group, so the served shape (G * Sq = 8) is
+// unchanged; wider calls pay one more read of the rows a group.
+//
+// Head dims 32, 64, 128 and 256. At DH <= 128 both bodies run two blocks
+// an SM. At DH = 256 a bf16 warp keeps 16 rows x 256 fp32 accumulators
+// (128 registers a thread) and the fp32 body 32 rows' state a thread, so
+// both take one block an SM (up to 255 registers a thread, no spill);
+// their shared memory (150 KB bf16, 168 KB fp32) fits one block an SM in
+// any case.
 //
 // fp32: the tensor cores would round fp32 to TF32, so the arithmetic
 // stays on the CUDA cores: 32-key tiles in a two-stage ring (the next
@@ -115,7 +128,7 @@ __host__ __device__ constexpr size_t f32_smem_bytes() {
 }
 
 template <int DH, int MAXR, bool PAGED>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
 decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const int* __restrict__ pos,
                            float* __restrict__ o_part, float* __restrict__ m_part,
@@ -129,9 +142,11 @@ decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict_
   constexpr int KSTR = DH + 8;       // padded K row, in floats
   constexpr int RG = NT / DH;        // row groups of the value phase
   constexpr int RPT = MAXR / RG;     // packed rows a thread in the value phase
-  const int kvh = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
+  // packed rows r0 .. r0 + R - 1 of KV head kvh (r0 + r = j*G + g)
+  const int kvh = blockIdx.x % Hkv, r0 = (blockIdx.x / Hkv) * MAXR;
+  const int s = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int G = H / Hkv, R = G * Sq;
+  const int G = H / Hkv, R = min(G * Sq - r0, MAXR);
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);
@@ -177,11 +192,11 @@ decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict_
   if (n_tiles > 1) load_tile(1);
   cp_commit();
 
-  // packed query rows r = j*G + g (query token j, head kvh*G + g), scaled,
-  // read while the tiles are in flight
+  // packed query rows r0 + r = j*G + g (query token j, head kvh*G + g),
+  // scaled, read while the tiles are in flight
   for (int i = t; i < R * DH; i += NT) {
     const int r = i / DH, d = i - r * DH;
-    const int j = r / G, g = r - j * G;
+    const int j = (r0 + r) / G, g = r0 + r - j * G;
     q_s[i] = q[((size_t(b) * Sq + j) * H + kvh * G + g) * DH + d] * scale;
   }
 
@@ -232,7 +247,7 @@ decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict_
         }
 #pragma unroll
         for (int off = KPW; off < 32; off <<= 1) sc += __shfl_xor_sync(0xffffffffu, sc, off);
-        const int qp = p0 + r / G;
+        const int qp = p0 + (r0 + r) / G;
         const bool live = key < n && kp <= qp && (window <= 0 || kp > qp - window);
         sc = live ? sc : -INFINITY;
         float mx = sc;
@@ -309,7 +324,7 @@ decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict_
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
     if (r < R) {
-      const int j = r / G, g = r - j * G;
+      const int j = (r0 + r) / G, g = r0 + r - j * G;
       const size_t row = ((size_t(s) * B + b) * Sq + j) * H + kvh * G + g;
       o_part[row * DH + c] = acc[i];
       if (c == 0) {
@@ -346,7 +361,7 @@ __host__ __device__ constexpr size_t bf16_smem_bytes() {
 }
 
 template <int DH, int MAXR, bool PAGED>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
 decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
@@ -365,9 +380,11 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
   static_assert(size_t(NW) * 16 * DH * sizeof(float) <=
                     2 * size_t(H_BK) * STR * sizeof(bf16),
                 "the warps' accumulators must fit where K and V were");
-  const int kvh = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
+  // packed rows r0 .. r0 + R - 1 of KV head kvh (r0 + r = j*G + g)
+  const int kvh = blockIdx.x % Hkv, r0 = (blockIdx.x / Hkv) * MAXR;
+  const int s = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int G = H / Hkv, R = G * Sq;
+  const int G = H / Hkv, R = min(G * Sq - r0, MAXR);
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
@@ -410,12 +427,12 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
   const int start = window > 0 ? max(lo, p0 - window + 1) : lo;
   const int end = min(hi, p0 + Sq);
 
-  // packed query rows r = j*G + g (query token j, head kvh*G + g), bf16
-  // and unscaled, so the tensor cores' products are exact; rows past R
-  // are zero
+  // packed query rows r0 + r = j*G + g (query token j, head kvh*G + g),
+  // bf16 and unscaled, so the tensor cores' products are exact; rows past
+  // R are zero
   for (int i = t; i < MAXR * CPR; i += NT) {
     const int r = i / CPR, c = (i - r * CPR) * 8;
-    const int j = r / G, g = r - j * G;
+    const int j = (r0 + r) / G, g = r0 + r - j * G;
     const bool ok = r < R;
     cp16(q_s + r * STR + c, ok ? q + ((size_t(b) * Sq + j) * H + kvh * G + g) * DH + c : q,
          ok);
@@ -426,7 +443,7 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
   // 16*rb + lane/4 (_lo) and that + 8 (_hi) of every fragment
   const int rb = warp / WPG, wi = warp - rb * WPG;
   const int g8 = lane >> 2, tig = lane & 3;
-  const int qp_lo = p0 + (rb * 16 + g8) / G, qp_hi = p0 + (rb * 16 + g8 + 8) / G;
+  const int qp_lo = p0 + (r0 + rb * 16 + g8) / G, qp_hi = p0 + (r0 + rb * 16 + g8 + 8) / G;
   float m_lo = kNegInit, m_hi = kNegInit, l_lo = 0.f, l_hi = 0.f;
   float acc[ND][4];
 #pragma unroll
@@ -575,7 +592,7 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
     const int w0 = (r / 16) * WPG, rr = r % 16;
     float o = 0.f;
     for (int w = w0; w < w0 + WPG; ++w) o += f_s[w * 16 + rr] * o_s[(w * 16 + rr) * DH + c];
-    const int j = r / G, g = r - j * G;
+    const int j = (r0 + r) / G, g = r0 + r - j * G;
     const size_t row = ((size_t(s) * B + b) * Sq + j) * H + kvh * G + g;
     o_part[row * DH + c] = o;
     if (c == 0) {
@@ -621,7 +638,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
     if (e != cudaSuccess) return int(e);
     configured = true;
   }
-  const dim3 grid(a.Hkv, a.n_splits, a.B);
+  const int groups = ((a.H / a.Hkv) * a.Sq + MAXR - 1) / MAXR;
+  const dim3 grid(a.Hkv * groups, a.n_splits, a.B);
   kern<<<grid, NT, shm, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(pos), static_cast<float*>(o), static_cast<float*>(m),
@@ -630,8 +648,9 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
   return int(cudaGetLastError());
 }
 
-// packed rows: the fp32 body is built for 8, 16 and 32, the bf16 body
-// for one or two row blocks of 16
+// packed rows a block: the fp32 body is built for 8, 16 and 32, the bf16
+// body for one or two row blocks of 16; more than 32 packed rows take
+// groups of 32
 template <typename T, int DH, bool PAGED>
 int launch_rows(const void* q, const void* k, const void* v, const void* pos, void* o,
                 void* m, void* l, const Args& a, cudaStream_t st) {
@@ -639,8 +658,7 @@ int launch_rows(const void* q, const void* k, const void* v, const void* pos, vo
   if constexpr (sizeof(T) == 4)
     if (R <= 8) return launch<T, DH, 8, PAGED>(q, k, v, pos, o, m, l, a, st);
   if (R <= 16) return launch<T, DH, 16, PAGED>(q, k, v, pos, o, m, l, a, st);
-  if (R <= 32) return launch<T, DH, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
-  return int(cudaErrorInvalidValue);
+  return launch<T, DH, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
 }
 
 template <typename T, bool PAGED>
@@ -650,6 +668,7 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, const void* p
     case 32: return launch_rows<T, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
     case 64: return launch_rows<T, 64, PAGED>(q, k, v, pos, o, m, l, a, st);
     case 128: return launch_rows<T, 128, PAGED>(q, k, v, pos, o, m, l, a, st);
+    case 256: return launch_rows<T, 256, PAGED>(q, k, v, pos, o, m, l, a, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -35,16 +35,19 @@
 // shared memory, rows padded by 16 bytes so ldmatrix is free of bank
 // conflicts, in a ring of two stages filled by 16-byte cp.async copies:
 // tile j+1 loads while tile j is multiplied. Q is loaded once. Shared
-// memory is 102 KB at Dh=128 and 64-key tiles; one block an SM, whose
-// registers then need no spill. Rows and keys past S are zero-filled by
-// the copies.
+// memory is 102 KB at Dh=128 and 64-key tiles (198 KB at Dh=256); one
+// block an SM, whose registers then need no spill. At Dh=256 a warp's
+// accumulators take 128 of its registers a thread, so Dh=256 keeps the
+// same body at up to 255 registers a thread, again one block an SM. Rows
+// and keys past S are zero-filled by the copies.
 //
 // fp32: the scalar body. The tensor cores would run fp32 as TF32, whose
 // 10-bit mantissa fails the 1e-4 the fp32 path is held to, so fp32 keeps
 // scalar fp32 FMAs out of shared memory (256 threads as a 16x16 grid; per
 // 32- or 64-key tile: K and V staged as fp32, scores, a warp a row for the
 // online softmax, the values into a register accumulator), capped near
-// the 67 TFLOP/s fp32 rate.
+// the 67 TFLOP/s fp32 rate. At Dh=256 only 32-key tiles fit (214 KB of
+// shared memory; 64-key tiles would need 294 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +62,7 @@ constexpr int NT = 256;          // threads per block
 constexpr int MAXR = 128;        // packed query rows per block
 constexpr int RPT = MAXR / 16;   // rows per thread (fp32 body)
 constexpr float kNegInit = -1e30f;
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block, H100
 
 // ---------------------------------------------------------------------------
 // fp32: the scalar body
@@ -503,6 +507,13 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, void* o, int 
     case 128:
       return launch<T, 128, BK>(q, k, v, o, B, H, Hkv, S, st, bq, causal, window, scale,
                                 stream);
+    case 256:
+      // built only where the tile fits shared memory (not fp32 at BK=64)
+      if constexpr (sizeof(T) == 2 || sizeof(float) * smem_floats<256, BK>() <= kMaxSmem)
+        return launch<T, 256, BK>(q, k, v, o, B, H, Hkv, S, st, bq, causal, window, scale,
+                                  stream);
+      else
+        return int(cudaErrorInvalidValue);
     default:
       return int(cudaErrorInvalidValue);
   }

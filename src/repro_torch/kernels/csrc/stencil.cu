@@ -27,19 +27,25 @@
 // intrinsics: the outputs are bit-identical to PyTorch's.
 //
 // Gauss-Seidel: one block of 1024 threads walks the rows in order,
-// sweeps times; thread t owns columns 1 + t + 1024 k. For row i a thread
-// reads, for each of its columns, the row above after its update (its
-// own write of the step before), the row below before its update, and
-// the left and right neighbours of row i BEFORE its update, computes the
-// new values into registers, waits at the barrier until every thread has
-// read row i, and only then writes them. (A sweep that wrote as it went
-// would read updated left neighbours: not the TPU kernel's semantics,
-// which reads row i whole before writing it.) The first sweep reads the
-// old values from the input and writes the output, so the copy of the
-// input is folded into it: the boundary rows and columns are copied
-// unchanged and nothing else is copied. A barrier ends each sweep: with
-// one interior row (h == 3) the next sweep reads that row's neighbours,
-// which other threads wrote after the row's barrier.
+// sweeps times; thread t owns columns 1 + t + 1024 k, any number of them.
+// For row i a thread reads, for each of its columns, the row above after
+// its update (its own write of the step before), the row below before its
+// update, and the left and right neighbours of row i BEFORE its update,
+// and computes the new value; it waits at the barrier until every thread
+// has read row i, and only then writes them. (A sweep that wrote as it
+// went would read updated left neighbours: not the TPU kernel's semantics,
+// which reads row i whole before writing it.) Between read and write the
+// new values are staged: the first 16 of a thread's columns (interior
+// widths up to 16,384) in registers, the rest in a scratch row of w floats
+// that the wrapper allocates. Column j's slot of the scratch row is
+// written and read back by the thread that owns column j only, so it
+// needs no barrier of its own, and any width works; a width within the
+// registers never touches the scratch row. The first sweep reads the old
+// values from the input and writes the output, so the copy of the input
+// is folded into it: the boundary rows and columns are copied unchanged
+// and nothing else is copied. A barrier ends each sweep: with one interior
+// row (h == 3) the next sweep reads that row's neighbours, which other
+// threads wrote after the row's barrier.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +53,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kGsThreads = 1024;
-constexpr int kGsCols = 16;  // columns a Gauss-Seidel thread owns, at most
+constexpr int kGsCols = 16;  // columns a Gauss-Seidel thread stages in registers
 
 __global__ void __launch_bounds__(kThreads)
     jacobi2d_kernel(const float* __restrict__ u, float* __restrict__ o, int w,
@@ -79,9 +85,11 @@ __global__ void __launch_bounds__(kThreads)
   o[row * ow + x] = __fmul_rn(static_cast<float>(1.0 / 6.0), s);
 }
 
-// u and o are distinct; o is read back, so neither is __restrict__
+// u and o are distinct; o is read back, so neither is __restrict__.
+// scratch holds w floats; it is read only where w - 2 > kGsThreads * kGsCols.
 __global__ void __launch_bounds__(kGsThreads)
-    gauss_seidel_kernel(const float* u, float* o, int h, int w, int sweeps) {
+    gauss_seidel_kernel(const float* u, float* o, float* scratch, int h, int w,
+                        int sweeps) {
   const int t = threadIdx.x;
   const long long hw = static_cast<long long>(h) * w;
   if (sweeps < 1 || h < 3 || w < 3) {  // no interior point changes
@@ -99,27 +107,33 @@ __global__ void __launch_bounds__(kGsThreads)
     o[r + w - 1] = u[r + w - 1];
   }
   __syncthreads();
+  // the first column past the registers' (the scratch row's first)
+  const int j_spill = 1 + t + kGsCols * kGsThreads;
   for (int sweep = 0; sweep < sweeps; ++sweep) {
     const float* old = sweep == 0 ? u : o;  // values before this sweep
     for (int i = 1; i < h - 1; ++i) {
       const long long r = static_cast<long long>(i) * w;
+      // row i-1 updated, row i+1 and row i's neighbours old
+      auto point = [&](int j) {
+        const float up = o[r - w + j];
+        const float s = __fadd_rn(__fadd_rn(__fadd_rn(up, old[r + w + j]), old[r + j - 1]),
+                                  old[r + j + 1]);
+        return __fmul_rn(0.25f, s);
+      };
       float nv[kGsCols];
 #pragma unroll
       for (int k = 0; k < kGsCols; ++k) {
         const int j = 1 + t + k * kGsThreads;
-        if (j < w - 1) {
-          const float up = o[r - w + j];  // row i-1, updated
-          const float s = __fadd_rn(__fadd_rn(__fadd_rn(up, old[r + w + j]), old[r + j - 1]),
-                                    old[r + j + 1]);
-          nv[k] = __fmul_rn(0.25f, s);
-        }
+        if (j < w - 1) nv[k] = point(j);
       }
+      for (int j = j_spill; j < w - 1; j += kGsThreads) scratch[j] = point(j);
       __syncthreads();  // every thread has read row i's old values
 #pragma unroll
       for (int k = 0; k < kGsCols; ++k) {
         const int j = 1 + t + k * kGsThreads;
         if (j < w - 1) o[r + j] = nv[k];
       }
+      for (int j = j_spill; j < w - 1; j += kGsThreads) o[r + j] = scratch[j];
     }
     __syncthreads();  // this sweep's writes before the next sweep's reads
   }
@@ -158,13 +172,15 @@ int stencil_jacobi_3d7pt(const void* u, void* o, int d, int h, int w, void* stre
   return int(cudaGetLastError());
 }
 
-// o (h, w) = u after `sweeps` Gauss-Seidel sweeps; w - 2 <= 16384.
-int stencil_gauss_seidel_2d5pt(const void* u, void* o, int h, int w, int sweeps,
-                               void* stream) {
-  if (h < 1 || w < 1 || sweeps < 0 || w - 2 > kGsThreads * kGsCols)
+// o (h, w) = u after `sweeps` Gauss-Seidel sweeps; scratch holds w
+// floats (unused where w - 2 <= 16384).
+int stencil_gauss_seidel_2d5pt(const void* u, void* o, void* scratch, int h, int w,
+                               int sweeps, void* stream) {
+  if (h < 1 || w < 1 || sweeps < 0 || (w - 2 > kGsThreads * kGsCols && scratch == nullptr))
     return int(cudaErrorInvalidValue);
   gauss_seidel_kernel<<<1, kGsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(u), static_cast<float*>(o), h, w, sweeps);
+      static_cast<const float*>(u), static_cast<float*>(o), static_cast<float*>(scratch),
+      h, w, sweeps);
   return int(cudaGetLastError());
 }
 

@@ -46,19 +46,18 @@ _STREAM_SIGNATURES = {
 _STENCIL_SIGNATURES = {
     "stencil_jacobi_2d5pt": [_P, _P, _I, _I, _P],
     "stencil_jacobi_3d7pt": [_P, _P, _I, _I, _I, _P],
-    "stencil_gauss_seidel_2d5pt": [_P, _P, _I, _I, _I, _P],
+    "stencil_gauss_seidel_2d5pt": [_P, _P, _P, _I, _I, _I, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # operation codes of csrc/stream.cu
 _FILL, _COPY, _SCALE, _ADD, _TRIAD, _SCHOENAUER = range(6)
 
-#: init_partial's block, the TPU kernel's misaligned 7 x 100
-PARTIAL_BLOCK = (7, 100)
 #: points per pi_integration block partial (the TPU kernel's ``bn``)
 PI_BLOCK = 4096
-#: interior columns a Gauss-Seidel launch takes (1024 threads x 16)
-GS_MAX_INTERIOR_COLS = 16384
+#: interior columns Gauss-Seidel stages in registers (1024 threads x 16);
+#: a wider grid stages the rest of a row in a scratch row
+GS_REGISTER_COLS = 16384
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -130,9 +129,10 @@ def init_store(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
 
 
 def init_partial(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
-    """a[:] = s written in 7 x 100 blocks, one thread block each: rows of
-    400 bytes (f32) that start in the middle of a 32-byte sector every
-    other block (the full write-allocate subject)."""
+    """a[:] = s written in 7 x 100 blocks, a warp a block, each row of a
+    block with its own stores: rows of 400 bytes (f32) that start in the
+    middle of a 32-byte sector every other block (the full write-allocate
+    subject)."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"init_partial kernel takes {tuple(_DTYPE_CODES)}, "
                          f"got {dtype}")
@@ -144,10 +144,6 @@ def init_partial(shape, scalar=3.0, dtype=torch.float32, *, device="cuda"):
     o = torch.empty((m, n), dtype=dtype, device=device)
     if o.numel() == 0:
         return o
-    bm, bn = PARTIAL_BLOCK
-    if -(-m // bm) * -(-n // bn) > _INT_MAX:
-        raise ValueError(f"init_partial kernel: {shape} needs more than "
-                         f"2^31 - 1 blocks")
     lib = build.load("stream", _STREAM_SIGNATURES)
     rc = lib.stream_init_partial(_DTYPE_CODES[dtype], o.data_ptr(), m, n,
                                  float(scalar), _stream(device))
@@ -292,23 +288,27 @@ def jacobi_3d7pt(u):
 def gauss_seidel_2d5pt(u, sweeps: int = 1):
     """``sweeps`` row-wavefront Gauss-Seidel sweeps of ``u`` (H, W) in one
     thread block; returns a new (H, W) tensor, ``u`` is not modified.
-    Takes W - 2 <= ``GS_MAX_INTERIOR_COLS``."""
+    Any H and W (below 2^31 each): where W - 2 exceeds
+    ``GS_REGISTER_COLS`` the kernel stages a row's new values in a
+    scratch row of W floats allocated here."""
     _check_inputs("gauss_seidel_2d5pt", (u,), (torch.float32,),
                   aligned=False)
     if u.dim() != 2 or u.numel() == 0:
         raise ValueError(f"gauss_seidel_2d5pt kernel takes a non-empty 2-D "
                          f"grid, got {tuple(u.shape)}")
     h, w = u.shape
-    if w - 2 > GS_MAX_INTERIOR_COLS or h > _INT_MAX:
-        raise ValueError(f"gauss_seidel_2d5pt kernel takes at most "
-                         f"{GS_MAX_INTERIOR_COLS} interior columns, got "
-                         f"{w - 2}")
+    if max(h, w) > _INT_MAX:
+        raise ValueError("gauss_seidel_2d5pt kernel: a side above 2^31 - 1")
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
     o = torch.empty_like(u)
+    scratch = (torch.empty(w, dtype=u.dtype, device=u.device)
+               if w - 2 > GS_REGISTER_COLS else None)
     lib = build.load("stencil", _STENCIL_SIGNATURES)
-    rc = lib.stencil_gauss_seidel_2d5pt(u.data_ptr(), o.data_ptr(), h, w,
-                                        int(sweeps), _stream(u.device))
+    rc = lib.stencil_gauss_seidel_2d5pt(
+        u.data_ptr(), o.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), h, w, int(sweeps),
+        _stream(u.device))
     build.check(lib, rc, "gauss_seidel_2d5pt")
     LAUNCHES["gauss_seidel_2d5pt"] += 1
     return o

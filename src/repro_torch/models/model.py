@@ -31,10 +31,10 @@ from repro_torch.models import layers as L
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP queue 1 item 7 (models/ssm.py)",
-    "mlstm": "ROADMAP queue 1 item 7 (models/xlstm.py)",
-    "slstm": "ROADMAP queue 1 item 7 (models/xlstm.py)",
-    "moe": "ROADMAP queue 1 item 7 (models/moe.py)",
+    "mamba": "ROADMAP queue 1 item 4 (models/ssm.py)",
+    "mlstm": "ROADMAP queue 1 item 4 (models/xlstm.py)",
+    "slstm": "ROADMAP queue 1 item 4 (models/xlstm.py)",
+    "moe": "ROADMAP queue 1 item 4 (models/moe.py)",
 }
 
 

@@ -37,6 +37,17 @@ CASES = [
 ]
 
 
+# head shapes past the smoke config's: gemma3-4b's head_dim 256, and G=16
+# at Sq=4 (64 packed query rows a KV head, more than one row group of the
+# CUDA kernel), against JAX's Pallas kernel in interpret mode
+WIDE_CASES = [
+    # (b, skv, h, hkv, dh, sq, window, bk, n_splits, pos)
+    (1, 40, 2, 1, 256, 1, None, 16, 2, [37]),         # Dh=256
+    (1, 40, 2, 1, 256, 2, 24, 16, 3, [20]),           # Sq=2, window, dead
+    (2, 40, 16, 1, 32, 4, None, 16, 2, [30, 9]),      # G*Sq = 64
+]
+
+
 def _case(b, skv, h, hkv, dh, sq, seed=0, dtype=np.float32):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, h, dh)).astype(dtype)
@@ -68,9 +79,9 @@ def test_flash_decode_matches_jax_oracle_f32(b, skv, h, hkv, dh, sq, window,
 
 
 # interpret mode is slow: three cases cover Sq 1 and 3, ragged Skv, a
-# window, n_splits 1 and 3, and dead splits
+# window, n_splits 1 and 3, and dead splits; then the wide head shapes
 @pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,bk,ns,pos",
-                         [CASES[0], CASES[2], CASES[3]])
+                         [CASES[0], CASES[2], CASES[3]] + WIDE_CASES)
 def test_flash_decode_matches_jax_kernel_f32(b, skv, h, hkv, dh, sq, window,
                                              bk, ns, pos):
     q, k, v = _case(b, skv, h, hkv, dh, sq)
@@ -82,7 +93,7 @@ def test_flash_decode_matches_jax_kernel_f32(b, skv, h, hkv, dh, sq, window,
 
 
 @pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,bk,ns,pos",
-                         [CASES[2], CASES[3]])
+                         [CASES[2], CASES[3]] + WIDE_CASES)
 def test_flash_decode_matches_jax_bf16(b, skv, h, hkv, dh, sq, window, bk,
                                        ns, pos):
     q, k, v = _case(b, skv, h, hkv, dh, sq, seed=1)

@@ -21,6 +21,7 @@ from repro.kernels.attention import flash as JF
 from repro.kernels.attention import ops as JOPS
 from repro.kernels.attention import ref as JR
 from repro_torch import kernels as K
+from repro_torch.kernels.attention import flash as F
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention import ref as R
 
@@ -38,6 +39,8 @@ CASES = [
     (4, 1, 256, 64, 96, 64, 32),
     (2, 2, 192, 128, None, 64, 64),
     (8, 4, 128, 64, 64, 32, 32),
+    (2, 1, 64, 256, None, 32, 32),    # Dh=256 (gemma3-4b's head_dim)
+    (4, 2, 64, 256, 24, 32, 32),      # Dh=256, GQA, window
 ]
 
 
@@ -84,6 +87,31 @@ def test_attention_bf16_matches_jax(window):
     np.testing.assert_allclose(f32(got), f32(want), **BF16_TOL)
     oracle = JR.attention(jq, jk, jv, window=window)
     np.testing.assert_allclose(f32(got), f32(oracle), **BF16_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_attention_bf16_dh256_matches_jax(window):
+    """gemma3-4b's head_dim 256 in bf16, against JAX's Pallas kernel in
+    interpret mode and its oracle."""
+    q, k, v = _qkv(2, 1, 64, 256, seed=4, b=1)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = JF.flash_attention(jq, jk, jv, bq=32, bk=32, window=window,
+                              interpret=True)
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(got), f32(want), **BF16_TOL)
+    oracle = JR.attention(jq, jk, jv, window=window)
+    np.testing.assert_allclose(f32(got), f32(oracle), **BF16_TOL)
+
+
+def test_default_key_tile_fits_shared_memory():
+    """64-key tiles, but 32 for fp32 at Dh=256, where the fp32 body's
+    64-key tile would not fit the H100's shared memory."""
+    assert F.default_bk(torch.bfloat16, 256) == 64
+    assert F.default_bk(torch.float32, 128) == 64
+    assert F.default_bk(torch.float32, 256) == 32
+    assert 256 in F.KERNEL_HEAD_DIMS
 
 
 def test_bshd_adapter_matches_jax():
@@ -146,6 +174,24 @@ def test_tensor_core_rounding_within_bf16_budget(s, window):
     oracle = JR.attention(jq, jk, jv, window=window)
     assert np.abs(got - f32(oracle)).max() <= 2 ** -6
     if s % 512 == 0:
+        kern = JF.flash_attention(jq, jk, jv, bq=512, bk=512, window=window,
+                                  interpret=True)
+        assert np.abs(got - f32(kern)).max() <= 2 ** -6
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("s", [509, 512])
+def test_tensor_core_rounding_within_bf16_budget_dh256(s, window):
+    """The same roundings at gemma3-4b's heads (H=8, Hkv=4, Dh=256): a
+    score sums 256 bf16 products, still within 2^-6 of the fp32 oracle
+    and of JAX's Pallas kernel in interpret mode where S tiles (512)."""
+    q, k, v = _qkv(8, 4, s, 256, seed=6, b=1)
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    got = f32(_tensor_core_rounding(tq, tk, tv, window=window))
+    want = R.attention(tq.float(), tk.float(), tv.float(), window=window)
+    assert np.abs(got - f32(want)).max() <= 2 ** -6
+    if s % 512 == 0:
+        jq, jk, jv = (jnp.asarray(f32(x)) for x in (tq, tk, tv))
         kern = JF.flash_attention(jq, jk, jv, bq=512, bk=512, window=window,
                                   interpret=True)
         assert np.abs(got - f32(kern)).max() <= 2 ** -6

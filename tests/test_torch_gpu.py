@@ -46,7 +46,14 @@ def cuda():
     # sees one row (Sq=1), 6 splits leave some ragged and some dead
     (4, 300, 32, 4, 128, sq, window, 6) for sq in (1, 2, 3, 4)
     for window in (None, 40)
-])
+] + [
+    # Dh=256 (gemma3-4b) at G 1-8, Sq 1-2, one live row, dead splits
+    (4, 300, 2 * g, 2, 256, sq, None, 6) for g, sq in ((1, 1), (2, 2), (4, 1),
+                                                       (8, 2))
+] + [
+    # more than 32 packed rows (groups of 32): G=16 at Sq 1-4, G=8 at Sq 8
+    (3, 200, 32, 2, 128, sq, None, None) for sq in (1, 2, 3, 4)
+] + [(3, 200, 32, 2, 128, 4, 40, None), (3, 200, 16, 2, 128, 8, None, None)])
 def test_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh, sq,
                                      window, ns):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -112,6 +119,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     k = torch.randn(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         D.flash_decode(q, k, k, 3, impl="cuda")
+    q = torch.randn(1, 2, 16, 256, device=cuda)      # fp32 at Dh=256
+    with pytest.raises(ValueError, match="bk"):      # 64 keys do not fit
+        ops.flash_attention(q, q, q, bk=64, impl="cuda")
     kc = torch.zeros(1, 8, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         stores.kv_row_update(kc[:, :, :, :16], kc[:, :, :, :16],
@@ -169,7 +179,12 @@ def _paged_layout(k, v, ps, gen, dead_to):
     # (Sq=1), ragged and dead splits, pages of 8, 16 and 256 rows
     (4, 300, 32, 4, 128, sq, None, ps, 6) for sq in (1, 2, 3, 4)
     for ps in (8, 16, 256)
-])
+] + [
+    # Dh=256 at G 1-8, pages of 16; more than 32 packed rows
+    (4, 300, 2 * g, 2, 256, sq, None, 16, 6) for g, sq in ((1, 1), (2, 2),
+                                                           (4, 1), (8, 2))
+] + [(3, 200, 32, 2, 128, sq, None, 16, None) for sq in (1, 4)]
+  + [(3, 200, 16, 2, 128, 8, 40, 16, None)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
                                            sq, window, ps, ns):
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -221,6 +236,14 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
     (32, 4, 300, 128, 5, None, 64, True),   # windows smaller than a tile
     (4, 2, 129, 32, 1, None, 32, True),
     (8, 2, 100, 64, None, None, 64, False),  # no causal mask
+] + [
+    # Dh=256 (gemma3-4b's heads) at the default tiles (64 keys; 32 in fp32)
+    (8, 4, s, 256, None, None, None, True) for s in (1, 65, 512, 2048)
+] + [
+    (2 * g, 2, 100, 256, None, None, None, True) for g in (1, 2, 4, 8)
+] + [
+    (8, 4, 300, 256, 40, None, None, True),  # a window
+    (8, 4, 100, 256, None, None, None, False),  # no causal mask
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, h, hkv, s, dh,
                                               window, bq, bk, causal):
@@ -350,6 +373,22 @@ def test_stream_elementwise_kernel_matches_plain(cuda, name, shape, dtype):
         assert _within_bf16_ulp(got, plain([x.float() for x in xs]))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(STREAM_ELEMENTWISE))
+def test_stream_elementwise_whole_tiles_and_tail(cuda, name, dtype):
+    """A length past many whole tiles of 256 threads x 4 vectors, with
+    vectors left over and a ragged tail of single elements."""
+    call, plain, n = STREAM_ELEMENTWISE[name]
+    g = torch.Generator(device=cuda).manual_seed(18)
+    xs = [torch.randn((1001, 1003), generator=g, device=cuda).to(dtype)
+          for _ in range(n)]
+    got = call(xs)
+    if dtype == torch.float32:
+        assert torch.equal(got, plain(xs))
+    else:
+        assert _within_bf16_ulp(got, plain([x.float() for x in xs]))
+
+
 def test_stream_elementwise_ragged_tail(cuda):
     """Lengths that are no multiple of a 16-byte vector: the tail is
     written one element a step."""
@@ -374,6 +413,20 @@ def test_stream_init_kernels_match_plain(cuda, name, shape, dtype):
     K.reset_launches()
     got = call()
     assert K.LAUNCHES[name] == 1
+    assert torch.equal(got, SR.init(shape, 2.5, dtype, cuda))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((16384, 16384), torch.float32),          # the stream phase's size
+    ((253, 484), torch.float32),
+    ((37, 1001), torch.bfloat16),             # odd rows of 2002 bytes
+    ((15, 203), torch.bfloat16)])
+def test_stream_init_partial_at_size(cuda, shape, dtype):
+    """init_partial's 7 x 100 blocks at full size and at odd widths, where
+    a block's rows start at every alignment."""
+    K.reset_launches()
+    got = SO.init_partial(shape, 2.5, dtype, device=cuda)
+    assert K.LAUNCHES["init_partial"] == 1
     assert torch.equal(got, SR.init(shape, 2.5, dtype, cuda))
 
 
@@ -409,6 +462,10 @@ def test_stream_pi_kernel_matches_plain(cuda, n):
     ("gauss_seidel_2d5pt", (20, 2500), 3),   # 3 columns a thread
     ("gauss_seidel_2d5pt", (3, 2500), 2),    # one interior row, two sweeps
     ("gauss_seidel_2d5pt", (3, 101), 3),
+    # past the 16,384 interior columns held in registers: the rest of a
+    # row is staged in the scratch row
+    ("gauss_seidel_2d5pt", (6, 20000), 2),
+    ("gauss_seidel_2d5pt", (5, 40002), 1),
 ])
 def test_stream_stencil_kernels_match_plain(cuda, name, shape, sweeps):
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -450,5 +507,5 @@ def test_stream_kernels_refuse_what_they_do_not_take(cuda):
         SO.copy(x.view(-1)[1:])
     with pytest.raises(ValueError, match="takes"):
         SO.jacobi_2d5pt(x.double())
-    with pytest.raises(ValueError, match="interior columns"):
-        SO.gauss_seidel_2d5pt(torch.zeros(3, 16387, device=cuda))
+    with pytest.raises(ValueError, match="2-D grid"):
+        SO.gauss_seidel_2d5pt(torch.zeros(3, 4, 5, device=cuda))

@@ -161,7 +161,7 @@ def test_unported_blocks_raise():
     cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=64,
                       block_pattern=("attn", "mamba"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
         M.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         M.forward(get_smoke_config("yi-9b"), {}, {"tokens": torch.zeros(

@@ -38,6 +38,9 @@ CASES = [
     (2, 50, 4, 2, 32, 1, 16, 16, 1, [49, 20]),             # partial page
     (2, 64, 4, 2, 32, 4, None, 8, 2, [17, 60]),            # Sq=4
     (2, 72, 8, 2, 32, 4, 20, 4, 4, [30, 68]),              # Sq=4, window
+    (1, 40, 2, 1, 256, 1, None, 16, 2, [37]),              # Dh=256
+    (1, 40, 2, 1, 256, 2, 16, 8, 3, [25]),                 # Dh=256, window
+    (2, 48, 16, 1, 32, 4, None, 8, 3, [40, 11]),           # G*Sq = 64
 ]
 
 

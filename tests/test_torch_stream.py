@@ -177,7 +177,10 @@ def test_jacobi_3d_matches_jax_kernel(shape):
 
 @pytest.mark.parametrize("shape,sweeps", [((20, 128), 1), ((34, 128), 2),
                                           ((9, 13), 3), ((3, 128), 2),
-                                          ((3, 13), 3)])
+                                          ((3, 13), 3),
+                                          # wider than the CUDA kernel's
+                                          # 16,384 register columns
+                                          ((5, 16500), 1), ((5, 16500), 2)])
 def test_gauss_seidel_matches_jax_kernel(shape, sweeps):
     js, ts = _inputs(shape, 1, seed=6)
     u = ts[0].clone()
