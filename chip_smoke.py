@@ -34,13 +34,21 @@ Phases, each printed on its own line:
    2048-row cache read up to the serving path's occupancy bounds (kv_len
    472 and 301, rounded up to 128-row blocks, and 301 unrounded); and
    in bf16 and fp32 gemma3-4b's heads (H=8, Hkv=4, Dh=256) and G=16 at
-   Sq 1 and 4 (16 and 64 packed rows: one and two row groups);
+   Sq 1 and 4 (16 and 64 packed rows: one and two row groups). At each
+   shape both the per-split partials (merged by ``combine_splits``) and
+   the finished output (splits merged inside the kernel, in q's dtype)
+   against the plain partials merged and cast (:func:`finished_ok`); the
+   split counters all 0 after each call, a repeated call bit-identical,
+   and one ``ops.flash_decode`` call one kernel event in a profiler
+   window;
 3a. the paged decode kernel against its plain version at the same head
    shapes: pages of 8, 16 and 256 rows under a randomly permuted table,
    dead table columns naming a NaN scratch page, Sq 1 and 4, no window
    and 256, one and the default split count, a kv_len cut below the
    horizon; against the dense kernel on the same logical cache; and the
-   Dh=256 and 64-packed-row shapes of phase 3;
+   Dh=256 and 64-packed-row shapes of phase 3; partials and finished
+   output, counters, repeats and one ``ops.flash_decode_paged`` event as
+   in phase 3;
 3b. the flash-attention kernel against its plain version at yi-9b
    prefill shapes (B=1, H=32, Hkv=4, Dh=128), S 512, 2048 and 509,
    causal and causal with a 256-row window, in fp32 and bf16, and at
@@ -70,15 +78,18 @@ Phases, each printed on its own line:
    version's time and a library call's time (none for the paged kernel:
    no single PyTorch call reads a paged cache), with the achieved GB/s
    (decode) or TFLOP/s (flash attention) and their share of the card's
-   peak; the whole ``ops.flash_decode`` (partials and the plain
-   combine, a finished output as sdpa's) beside the partials, and the
-   paged kernel at 4 splits (one block an SM) beside its default 5; the
+   peak. The decode rows time the finished ``ops.flash_decode`` and
+   ``ops.flash_decode_paged`` (one launch each, a finished output as
+   sdpa's), with the partials-only launch beside them, and the paged
+   kernel at 4 splits (one block an SM) beside its default 5; their
+   bound counts the finished output's bytes (:func:`decode_bound`). The
    three attention kernels at gemma3-4b's heads (Dh=256) beside their
    bounds and sdpa; then, for the dense and the paged engine, two
    full-width decode dispatches of the same 8 requests timed once on the
-   wall clock and once under the profiler: the device's busy time per
-   step, its idle share and where the time goes; the ``kernels`` JSON
-   line (all 20 kernels, phase 2a's among them) comes last but one.
+   wall clock and once under the profiler: the device's busy time and
+   kernel launches per step, its idle share and where the time goes; the
+   ``kernels`` JSON line (all 20 kernels, phase 2a's among them) comes
+   last but one.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -346,13 +357,17 @@ STREAM_KERNELS = {
 }
 
 
+def bf16_ulp(torch, x):
+    """The bf16 ulp at |x|, for bf16 values held in fp32."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
 def bf16_ulps(torch, got, want_f32) -> float:
     """max |got - want| in bf16 ulps at |want|, ``want`` the fp32 result
     rounded once to bf16."""
     want = want_f32.bfloat16().float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.abs().clamp_min(2.0 ** -126))) - 7)
-    return ((got.float() - want).abs() / ulp).max().item()
+    return ((got.float() - want).abs() / bf16_ulp(torch, want)).max().item()
 
 
 #: the PyTorch call timed beside each elementwise kernel (NT and standard)
@@ -692,13 +707,91 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
 # head_dim 256, and G = 16 (qwen3-moe-235b) at Sq = 4, 64 packed rows
 WIDE_DECODE_SHAPES = ((4, 8, 4, 256, (1, 4)), (2, 64, 4, 128, (1, 4)))
 
+
+def finished_ok(torch, got, want_f32) -> tuple:
+    """``(ok, max abs err)`` of a finished decode output in q's dtype
+    against the plain version's fp32 output (partials merged by
+    ``combine_splits``). fp32: within DECODE_TOL, as the partials. bf16:
+    within one bf16 ulp of the plain output rounded to bf16 (what
+    ``.to(torch.bfloat16)`` gives), plus DECODE_TOL: both sides round an
+    fp32 value once, and the two fp32 values, their sums taken in other
+    orders, differ by up to DECODE_TOL."""
+    want = want_f32.to(got.dtype).float()
+    err = (got.float() - want).abs()
+    lim = DECODE_TOL
+    if got.dtype == torch.bfloat16:
+        lim = bf16_ulp(torch, want) + DECODE_TOL
+    return bool((err <= lim).all()), err.max().item()
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two tensors of one dtype and shape hold the same bits."""
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def check_finished(torch, D, call, want_f32, what: str) -> float:
+    """The finished output of ``call()`` (one kernel launch) against the
+    plain version's fp32 output (:func:`finished_ok`), a second call's
+    bits against the first's, and the split counters all 0 after each;
+    returns the max abs err."""
+    got = call()
+    torch.cuda.synchronize()
+    counters = D.split_counters(got.device)
+    check(not counters.any(), f"{what}: split counters not 0 after a call")
+    again = call()
+    torch.cuda.synchronize()
+    check(not counters.any(), f"{what}: split counters not 0 after a call")
+    check(same_bits(torch, got, again), f"{what}: two calls differ")
+    ok, err = finished_ok(torch, got, want_f32)
+    check(ok, f"{what}: finished output err {err:.3g} over one "
+          f"{'bf16 ulp + ' if got.dtype == torch.bfloat16 else ''}"
+          f"{DECODE_TOL}")
+    return err
+
+
+#: the decode kernels' names as the profiler demangles them (the bf16 and
+#: fp32 bodies, each with PAGED = false and true; also their former names,
+#: decode_partials_*, so a trace of an older checkout groups them alike)
+DECODE_KERNEL = re.compile(r"\bdecode_(partials_)?(f32_)?kernel<")
+
+
+def one_kernel_event(torch, call, what: str) -> None:
+    """One ``call()`` (warm, its counters made) puts exactly one device
+    event, the decode kernel, in a profiler window."""
+    call()
+    torch.cuda.synchronize()
+    counts = {}
+    profiled(torch, call, what, counts=counts)
+    check(sum(counts.values()) == 1 and all(
+        DECODE_KERNEL.search(n) for n in counts),
+        f"{what}: one call put {counts} on the card, not one decode kernel")
+    print(f"{what}: one call is one kernel event ({next(iter(counts))[:60]})")
+
+
+def decode_bound(b: int, h: int, hkv: int, dh: int, live: int, elt: int,
+                 table_entries: int = 0) -> tuple:
+    """``(bound ms, "bytes" or "operations", bytes)`` of one finished
+    decode call at Sq = 1: q read once (``elt`` bytes an element), K and
+    V of each of the ``live`` rows its slots read once, pos and the block
+    table's entries read (4 bytes each), and the (B, 1, H, Dh) output
+    written once in q's dtype; against 4 * Dh operations for each (query
+    head, live row) pair at the fp32 rate."""
+    n_bytes = (2 * b * h * dh * elt + live * hkv * dh * 2 * elt + b * 4
+               + table_entries * 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = live * h * dh * 4 / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes)
+
+
 def phase_decode(torch, D, ops) -> float:
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = 0.0
+    worst = worst_fin = 0.0
     cases = 0
 
     def case(q, k, v, pos, window, bound, split_len, n, what):
-        nonlocal worst, cases
+        nonlocal worst, worst_fin, cases
         dense = D.ref_decode(q.float(), k.float(), v.float(), pos,
                              window=window, kv_len=bound)
         kw = dict(window=window, split_len=split_len, n_splits=n,
@@ -710,12 +803,16 @@ def phase_decode(torch, D, ops) -> float:
         ref = D.combine_splits(orf, mr, lr)
         err = (got - ref).abs().max().item()
         err_dense = (got - dense.float()).abs().max().item()
+        where = f"{what} bound={bound} n_splits={n}"
         check(torch.equal(lk == 0, lr == 0), f"decode: dead splits differ "
-              f"({what} bound={bound} n_splits={n})")
+              f"({where})")
         check(err <= DECODE_TOL and err_dense <= DECODE_TOL,
               f"decode: max err {err:.3g} (dense {err_dense:.3g}) > "
-              f"{DECODE_TOL} at {what} bound={bound} n_splits={n}")
+              f"{DECODE_TOL} at {where}")
+        fin = check_finished(torch, D, lambda: D.decode_finished(
+            q, k, v, pos, impl="cuda", **kw), ref, f"decode {where}")
         worst = max(worst, err)
+        worst_fin = max(worst_fin, fin)
         cases += 1
 
     for skv in (4096, 4095):
@@ -755,6 +852,8 @@ def phase_decode(torch, D, ops) -> float:
                 err = (got - want).abs().max().item()
                 check(err <= BF16_OUT_TOL, f"decode: ops.flash_decode err "
                       f"{err:.3g} > {BF16_OUT_TOL} at kv_len={kv_len}")
+    one_kernel_event(torch, lambda: ops.flash_decode(
+        q, k, v, pos, kv_len=kv_len, impl="cuda"), "decode: ops.flash_decode")
     # the head shapes past yi-9b's: gemma3-4b's Dh = 256 (8 heads over 4
     # KV heads) and qwen3-moe-235b's G = 16 at Sq = 4 (64 packed rows, two
     # row groups), in bf16 and fp32
@@ -778,10 +877,13 @@ def phase_decode(torch, D, ops) -> float:
                              f"H={h} Hkv={hkv} Dh={dh} {dtype} sq={sq} "
                              f"window={window}")
     print(f"decode kernel: {cases} cases vs plain version, max abs err "
-          f"{worst:.3g} (tol {DECODE_TOL}, fp32 outputs), incl. occupancy "
-          f"bounds 512, 384 and 301 of a 2048-row cache, Dh=256 and "
-          f"G*Sq=64 packed rows in bf16 and fp32")
-    return worst
+          f"{worst:.3g} (tol {DECODE_TOL}, partials merged in fp32), "
+          f"finished output {worst_fin:.3g} (fp32 within {DECODE_TOL}, "
+          f"bf16 within one ulp + {DECODE_TOL}; counters 0 after every "
+          f"call, repeats bit-identical), incl. occupancy bounds 512, 384 "
+          f"and 301 of a 2048-row cache, Dh=256 and G*Sq=64 packed rows in "
+          f"bf16 and fp32")
+    return worst_fin
 
 
 # --- phase 4: KV row writer ------------------------------------------------
@@ -953,13 +1055,14 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
                   decode_err) -> list:
     F = torch.nn.functional
     cache = eng.cache["scan"]["0"]
-    n_layers = cache["k"].shape[0]
+    n_layers, skv = cache["k"].shape[0], cache["k"].shape[2]
     # mid-decode positions of the first 8 requests: prompt + 32 tokens
     pos = torch.tensor([len(r.prompt) + 32 for r in reqs[:B]],
                        dtype=torch.int32, device="cuda")
     kv_len = int(pos.max()) + 1
-    bound, split_len, n_splits = D.split_plan(B, HKV, cache["k"].shape[2],
-                                              128, None, kv_len)
+    # the split plan ops.flash_decode makes of kv_len (rounded up to 128)
+    bound, split_len, n_splits = D.split_plan(
+        B, HKV, skv, 128, None, min(-(-kv_len // 128) * 128, skv))
     gen = torch.Generator(device="cuda").manual_seed(7)
     q = torch.randn(B, 1, H, DH, generator=gen, device="cuda").bfloat16()
     kw = dict(window=None, split_len=split_len, n_splits=n_splits,
@@ -973,12 +1076,18 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
         return cache["k"][i], cache["v"][i]
 
     def kern():
+        # the router's finished output, as the decode step calls it: one
+        # launch, the splits merged inside the kernel
+        k, v = next_kv()
+        ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda")
+
+    def partials():
         k, v = next_kv()
         D.decode_partials(q, k, v, pos, impl="cuda", **kw)
 
     def plain():
         k, v = next_kv()
-        D.decode_partials(q, k, v, pos, impl="ref", **kw)
+        D.decode_finished(q, k, v, pos, impl="ref", **kw)
 
     mask = (torch.arange(bound, device="cuda")[None, :]
             <= pos[:, None])[:, None, None, :]          # (B, 1, 1, bound)
@@ -990,37 +1099,27 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
             qt, k[:, :bound].transpose(1, 2), v[:, :bound].transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
-    def whole():
-        # the router's finished output: partials, then the plain combine
-        k, v = next_kv()
-        ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda")
-
     ms = timed(torch, kern, 480)
+    part_ms = timed(torch, partials, 480)
     plain_ms = timed(torch, plain, 48)
     lib_ms = timed(torch, library, 480)
-    whole_ms = timed(torch, whole, 480)
     live = (pos + 1).clamp(max=bound).sum().item()       # KV rows read
-    n_read = B * H * DH * 2 + live * HKV * DH * 2 * 2 + B * 4
-    n_write = n_splits * B * H * (DH + 2) * 4
-    flops = live * (H // HKV) * HKV * DH * 4
-    t_bytes = (n_read + n_write) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    bound_ms, bound_by, n_bytes = decode_bound(B, H, HKV, DH, live, 2)
     decode_row = {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode.cu",
         "replaces": "src/repro/kernels/attention/decode.py:179",
         "launches": launches["flash_decode"], "max_abs_err": decode_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms}
-    print(f"timing: flash_decode at B={B} Sq=1 kv_len={kv_len} "
-          f"n_splits={n_splits} ({live} live rows): {ms * 1e3:.2f} us = "
-          f"{(n_read + n_write) / ms / 1e6:.0f} GB/s "
-          f"({t_bytes / ms:.3f} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
-          f"bound {decode_row['bound_ms'] * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us; the whole "
-          f"ops.flash_decode (partials + combine_splits, finished output "
-          f"as sdpa's) {whole_ms * 1e3:.2f} us (device time by profiler)")
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms}
+    print(f"timing: flash_decode (ops.flash_decode, finished output, one "
+          f"launch) at B={B} Sq=1 kv_len={kv_len} n_splits={n_splits} "
+          f"({live} live rows): {ms * 1e3:.2f} us = "
+          f"{n_bytes / ms / 1e6:.0f} GB/s ({bound_ms / ms:.3f} of the "
+          f"{bound_by} bound {bound_ms * 1e3:.2f} us), plain (partials + "
+          f"combine_splits + cast) {plain_ms * 1e3:.1f} us, sdpa "
+          f"{lib_ms * 1e3:.2f} us; the partials alone (no merge) "
+          f"{part_ms * 1e3:.2f} us (device time by profiler)")
 
     # KV writer: one layer's K and V rows per launch, at a decode position
     kn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
@@ -1086,7 +1185,7 @@ def phase_paged_decode(torch, D, ops) -> float:
     skv = 2048
     k = torch.randn(B, skv, HKV, DH, generator=gen, device="cuda").bfloat16()
     v = torch.randn(B, skv, HKV, DH, generator=gen, device="cuda").bfloat16()
-    worst, worst_dense, cases = 0.0, 0.0, 0
+    worst, worst_dense, worst_fin, cases = 0.0, 0.0, 0.0, 0
     for ps in (8, 16, 256):
         kp, vp, table = _paged_pools(torch, k, v, ps, gen)
         for sq in (1, 4):
@@ -1112,13 +1211,18 @@ def phase_paged_decode(torch, D, ops) -> float:
                         q, kp, vp, bt, pos, impl="ref", **kw)
                     torch.cuda.synchronize()
                     got = D.combine_splits(ok_, mk, lk)
-                    err = (got - D.combine_splits(orf, mr, lr)).abs().max()
+                    ref = D.combine_splits(orf, mr, lr)
+                    err = (got - ref).abs().max()
                     what = (f"page={ps} sq={sq} window={window} "
                             f"n_splits={n} bound={bound}")
                     check(torch.equal(lk == 0, lr == 0),
                           f"paged decode: dead splits differ ({what})")
                     check(err.item() <= DECODE_TOL, f"paged decode: max err "
                           f"{err.item():.3g} > {DECODE_TOL} at {what}")
+                    worst_fin = max(worst_fin, check_finished(
+                        torch, D, lambda: D.decode_paged_finished(
+                            q, kp, vp, bt, pos, impl="cuda", **kw), ref,
+                        f"paged decode {what}"))
                     worst = max(worst, err.item())
                     cases += 1
                 # the same logical cache through the dense kernel
@@ -1142,6 +1246,9 @@ def phase_paged_decode(torch, D, ops) -> float:
         err = (got - want).abs().max().item()
         check(err <= BF16_OUT_TOL, f"paged decode: ops.flash_decode_paged "
               f"err {err:.3g} > {BF16_OUT_TOL} at page={ps}")
+    one_kernel_event(torch, lambda: ops.flash_decode_paged(
+        q, kp, vp, bt, pos, kv_len=cut * ps - 3, impl="cuda"),
+        "paged decode: ops.flash_decode_paged")
     # Dh = 256 and 64 packed rows, pages of 16, in bf16 and fp32
     for b, h, hkv, dh, sqs in WIDE_DECODE_SHAPES:
         skv, ps = 1000, 16
@@ -1166,9 +1273,14 @@ def phase_paged_decode(torch, D, ops) -> float:
                     want = D.combine_splits(*D.decode_paged_partials(
                         q, kp, vp, table, pos, impl="ref", **kw))
                     err = (got - want).abs().max().item()
+                    what = (f"H={h} Hkv={hkv} Dh={dh} {dtype} sq={sq} "
+                            f"window={window}")
                     check(err <= DECODE_TOL, f"paged decode: max err "
-                          f"{err:.3g} > {DECODE_TOL} at H={h} Hkv={hkv} "
-                          f"Dh={dh} {dtype} sq={sq} window={window}")
+                          f"{err:.3g} > {DECODE_TOL} at {what}")
+                    worst_fin = max(worst_fin, check_finished(
+                        torch, D, lambda: D.decode_paged_finished(
+                            q, kp, vp, table, pos, impl="cuda", **kw), want,
+                        f"paged decode {what}"))
                     worst = max(worst, err)
                     cases += 1
     print(f"paged decode kernel: {cases} cases vs plain version (pages 8, "
@@ -1176,8 +1288,11 @@ def phase_paged_decode(torch, D, ops) -> float:
           f"Sq 1/4; window none/256; one/default splits; a kv_len cut; "
           f"Dh=256 and G*Sq=64 in bf16 and fp32), max "
           f"abs err {worst:.3g}; vs the dense kernel on the same logical "
-          f"cache {worst_dense:.3g} (tol {DECODE_TOL}, fp32 outputs)")
-    return worst
+          f"cache {worst_dense:.3g} (tol {DECODE_TOL}, partials merged in "
+          f"fp32); finished output {worst_fin:.3g} (fp32 within "
+          f"{DECODE_TOL}, bf16 within one ulp + {DECODE_TOL}; counters 0 "
+          f"after every call, repeats bit-identical)")
+    return worst_fin
 
 
 # --- phase 3b: flash attention kernel --------------------------------------
@@ -1495,48 +1610,51 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
         return pool["k"][i], pool["v"][i]
 
     def kern():
+        # the router's finished output: one launch
+        kp, vp = next_pool()
+        ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=kv_len,
+                               impl="cuda")
+
+    def partials():
         kp, vp = next_pool()
         D.decode_paged_partials(q, kp, vp, bt, pos, impl="cuda", **kw)
 
     def plain():
         kp, vp = next_pool()
-        D.decode_paged_partials(q, kp, vp, bt, pos, impl="ref", **kw)
+        D.decode_paged_finished(q, kp, vp, bt, pos, impl="ref", **kw)
 
     ms = timed(torch, kern, 480)
+    part_ms = timed(torch, partials, 480)
     plain_ms = timed(torch, plain, 48)
     # the same rows cut into 128-row splits: B*Hkv*4 = 128 blocks, one an
     # SM, where the default 5 splits put two blocks on 28 of the 132 SMs
     b4, sl4, n4 = D.paged_split_plan(B, HKV, ps, n_blocks, 4)
-    ms4 = timed(torch, lambda: D.decode_paged_partials(
+    ms4 = timed(torch, lambda: D.decode_paged_finished(
         q, *next_pool(), bt, pos, window=None, split_len=sl4, n_splits=n4,
         bound=b4, impl="cuda"), 480)
     live_b = (pos + 1).clamp(max=bound)
     live = live_b.sum().item()
     n_table = ((live_b + ps - 1) // ps).sum().item()       # entries read
-    n_read = B * H * DH * 2 + live * HKV * DH * 2 * 2 + n_table * 4 + B * 4
-    n_write = n_splits * B * H * (DH + 2) * 4
-    flops = live * H * DH * 4
-    t_bytes = (n_read + n_write) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    bound_ms, bound_by, n_bytes = decode_bound(B, H, HKV, DH, live, 2,
+                                               n_table)
     paged_row = {
         "name": "flash_decode_paged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode.cu",
         "replaces": "src/repro/kernels/attention/decode.py:267",
         "launches": paged_launches["flash_decode_paged"],
         "max_abs_err": paged_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
-    print(f"timing: flash_decode_paged at B={B} Sq=1 page={ps} kv_len="
-          f"{kv_len} ({n_blocks} table columns, permuted) n_splits="
-          f"{n_splits} ({live} live rows, {n_table} table entries): "
-          f"{ms * 1e3:.2f} us = {(n_read + n_write) / ms / 1e6:.0f} GB/s "
-          f"({t_bytes / ms:.3f} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
-          f"bound {paged_row['bound_ms'] * 1e3:.2f} us, "
-          f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call reads a "
-          f"paged cache, so no library time (device time by profiler); "
-          f"at {n4} splits of {sl4} rows ({B * HKV * n4} blocks) "
-          f"{ms4 * 1e3:.2f} us")
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    print(f"timing: flash_decode_paged (ops.flash_decode_paged, finished "
+          f"output, one launch) at B={B} Sq=1 page={ps} kv_len={kv_len} "
+          f"({n_blocks} table columns, permuted) n_splits={n_splits} "
+          f"({live} live rows, {n_table} table entries): {ms * 1e3:.2f} us "
+          f"= {n_bytes / ms / 1e6:.0f} GB/s ({bound_ms / ms:.3f} of the "
+          f"{bound_by} bound {bound_ms * 1e3:.2f} us), plain (partials + "
+          f"combine_splits + cast) {plain_ms * 1e3:.1f} us; no single "
+          f"PyTorch call reads a paged cache, so no library time; the "
+          f"partials alone {part_ms * 1e3:.2f} us; at {n4} splits of {sl4} "
+          f"rows ({B * HKV * n4} blocks) {ms4 * 1e3:.2f} us (device time by "
+          f"profiler)")
 
     rows = []
     for s in (512, 2048):
@@ -1611,31 +1729,33 @@ def phase_wide_timings(torch, D, ops, R, reqs) -> None:
     mask = (torch.arange(bound, device="cuda")[None, :]
             <= pos[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
-    dense_ms = timed(torch, lambda: D.decode_partials(
-        q, kc[nxt()], vc[layer[0]], pos, window=None, split_len=split_len,
-        n_splits=n_splits, bound=bound, impl="cuda"), 480)
-    paged_ms = timed(torch, lambda: D.decode_paged_partials(
-        q, kp[nxt()], vp[layer[0]], bt, pos, window=None, split_len=psl,
-        n_splits=pns, bound=pbound, impl="cuda"), 480)
+    dkw = dict(window=None, split_len=split_len, n_splits=n_splits,
+               bound=bound)
+    pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pbound)
+    # finished output (one launch), then the partials alone
+    dense_ms = [timed(torch, lambda f=f: f(
+        q, kc[nxt()], vc[layer[0]], pos, impl="cuda", **dkw), 480)
+        for f in (D.decode_finished, D.decode_partials)]
+    paged_ms = [timed(torch, lambda f=f: f(
+        q, kp[nxt()], vp[layer[0]], bt, pos, impl="cuda", **pkw), 480)
+        for f in (D.decode_paged_finished, D.decode_paged_partials)]
     sdpa_ms = timed(torch, lambda: F.scaled_dot_product_attention(
         qt, kc[nxt()][:, :bound].transpose(1, 2),
         vc[layer[0]][:, :bound].transpose(1, 2), attn_mask=mask,
         enable_gqa=True), 480)
     live = (pos + 1).clamp(max=bound).sum().item()
-    for name, ms, ns, extra in (
+    for name, (ms, part_ms), ns, entries in (
             ("flash_decode", dense_ms, n_splits, 0),
             ("flash_decode_paged", paged_ms, pns,
-             ((pos + 1 + ps - 1) // ps).sum().item() * 4)):
-        n_bytes = (b * h * dh * 2 + live * hkv * dh * 2 * 2 + b * 4 + extra
-                   + ns * b * h * (dh + 2) * 4)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = live * h * dh * 4 / FP32_FLOPS * 1e3
+             ((pos + 1 + ps - 1) // ps).sum().item())):
+        bound_ms, bound_by, n_bytes = decode_bound(b, h, hkv, dh, live, 2,
+                                                   entries)
         print(f"timing: {name} at gemma3-4b heads (B={b} H={h} Hkv={hkv} "
-              f"Dh={dh} bf16, {live} live rows, n_splits={ns}): "
-              f"{ms * 1e3:.2f} us = {n_bytes / ms / 1e6:.0f} GB/s, bound "
-              f"{max(t_bytes, t_ops) * 1e3:.2f} us "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}), sdpa "
-              f"{sdpa_ms * 1e3:.2f} us (device time by profiler)")
+              f"Dh={dh} bf16, {live} live rows, n_splits={ns}), finished "
+              f"output: {ms * 1e3:.2f} us = {n_bytes / ms / 1e6:.0f} GB/s, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}), sdpa "
+              f"{sdpa_ms * 1e3:.2f} us; the partials alone "
+              f"{part_ms * 1e3:.2f} us (device time by profiler)")
     del kc, vc, kp, vp
     s = 2048
     fq = torch.randn(1, h, s, dh, generator=gen, device="cuda").bfloat16()
@@ -1674,7 +1794,8 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     take the wall time of two chunked dispatches, once under the
     profiler to take the device's busy time in the same two dispatches.
     Greedy decoding repeats the same tokens, positions and occupancy
-    bounds, so both passes do the same work.
+    bounds, so both passes do the same work. Prints the kernel launches
+    a step beside the copies and fills, as the profiler counts them.
     """
     check(not any(eng.slots), f"{label}: engine not idle")
 
@@ -1705,8 +1826,9 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
         passes.append((time.perf_counter() - t0) / steps * 1e3)
 
     # a window taken again serves the requests once more, from idle
+    counts = {}
     by_name = profiled(torch, run, label, setup=lambda: admit_and_warm(
-        f"trace{len(passes)}"))
+        f"trace{len(passes)}"), counts=counts)
     check(not any(eng.slots), f"{label}: requests did not retire")
     prof_wall_ms = passes[-1]
     total = sum(by_name.values())
@@ -1714,7 +1836,7 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
               "kv_row_update": 0.0, "matmul": 0.0, "other": 0.0}
     for name, us in by_name.items():
         low = name.lower()
-        if "decode_partials_kernel" in name:
+        if DECODE_KERNEL.search(name):
             # one kernel body, instantiated with PAGED = false and true
             paged = ", true>(" in name
             groups["flash_decode_paged" if paged else "flash_decode"] += us
@@ -1731,6 +1853,12 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
           f"{dev_ms:.2f} ms/step (profiled pass) of {wall_ms:.2f} ms/step "
           f"wall (unprofiled pass), idle share {1 - dev_ms / wall_ms:.3f}; "
           f"under the profiler {prof_wall_ms:.2f} ms/step wall")
+    copies = sum(n for name, n in counts.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    print(f"{label}: kernel launches a step "
+          f"{(sum(counts.values()) - copies) / steps:.1f}, plus "
+          f"{copies / steps:.1f} copies and fills (profiler events; it "
+          f"drops a few)")
     print(f"{label}: device time by group: " + ", ".join(
         f"{g} {us / 1e3 / steps:.3f} ms/step ({us / total:.3f})"
         for g, us in groups.items()))

@@ -6,15 +6,21 @@ Run from the repository root of the change on a machine with the card
 and ``nvcc``, with a checkout of the parent commit unpacked somewhere
 (``git archive <parent> | tar -x -C <dir>``):
 
-    python3 scripts/torch_kernel_ab.py <dir>
+    python3 scripts/torch_kernel_ab.py <dir> [<substring>]
+
+With a substring, only the kernels whose label holds it are timed.
 
 Both checkouts' ``stream``, ``stencil``, ``decode`` and ``flash``
 libraries are built from their own ``csrc``; the change's Python
-wrappers drive both, by swapping which library ``build.load`` hands
-them (the C interfaces are the same; Gauss-Seidel's parent entry point,
-which takes no scratch row, is called directly). Each kernel is timed
-parent, change, change, parent with ``chip_smoke.timed`` (device time by
-torch.profiler) and printed with its two means and their ratio.
+wrappers drive the stream, stencil and flash kernels of both, by
+swapping which library ``build.load`` hands them (their C interfaces are
+the same). The parent's decode entry points write the per-split partials
+alone (``PARENT_DECODE_SIGNATURES``) and are called directly: the
+parent's finished decode output is those partials merged by the plain
+``combine_splits`` and cast, timed against the change's one launch, and
+the partials alone against the change's partials-only route. Each kernel
+is timed parent, change, change, parent with ``chip_smoke.timed`` (device
+time by torch.profiler) and printed with its two means and their ratio.
 """
 
 from __future__ import annotations
@@ -27,7 +33,17 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-LIBS = ("stream", "stencil", "decode", "flash")
+LIBS = ("stream", "stencil", "flash")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the parent's decode entry points: the partials alone, no output or
+#: split-counter pointers
+PARENT_DECODE_SIGNATURES = {
+    "flash_decode_partials": [_P] * 7 + [_I] * 6 + [_L] * 4
+    + [_I] * 4 + [ctypes.c_float, _P],
+    "flash_decode_paged_partials": [_P] * 8 + [_I] * 9 + [_L] * 4
+    + [_I] * 4 + [ctypes.c_float, _P],
+}
 
 
 def parent_lib(build, csrc: str, name: str, signatures: dict):
@@ -56,7 +72,7 @@ def parent_lib(build, csrc: str, name: str, signatures: dict):
 
 def main() -> int:
     import torch
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    if len(sys.argv) not in (2, 3) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
@@ -71,15 +87,11 @@ def main() -> int:
                          text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     csrc = os.path.join(sys.argv[1], "src", "repro_torch", "kernels", "csrc")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    # the parent's Gauss-Seidel takes no scratch row
-    stencil_sigs = {"stencil_gauss_seidel_2d5pt": [P, P, I, I, I, P]}
     sigs = {"stream": SK._STREAM_SIGNATURES,
-            "stencil": SK._STENCIL_SIGNATURES, "decode": D._SIGNATURES,
-            "flash": FL._SIGNATURES}
+            "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES}
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    old = {n: parent_lib(build, csrc, n, dict(sigs[n], **(
-        stencil_sigs if n == "stencil" else {}))) for n in LIBS}
+    old = {n: parent_lib(build, csrc, n, sigs[n]) for n in LIBS}
+    old_decode = parent_lib(build, csrc, "decode", PARENT_DECODE_SIGNATURES)
 
     def using(libs, fn):
         def call():
@@ -106,22 +118,12 @@ def main() -> int:
     j3 = torch.randn(chip_smoke.JACOBI_3D_SHAPE, generator=gen, device="cuda")
     gs = torch.randn(chip_smoke.GS_SHAPE, generator=gen, device="cuda")
     cases += [("jacobi_2d5pt", lambda: SK.jacobi_2d5pt(j2), 10),
-              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5)]
-    timed = []
-    for label, fn, iters in cases:
-        timed.append((label, using(old, fn), using(new, fn), iters))
-    go = torch.empty_like(gs)
-    h, w = gs.shape
-
-    def gs_parent():
-        rc = old["stencil"].stencil_gauss_seidel_2d5pt(
-            gs.data_ptr(), go.data_ptr(), h, w, chip_smoke.GS_SWEEPS,
-            torch.cuda.current_stream().cuda_stream)
-        build.check(old["stencil"], rc, "parent gauss_seidel_2d5pt")
-    timed.append((f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x "
-                  f"{chip_smoke.GS_SWEEPS}", gs_parent,
-                  using(new, lambda: SK.gauss_seidel_2d5pt(
-                      gs, chip_smoke.GS_SWEEPS)), 3))
+              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5),
+              (f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x "
+               f"{chip_smoke.GS_SWEEPS}",
+               lambda: SK.gauss_seidel_2d5pt(gs, chip_smoke.GS_SWEEPS), 3)]
+    timed = [(label, using(old, fn), using(new, fn), iters)
+             for label, fn, iters in cases]
 
     # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
     # live rows, 48 layers' caches cycled so every call reads cold rows
@@ -136,10 +138,6 @@ def main() -> int:
     bound, sl, ns = D.split_plan(b, hkv, 2048, 128, None, kv_len)
     layer = [0]
 
-    def dense():
-        i = layer[0] = (layer[0] + 1) % n_layers
-        D.decode_partials(q, kc[i], vc[i], pos, window=None, split_len=sl,
-                          n_splits=ns, bound=bound, impl="cuda")
     ps, npg = 16, 8 * 2048 // 16
     kp = kc.view(n_layers, -1, ps, hkv, dh)[:, :npg]
     vp = vc.view(n_layers, -1, ps, hkv, dh)[:, :npg]
@@ -148,15 +146,60 @@ def main() -> int:
         :b * nb].reshape(b, nb).int().cuda()
     pb, psl, pns = D.paged_split_plan(b, hkv, ps, nb, None)
 
-    def paged():
-        i = layer[0] = (layer[0] + 1) % n_layers
-        D.decode_paged_partials(q, kp[i], vp[i], bt, pos, window=None,
-                                split_len=psl, n_splits=pns, bound=pb,
-                                impl="cuda")
-    timed += [(f"flash_decode B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
-               using(old, dense), using(new, dense), 480),
-              ("flash_decode_paged page 16", using(old, paged),
-               using(new, paged), 480)]
+    def parent_partials(paged: bool, i: int):
+        """The parent's decode kernel on layer i: the partials alone."""
+        o = torch.empty((ns if not paged else pns, b, 1, hq, dh),
+                        dtype=torch.float32, device="cuda")
+        m = torch.empty(o.shape[:-1], dtype=torch.float32, device="cuda")
+        l = torch.empty_like(m)
+        st = torch.cuda.current_stream().cuda_stream
+        scale = 1.0 / dh ** 0.5
+        if paged:
+            k, v = kp[i], vp[i]
+            rc = old_decode.flash_decode_paged_partials(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
+                pos.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), 1,
+                b, 1, hq, hkv, dh, bt.stride(0), k.shape[0], ps, k.stride(0),
+                k.stride(1), v.stride(0), v.stride(1), pns, psl, pb, 0,
+                scale, st)
+        else:
+            k, v = kc[i], vc[i]
+            rc = old_decode.flash_decode_partials(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                o.data_ptr(), m.data_ptr(), l.data_ptr(), 1, b, 1, hq, hkv,
+                dh, k.stride(0), k.stride(1), v.stride(0), v.stride(1), ns,
+                sl, bound, 0, scale, st)
+        build.check(old_decode, rc, "parent decode")
+        return o, m, l
+
+    def nxt():
+        layer[0] = (layer[0] + 1) % n_layers
+        return layer[0]
+
+    dkw = dict(window=None, split_len=sl, n_splits=ns, bound=bound)
+    pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pb)
+    decode_cases = {
+        "flash_decode finished": (
+            lambda: D.combine_splits(*parent_partials(False, nxt())).to(
+                q.dtype),
+            lambda: D.decode_finished(q, kc[nxt()], vc[layer[0]], pos,
+                                      impl="cuda", **dkw)),
+        "flash_decode partials alone": (
+            lambda: parent_partials(False, nxt()),
+            lambda: D.decode_partials(q, kc[nxt()], vc[layer[0]], pos,
+                                      impl="cuda", **dkw)),
+        "flash_decode_paged finished": (
+            lambda: D.combine_splits(*parent_partials(True, nxt())).to(
+                q.dtype),
+            lambda: D.decode_paged_finished(q, kp[nxt()], vp[layer[0]], bt,
+                                            pos, impl="cuda", **pkw)),
+        "flash_decode_paged partials alone": (
+            lambda: parent_partials(True, nxt()),
+            lambda: D.decode_paged_partials(q, kp[nxt()], vp[layer[0]], bt,
+                                            pos, impl="cuda", **pkw)),
+    }
+    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16", p_fn, c_fn,
+               480) for name, (p_fn, c_fn) in decode_cases.items()]
     for s in (512, 2048):
         fq = torch.randn(1, hq, s, dh, generator=gen,
                          device="cuda").bfloat16()
@@ -168,7 +211,10 @@ def main() -> int:
         timed.append((f"flash_attention S={s} H={hq} Hkv={hkv} Dh={dh} "
                       f"bf16 causal", using(old, fn), using(new, fn), 20))
 
+    only = sys.argv[2] if len(sys.argv) == 3 else ""
     for label, p_fn, c_fn, iters in timed:
+        if only not in label:
+            continue
         t = [chip_smoke.timed(torch, f, iters) * 1e3
              for f in (p_fn, c_fn, c_fn, p_fn)]
         par, chg = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2

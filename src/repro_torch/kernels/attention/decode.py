@@ -6,18 +6,25 @@ The counterpart of ``repro/kernels/attention/decode.py``. The kernels
 (``csrc/decode.cu``, one body templated on its row addressing) replace
 the Pallas TPU kernels ``decode.py:flash_decode`` (body
 ``_decode_kernel``) and ``decode.py:flash_decode_paged`` (body
-``_paged_decode_kernel``): one thread block per (KV head, split, slot)
-walks only the live rows of its split — rows past ``pos + Sq - 1``,
-before the sliding window, or past the occupancy bound are never read —
-and writes an fp32 partial softmax state ``(o, m, l)`` per split.
-:func:`combine_splits` merges the partials by log-sum-exp. On the H100
-the kernels are bound by the bytes of the KV rows they read, so a block
-issues its K and V rows all at once as ``cp.async`` copies and 8 warps
-split the keys, each with its own softmax state. In bf16 the warps run
-both products on the tensor cores (exact bf16 products, P kept at fp32
-precision) and merge once a split; fp32 stays on the CUDA cores; see
-the source. Any number of packed query rows ``G * Sq`` works: a call of
-more than ``KERNEL_MAX_ROWS`` runs groups of that many rows side by side.
+``_paged_decode_kernel``), each with the ``combine_splits`` that ends it
+(which XLA fuses into the TPU program): one thread block per (KV head,
+split, slot) walks only the live rows of its split — rows past
+``pos + Sq - 1``, before the sliding window, or past the occupancy bound
+are never read — and writes an fp32 partial softmax state ``(o, m, l)``
+per split to scratch; the last block of each (KV head, slot) to finish
+merges the splits by log-sum-exp, in split order, and writes the
+finished output in q's dtype. So :func:`flash_decode` and
+:func:`flash_decode_paged` are one launch a call; :func:`combine_splits`
+is the merge's plain version, and :func:`decode_partials` /
+:func:`decode_paged_partials` return the partials alone for split-level
+checks. On the H100 the kernels are bound by the bytes of the KV rows
+they read, so a block issues its K and V rows all at once as
+``cp.async`` copies and 8 warps split the keys, each with its own
+softmax state. In bf16 the warps run both products on the tensor cores
+(exact bf16 products, P kept at fp32 precision) and merge once a split;
+fp32 stays on the CUDA cores; see the source. Any number of packed query
+rows ``G * Sq`` works: a call of more than ``KERNEL_MAX_ROWS`` runs
+groups of that many rows side by side.
 
 The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
@@ -50,17 +57,21 @@ KERNEL_MAX_ROWS = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "flash_decode_partials": [_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L,
-                              _I, _I, _I, _I, ctypes.c_float, _P],
-    "flash_decode_paged_partials": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I,
-                                    _L, _L, _L, _L,
-                                    _I, _I, _I, _I, ctypes.c_float, _P],
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L,
+                     _I, _I, _I, _I, ctypes.c_float, _P],
+    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I,
+                           _L, _L, _L, _L,
+                           _I, _I, _I, _I, ctypes.c_float, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the split counters of the fused merge, one zeroed int32 tensor per
+#: device (see :func:`split_counters`)
+_COUNTERS: dict = {}
 
 
 def default_splits(b: int, hkv: int, n_blocks: int) -> int:
@@ -167,43 +178,125 @@ def _check_kernel_inputs(q, k, v, pos, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
-def decode_partials(q, k, v, pos, *, window=None, split_len: int,
-                    n_splits: int, bound: int, impl: str = "auto"):
-    """Per-split partials ``(o, m, l)`` — the kernel, or its plain version.
+def workspace_layout(n_splits: int, b: int, sq: int, h: int,
+                     dh: int) -> tuple:
+    """``(floats, m offset, l offset)`` of one call's fp32 partials
+    workspace, laid out ``o | m | l``: o (S, B, Sq, H, Dh) from offset 0,
+    then m and l, (S, B, Sq, H) each."""
+    n_o = n_splits * b * sq * h * dh
+    n_m = n_splits * b * sq * h
+    return n_o + 2 * n_m, n_o, n_o + n_m
 
-    See :func:`ref_decode_partials` for the contract. ``impl`` routes as
-    in ``repro_torch.kernels``: a CUDA tensor reaches the kernel (or
-    raises), a CPU tensor the plain version.
+
+def partials_views(ws, n_splits: int, b: int, sq: int, h: int,
+                   dh: int) -> tuple:
+    """The ``(o, m, l)`` views of a workspace laid out by
+    :func:`workspace_layout`."""
+    _, mo, lo = workspace_layout(n_splits, b, sq, h, dh)
+    return (ws[:mo].view(n_splits, b, sq, h, dh),
+            ws[mo:lo].view(n_splits, b, sq, h),
+            ws[lo:].view(n_splits, b, sq, h))
+
+
+def counters_needed(b: int, sq: int, h: int, hkv: int) -> int:
+    """Split counters one finished call of more than one split uses: one
+    per (KV head, group of ``KERNEL_MAX_ROWS`` packed rows, slot)."""
+    return hkv * math.ceil(h // hkv * sq / KERNEL_MAX_ROWS) * b
+
+
+def split_counters(device, n: int = 0) -> torch.Tensor:
+    """The int32 split counters of the fused merge on ``device``, grown
+    to at least ``n``.
+
+    They are zeroed once, when made; the kernel's last block of each
+    (KV head, row group, slot) sets its counter back to 0, so calls need
+    no memset between them. One tensor serves one stream at a time, as
+    the engines use it: calls in flight on two streams at once would
+    share counters.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                            device=device)
+    return c
+
+
+def needs_workspace(dtype, dh: int, n_splits: int, finished: bool) -> bool:
+    """Whether a launch writes fp32 partials: always but for a finished
+    call of one split, which writes its output directly, except in fp32
+    at Dh=256, whose body keeps its partials and merges them back even
+    then (its registers are full; see ``csrc/decode.cu``)."""
+    return (not finished or n_splits > 1
+            or (dtype == torch.float32 and dh == 256))
+
+
+def _launch_buffers(q, hkv: int, n_splits: int, finished: bool) -> tuple:
+    """What one launch writes, as ``(workspace, out, pointers)``: the
+    partials workspace (:func:`needs_workspace`), the finished output
+    (none for the partials alone), and the o, m, l, out and
+    split-counter pointers of the C entry points (None for NULL; the
+    counters only for a finished call of more than one split)."""
     b, sq, h, dh = q.shape
-    pos = pos_vector(pos, b, q.device)
-    if not use_kernel(impl, q):
-        return ref_decode_partials(q, k, v, pos, window=window,
-                                   split_len=split_len, n_splits=n_splits,
-                                   bound=bound)
+    ws = out = cnt = None
+    o = m = l = None
+    if needs_workspace(q.dtype, dh, n_splits, finished):
+        n, mo, lo = workspace_layout(n_splits, b, sq, h, dh)
+        ws = torch.empty(n, dtype=torch.float32, device=q.device)
+        o = ws.data_ptr()
+        m, l = o + 4 * mo, o + 4 * lo
+    if finished:
+        out = torch.empty_like(q)
+        if n_splits > 1:
+            cnt = split_counters(q.device, counters_needed(b, sq, h, hkv))
+    return ws, out, (o, m, l, None if out is None else out.data_ptr(),
+                     None if cnt is None else cnt.data_ptr())
+
+
+def _decode_kernel(q, k, v, pos, *, window, split_len: int, n_splits: int,
+                   bound: int, finished: bool):
+    """One launch of the dense kernel: the finished output, or the
+    partials ``(o, m, l)``."""
+    b, sq, h, dh = q.shape
     _check_kernel_inputs(q, k, v, pos, window)
     if k.shape[0] != b:
         raise ValueError(f"k has {k.shape[0]} slots, q {b}")
     lib = build.load("decode", _SIGNATURES)
-    o = torch.empty((n_splits, b, sq, h, dh), dtype=torch.float32,
-                    device=q.device)
-    m = torch.empty((n_splits, b, sq, h), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
-    rc = lib.flash_decode_partials(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(),
+    ws, out, ptrs = _launch_buffers(q, k.shape[2], n_splits, finished)
+    rc = lib.flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), *ptrs,
         _DTYPE_CODES[q.dtype], b, sq, h, k.shape[2], dh,
         k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         n_splits, split_len, bound, window or 0, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
-    return o, m, l
+    return out if finished else partials_views(ws, n_splits, b, sq, h, dh)
+
+
+def decode_partials(q, k, v, pos, *, window=None, split_len: int,
+                    n_splits: int, bound: int, impl: str = "auto"):
+    """Per-split partials ``(o, m, l)`` — the kernel without its merge, or
+    its plain version; for split-level checks.
+
+    See :func:`ref_decode_partials` for the contract. ``impl`` routes as
+    in ``repro_torch.kernels``: a CUDA tensor reaches the kernel (or
+    raises), a CPU tensor the plain version.
+    """
+    pos = pos_vector(pos, q.shape[0], q.device)
+    if not use_kernel(impl, q):
+        return ref_decode_partials(q, k, v, pos, window=window,
+                                   split_len=split_len, n_splits=n_splits,
+                                   bound=bound)
+    return _decode_kernel(q, k, v, pos, window=window, split_len=split_len,
+                          n_splits=n_splits, bound=bound, finished=False)
 
 
 def combine_splits(o_part, m_part, l_part) -> torch.Tensor:
-    """Merge per-split partial softmax states (flash-decoding combine).
+    """Merge per-split partial softmax states (flash-decoding combine):
+    the plain version of the merge the kernels fuse.
 
     o_part: (S, B, Sq, H, Dh) unnormalized accumulators; m_part /
     l_part: (S, B, Sq, H). Splits with no live row carry (m=-1e30, l=0)
@@ -214,6 +307,20 @@ def combine_splits(o_part, m_part, l_part) -> torch.Tensor:
     l_tot = (l_part * w).sum(0)
     o = (o_part * w[..., None]).sum(0)
     return o / l_tot.clamp_min(1e-30)[..., None]
+
+
+def decode_finished(q, k, v, pos, *, window=None, split_len: int,
+                    n_splits: int, bound: int, impl: str = "auto"):
+    """The finished (B, Sq, H, Dh) output in q's dtype under an explicit
+    split plan: one launch of the kernel (splits merged inside it), or
+    the plain partials merged by :func:`combine_splits` and cast."""
+    pos = pos_vector(pos, q.shape[0], q.device)
+    if not use_kernel(impl, q):
+        return combine_splits(*ref_decode_partials(
+            q, k, v, pos, window=window, split_len=split_len,
+            n_splits=n_splits, bound=bound)).to(q.dtype)
+    return _decode_kernel(q, k, v, pos, window=window, split_len=split_len,
+                          n_splits=n_splits, bound=bound, finished=True)
 
 
 def flash_decode(q, k, v, pos, *, window: int | None = None, bk: int = 128,
@@ -229,14 +336,14 @@ def flash_decode(q, k, v, pos, *, window: int | None = None, bk: int = 128,
 
     The rows are cut into splits by :func:`split_plan`, as the TPU
     kernel's grid cuts them; ``bk=128`` rows a block, which the kernel's
-    own tiles (64 rows in bf16, 32 in fp32) divide. Returns (B, Sq, H, Dh) in q's dtype.
+    own tiles (64 rows in bf16, 32 in fp32) divide. Returns (B, Sq, H,
+    Dh) in q's dtype: on a CUDA tensor from one kernel launch, which
+    merges the splits itself (:func:`decode_finished`).
     """
     bound, split_len, n_splits = split_plan(q.shape[0], k.shape[2],
                                             k.shape[1], bk, n_splits, kv_len)
-    o, m, l = decode_partials(q, k, v, pos, window=window,
-                              split_len=split_len, n_splits=n_splits,
-                              bound=bound, impl=impl)
-    return combine_splits(o, m, l).to(q.dtype)
+    return decode_finished(q, k, v, pos, window=window, split_len=split_len,
+                           n_splits=n_splits, bound=bound, impl=impl)
 
 
 def ref_decode(q, k, v, pos, *, window: int | None = None,
@@ -314,42 +421,30 @@ def ref_decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
                                bound=bound)
 
 
-def decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
-                          window=None, split_len: int, n_splits: int,
-                          bound: int, impl: str = "auto"):
-    """Per-split partials ``(o, m, l)`` over a page pool: the paged
-    kernel, or its plain version (:func:`ref_decode_paged_partials`).
-
-    ``bound`` is a whole number of pages, at most the table's columns
-    times the page size; no table column past it is read. ``impl``
-    routes as in ``repro_torch.kernels``.
-    """
-    b, sq, h, dh = q.shape
-    n_pages, ps = k_pages.shape[0], k_pages.shape[1]
+def _check_page_bound(bound: int, ps: int, block_tables) -> None:
     if bound % ps or bound > block_tables.shape[1] * ps:
         raise ValueError(f"bound {bound} is not a whole number of pages "
                          f"within the table ({block_tables.shape[1]} x {ps})")
-    pos = pos_vector(pos, b, q.device)
-    if not use_kernel(impl, q):
-        return ref_decode_paged_partials(q, k_pages, v_pages, block_tables,
-                                         pos, window=window,
-                                         split_len=split_len,
-                                         n_splits=n_splits, bound=bound)
+
+
+def _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos, *, window,
+                         split_len: int, n_splits: int, bound: int,
+                         finished: bool):
+    """One launch of the paged kernel: the finished output, or the
+    partials ``(o, m, l)``."""
+    b, sq, h, dh = q.shape
+    n_pages, ps = k_pages.shape[0], k_pages.shape[1]
     _check_kernel_inputs(q, k_pages, v_pages, pos, window)
     if block_tables.device != q.device or block_tables.dtype != torch.int32 \
             or block_tables.shape[0] != b or block_tables.stride(1) != 1:
         raise ValueError("block_tables must be a (B, NB) int32 tensor on "
                          f"{q.device} with contiguous rows")
     lib = build.load("decode", _SIGNATURES)
-    o = torch.empty((n_splits, b, sq, h, dh), dtype=torch.float32,
-                    device=q.device)
-    m = torch.empty((n_splits, b, sq, h), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
-    rc = lib.flash_decode_paged_partials(
+    ws, out, ptrs = _launch_buffers(q, k_pages.shape[2], n_splits,
+                                    finished)
+    rc = lib.flash_decode_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), *ptrs,
         _DTYPE_CODES[q.dtype], b, sq, h, k_pages.shape[2], dh,
         block_tables.stride(0), n_pages, ps,
         k_pages.stride(0), k_pages.stride(1),
@@ -358,7 +453,46 @@ def decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_decode_paged")
     LAUNCHES["flash_decode_paged"] += 1
-    return o, m, l
+    return out if finished else partials_views(ws, n_splits, b, sq, h, dh)
+
+
+def decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
+                          window=None, split_len: int, n_splits: int,
+                          bound: int, impl: str = "auto"):
+    """Per-split partials ``(o, m, l)`` over a page pool: the paged
+    kernel without its merge, or its plain version
+    (:func:`ref_decode_paged_partials`); for split-level checks.
+
+    ``bound`` is a whole number of pages, at most the table's columns
+    times the page size; no table column past it is read. ``impl``
+    routes as in ``repro_torch.kernels``.
+    """
+    _check_page_bound(bound, k_pages.shape[1], block_tables)
+    pos = pos_vector(pos, q.shape[0], q.device)
+    kw = dict(window=window, split_len=split_len, n_splits=n_splits,
+              bound=bound)
+    if not use_kernel(impl, q):
+        return ref_decode_paged_partials(q, k_pages, v_pages, block_tables,
+                                         pos, **kw)
+    return _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos,
+                                finished=False, **kw)
+
+
+def decode_paged_finished(q, k_pages, v_pages, block_tables, pos, *,
+                          window=None, split_len: int, n_splits: int,
+                          bound: int, impl: str = "auto"):
+    """The finished (B, Sq, H, Dh) output in q's dtype over a page pool
+    under an explicit split plan: one launch of the paged kernel, or the
+    plain partials merged by :func:`combine_splits` and cast."""
+    _check_page_bound(bound, k_pages.shape[1], block_tables)
+    pos = pos_vector(pos, q.shape[0], q.device)
+    kw = dict(window=window, split_len=split_len, n_splits=n_splits,
+              bound=bound)
+    if not use_kernel(impl, q):
+        return combine_splits(*ref_decode_paged_partials(
+            q, k_pages, v_pages, block_tables, pos, **kw)).to(q.dtype)
+    return _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos,
+                                finished=True, **kw)
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
@@ -375,15 +509,15 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
     columns (all with ``None``) are read, and of those only the pages
     holding rows the slot can see: columns past ``pos`` may hold any
     page id. Entries are clipped into ``[0, P - 1]``. Returns (B, Sq, H,
-    Dh) in q's dtype.
+    Dh) in q's dtype: on a CUDA tensor from one kernel launch
+    (:func:`decode_paged_finished`).
     """
     n_blocks = block_tables.shape[1] if n_blocks is None else n_blocks
     bound, split_len, n_splits = paged_split_plan(
         q.shape[0], k_pages.shape[2], k_pages.shape[1], n_blocks, n_splits)
-    o, m, l = decode_paged_partials(q, k_pages, v_pages, block_tables, pos,
-                                    window=window, split_len=split_len,
-                                    n_splits=n_splits, bound=bound, impl=impl)
-    return combine_splits(o, m, l).to(q.dtype)
+    return decode_paged_finished(q, k_pages, v_pages, block_tables, pos,
+                                 window=window, split_len=split_len,
+                                 n_splits=n_splits, bound=bound, impl=impl)
 
 
 def ref_decode_paged(q, k_pages, v_pages, block_tables, pos, *,

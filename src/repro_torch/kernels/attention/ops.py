@@ -59,7 +59,10 @@ def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
     touch this step (``max(pos) + Sq``); it is rounded up to the ``bk``
     block grid and clamped to ``Skv``, and rows past it are never read.
     Unlike the JAX router, the cache is not sliced to the bound: the
-    kernel takes the bound as an integer, so no copy is made.
+    kernel takes the bound as an integer, so no copy is made. On a CUDA
+    tensor the finished (B, Sq, H, Dh) output in q's dtype comes from one
+    kernel launch: the kernel merges its splits itself, where the plain
+    version runs ``decode.combine_splits`` after the partials.
     """
     skv = k.shape[1]
     bound = skv if kv_len is None else max(1, min(int(kv_len), skv))
@@ -81,7 +84,8 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
     ``kv_len`` bounds occupancy at page granularity: only the first
     ``ceil(kv_len / page)`` table columns are ever read, the paged
     analogue of the dense router's block rounding. It reaches the kernel
-    as an integer; the table is not sliced.
+    as an integer; the table is not sliced. One kernel launch on a CUDA
+    tensor, as :func:`flash_decode`.
     """
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     if kv_len is not None:

@@ -12,10 +12,24 @@
 // min(split_hi, bound, pos+Sq)), so rows past the last query position,
 // rows before the sliding window and rows past the occupancy bound are
 // never read. The cache is taken whole, with explicit batch and sequence
-// strides: no copy or padding of the horizon is ever made. The partials
-// (o, m, l) per split are merged by combine_splits outside the kernel. A
-// split with no live row writes m = -1e30, l = 0, o = 0 and weighs
-// exactly zero in the merge.
+// strides: no copy or padding of the horizon is ever made.
+//
+// The split combine (the TPU wrappers' combine_splits, which XLA fuses into
+// the same program) is fused here too, so one launch returns the finished
+// (B, Sq, H, DH) output in q's dtype. Each block writes its fp32 partial
+// (o, m, l) to scratch, fences, and counts itself on the counter of its
+// (KV head, row group, slot); the block that takes the count to n_splits
+// reads every split's partials of its rows from L2, in split order 0 ..
+// S-1 (so the output is bit-identical from run to run, whatever order the
+// blocks finish in), merges them by log-sum-exp as combine_splits does,
+// writes the output, and sets the counter back to 0, so the next call (or
+// a graph replay) needs no memset. A split with no live row writes m = -1e30, l = 0, o = 0
+// and weighs exactly zero in the merge; every block reaches the counter.
+// With one split the block writes the output itself and touches neither
+// scratch nor counter (but the fp32 body at DH = 256, whose registers are
+// full, writes its partials and merges them back even then). Called
+// without an output the kernel writes the partials alone (the split-level
+// checks use that).
 //
 // Bound on the H100: device-memory bytes. Each KV row is read once and
 // used by all G*Sq query rows of its KV head, far below the card's ridge.
@@ -104,6 +118,140 @@ __device__ __forceinline__ long long row_offset(int row, int page, int in_page, 
   return b * s0 + row * s1;
 }
 
+// Store output elements in q's dtype: fp32 as is, bf16 rounded to nearest
+// even, as torch's .to(torch.bfloat16) rounds; one element, or four
+// consecutive ones (16-byte aligned in fp32, 8-byte in bf16).
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_out4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store_out4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// splits whose partials the merge loads at once, predicated
+constexpr int MERGE_CHUNK = 8;
+
+// The fused split combine, run by every block of a call with an output
+// once its partials are written (all NT threads, no block returns
+// before). The block that counts last on the counter of its (KV head, row
+// group, slot) merges packed rows r0 .. r0 + R - 1 of KV head kvh in slot
+// b over all S = gridDim.y splits, as combine_splits does: m_max = max_s
+// m_s, w_s = exp(m_s - m_max), o = sum_s w_s o_s / max(sum_s w_s l_s,
+// 1e-30), summed in split order. With one split the block is the last
+// without a counter. The partials are read with __ldcg (L2, never a stale
+// L1 line). The merge is a chain of L2 round trips after the block's own
+// work, so each step issues all its loads at once: a thread a 4-column
+// slice (a float4 of o) loads m, l and o of MERGE_CHUNK splits before it
+// sums them. Up to MERGE_CHUNK splits it takes m_max from the m it loaded
+// (one round trip in all: the served shape's 8 rows of 128 are one slice
+// a thread); past that a thread a row first takes each row's m_max into
+// `mx_s`, R floats of shared memory no thread reads any more. It runs
+// after the body's accumulators are dead, so it adds no register to the
+// key loop.
+template <int DH, typename T>
+__device__ __forceinline__ void merge_if_last(const float* __restrict__ o_part,
+                                              const float* __restrict__ m_part,
+                                              const float* __restrict__ l_part,
+                                              T* __restrict__ out, int* __restrict__ counters,
+                                              float* mx_s, int B, int Sq, int H, int G,
+                                              int kvh, int r0, int R, int b) {
+  constexpr int V4 = DH / 4;         // 4-column slices of a row
+  __shared__ int last_s;
+  const int t = threadIdx.x, S = gridDim.y;
+  // The cooperative-groups grid barrier's pattern: after the block
+  // barrier, one thread's fence is cumulative over every partial the block
+  // wrote (all threads fencing cost more on the card), then the count; the
+  // last block's second fence orders its loads after the other blocks'
+  // partials.
+  __syncthreads();
+  if (t == 0 && S == 1) {
+    last_s = true;
+  } else if (t == 0) {
+    __threadfence();
+    int* cnt = counters + size_t(b) * gridDim.x + blockIdx.x;
+    const bool last = atomicAdd(cnt, 1) == S - 1;
+    if (last) *cnt = 0;              // every block of its counter has counted
+    __threadfence();
+    last_s = last;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  const size_t rows = size_t(B) * Sq * H;   // rows of one split's partials
+  const bool one_chunk = S <= MERGE_CHUNK;
+  if (!one_chunk && t < R) {
+    const int j = (r0 + t) / G, g = r0 + t - j * G;
+    const float* mp = m_part + (size_t(b) * Sq + j) * H + kvh * G + g;
+    float mx = -INFINITY;
+    for (int s0 = 0; s0 < S; s0 += MERGE_CHUNK) {
+      float mv[MERGE_CHUNK];
+#pragma unroll
+      for (int u = 0; u < MERGE_CHUNK; ++u)
+        mv[u] = s0 + u < S ? __ldcg(mp + (s0 + u) * rows) : -INFINITY;
+#pragma unroll
+      for (int u = 0; u < MERGE_CHUNK; ++u) mx = fmaxf(mx, mv[u]);
+    }
+    mx_s[t] = mx;
+  }
+  if (!one_chunk) __syncthreads();
+  for (int i = t; i < R * V4; i += NT) {
+    const int r = i / V4, c = (i - r * V4) * 4;
+    const int j = (r0 + r) / G, g = r0 + r - j * G;
+    const size_t base = (size_t(b) * Sq + j) * H + kvh * G + g;
+    float mx = one_chunk ? -INFINITY : mx_s[r];
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+    for (int s0 = 0; s0 < S; s0 += MERGE_CHUNK) {
+      float mv[MERGE_CHUNK], lv[MERGE_CHUNK];
+      float4 ov[MERGE_CHUNK];
+#pragma unroll
+      for (int u = 0; u < MERGE_CHUNK; ++u) {
+        const size_t row = (s0 + u) * rows + base;
+        const bool ok = s0 + u < S;
+        mv[u] = ok ? __ldcg(m_part + row) : 0.f;
+        lv[u] = ok ? __ldcg(l_part + row) : 0.f;
+        ov[u] = ok ? __ldcg(reinterpret_cast<const float4*>(o_part + row * DH + c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (one_chunk) {
+#pragma unroll
+        for (int u = 0; u < MERGE_CHUNK; ++u)
+          if (u < S) mx = fmaxf(mx, mv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < MERGE_CHUNK; ++u) {
+        if (s0 + u >= S) break;
+        const float w = expf(mv[u] - mx);
+        l += lv[u] * w;
+        o.x += ov[u].x * w;
+        o.y += ov[u].y * w;
+        o.z += ov[u].z * w;
+        o.w += ov[u].w * w;
+      }
+    }
+    const float d = fmaxf(l, 1e-30f);
+    store_out4(out + base * DH + c, make_float4(o.x / d, o.y / d, o.z / d, o.w / d));
+  }
+}
+
+// The same, called rather than inlined: the fp32 body at DH = 256 sits at
+// 255 registers, and only a merge compiled apart from it leaves ptxas's
+// allocation of its key loop (and its spills) as they were without one.
+template <int DH, typename T>
+__device__ __noinline__ void merge_if_last_apart(const float* o_part, const float* m_part,
+                                                 const float* l_part, T* out, int* counters,
+                                                 float* mx_s, int B, int Sq, int H, int G,
+                                                 int kvh, int r0, int R, int b) {
+  merge_if_last<DH>(o_part, m_part, l_part, out, counters, mx_s, B, Sq, H, G, kvh, r0, R,
+                    b);
+}
+
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core body
 // ---------------------------------------------------------------------------
@@ -129,14 +277,14 @@ __host__ __device__ constexpr size_t f32_smem_bytes() {
 
 template <int DH, int MAXR, bool PAGED>
 __global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
-decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const int* __restrict__ pos,
-                           float* __restrict__ o_part, float* __restrict__ m_part,
-                           float* __restrict__ l_part, int B, int Sq, int H, int Hkv,
-                           long long k_s0, long long k_s1, long long v_s0, long long v_s1,
-                           int split_len, int bound, int window, float scale,
-                           const int* __restrict__ table, int t_stride, int n_pages,
-                           int ps) {
+decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ pos,
+                  float* __restrict__ o_part, float* __restrict__ m_part,
+                  float* __restrict__ l_part, float* __restrict__ out,
+                  int* __restrict__ counters, int B, int Sq, int H, int Hkv,
+                  long long k_s0, long long k_s1, long long v_s0, long long v_s1,
+                  int split_len, int bound, int window, float scale,
+                  const int* __restrict__ table, int t_stride, int n_pages, int ps) {
   constexpr int VEC = 4, CPR = DH / VEC, BK = F_BK, KPW = F_KPW, PARTS = F_PARTS;
   constexpr int UPL = CPR / PARTS;   // 16-byte chunks a lane
   constexpr int KSTR = DH + 8;       // padded K row, in floats
@@ -319,20 +467,50 @@ decode_partials_f32_kernel(const float* __restrict__ q, const float* __restrict_
     for (int i = 0; i < RPT; ++i) m[i] = m_new[i];
   }
 
-  // partials: o (S,B,Sq,H,DH), m and l (S,B,Sq,H)
+  // partials o (S,B,Sq,H,DH), m and l (S,B,Sq,H), merged by the last
+  // block if asked. DH = 256 always writes them and merges apart, even at
+  // one split (see merge_if_last_apart); else one split with an output
+  // writes the finished o / l itself.
+  if constexpr (DH == 256) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rg + RG * i;
+      if (r < R) {
+        const int j = (r0 + r) / G, g = r0 + r - j * G;
+        const size_t row = ((size_t(s) * B + b) * Sq + j) * H + kvh * G + g;
+        o_part[row * DH + c] = acc[i];
+        if (c == 0) {
+          m_part[row] = m[i];
+          l_part[row] = l[i];
+        }
+      }
+    }
+    if (out != nullptr)
+      merge_if_last_apart<DH>(o_part, m_part, l_part, out, counters, mw_s, B, Sq, H, G, kvh,
+                              r0, R, b);
+    return;
+  }
+  const bool direct = out != nullptr && gridDim.y == 1;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
     if (r < R) {
       const int j = (r0 + r) / G, g = r0 + r - j * G;
       const size_t row = ((size_t(s) * B + b) * Sq + j) * H + kvh * G + g;
-      o_part[row * DH + c] = acc[i];
-      if (c == 0) {
-        m_part[row] = m[i];
-        l_part[row] = l[i];
+      if (direct) {
+        store_out(out + row * DH + c, acc[i] / fmaxf(l[i], 1e-30f));
+      } else {
+        o_part[row * DH + c] = acc[i];
+        if (c == 0) {
+          m_part[row] = m[i];
+          l_part[row] = l[i];
+        }
       }
     }
   }
+  if (out != nullptr && gridDim.y > 1)
+    merge_if_last<DH>(o_part, m_part, l_part, out, counters, mw_s, B, Sq, H, G, kvh, r0,
+                      R, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -362,15 +540,14 @@ __host__ __device__ constexpr size_t bf16_smem_bytes() {
 
 template <int DH, int MAXR, bool PAGED>
 __global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
-decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
-                       float* __restrict__ o_part, float* __restrict__ m_part,
-                       float* __restrict__ l_part, int B, int Sq, int H, int Hkv,
-                       long long k_s0, long long k_s1, long long v_s0, long long v_s1,
-                       int split_len, int bound, int window, float scale,
-                       const int* __restrict__ table, int t_stride, int n_pages,
-                       int ps) {
+decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+              float* __restrict__ o_part, float* __restrict__ m_part,
+              float* __restrict__ l_part, __nv_bfloat16* __restrict__ out,
+              int* __restrict__ counters, int B, int Sq, int H, int Hkv,
+              long long k_s0, long long k_s1, long long v_s0, long long v_s1,
+              int split_len, int bound, int window, float scale,
+              const int* __restrict__ table, int t_stride, int n_pages, int ps) {
   using bf16 = __nv_bfloat16;
   constexpr int STR = DH + 8;        // shared-memory row, in elements
   constexpr int CPR = DH / 8;        // 16-byte chunks a row
@@ -586,7 +763,10 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  // partials: o (S,B,Sq,H,DH), m and l (S,B,Sq,H)
+  // one split with an output: the finished o / l in bf16; else the
+  // partials o (S,B,Sq,H,DH), m and l (S,B,Sq,H), merged by the last block
+  // if asked
+  const bool direct = out != nullptr && gridDim.y == 1;
   for (int i = t; i < R * DH; i += NT) {
     const int r = i / DH, c = i - r * DH;
     const int w0 = (r / 16) * WPG, rr = r % 16;
@@ -594,17 +774,29 @@ decode_partials_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = w0; w < w0 + WPG; ++w) o += f_s[w * 16 + rr] * o_s[(w * 16 + rr) * DH + c];
     const int j = (r0 + r) / G, g = r0 + r - j * G;
     const size_t row = ((size_t(s) * B + b) * Sq + j) * H + kvh * G + g;
+    if (direct) {
+      store_out(out + row * DH + c, o / fmaxf(ml_s[MAXR + r], 1e-30f));
+      continue;
+    }
     o_part[row * DH + c] = o;
     if (c == 0) {
       m_part[row] = ml_s[r];
       l_part[row] = ml_s[MAXR + r];
     }
   }
+  if (out != nullptr && gridDim.y > 1)
+    merge_if_last<DH>(o_part, m_part, l_part, out, counters, ml_s, B, Sq, H, G, kvh, r0,
+                      R, b);
 }
 
-// Kernel arguments after the query/cache/output pointers, passed through
-// the launch helpers unchanged.
+// What a launch reads and writes, and its scalar arguments, passed through
+// the launch helpers unchanged. `out` is null for the partials alone;
+// counters (and o, m, l but in fp32 at DH = 256) may be null when out is
+// set and n_splits == 1.
 struct Args {
+  const void *q, *k, *v, *pos;
+  void *o, *m, *l, *out;
+  int* counters;
   int B, Sq, H, Hkv;
   long long k_s0, k_s1, v_s0, v_s1;
   int n_splits, split_len, bound, window;
@@ -617,18 +809,17 @@ struct Args {
 template <typename T, int DH, int MAXR, bool PAGED> struct Body;
 
 template <int DH, int MAXR, bool PAGED> struct Body<float, DH, MAXR, PAGED> {
-  static constexpr auto kern = decode_partials_f32_kernel<DH, MAXR, PAGED>;
+  static constexpr auto kern = decode_f32_kernel<DH, MAXR, PAGED>;
   static constexpr size_t smem = f32_smem_bytes<DH, MAXR>();
 };
 
 template <int DH, int MAXR, bool PAGED> struct Body<__nv_bfloat16, DH, MAXR, PAGED> {
-  static constexpr auto kern = decode_partials_kernel<DH, MAXR, PAGED>;
+  static constexpr auto kern = decode_kernel<DH, MAXR, PAGED>;
   static constexpr size_t smem = bf16_smem_bytes<DH, MAXR>();
 };
 
 template <typename T, int DH, int MAXR, bool PAGED>
-int launch(const void* q, const void* k, const void* v, const void* pos, void* o,
-           void* m, void* l, const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   auto kern = Body<T, DH, MAXR, PAGED>::kern;
   constexpr size_t shm = Body<T, DH, MAXR, PAGED>::smem;
   static bool configured = false;   // once per instantiation
@@ -641,46 +832,42 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
   const int groups = ((a.H / a.Hkv) * a.Sq + MAXR - 1) / MAXR;
   const dim3 grid(a.Hkv * groups, a.n_splits, a.B);
   kern<<<grid, NT, shm, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<float*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), a.B, a.Sq, a.H, a.Hkv, a.k_s0, a.k_s1, a.v_s0, a.v_s1,
-      a.split_len, a.bound, a.window, a.scale, a.table, a.t_stride, a.n_pages, a.ps);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.pos), static_cast<float*>(a.o), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), static_cast<T*>(a.out), a.counters, a.B, a.Sq, a.H, a.Hkv,
+      a.k_s0, a.k_s1, a.v_s0, a.v_s1, a.split_len, a.bound, a.window, a.scale, a.table,
+      a.t_stride, a.n_pages, a.ps);
   return int(cudaGetLastError());
 }
 
 // packed rows a block: the fp32 body is built for 8, 16 and 32, the bf16
 // body for one or two row blocks of 16; more than 32 packed rows take
-// groups of 32
+// groups of 32 (a counter per group, KV head and slot)
 template <typename T, int DH, bool PAGED>
-int launch_rows(const void* q, const void* k, const void* v, const void* pos, void* o,
-                void* m, void* l, const Args& a, cudaStream_t st) {
+int launch_rows(const Args& a, cudaStream_t st) {
   const int R = (a.H / a.Hkv) * a.Sq;
   if constexpr (sizeof(T) == 4)
-    if (R <= 8) return launch<T, DH, 8, PAGED>(q, k, v, pos, o, m, l, a, st);
-  if (R <= 16) return launch<T, DH, 16, PAGED>(q, k, v, pos, o, m, l, a, st);
-  return launch<T, DH, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
+    if (R <= 8) return launch<T, DH, 8, PAGED>(a, st);
+  if (R <= 16) return launch<T, DH, 16, PAGED>(a, st);
+  return launch<T, DH, 32, PAGED>(a, st);
 }
 
 template <typename T, bool PAGED>
-int launch_dh(int Dh, const void* q, const void* k, const void* v, const void* pos,
-              void* o, void* m, void* l, const Args& a, cudaStream_t st) {
+int launch_dh(int Dh, const Args& a, cudaStream_t st) {
   switch (Dh) {
-    case 32: return launch_rows<T, 32, PAGED>(q, k, v, pos, o, m, l, a, st);
-    case 64: return launch_rows<T, 64, PAGED>(q, k, v, pos, o, m, l, a, st);
-    case 128: return launch_rows<T, 128, PAGED>(q, k, v, pos, o, m, l, a, st);
-    case 256: return launch_rows<T, 256, PAGED>(q, k, v, pos, o, m, l, a, st);
+    case 32: return launch_rows<T, 32, PAGED>(a, st);
+    case 64: return launch_rows<T, 64, PAGED>(a, st);
+    case 128: return launch_rows<T, 128, PAGED>(a, st);
+    case 256: return launch_rows<T, 256, PAGED>(a, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 template <bool PAGED>
-int launch_dtype(int dtype, int Dh, const void* q, const void* k, const void* v,
-                 const void* pos, void* o, void* m, void* l, const Args& a,
-                 void* stream) {
+int launch_dtype(int dtype, int Dh, const Args& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dh<float, PAGED>(Dh, q, k, v, pos, o, m, l, a, st);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16, PAGED>(Dh, q, k, v, pos, o, m, l, a, st);
+  if (dtype == 0) return launch_dh<float, PAGED>(Dh, a, st);
+  if (dtype == 1) return launch_dh<__nv_bfloat16, PAGED>(Dh, a, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -688,35 +875,43 @@ int launch_dtype(int dtype, int Dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. window <= 0
-// means no sliding window. Returns a CUDA error code (0 on success).
-int flash_decode_partials(const void* q, const void* k, const void* v,
-                          const void* pos, void* o_part, void* m_part,
-                          void* l_part, int dtype, int B, int Sq, int H, int Hkv,
-                          int Dh, long long k_sb, long long k_ss, long long v_sb,
-                          long long v_ss, int n_splits, int split_len, int bound,
-                          int window, float scale, void* stream) {
-  const Args a{B, Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, n_splits, split_len, bound,
+// Split-KV decode of q (B, Sq, H, Dh) against slot caches k, v (B, S, Hkv,
+// Dh). dtype: 0 = float32, 1 = bfloat16. Strides are in elements. window
+// <= 0 means no sliding window. o_part, m_part, l_part: fp32 scratch of
+// (n_splits, B, Sq, H, Dh), (n_splits, B, Sq, H) and (n_splits, B, Sq, H).
+// out: the finished (B, Sq, H, Dh) output in q's dtype, or NULL for the
+// partials alone. With out and n_splits > 1, counters is Hkv *
+// ceil(G * Sq / 32) * B int32 zeros, zeros again when the kernel ends;
+// with out and n_splits == 1 the counters are not touched, nor the
+// scratch but in fp32 at Dh = 256.
+// Returns a CUDA error code (0 on success).
+int flash_decode(const void* q, const void* k, const void* v, const void* pos,
+                 void* o_part, void* m_part, void* l_part, void* out, void* counters,
+                 int dtype, int B, int Sq, int H, int Hkv, int Dh, long long k_sb,
+                 long long k_ss, long long v_sb, long long v_ss, int n_splits,
+                 int split_len, int bound, int window, float scale, void* stream) {
+  const Args a{q, k, v, pos, o_part, m_part, l_part, out, static_cast<int*>(counters),
+               B, Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, n_splits, split_len, bound,
                window, scale, nullptr, 0, 0, 1};
-  return launch_dtype<false>(dtype, Dh, q, k, v, pos, o_part, m_part, l_part, a, stream);
+  return launch_dtype<false>(dtype, Dh, a, stream);
 }
 
 // The same over page pools k, v (P, page, Hkv, Dh) through the (B, NB)
 // int32 block table `table` (row stride t_stride). Page and row strides
 // are in elements; bound is the number of logical rows that may be read
 // (at most the table's columns times page_size).
-int flash_decode_paged_partials(const void* q, const void* k, const void* v,
-                                const void* table, const void* pos, void* o_part,
-                                void* m_part, void* l_part, int dtype, int B, int Sq,
-                                int H, int Hkv, int Dh, int t_stride, int n_pages,
-                                int page_size, long long k_ps, long long k_rs,
-                                long long v_ps, long long v_rs, int n_splits,
-                                int split_len, int bound, int window, float scale,
-                                void* stream) {
-  const Args a{B, Sq, H, Hkv, k_ps, k_rs, v_ps, v_rs, n_splits, split_len, bound,
+int flash_decode_paged(const void* q, const void* k, const void* v, const void* table,
+                       const void* pos, void* o_part, void* m_part, void* l_part,
+                       void* out, void* counters, int dtype, int B, int Sq, int H,
+                       int Hkv, int Dh, int t_stride, int n_pages, int page_size,
+                       long long k_ps, long long k_rs, long long v_ps, long long v_rs,
+                       int n_splits, int split_len, int bound, int window, float scale,
+                       void* stream) {
+  const Args a{q, k, v, pos, o_part, m_part, l_part, out, static_cast<int*>(counters),
+               B, Sq, H, Hkv, k_ps, k_rs, v_ps, v_rs, n_splits, split_len, bound,
                window, scale, static_cast<const int*>(table), t_stride, n_pages,
                page_size};
-  return launch_dtype<true>(dtype, Dh, q, k, v, pos, o_part, m_part, l_part, a, stream);
+  return launch_dtype<true>(dtype, Dh, a, stream);
 }
 
 const char* kernel_error_string(int code) {

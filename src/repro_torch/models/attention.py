@@ -120,7 +120,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
     ``pos`` (B,) is each slot's position of the first query token; cache
     rows past ``pos + j`` are masked for query token ``j``. Routed through
     ``kernels.attention.ops.flash_decode``: ``"auto"`` runs the split-KV
-    kernel on a CUDA tensor and its plain version on a CPU tensor,
+    kernel (one launch, splits merged inside it) on a CUDA tensor and its
+    plain version on a CPU tensor,
     ``"ref"`` always the plain version. ``kv_len`` bounds the rows read.
 
     ``block_tables`` switches to the paged layout: the caches are page

@@ -85,3 +85,38 @@ def test_timed_keeps_a_reading_under_a_bound_that_is_no_floor(monkeypatch):
     ms = chip_smoke.timed(torch, lambda: None, 4, warmup=0,
                           bound=("flash_decode", 5.0, "l2"))
     assert ms == pytest.approx(0.00329)
+
+
+def test_decode_bound_counts_the_finished_output():
+    """The decode rows' bound: q, each live K and V row, pos and the
+    table entries read once, and the finished (B, 1, H, Dh) output written
+    once in q's dtype (no fp32 partials), at the served shape."""
+    b, h, hkv, dh, live = 8, 32, 4, 128, 2904
+    ms, by, n = chip_smoke.decode_bound(b, h, hkv, dh, live, 2)
+    assert n == 2 * b * h * dh * 2 + live * hkv * dh * 2 * 2 + b * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(n / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    _, _, n_paged = chip_smoke.decode_bound(b, h, hkv, dh, live, 2, 185)
+    assert n_paged == n + 185 * 4
+    # 64 query heads a KV head: the operations outweigh the bytes
+    ms, by, _ = chip_smoke.decode_bound(1, 64, 1, 128, 1000, 2)
+    assert by == "operations"
+    assert ms == pytest.approx(1000 * 64 * 128 * 4 / chip_smoke.FP32_FLOPS
+                               * 1e3)
+
+
+@pytest.mark.parametrize("want,got,dtype,ok", [
+    (1.0, 1.0 + 5e-5, "float32", True),
+    (1.0, 1.0 + 2e-4, "float32", False),
+    (1.0, 1.0 + 2 ** -7, "bfloat16", True),          # one ulp at 1
+    (1.0, 1.0 + 2 * 2 ** -7, "bfloat16", False),     # two ulps
+    (1.3e-3, 1.3e-3 + 8e-5, "bfloat16", True),       # ulp 7.6e-6 + 1e-4
+    (1.3e-3, 1.3e-3 + 2e-4, "bfloat16", False),
+])
+def test_finished_ok_is_one_bf16_ulp_over_the_fp32_tolerance(want, got,
+                                                             dtype, ok):
+    import torch
+    dt = getattr(torch, dtype)
+    w = torch.tensor([0.25, want], dtype=torch.float32)
+    g = torch.tensor([0.25, got], dtype=torch.float32).to(dt)
+    assert chip_smoke.finished_ok(torch, g, w)[0] is ok

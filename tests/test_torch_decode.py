@@ -192,6 +192,122 @@ def test_default_splits_cover_the_sms():
     assert (bound, n) == (600, 5) and split_len * n >= bound
 
 
+# The fused merge's buffers, sized in pure Python by the wrapper: one fp32
+# workspace laid out o | m | l, and one split counter a (KV head, group of
+# 32 packed rows, slot).
+@pytest.mark.parametrize("ns,b,sq,h,dh", [(1, 1, 1, 2, 32), (5, 8, 1, 32, 128),
+                                          (3, 2, 4, 16, 256)])
+def test_workspace_layout_is_o_then_m_then_l(ns, b, sq, h, dh):
+    n, mo, lo = D.workspace_layout(ns, b, sq, h, dh)
+    n_o, n_m = ns * b * sq * h * dh, ns * b * sq * h
+    assert (n, mo, lo) == (n_o + 2 * n_m, n_o, n_o + n_m)
+    ws = torch.arange(n, dtype=torch.float32)
+    o, m, l = D.partials_views(ws, ns, b, sq, h, dh)
+    assert o.shape == (ns, b, sq, h, dh) and m.shape == l.shape == (ns, b, sq, h)
+    assert o.is_contiguous() and m.is_contiguous() and l.is_contiguous()
+    # the three views tile the workspace in order, with no gap or overlap
+    assert o.flatten()[0] == 0 and m.flatten()[0] == mo and l.flatten()[0] == lo
+    assert l.flatten()[-1] == n - 1
+    assert mo * 4 % 16 == 0          # m starts 16-byte aligned (Dh >= 32)
+
+
+@pytest.mark.parametrize("b,sq,h,hkv,want", [
+    (8, 1, 32, 4, 4 * 1 * 8),          # yi-9b served: G*Sq = 8, one group
+    (1, 4, 32, 4, 4 * 1 * 1),          # G*Sq = 32, still one group
+    (2, 1, 66, 2, 2 * 2 * 2),          # G*Sq = 33: two groups
+    (3, 4, 32, 2, 2 * 2 * 3),          # G*Sq = 64
+    (2, 8, 16, 1, 1 * 4 * 2),          # G*Sq = 128
+])
+def test_counters_needed_one_per_row_group(b, sq, h, hkv, want):
+    assert D.counters_needed(b, sq, h, hkv) == want
+
+
+@pytest.mark.parametrize("finished,ns", [(False, 1), (False, 4), (True, 1),
+                                         (True, 4)])
+def test_launch_buffers_point_into_one_workspace(finished, ns):
+    """What a launch is handed: the partials as offsets into one fp32
+    workspace (none for a finished call of one split), the output in q's
+    dtype when finished, and the device's cached counters only for a
+    finished call of more than one split."""
+    b, sq, h, hkv, dh = 3, 2, 16, 2, 32
+    q = torch.zeros(b, sq, h, dh, dtype=torch.bfloat16)
+    ws, out, (o, m, l, outp, cnt) = D._launch_buffers(q, hkv, ns, finished)
+    assert (ws is not None) == D.needs_workspace(q.dtype, dh, ns, finished)
+    if finished and ns == 1:
+        assert ws is None and o is m is l is None
+    else:
+        n, mo, lo = D.workspace_layout(ns, b, sq, h, dh)
+        assert ws.dtype == torch.float32 and ws.numel() == n
+        assert (o, m, l) == (ws.data_ptr(), ws.data_ptr() + 4 * mo,
+                             ws.data_ptr() + 4 * lo)
+    if finished:
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert outp == out.data_ptr()
+    else:
+        assert out is None and outp is None
+    if finished and ns > 1:
+        c = D.split_counters(q.device)
+        assert cnt == c.data_ptr()
+        assert c.numel() >= D.counters_needed(b, sq, h, hkv)
+    else:
+        assert cnt is None
+
+
+@pytest.mark.parametrize("dtype,dh,ns,finished,want", [
+    (torch.bfloat16, 128, 1, True, False),   # one split writes its output
+    (torch.bfloat16, 128, 5, True, True),
+    (torch.bfloat16, 128, 1, False, True),   # the partials alone
+    (torch.float32, 128, 1, True, False),
+    (torch.bfloat16, 256, 1, True, False),
+    (torch.float32, 256, 1, True, True),     # fp32 Dh=256 merges back
+    (torch.float32, 256, 3, True, True),
+])
+def test_needs_workspace(dtype, dh, ns, finished, want):
+    assert D.needs_workspace(dtype, dh, ns, finished) is want
+
+
+def test_split_counters_grow_zeroed_and_are_kept():
+    dev = torch.device("cpu")
+    D._COUNTERS.pop(dev, None)
+    small = D.split_counters(dev, 4)
+    assert small.dtype == torch.int32 and small.numel() == 4
+    assert D.split_counters(dev, 2) is small      # enough: the same tensor
+    big = D.split_counters(dev, 48)
+    assert big.numel() == 48 and not big.any()
+    assert D.split_counters(dev) is big
+    D._COUNTERS.pop(dev, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_finished_output_is_combined_partials_in_q_dtype(dtype):
+    """On the CPU the finished output is the plain partials merged by
+    combine_splits and cast to q's dtype, bit for bit; flash_decode and
+    flash_decode_paged are it under their split plans."""
+    q, k, v = _torch(*_case(2, 77, 8, 2, 32, 3, seed=5), dtype=dtype)
+    pos = torch.tensor([5, 70], dtype=torch.int32)
+    bound, split_len, n = D.split_plan(2, 2, 77, 16, 3, None)
+    kw = dict(window=None, split_len=split_len, n_splits=n, bound=bound)
+    want = D.combine_splits(*D.decode_partials(q, k, v, pos, **kw)).to(dtype)
+    got = D.decode_finished(q, k, v, pos, **kw)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(D.flash_decode(q, k, v, pos, bk=16, n_splits=3), want)
+    ps = 7
+    nb = -(-77 // ps)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nb * ps - 77)).reshape(
+        2 * nb, ps, 2, 32)
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nb * ps - 77)).reshape(
+        2 * nb, ps, 2, 32)
+    bt = torch.arange(2 * nb, dtype=torch.int32).reshape(2, nb)
+    pb, psl, pns = D.paged_split_plan(2, 2, ps, nb, 3)
+    pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pb)
+    pwant = D.combine_splits(*D.decode_paged_partials(
+        q, kp, vp, bt, pos, **pkw)).to(dtype)
+    pgot = D.decode_paged_finished(q, kp, vp, bt, pos, **pkw)
+    assert pgot.dtype == dtype and torch.equal(pgot, pwant)
+    assert torch.equal(D.flash_decode_paged(q, kp, vp, bt, pos, n_splits=3),
+                       pwant)
+
+
 def _warp_merge_rounding(q, k, v, pos, *, window, bk=64, kpw=8):
     """In plain torch and fp32, the order in which the kernel sums: each
     slot's live rows in tiles of ``bk`` keys, each tile scored by warps of

@@ -70,6 +70,60 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh, sq,
     torch.testing.assert_close(D.combine_splits(*got),
                                D.combine_splits(*want), rtol=1e-4, atol=1e-4)
     assert torch.equal(got[2] == 0, want[2] == 0)        # dead splits
+    # the finished output, splits merged in the kernel: one launch
+    K.reset_launches()
+    fin = D.decode_finished(q, k, v, pos, impl="cuda", **kw)
+    assert K.LAUNCHES["flash_decode"] == 1 and fin.dtype == dtype
+    _assert_finished(fin, D.combine_splits(*want))
+
+
+def _assert_finished(got, want_f32):
+    """A finished kernel output against the plain partials merged by
+    combine_splits and cast to its dtype. fp32: within 1e-4, as the
+    partials. bf16: within one bf16 ulp (rtol 2**-7 of the rounded plain
+    value) plus the fp32 tolerance: both sides round an fp32 sum taken in
+    another order than torch.sum's, so near a rounding boundary the two
+    roundings can part by one ulp. The split counters are all 0 again."""
+    want = want_f32.to(got.dtype)
+    rtol = 1e-4 if got.dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4)
+    torch.cuda.synchronize()
+    assert not D.split_counters(got.device).any()
+
+
+def test_decode_counters_reset_and_repeats_bit_identical(cuda):
+    """One cached counter tensor across finished calls of other split
+    counts, slot counts and row groups, dense and paged: after each call
+    every counter is 0 again, and a call repeated gives the same bits (the
+    last block merges in split order, whichever block finishes last)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    skv, hkv, dh, ps = 512, 2, 128, 16
+    D._COUNTERS.clear()             # made for the first call, grown after
+    for b, h, sq, ns in ((1, 16, 1, 16), (3, 16, 1, 2), (8, 16, 1, 5),
+                         (2, 32, 4, 3), (8, 16, 1, 8), (5, 16, 1, 1),
+                         (8, 16, 1, 5)):
+        q = torch.randn(b, sq, h, dh, generator=g, device=cuda).bfloat16()
+        k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).bfloat16()
+        v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).bfloat16()
+        pos = torch.linspace(0, skv - sq, b, device=cuda).round().int()
+        bt = torch.arange(b * skv // ps, dtype=torch.int32,
+                          device=cuda).reshape(b, -1)
+        kp, vp = (x.reshape(-1, ps, hkv, dh) for x in (k, v))
+        calls = (lambda: D.flash_decode(q, k, v, pos, n_splits=ns,
+                                        impl="cuda"),
+                 lambda: D.flash_decode_paged(q, kp, vp, bt, pos,
+                                              n_splits=ns, impl="cuda"))
+        for call in calls:
+            first = call()
+            torch.cuda.synchronize()
+            assert not D.split_counters(q.device).any()
+            assert torch.equal(call().view(torch.int16),
+                               first.view(torch.int16))
+            torch.cuda.synchronize()
+            assert not D.split_counters(q.device).any()
+    assert D.split_counters(q.device).numel() >= D.counters_needed(2, 4, 32,
+                                                                   hkv)
 
 
 @pytest.mark.parametrize("kv_len,rounded", [(472, True), (301, True),
@@ -206,6 +260,10 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
                                    D.combine_splits(*want), rtol=1e-4,
                                    atol=1e-4)
         assert torch.equal(got[2] == 0, want[2] == 0)     # dead splits
+        K.reset_launches()
+        fin = D.decode_paged_finished(q, kp, vp, bt, pos, impl="cuda", **kw)
+        assert K.LAUNCHES["flash_decode_paged"] == 1 and fin.dtype == dtype
+        _assert_finished(fin, D.combine_splits(*want))
     # the same logical cache through the dense kernel
     dense = D.flash_decode(q, k, v, pos, window=window, impl="cuda")
     paged = ops.flash_decode_paged(q, kp, vp, bt, pos, window=window,
