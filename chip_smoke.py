@@ -431,9 +431,12 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
     version computed in fp32 from the same bf16 inputs (the kernels round
     once), sums at rtol 1e-5 (bf16 against the fp32-accumulated plain
     sum), stencils at 1e-6, each also on a view whose data start 4 bytes
-    past a 16-byte boundary, Gauss-Seidel also with one interior row,
-    more than one sweep and rows wider than 16,384 interior columns (20000
-    and 40002). Launch counts zeroed before, read after.
+    past a 16-byte boundary; Gauss-Seidel also bit for bit, with one
+    interior row, widths of 32k + 2 and 32k + 3 columns (its 4-byte
+    route) and of 4k columns (its TMA route, but for the views' first
+    pass), 20000 and 40002 columns, no sweep, and sweeps that take one,
+    two and three passes (the ping-pong through the temporary grid both
+    ways). Launch counts zeroed before, read after.
     Returns the largest absolute error by kernel."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -488,21 +491,27 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
             ("gauss_seidel_2d5pt", (33, 101), (1,)),
             ("gauss_seidel_2d5pt", (3, 2500), (2,)),   # one interior row
             ("gauss_seidel_2d5pt", (3, 101), (3,)),
-            # wider than the 16,384 interior columns held in registers:
-            # the rest of each row is staged in the scratch row
             ("gauss_seidel_2d5pt", (6, 20000), (2,)),
-            ("gauss_seidel_2d5pt", (5, 40002), (1,))):
-        # the grid itself, then a contiguous view at an offset that is no
-        # multiple of 16 bytes (the stencils load one float at a time)
-        base = torch.randn((shape[0] + 1,) + shape[1:], generator=gen,
-                           device="cuda")
-        for u, what in ((base[:-1], f"{shape}"),
-                        (base[1:], f"{shape} view at a 4-byte offset")):
+            ("gauss_seidel_2d5pt", (5, 40002), (1,)),
+            ("gauss_seidel_2d5pt", (37, 130), (2,)),
+            ("gauss_seidel_2d5pt", (37, 131), (2,)),
+            ("gauss_seidel_2d5pt", (37, 132), (0,)),
+            ("gauss_seidel_2d5pt", (37, 132), (4,)),   # one pass of 4
+            ("gauss_seidel_2d5pt", (70, 132), (8,)),   # two passes
+            ("gauss_seidel_2d5pt", (70, 132), (9,))):  # three passes
+        # the grid itself, then a contiguous view 4 bytes past a 16-byte
+        # boundary (the stencils load one float at a time)
+        n = math.prod(shape)
+        base = torch.randn(n + 4, generator=gen, device="cuda")
+        for u, what in ((base[:n].view(shape), f"{shape}"),
+                        (base[1:n + 1].view(shape),
+                         f"{shape} view at a 4-byte offset")):
             got = getattr(SO, name)(u, *args)
             want = getattr(SR, name)(u, *args)
             err = (got - want).abs().max().item()
-            note(name, err, got.shape == want.shape and err <= STENCIL_TOL,
-                 what)
+            note(name, err, got.shape == want.shape and err <= STENCIL_TOL
+                 and (name != "gauss_seidel_2d5pt"
+                      or torch.equal(got, want)), what)
     torch.cuda.synchronize()
     moved = {n: K.LAUNCHES[n] for n in STREAM_KERNELS}
     check(all(moved.values()), f"stream: kernels never launched: "
@@ -511,7 +520,8 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
           f"at {STREAM_CHECK_SHAPES[0]} and {STREAM_CHECK_SHAPES[1]} "
           f"(stencils and pi at their own aligned and ragged sizes): f32 "
           f"elementwise bit-identical, bf16 within 1 ulp of the fp32 plain "
-          f"result, sums rtol {STREAM_SUM_RTOL}, stencils {STENCIL_TOL}; "
+          f"result, sums rtol {STREAM_SUM_RTOL}, stencils {STENCIL_TOL} "
+          f"(gauss-seidel bit-identical); "
           f"launches {moved}")
     print("stream kernels: max abs err " + ", ".join(
         f"{n} {e:.3g}" for n, e in errs.items())
@@ -519,7 +529,25 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
     return errs
 
 
-def phase_stream(torch, K, SO, SR, errs) -> list:
+def check_sum_calls(torch, SO, SK, x) -> None:
+    """``sum_reduction`` of ``x``: its block counter back at 0 after each
+    call, two calls bit-identical, and one call one kernel event."""
+    got = SO.sum_reduction(x)
+    torch.cuda.synchronize()
+    counter = SK.sum_counter(x.device)
+    check(not counter.any(), "stream: sum_reduction counter not 0 after a "
+          "call")
+    again = SO.sum_reduction(x)
+    torch.cuda.synchronize()
+    check(not counter.any(), "stream: sum_reduction counter not 0 after a "
+          "call")
+    check(same_bits(torch, got.reshape(1), again.reshape(1)),
+          "stream: two sum_reduction calls differ")
+    one_kernel_event(torch, lambda: SO.sum_reduction(x),
+                     "stream: sum_reduction", SUM_KERNEL)
+
+
+def phase_stream(torch, K, SO, SR, SK, errs) -> list:
     """The suite's main path at HBM-resident sizes: each of the 16
     kernels once through ``ops`` (impl="auto"), launch counts zeroed
     before and read after, each output held against its plain version;
@@ -550,8 +578,12 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
     outs.update((n, getattr(SO, n)(u, *a)) for n, (u, a) in stencils.items())
     torch.cuda.synchronize()
     launches = {n: K.LAUNCHES[n] for n in STREAM_KERNELS}
-    check(all(c == 1 for c in launches.values()),
-          f"stream: main path launches {launches}, expected 1 each")
+    gs_plan = SK.gauss_seidel_plan(*GS_SHAPE, GS_SWEEPS)
+    want_launches = dict.fromkeys(STREAM_KERNELS, 1)
+    want_launches["gauss_seidel_2d5pt"] = len(gs_plan.fused)
+    check(launches == want_launches, f"stream: main path launches "
+          f"{launches}, expected {want_launches} (a launch a Gauss-Seidel "
+          f"pass)")
     for n, (k, _, plain, _, _) in elementwise.items():
         check(torch.equal(outs.pop(n), plain(xs[:k])),
               f"stream: {n} at {STREAM_HBM_SHAPE} not bit-identical")
@@ -567,9 +599,13 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
         check(err <= STREAM_SUM_RTOL * abs(want.item()),
               f"stream: {n} main path error {err:.3g}")
     for n, (u, a) in stencils.items():
-        err = (outs.pop(n) - getattr(SR, n)(u, *a)).abs().max().item()
+        got, want = outs.pop(n), getattr(SR, n)(u, *a)
+        err = (got - want).abs().max().item()
         check(err <= STENCIL_TOL, f"stream: {n} main path error {err:.3g}")
+        check(n != "gauss_seidel_2d5pt" or torch.equal(got, want),
+              f"stream: {n} main path not bit-identical to plain")
         errs[n] = max(errs[n], err)
+    check_sum_calls(torch, SO, SK, xs[0])
     print(f"stream main path: 16 kernels through ops (impl='auto') at "
           f"2^{int(math.log2(n_el))} f32 an array {STREAM_HBM_SHAPE}, pi "
           f"n=2^{int(math.log2(PI_N))}, jacobi "
@@ -652,13 +688,23 @@ def phase_stream(torch, K, SO, SR, errs) -> list:
     row("gauss_seidel_2d5pt", lambda: SO.gauss_seidel_2d5pt(gs, GS_SWEEPS),
         lambda: SR.gauss_seidel_2d5pt(gs, GS_SWEEPS), None,
         "no single PyTorch call:", h * w * 4 * 2,
-        (h - 2) * (w - 2) * 4 * GS_SWEEPS, iters=3, plain_iters=1,
+        (h - 2) * (w - 2) * 4 * GS_SWEEPS, plain_iters=1,
         plain_warmup=0,   # its ~41,000 launches ran once in the check above
         what=f"{GS_SHAPE} x {GS_SWEEPS} sweeps")
-    print(f"timing: gauss_seidel_2d5pt: "
-          f"{ms_of['gauss_seidel_2d5pt'] * 1e6 / ((h - 2) * GS_SWEEPS):.0f} "
-          f"ns a row step of the one-block wavefront (its measured time over "
-          f"{h - 2} rows x {GS_SWEEPS} sweeps)")
+    moved = len(gs_plan.fused) * 2 * h * w * 4
+    print(f"timing: gauss_seidel_2d5pt: {len(gs_plan.fused)} pass(es) of "
+          f"{gs_plan.fused} fused sweeps, {gs_plan.strips} warps: "
+          f"{moved / ms_of['gauss_seidel_2d5pt'] / 1e6:.0f} GB/s of the "
+          f"{moved / 1e6:.1f} MB the passes move (a read and a write of the "
+          f"grid each), {rows[-1]['bound_ms'] / ms_of['gauss_seidel_2d5pt']:.1%}"
+          f" of the bound's speed ({rows[-1]['bound_ms'] * 1e3:.1f} us)")
+    plan4 = SK.gauss_seidel_plan(h, w, 2 * GS_SWEEPS)
+    ms4 = timed(torch, lambda: SO.gauss_seidel_2d5pt(gs, 2 * GS_SWEEPS), 10)
+    print(f"timing: gauss_seidel_2d5pt x {2 * GS_SWEEPS} sweeps in "
+          f"{len(plan4.fused)} pass(es) of {plan4.fused}: {ms4 * 1e3:.1f} us "
+          f"= {ms4 * 1e3 / (2 * GS_SWEEPS):.1f} us a sweep, against "
+          f"{ms_of['gauss_seidel_2d5pt'] * 1e3 / GS_SWEEPS:.1f} at "
+          f"{GS_SWEEPS} sweeps")
 
     gbs = {n: n_el * 4 / ms_of[n] / 1e6 for n in inits}
     print(f"stream: INIT at {n_el} f32 ({n_el * 4 / 2**30:g} GiB "
@@ -754,18 +800,22 @@ def check_finished(torch, D, call, want_f32, what: str) -> float:
 #: fp32 bodies, each with PAGED = false and true; also their former names,
 #: decode_partials_*, so a trace of an older checkout groups them alike)
 DECODE_KERNEL = re.compile(r"\bdecode_(partials_)?(f32_)?kernel<")
+#: sum_reduction's kernel as the profiler demangles it
+SUM_KERNEL = re.compile(r"\bsum_kernel<")
 
 
-def one_kernel_event(torch, call, what: str) -> None:
+def one_kernel_event(torch, call, what: str, kernel=DECODE_KERNEL) -> None:
     """One ``call()`` (warm, its counters made) puts exactly one device
-    event, the decode kernel, in a profiler window."""
+    event, the kernel whose name ``kernel`` matches, in a profiler
+    window."""
     call()
     torch.cuda.synchronize()
     counts = {}
     profiled(torch, call, what, counts=counts)
     check(sum(counts.values()) == 1 and all(
-        DECODE_KERNEL.search(n) for n in counts),
-        f"{what}: one call put {counts} on the card, not one decode kernel")
+        kernel.search(n) for n in counts),
+        f"{what}: one call put {counts} on the card, not one "
+        f"{kernel.pattern} kernel")
     print(f"{what}: one call is one kernel event ({next(iter(counts))[:60]})")
 
 
@@ -1884,7 +1934,7 @@ def main() -> int:
     from repro_torch import serve
     from repro_torch.kernels import build, stores as S_
     from repro_torch.kernels.attention import decode as D, ops, ref as R
-    from repro_torch.kernels.stream import ops as SO, ref as SR
+    from repro_torch.kernels.stream import kernels as SK, ops as SO, ref as SR
     from repro_torch.models import layers as L, model as M
     from repro_torch.serve import pages as PG
 
@@ -1897,7 +1947,7 @@ def main() -> int:
     paged_err = phase_paged_decode(torch, D, ops)
     flash_err = phase_flash(torch, ops, R)
     phase_stores(torch, S_)
-    stream_rows = phase_stream(torch, K, SO, SR,
+    stream_rows = phase_stream(torch, K, SO, SR, SK,
                                phase_stream_check(torch, K, SO, SR))
     eng, reqs, launches = phase_engine(torch, np, cfg_mod, M, K, serve)
     flash_launches = phase_prefill_attention(torch, np, eng.cfg, M, L, K,

@@ -12,15 +12,18 @@ With a substring, only the kernels whose label holds it are timed.
 
 Both checkouts' ``stream``, ``stencil``, ``decode`` and ``flash``
 libraries are built from their own ``csrc``; the change's Python
-wrappers drive the stream, stencil and flash kernels of both, by
-swapping which library ``build.load`` hands them (their C interfaces are
-the same). The parent's decode entry points write the per-split partials
-alone (``PARENT_DECODE_SIGNATURES``) and are called directly: the
-parent's finished decode output is those partials merged by the plain
-``combine_splits`` and cast, timed against the change's one launch, and
-the partials alone against the change's partials-only route. Each kernel
-is timed parent, change, change, parent with ``chip_smoke.timed`` (device
-time by torch.profiler) and printed with its two means and their ratio.
+wrappers drive the kernels of both, by swapping which library
+``build.load`` hands them, where their C interfaces are the same. The
+entry points whose interface changed are bound for the parent as the
+parent had them and called directly: the parent's ``sum_reduction``
+writes block partials that ``parts.sum()`` adds up, and its
+``gauss_seidel_2d5pt`` is one launch of every sweep with a scratch row
+past 16,384 interior columns (``PARENT_STREAM_SIGNATURES``,
+``PARENT_STENCIL_SIGNATURES``), each timed against the change's call.
+When a library's C interface changes, bind the parent's as it was here.
+Each kernel is timed parent, change, change, parent with
+``chip_smoke.timed`` (device time by torch.profiler) and printed with
+its two means and their ratio.
 """
 
 from __future__ import annotations
@@ -33,17 +36,17 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-LIBS = ("stream", "stencil", "flash")
+LIBS = ("stream", "stencil", "flash", "decode")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: the parent's decode entry points: the partials alone, no output or
-#: split-counter pointers
-PARENT_DECODE_SIGNATURES = {
-    "flash_decode_partials": [_P] * 7 + [_I] * 6 + [_L] * 4
-    + [_I] * 4 + [ctypes.c_float, _P],
-    "flash_decode_paged_partials": [_P] * 8 + [_I] * 9 + [_L] * 4
-    + [_I] * 4 + [ctypes.c_float, _P],
-}
+#: the parent's sum (fp32 block partials, 8 blocks an SM) and
+#: Gauss-Seidel (all sweeps in one launch, a scratch row of W floats past
+#: 16,384 interior columns), in place of the change's ``stream_sum`` and
+#: ``stencil_gauss_seidel_pass``
+PARENT_STREAM_SIGNATURES = {"stream_sum_partials": [_I, _P, _L, _P, _I, _P]}
+PARENT_STENCIL_SIGNATURES = {
+    "stencil_gauss_seidel_2d5pt": [_P, _P, _P, _I, _I, _I, _P]}
+PARENT_SUM_BLOCKS_PER_SM, PARENT_GS_REGISTER_COLS = 8, 16384
 
 
 def parent_lib(build, csrc: str, name: str, signatures: dict):
@@ -88,10 +91,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     csrc = os.path.join(sys.argv[1], "src", "repro_torch", "kernels", "csrc")
     sigs = {"stream": SK._STREAM_SIGNATURES,
-            "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES}
+            "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES,
+            "decode": D._SIGNATURES}
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    old = {n: parent_lib(build, csrc, n, sigs[n]) for n in LIBS}
-    old_decode = parent_lib(build, csrc, "decode", PARENT_DECODE_SIGNATURES)
+    parent_sigs = {
+        "stream": {**{k: v for k, v in sigs["stream"].items()
+                      if k != "stream_sum"}, **PARENT_STREAM_SIGNATURES},
+        "stencil": {**{k: v for k, v in sigs["stencil"].items()
+                       if k != "stencil_gauss_seidel_pass"},
+                    **PARENT_STENCIL_SIGNATURES},
+        "flash": sigs["flash"], "decode": sigs["decode"]}
+    old = {n: parent_lib(build, csrc, n, parent_sigs[n]) for n in LIBS}
 
     def using(libs, fn):
         def call():
@@ -111,19 +121,50 @@ def main() -> int:
         ("init_store f32", lambda: SK.init_store(sh, 2.0), 10),
         ("init_nt f32", lambda: SK.init_nt(sh, 2.0), 10),
         ("init_partial f32", lambda: SK.init_partial(sh, 2.0), 10),
-        ("sum_reduction f32", lambda: SK.sum_reduction(xs[0]), 10),
         ("pi_integration n=2^28",
          lambda: SK.pi_integration(chip_smoke.PI_N), 10)]
     j2 = torch.randn(chip_smoke.JACOBI_2D_SHAPE, generator=gen, device="cuda")
     j3 = torch.randn(chip_smoke.JACOBI_3D_SHAPE, generator=gen, device="cuda")
     gs = torch.randn(chip_smoke.GS_SHAPE, generator=gen, device="cuda")
     cases += [("jacobi_2d5pt", lambda: SK.jacobi_2d5pt(j2), 10),
-              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5),
-              (f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x "
-               f"{chip_smoke.GS_SWEEPS}",
-               lambda: SK.gauss_seidel_2d5pt(gs, chip_smoke.GS_SWEEPS), 3)]
+              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5)]
     timed = [(label, using(old, fn), using(new, fn), iters)
              for label, fn, iters in cases]
+
+    def stream_now():
+        return torch.cuda.current_stream().cuda_stream
+
+    def parent_sum(x):
+        """The parent's sum: its partials kernel, then ``parts.sum()``."""
+        n = min(-(-x.numel() // (256 * 4)), PARENT_SUM_BLOCKS_PER_SM * torch
+                .cuda.get_device_properties(0).multi_processor_count)
+        parts = torch.empty(n, dtype=torch.float32, device="cuda")
+        rc = old["stream"].stream_sum_partials(0, x.data_ptr(), x.numel(),
+                                               parts.data_ptr(), n,
+                                               stream_now())
+        build.check(old["stream"], rc, "parent sum_reduction")
+        return parts.sum()
+
+    def parent_gs(u, sweeps):
+        """The parent's Gauss-Seidel: every sweep in one launch."""
+        h, w = u.shape
+        o = torch.empty_like(u)
+        scratch = (torch.empty(w, device="cuda")
+                   if w - 2 > PARENT_GS_REGISTER_COLS else None)
+        rc = old["stencil"].stencil_gauss_seidel_2d5pt(
+            u.data_ptr(), o.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), h, w, sweeps,
+            stream_now())
+        build.check(old["stencil"], rc, "parent gauss_seidel_2d5pt")
+        return o
+
+    gsw = chip_smoke.GS_SWEEPS
+    timed += [
+        ("sum_reduction f32", lambda: parent_sum(xs[0]),
+         using(new, lambda: SK.sum_reduction(xs[0])), 10),
+        (f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x {gsw}",
+         lambda: parent_gs(gs, gsw),
+         using(new, lambda: SK.gauss_seidel_2d5pt(gs, gsw)), 3)]
 
     # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
     # live rows, 48 layers' caches cycled so every call reads cold rows
@@ -146,32 +187,6 @@ def main() -> int:
         :b * nb].reshape(b, nb).int().cuda()
     pb, psl, pns = D.paged_split_plan(b, hkv, ps, nb, None)
 
-    def parent_partials(paged: bool, i: int):
-        """The parent's decode kernel on layer i: the partials alone."""
-        o = torch.empty((ns if not paged else pns, b, 1, hq, dh),
-                        dtype=torch.float32, device="cuda")
-        m = torch.empty(o.shape[:-1], dtype=torch.float32, device="cuda")
-        l = torch.empty_like(m)
-        st = torch.cuda.current_stream().cuda_stream
-        scale = 1.0 / dh ** 0.5
-        if paged:
-            k, v = kp[i], vp[i]
-            rc = old_decode.flash_decode_paged_partials(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
-                pos.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), 1,
-                b, 1, hq, hkv, dh, bt.stride(0), k.shape[0], ps, k.stride(0),
-                k.stride(1), v.stride(0), v.stride(1), pns, psl, pb, 0,
-                scale, st)
-        else:
-            k, v = kc[i], vc[i]
-            rc = old_decode.flash_decode_partials(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                o.data_ptr(), m.data_ptr(), l.data_ptr(), 1, b, 1, hq, hkv,
-                dh, k.stride(0), k.stride(1), v.stride(0), v.stride(1), ns,
-                sl, bound, 0, scale, st)
-        build.check(old_decode, rc, "parent decode")
-        return o, m, l
-
     def nxt():
         layer[0] = (layer[0] + 1) % n_layers
         return layer[0]
@@ -179,27 +194,22 @@ def main() -> int:
     dkw = dict(window=None, split_len=sl, n_splits=ns, bound=bound)
     pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pb)
     decode_cases = {
-        "flash_decode finished": (
-            lambda: D.combine_splits(*parent_partials(False, nxt())).to(
-                q.dtype),
+        "flash_decode finished":
             lambda: D.decode_finished(q, kc[nxt()], vc[layer[0]], pos,
-                                      impl="cuda", **dkw)),
-        "flash_decode partials alone": (
-            lambda: parent_partials(False, nxt()),
+                                      impl="cuda", **dkw),
+        "flash_decode partials alone":
             lambda: D.decode_partials(q, kc[nxt()], vc[layer[0]], pos,
-                                      impl="cuda", **dkw)),
-        "flash_decode_paged finished": (
-            lambda: D.combine_splits(*parent_partials(True, nxt())).to(
-                q.dtype),
+                                      impl="cuda", **dkw),
+        "flash_decode_paged finished":
             lambda: D.decode_paged_finished(q, kp[nxt()], vp[layer[0]], bt,
-                                            pos, impl="cuda", **pkw)),
-        "flash_decode_paged partials alone": (
-            lambda: parent_partials(True, nxt()),
+                                            pos, impl="cuda", **pkw),
+        "flash_decode_paged partials alone":
             lambda: D.decode_paged_partials(q, kp[nxt()], vp[layer[0]], bt,
-                                            pos, impl="cuda", **pkw)),
+                                            pos, impl="cuda", **pkw),
     }
-    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16", p_fn, c_fn,
-               480) for name, (p_fn, c_fn) in decode_cases.items()]
+    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
+               using(old, fn), using(new, fn), 480)
+              for name, fn in decode_cases.items()]
     for s in (512, 2048):
         fq = torch.randn(1, hq, s, dh, generator=gen,
                          device="cuda").bfloat16()

@@ -30,6 +30,7 @@ bfloat16); the stencils and Gauss-Seidel take float32.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,13 +41,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _STREAM_SIGNATURES = {
     "stream_elementwise": [_I, _I, _I, _P, _P, _P, _P, _L, _F, _P],
     "stream_init_partial": [_I, _P, _L, _L, _F, _P],
-    "stream_sum_partials": [_I, _P, _L, _P, _I, _P],
+    "stream_sum": [_I, _P, _L, _P, _I, _P, _P, _P],
     "stream_pi_partials": [_L, _I, _P, _P],
 }
 _STENCIL_SIGNATURES = {
     "stencil_jacobi_2d5pt": [_P, _P, _I, _I, _P],
     "stencil_jacobi_3d7pt": [_P, _P, _I, _I, _I, _P],
-    "stencil_gauss_seidel_2d5pt": [_P, _P, _P, _I, _I, _I, _P],
+    "stencil_gauss_seidel_pass": [_P, _P, _I, _I, _I, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,10 +56,14 @@ _FILL, _COPY, _SCALE, _ADD, _TRIAD, _SCHOENAUER = range(6)
 
 #: points per pi_integration block partial (the TPU kernel's ``bn``)
 PI_BLOCK = 4096
-#: interior columns Gauss-Seidel stages in registers (1024 threads x 16);
-#: a wider grid stages the rest of a row in a scratch row
-GS_REGISTER_COLS = 16384
+#: sweeps one Gauss-Seidel pass fuses (csrc/stencil.cu kGsMaxFused)
+GS_MAX_FUSED = 4
+#: resident sum_reduction blocks an SM, threads a block and 16-byte loads
+#: a thread keeps in flight (kSumBlocksPerSm, kThreads, kSumLoads)
+SUM_BLOCKS_PER_SM, SUM_THREADS, SUM_LOADS = 4, 256, 8
 _INT_MAX = 2 ** 31 - 1
+#: sum_reduction's int32 block counter, one zeroed tensor per device
+_SUM_COUNTERS: dict = {}
 
 
 def _stream(device) -> int:
@@ -200,24 +205,57 @@ def schoenauer_triad(b, c, d):
 
 # --- reductions -----------------------------------------------------------
 
+def sum_plan(n: int, element_size: int, sms: int) -> tuple:
+    """``(blocks, counters)`` of one ``sum_reduction`` launch over ``n``
+    elements of ``element_size`` bytes on a card of ``sms`` SMs: enough
+    blocks for every thread to keep ``SUM_LOADS`` 16-byte loads in flight,
+    at most one wave of ``SUM_BLOCKS_PER_SM`` blocks an SM; one counter."""
+    vec = 16 // element_size
+    work = n // vec + n % vec
+    per_block = SUM_THREADS * SUM_LOADS
+    return max(1, min(SUM_BLOCKS_PER_SM * sms, -(-work // per_block))), 1
+
+
+def sum_counter(device) -> torch.Tensor:
+    """The int32 block counter of ``sum_reduction`` on ``device``.
+
+    It is zeroed once, when made; the kernel's last block sets it back to
+    0, so calls need no memset between them. One counter serves one
+    stream at a time: calls in flight on two streams at once would share
+    it.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    c = _SUM_COUNTERS.get(device)
+    if c is None:
+        c = _SUM_COUNTERS[device] = torch.zeros(1, dtype=torch.int32,
+                                                device=device)
+    return c
+
+
 def sum_reduction(x):
-    """fp32 block partials of ``x`` in the kernel (8 blocks an SM), their
-    sum outside it, as the JAX package sums its partials outside Pallas.
-    Returns a 0-d float32 tensor."""
+    """The fp32 sum of ``x`` in one launch: each block's fp32 partial,
+    then the last block to finish (found by a device counter) sums the
+    partials in a fixed order and writes the result, so repeats are
+    bit-identical. (The JAX package sums its partials outside Pallas; the
+    port fuses that step.) Returns a 0-d float32 tensor."""
     _check_inputs("sum_reduction", (x,))
     if x.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=x.device)
-    vec = 16 // x.element_size()
-    n_parts = min(-(-x.numel() // (256 * vec)), 8 * torch.cuda
-                  .get_device_properties(x.device).multi_processor_count)
-    parts = torch.empty(n_parts, dtype=torch.float32, device=x.device)
+    blocks, _ = sum_plan(x.numel(), x.element_size(), torch.cuda
+                         .get_device_properties(x.device)
+                         .multi_processor_count)
+    parts = torch.empty(blocks, dtype=torch.float32, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
     lib = build.load("stream", _STREAM_SIGNATURES)
-    rc = lib.stream_sum_partials(_DTYPE_CODES[x.dtype], x.data_ptr(),
-                                 x.numel(), parts.data_ptr(), n_parts,
-                                 _stream(x.device))
+    rc = lib.stream_sum(_DTYPE_CODES[x.dtype], x.data_ptr(), x.numel(),
+                        parts.data_ptr(), blocks,
+                        sum_counter(x.device).data_ptr(), out.data_ptr(),
+                        _stream(x.device))
     build.check(lib, rc, "sum_reduction")
     LAUNCHES["sum_reduction"] += 1
-    return parts.sum()
+    return out
 
 
 def pi_integration(n: int, *, device="cuda"):
@@ -285,30 +323,88 @@ def jacobi_3d7pt(u):
     return o
 
 
+class GaussSeidelPlan(NamedTuple):
+    """The launches of one ``gauss_seidel_2d5pt`` call, in order."""
+    fused: tuple    # sweeps each pass fuses (0: a copy)
+    writes: tuple   # the grid each pass writes, "out" or "temp"
+    tma: tuple      # whether each pass takes the tensor-copy (TMA) route
+    strips: tuple   # warps of each pass, one strip of columns each
+    temp: int       # floats of the temporary grid (0: none)
+
+
+def gs_strip_columns(fused: int, tma: bool) -> int:
+    """Columns a strip of a pass of ``fused`` sweeps writes: its 32 lanes
+    less the halo column each fused sweep past the first spends on each
+    side, and on the TMA route a multiple of 4 (whole 16-byte rows)."""
+    if tma:
+        return 32 if fused <= 1 else 28 if fused <= 3 else 24
+    return 34 - 2 * max(fused, 1)
+
+
+def gauss_seidel_plan(h: int, w: int, sweeps: int,
+                      aligned: bool = True) -> GaussSeidelPlan:
+    """The passes ``gauss_seidel_2d5pt`` launches on an (h, w) grid whose
+    data start 16-byte aligned or not (``aligned``).
+
+    ``sweeps`` are split as evenly as they go into the fewest passes of at
+    most ``GS_MAX_FUSED``; no sweep, or a grid with no interior point,
+    is one pass of 0 (a copy). The first pass reads the input, each other
+    pass the grid its predecessor wrote, and the passes alternate between
+    the output and one temporary grid of h * w floats, the first choosing
+    so that the last lands in the output: no copy at the end, and no
+    temporary for one pass. A pass takes the TMA route (one tensor copy a
+    stage of rows each way) where its rows are 16-byte aligned: W % 4 == 0
+    and, for the first pass, an aligned input (the output and temporary
+    grids always are); else the 4-byte copy route, which takes any width
+    and offset.
+    """
+    if sweeps == 0 or h < 3 or w < 3:
+        fused = (0,)
+    else:
+        n = -(-sweeps // GS_MAX_FUSED)
+        fused = tuple(sweeps // n + (i < sweeps % n) for i in range(n))
+    p = len(fused)
+    tma = tuple(w % 4 == 0 and (aligned or i > 0) for i in range(p))
+    return GaussSeidelPlan(
+        fused, tuple("out" if (p - 1 - i) % 2 == 0 else "temp"
+                     for i in range(p)), tma,
+        tuple(-(-w // gs_strip_columns(f, t)) for f, t in zip(fused, tma)),
+        h * w if p > 1 else 0)
+
+
 def gauss_seidel_2d5pt(u, sweeps: int = 1):
-    """``sweeps`` row-wavefront Gauss-Seidel sweeps of ``u`` (H, W) in one
-    thread block; returns a new (H, W) tensor, ``u`` is not modified.
-    Any H and W (below 2^31 each): where W - 2 exceeds
-    ``GS_REGISTER_COLS`` the kernel stages a row's new values in a
-    scratch row of W floats allocated here."""
+    """``sweeps`` Gauss-Seidel sweeps of ``u`` (H, W); returns a new (H, W)
+    tensor, ``u`` is not modified. Any H and W (below 2^31 - 64 each).
+
+    One warp a strip of columns walks the rows, each lane a column's
+    recurrence, streaming its strip through shared memory by TMA tensor
+    copies (16-byte aligned rows) or 4-byte ``cp.async`` copies (any
+    other); a launch is one pass of up to ``GS_MAX_FUSED`` sweeps
+    pipelined down the rows, and the passes of ``gauss_seidel_plan``
+    ping-pong between the output and a temporary grid allocated here.
+    ``LAUNCHES`` counts each pass.
+    """
     _check_inputs("gauss_seidel_2d5pt", (u,), (torch.float32,),
                   aligned=False)
     if u.dim() != 2 or u.numel() == 0:
         raise ValueError(f"gauss_seidel_2d5pt kernel takes a non-empty 2-D "
                          f"grid, got {tuple(u.shape)}")
     h, w = u.shape
-    if max(h, w) > _INT_MAX:
-        raise ValueError("gauss_seidel_2d5pt kernel: a side above 2^31 - 1")
+    if max(h, w) > _INT_MAX - 64:
+        raise ValueError("gauss_seidel_2d5pt kernel: a side above 2^31 - 65")
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
-    o = torch.empty_like(u)
-    scratch = (torch.empty(w, dtype=u.dtype, device=u.device)
-               if w - 2 > GS_REGISTER_COLS else None)
+    plan = gauss_seidel_plan(h, w, int(sweeps), u.data_ptr() % 16 == 0)
+    grids = {"out": torch.empty_like(u)}
+    if plan.temp:
+        grids["temp"] = torch.empty_like(u)
     lib = build.load("stencil", _STENCIL_SIGNATURES)
-    rc = lib.stencil_gauss_seidel_2d5pt(
-        u.data_ptr(), o.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), h, w, int(sweeps),
-        _stream(u.device))
-    build.check(lib, rc, "gauss_seidel_2d5pt")
-    LAUNCHES["gauss_seidel_2d5pt"] += 1
-    return o
+    src = u
+    for fused, dst in zip(plan.fused, plan.writes):
+        rc = lib.stencil_gauss_seidel_pass(src.data_ptr(),
+                                           grids[dst].data_ptr(), h, w,
+                                           fused, _stream(u.device))
+        build.check(lib, rc, "gauss_seidel_2d5pt")
+        LAUNCHES["gauss_seidel_2d5pt"] += 1
+        src = grids[dst]
+    return grids["out"]

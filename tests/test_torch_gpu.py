@@ -6,6 +6,8 @@ file imports no JAX, so it runs where only PyTorch is installed:
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -17,10 +19,15 @@ from repro_torch.kernels import stores
 from repro_torch.kernels.attention import decode as D
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention import ref as R
+from repro_torch.kernels.stream import kernels as SK
 from repro_torch.kernels.stream import ops as SO
 from repro_torch.kernels.stream import ref as SR
 from repro_torch.models import model as M
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -489,17 +496,30 @@ def test_stream_init_partial_at_size(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", STREAM_SHAPES)
+@pytest.mark.parametrize("shape", STREAM_SHAPES + [(4096, 4099),
+                                                   (1 << 12, 1 << 14)])
 def test_stream_sum_kernel_matches_plain(cuda, shape, dtype):
-    """fp32 partials: held against the plain fp32-accumulated sum (for
-    bf16 too: JAX would round each partial to bf16, the port does not)."""
+    """fp32 partials, summed by the last block: held against the plain
+    fp32-accumulated sum (for bf16 too: JAX would round each partial to
+    bf16, the port does not). One launch a call, the block counter back
+    at 0 after each call, and a repeat bit-identical."""
     g = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     K.reset_launches()
     got = SO.sum_reduction(x)
     assert K.LAUNCHES["sum_reduction"] == 1 and got.dtype == torch.float32
+    torch.cuda.synchronize()
+    assert not SK.sum_counter(cuda).any()
     want = SR.sum_reduction(x.float())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(SO.sum_reduction(x).view(torch.int32),
+                       got.view(torch.int32))
+    torch.cuda.synchronize()
+    assert not SK.sum_counter(cuda).any()
+    # one device event, the sum kernel (chip_smoke's check: a profiler
+    # window that saw no device event at all is taken again)
+    chip_smoke.one_kernel_event(torch, lambda: SO.sum_reduction(x),
+                                "sum_reduction", chip_smoke.SUM_KERNEL)
 
 
 @pytest.mark.parametrize("n", [262144, 262143])
@@ -520,37 +540,58 @@ def test_stream_pi_kernel_matches_plain(cuda, n):
     ("gauss_seidel_2d5pt", (20, 2500), 3),   # 3 columns a thread
     ("gauss_seidel_2d5pt", (3, 2500), 2),    # one interior row, two sweeps
     ("gauss_seidel_2d5pt", (3, 101), 3),
-    # past the 16,384 interior columns held in registers: the rest of a
-    # row is staged in the scratch row
     ("gauss_seidel_2d5pt", (6, 20000), 2),
     ("gauss_seidel_2d5pt", (5, 40002), 1),
+    # widths of 32k + 2 and 32k + 3 columns (the 4-byte route) and of 4k
+    # (the TMA route); no sweep (a copy); sweeps in one pass (4), two
+    # passes (8, the first into the temporary grid) and three (9, the
+    # first into the output); chip_smoke's main-path shape
+    ("gauss_seidel_2d5pt", (40, 130), 2), ("gauss_seidel_2d5pt", (40, 131), 2),
+    ("gauss_seidel_2d5pt", (40, 130), 0), ("gauss_seidel_2d5pt", (40, 132), 0),
+    ("gauss_seidel_2d5pt", (70, 131), 4), ("gauss_seidel_2d5pt", (70, 132), 4),
+    ("gauss_seidel_2d5pt", (70, 130), 8), ("gauss_seidel_2d5pt", (70, 132), 8),
+    ("gauss_seidel_2d5pt", (70, 131), 9), ("gauss_seidel_2d5pt", (70, 132), 9),
+    ("gauss_seidel_2d5pt", (300, 4098), 5), ("gauss_seidel_2d5pt", (300, 4096), 5),
+    ("gauss_seidel_2d5pt", (4098, 4096), 2),
 ])
 def test_stream_stencil_kernels_match_plain(cuda, name, shape, sweeps):
+    """Within 1e-6 of the plain version; Gauss-Seidel bit for bit (the
+    kernel sums in the plain version's order with the _rn intrinsics),
+    one launch a pass of its plan."""
     g = torch.Generator(device=cuda).manual_seed(11)
     u = torch.randn(shape, generator=g, device=cuda)
     args = () if sweeps is None else (sweeps,)
     K.reset_launches()
     got = getattr(SO, name)(u, *args)
-    assert K.LAUNCHES[name] == 1
+    want_launches = 1 if sweeps is None else len(
+        SK.gauss_seidel_plan(*shape, sweeps).fused)
+    assert K.LAUNCHES[name] == want_launches
     want = getattr(SR, name)(u, *args)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if sweeps is not None:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name,shape,sweeps", [
     ("jacobi_2d5pt", (17, 101), None), ("jacobi_3d7pt", (6, 9, 13), None),
     ("gauss_seidel_2d5pt", (17, 101), 2),
+    # a first pass on the 4-byte route, then passes on the TMA route
+    ("gauss_seidel_2d5pt", (70, 132), 2), ("gauss_seidel_2d5pt", (70, 132), 9),
 ])
 def test_stream_stencils_take_offset_views(cuda, name, shape, sweeps):
-    """The stencils load and store one float at a time, so a contiguous
-    view whose data start off a 16-byte boundary is served."""
+    """The stencils load one float at a time (Gauss-Seidel on its 4-byte
+    route), so a contiguous view whose data start off a 16-byte boundary
+    is served."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    u = torch.randn((shape[0] + 1,) + shape[1:], generator=g, device=cuda)[1:]
+    n = int(np.prod(shape))
+    u = torch.randn(n + 1, generator=g, device=cuda)[1:].view(shape)
     assert u.is_contiguous() and u.data_ptr() % 16
     args = () if sweeps is None else (sweeps,)
     K.reset_launches()
     got = getattr(SO, name)(u, *args)
-    assert K.LAUNCHES[name] == 1
+    assert K.LAUNCHES[name] == (1 if sweeps is None else len(
+        SK.gauss_seidel_plan(*shape, sweeps, aligned=False).fused))
     torch.testing.assert_close(got, getattr(SR, name)(u, *args), rtol=1e-6,
                                atol=1e-6)
 

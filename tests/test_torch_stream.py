@@ -178,8 +178,6 @@ def test_jacobi_3d_matches_jax_kernel(shape):
 @pytest.mark.parametrize("shape,sweeps", [((20, 128), 1), ((34, 128), 2),
                                           ((9, 13), 3), ((3, 128), 2),
                                           ((3, 13), 3),
-                                          # wider than the CUDA kernel's
-                                          # 16,384 register columns
                                           ((5, 16500), 1), ((5, 16500), 2)])
 def test_gauss_seidel_matches_jax_kernel(shape, sweeps):
     js, ts = _inputs(shape, 1, seed=6)
@@ -189,6 +187,61 @@ def test_gauss_seidel_matches_jax_kernel(shape, sweeps):
     np.testing.assert_allclose(
         f32(got), f32(JK.gauss_seidel_2d5pt(js[0], sweeps, interpret=True)),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,sweeps,aligned,fused,writes,strips", [
+    # chip_smoke's main path: both sweeps fused in one TMA pass of
+    # 28-column strips (30 less the 16-byte rounding)
+    (4098, 4096, 2, True, (2,), ("out",), (147,)),
+    (4098, 4096, 1, True, (1,), ("out",), (128,)),
+    (4098, 4096, 2, False, (2,), ("out",), (137,)),  # a view: 4-byte route
+    (5, 40002, 1, True, (1,), ("out",), (1251,)),    # W % 4 != 0
+    (130, 132, 4, True, (4,), ("out",), (6,)),       # 24 columns a strip
+    (130, 130, 4, True, (4,), ("out",), (5,)),       # 26 on the 4-byte route
+    (130, 130, 3, True, (3,), ("out",), (5,)),
+    # no sweep, or no interior point: one pass of 0, a copy
+    (130, 131, 0, True, (0,), ("out",), (5,)),
+    (2, 64, 3, True, (0,), ("out",), (2,)),
+    (64, 2, 3, True, (0,), ("out",), (1,)),
+    # even and odd pass counts: the first pass writes where the last
+    # lands in the output; only the first reads a view
+    (40, 130, 5, True, (3, 2), ("temp", "out"), (5, 5)),
+    (40, 132, 8, False, (4, 4), ("temp", "out"), (6, 6)),
+    (40, 131, 9, True, (3, 3, 3), ("out", "temp", "out"), (5, 5, 5)),
+    (40, 132, 13, False, (4, 3, 3, 3), ("temp", "out", "temp", "out"),
+     (6, 5, 5, 5)),
+])
+def test_gauss_seidel_plan(h, w, sweeps, aligned, fused, writes, strips):
+    plan = K.gauss_seidel_plan(h, w, sweeps, aligned)
+    assert plan.fused == fused and plan.writes == writes
+    assert plan.strips == strips
+    assert plan.tma == tuple(w % 4 == 0 and (aligned or i > 0)
+                             for i in range(len(fused)))
+    assert plan.temp == (h * w if len(fused) > 1 else 0)
+    assert sum(fused) == (sweeps if h >= 3 and w >= 3 else 0)
+    assert all(f <= K.GS_MAX_FUSED for f in fused)
+    # every strip writes its own columns and together they cover the row;
+    # a strip writes no more columns than its lanes compute right
+    for f, tma, n in zip(fused, plan.tma, strips):
+        cols = K.gs_strip_columns(f, tma)
+        assert (n - 1) * cols < w <= n * cols
+        assert cols <= 34 - 2 * max(f, 1)
+        assert not tma or cols % 4 == 0
+
+
+@pytest.mark.parametrize("n,elt,sms,blocks", [
+    (2 ** 28, 4, 132, 528),      # chip_smoke's 1 GiB: one wave, 4 an SM
+    (2 ** 28, 2, 132, 528),      # bf16
+    (256 * 8 * 4 * 10, 4, 132, 10),
+    (256 * 8 * 4 * 10 + 1, 4, 132, 11),
+    (1, 4, 132, 1), (7, 2, 132, 1),
+    (2 ** 24, 4, 114, 456),
+])
+def test_sum_plan(n, elt, sms, blocks):
+    """Enough blocks for every thread to keep eight 16-byte loads in
+    flight, at most one wave; one block counter."""
+    assert K.sum_plan(n, elt, sms) == (blocks, 1)
+    assert blocks <= K.SUM_BLOCKS_PER_SM * sms
 
 
 def test_gauss_seidel_reads_old_left_neighbours():
