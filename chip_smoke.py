@@ -53,13 +53,26 @@ Phases, each printed on its own line:
    prefill shapes (B=1, H=32, Hkv=4, Dh=128), S 512, 2048 and 509,
    causal and causal with a 256-row window, in fp32 and bf16, and at
    gemma3-4b's heads (H=8, Hkv=4, Dh=256), S 509 and 2048;
-4. the KV row writer against its plain version, both store flavors,
-   byte for byte, with a clamped overshoot row, in place;
+3c. the decode step's row write inside the decode launch: the decode
+   kernels given the step's new K and V rows against the unfused pair
+   (dense: the standalone writer, then the decode kernel; paged: the
+   plain index write, then the paged kernel), outputs bit for bit and
+   both caches byte for byte, at yi-9b's heads, Dh=256 and 64 packed
+   rows, bf16 and fp32, Sq 1 and 4, both store flavors, one and the
+   default split count, a negative, an overshooting and a clamped
+   position, a kv_len cut below the written page; one fused call one
+   kernel event;
+4. the standalone KV row writer (which the decode step no longer
+   launches) against its plain version, both store flavors, byte for
+   byte, with a clamped overshoot row, in place, launch counts zeroed
+   before its calls and read after;
 5. the full-width 48-layer yi-9b ``ServeEngine`` (random weights from a
    seeded generator on the card): 16 greedy requests, prompts of 128 to
    512 tokens, 64 new tokens each, 8 slots, a 2048-row horizon, 8-token
    chunks. Kernel launch counts are zeroed just before the run and read
-   just after. One decode step's logits through the kernels are held
+   just after: every decode launch writes the step's rows
+   (``kv_rows_in_decode``), the standalone writer never runs. One decode
+   step's logits through the kernels are held
    against the same step with ``impl="ref"`` for four prompt sets, and a
    smoke-size fp32 engine's greedy streams on the card against the same
    engine on the CPU;
@@ -69,8 +82,9 @@ Phases, each printed on its own line:
 5c. the full-width ``PagedServeEngine`` with the same weights: page 16,
    320 pages, 16 greedy requests sharing a 256-token prefix (plus 0-256
    tokens each, 64 new), one forked after its first chunk and one
-   cancelled. Launch counts zeroed before and read after, the pool
-   checked after every round; then one decode step through the paged
+   cancelled. Launch counts zeroed before and read after (every paged
+   decode launch writes the step's row), the pool checked after every
+   round; then one decode step through the paged
    kernel against the dense kernel on the same prompts, and a smoke-size
    fp32 paged engine's greedy streams on the card against the CPU and
    against the dense engine;
@@ -80,7 +94,8 @@ Phases, each printed on its own line:
    (decode) or TFLOP/s (flash attention) and their share of the card's
    peak. The decode rows time the finished ``ops.flash_decode`` and
    ``ops.flash_decode_paged`` (one launch each, a finished output as
-   sdpa's), with the partials-only launch beside them, and the paged
+   sdpa's), with the partials-only launch and the call that also writes
+   the step's rows (as the decode step makes it) beside them, and the paged
    kernel at 4 splits (one block an SM) beside its default 5; their
    bound counts the finished output's bytes (:func:`decode_bound`). The
    three attention kernels at gemma3-4b's heads (Dh=256) beside their
@@ -424,6 +439,11 @@ def stream_inits(SO) -> dict:
     }
 
 
+#: the stencils held bit for bit to their plain versions (their kernels
+#: sum in the plain version's order with the _rn intrinsics)
+BIT_IDENTICAL_STENCILS = ("jacobi_3d7pt", "gauss_seidel_2d5pt")
+
+
 def phase_stream_check(torch, K, SO, SR) -> dict:
     """Every stream kernel through ``ops`` (impl="auto") on CUDA tensors
     at an aligned and a ragged shape, against its plain version: f32
@@ -431,12 +451,14 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
     version computed in fp32 from the same bf16 inputs (the kernels round
     once), sums at rtol 1e-5 (bf16 against the fp32-accumulated plain
     sum), stencils at 1e-6, each also on a view whose data start 4 bytes
-    past a 16-byte boundary; Gauss-Seidel also bit for bit, with one
-    interior row, widths of 32k + 2 and 32k + 3 columns (its 4-byte
-    route) and of 4k columns (its TMA route, but for the views' first
-    pass), 20000 and 40002 columns, no sweep, and sweeps that take one,
-    two and three passes (the ping-pong through the temporary grid both
-    ways). Launch counts zeroed before, read after.
+    past a 16-byte boundary; the 3-D Jacobi sweep also bit for bit (its
+    TMA route at a width of 4k columns, its 4-byte route at any other and
+    on the views, (3, 3, 3) a single point); Gauss-Seidel also bit for
+    bit, with one interior row, widths of 32k + 2 and 32k + 3 columns
+    (its 4-byte route) and of 4k columns (its TMA route, but for the
+    views' first pass), 20000 and 40002 columns, no sweep, and sweeps
+    that take one, two and three passes (the ping-pong through the
+    temporary grid both ways). Launch counts zeroed before, read after.
     Returns the largest absolute error by kernel."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -487,6 +509,8 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
             ("jacobi_2d5pt", (258, 514), ()), ("jacobi_2d5pt", (253, 484), ()),
             ("jacobi_3d7pt", (18, 34, 130), ()),
             ("jacobi_3d7pt", (17, 29, 101), ()),
+            ("jacobi_3d7pt", (18, 34, 132), ()),
+            ("jacobi_3d7pt", (3, 3, 3), ()),
             ("gauss_seidel_2d5pt", (34, 128), (2,)),
             ("gauss_seidel_2d5pt", (33, 101), (1,)),
             ("gauss_seidel_2d5pt", (3, 2500), (2,)),   # one interior row
@@ -510,7 +534,7 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
             want = getattr(SR, name)(u, *args)
             err = (got - want).abs().max().item()
             note(name, err, got.shape == want.shape and err <= STENCIL_TOL
-                 and (name != "gauss_seidel_2d5pt"
+                 and (name not in BIT_IDENTICAL_STENCILS
                       or torch.equal(got, want)), what)
     torch.cuda.synchronize()
     moved = {n: K.LAUNCHES[n] for n in STREAM_KERNELS}
@@ -602,7 +626,7 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
         got, want = outs.pop(n), getattr(SR, n)(u, *a)
         err = (got - want).abs().max().item()
         check(err <= STENCIL_TOL, f"stream: {n} main path error {err:.3g}")
-        check(n != "gauss_seidel_2d5pt" or torch.equal(got, want),
+        check(n not in BIT_IDENTICAL_STENCILS or torch.equal(got, want),
               f"stream: {n} main path not bit-identical to plain")
         errs[n] = max(errs[n], err)
     check_sum_calls(torch, SO, SK, xs[0])
@@ -800,6 +824,9 @@ def check_finished(torch, D, call, want_f32, what: str) -> float:
 #: fp32 bodies, each with PAGED = false and true; also their former names,
 #: decode_partials_*, so a trace of an older checkout groups them alike)
 DECODE_KERNEL = re.compile(r"\bdecode_(partials_)?(f32_)?kernel<")
+#: the decode kernels' instantiations over a page pool: the third
+#: template argument is PAGED (a fourth, WRITE, may follow)
+DECODE_PAGED = re.compile(r"kernel<\d+, \d+, true\b")
 #: sum_reduction's kernel as the profiler demangles it
 SUM_KERNEL = re.compile(r"\bsum_kernel<")
 
@@ -938,9 +965,12 @@ def phase_decode(torch, D, ops) -> float:
 
 # --- phase 4: KV row writer ------------------------------------------------
 
-def phase_stores(torch, S_) -> None:
+def phase_stores(torch, S_, K) -> int:
+    """The standalone writer's calls, its launches counted from zero;
+    returns them."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     s = 2048
+    K.reset_launches()
     for sq in (1, 4):
         # slot 7 overshoots the horizon: its start clamps to s - sq
         pos = torch.tensor([0, 5, 100, 1000, 2047 - sq, s - sq, 2046, 2047 + 3],
@@ -963,8 +993,115 @@ def phase_stores(torch, S_) -> None:
             check(torch.equal(kc[7, s - sq:].view(torch.int16),
                               kn[7].view(torch.int16)),
                   "stores: overshoot row not clamped to the last rows")
-    print("kv writer: standard and nt byte-identical to plain version "
-          "(sq 1 and 4, clamped overshoot, in place)")
+    launches = K.LAUNCHES["kv_row_update"]
+    check(launches == 4, f"stores: {launches} writer launches, expected 4")
+    print(f"kv writer: standard and nt byte-identical to plain version "
+          f"(sq 1 and 4, clamped overshoot, in place); {launches} launches")
+    return launches
+
+
+# --- phase 3c: the step's row write inside the decode launch ---------------
+
+def phase_fused_write(torch, D, ops, S_, K) -> None:
+    """The decode kernels given the decode step's new rows against the
+    unfused pair, bit for bit, dense and paged."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = 0
+
+    def same(a, b, what):
+        check(same_bits(torch, a, b), f"fused write: {what}")
+
+    for b, h, hkv, dh, sqs in ((B, H, HKV, DH, (1, 4)),) + WIDE_DECODE_SHAPES:
+        skv, ps = 1008, 16
+        nb = skv // ps
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").to(dtype)
+            k, v = rnd(b, skv, hkv, dh), rnd(b, skv, hkv, dh)
+            kp, vp, bt = _paged_pools(torch, k, v, ps, gen)
+            for sq in sqs:
+                q, kn, vn = rnd(b, sq, h, dh), rnd(b, sq, hkv, dh), \
+                    rnd(b, sq, hkv, dh)
+                # dense: slot 0 counted from the end, the last clamped
+                pos = torch.linspace(0, skv - sq, b,
+                                     device="cuda").round().int()
+                pos[0], pos[-1] = -2, skv + 3
+                # paged: the last slot overshoots the table onto its last
+                # column, a kv_len cut reads below that column
+                ppos = torch.linspace(0, skv - 64, b,
+                                      device="cuda").round().int()
+                ppos[-1] = skv + 5
+                cut = -(-(int(ppos[:-1].max()) + sq) // ps)
+                for flavor in ("standard", "nt"):
+                    for ns in (1, None):
+                        bound, split_len, n = D.split_plan(b, hkv, skv, 128,
+                                                           ns, None)
+                        kw = dict(window=None, split_len=split_len,
+                                  n_splits=n, bound=bound)
+                        kc, vc, kr, vr = k.clone(), v.clone(), k.clone(), \
+                            v.clone()
+                        S_.kv_row_update(kr, vr, kn, vn, pos, flavor=flavor,
+                                         impl="cuda")
+                        want = D.decode_finished(q, kr, vr, pos, impl="cuda",
+                                                 **kw)
+                        got = D.decode_finished(q, kc, vc, pos, impl="cuda",
+                                                k_new=kn, v_new=vn,
+                                                store_flavor=flavor, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"dense H={h} Dh={dh} {dtype} sq={sq} "
+                                f"{flavor} n_splits={n}")
+                        same(got, want, f"{what}: output")
+                        same(kc, kr, f"{what}: k cache")
+                        same(vc, vr, f"{what}: v cache")
+                        cases += 1
+                    for n_blocks, ns in ((nb, 1), (nb, None), (cut, None)):
+                        bound, split_len, n = D.paged_split_plan(
+                            b, hkv, ps, n_blocks, ns)
+                        kw = dict(window=None, split_len=split_len,
+                                  n_splits=n, bound=bound)
+                        kc, vc, kr, vr = kp.clone(), vp.clone(), \
+                            kp.clone(), vp.clone()
+                        S_.ref_paged_row_update(kr, vr, bt, kn, vn, ppos)
+                        want = D.decode_paged_finished(q, kr, vr, bt, ppos,
+                                                       impl="cuda", **kw)
+                        got = D.decode_paged_finished(
+                            q, kc, vc, bt, ppos, impl="cuda", k_new=kn,
+                            v_new=vn, store_flavor=flavor, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"paged H={h} Dh={dh} {dtype} sq={sq} "
+                                f"{flavor} n_splits={n} columns={n_blocks}")
+                        same(got, want, f"{what}: output")
+                        same(kc, kr, f"{what}: k pool")
+                        same(vc, vr, f"{what}: v pool")
+                        cases += 1
+    # one fused call is one kernel event, and counts as a decode launch
+    # that wrote rows
+    q, kn, vn = (torch.randn(B, 1, n_h, DH, generator=gen,
+                             device="cuda").bfloat16()
+                 for n_h in (H, HKV, HKV))
+    k = torch.randn(B, 2048, HKV, DH, generator=gen, device="cuda").bfloat16()
+    v = torch.randn_like(k)
+    pos = torch.linspace(0, 500, B, device="cuda").round().int()
+    kp, vp, bt = _paged_pools(torch, k, v, 16, gen)
+    for name, call in (
+            ("flash_decode", lambda: ops.flash_decode(
+                q, k, v, pos, kv_len=512, impl="cuda", k_new=kn, v_new=vn)),
+            ("flash_decode_paged", lambda: ops.flash_decode_paged(
+                q, kp, vp, bt, pos, kv_len=512, impl="cuda", k_new=kn,
+                v_new=vn))):
+        K.reset_launches()
+        call()
+        check(K.LAUNCHES[name] == 1 and K.LAUNCHES["kv_rows_in_decode"] == 1
+              and K.LAUNCHES["kv_row_update"] == 0,
+              f"fused write: ops.{name} counted {K.LAUNCHES}")
+        one_kernel_event(torch, call, f"fused write: ops.{name}")
+    print(f"fused write: {cases} cases, decode launches given the step's "
+          f"rows bit-identical to the unfused pair (writer or index write, "
+          f"then decode), caches byte-identical (yi-9b heads, Dh=256 and "
+          f"G*Sq=64; bf16 and fp32; Sq 1/4; standard and nt; one/default "
+          f"splits; negative, overshooting and clamped positions; a kv_len "
+          f"cut below the written page)")
 
 
 # --- phase 5: full-width serving -------------------------------------------
@@ -1005,12 +1142,15 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
           f"({st['prefill_dispatches']} dispatches), decode "
           f"{st['decode_s']:.2f} s ({st['decode_dispatches']} dispatches, "
           f"{steps} steps, {st['decode_s'] / steps * 1e3:.2f} ms/step)")
-    print(f"engine: launches {launches} (expected {cfg.n_layers} x {steps} "
-          f"= {cfg.n_layers * steps} each)")
-    for name in ("flash_decode", "kv_row_update"):
-        check(launches[name] == cfg.n_layers * steps > 0,
-              f"engine: {name} launched {launches[name]} times, expected "
-              f"{cfg.n_layers * steps}")
+    print(f"engine: launches {launches} (expected flash_decode == "
+          f"kv_rows_in_decode == {cfg.n_layers} x {steps} = "
+          f"{cfg.n_layers * steps}, kv_row_update 0)")
+    print_step_launches("engine", launches, steps)
+    check(launches["flash_decode"] == launches["kv_rows_in_decode"]
+          == cfg.n_layers * steps > 0 and launches["kv_row_update"] == 0,
+          f"engine: launches {launches}, expected flash_decode and "
+          f"kv_rows_in_decode {cfg.n_layers * steps} each and no standalone "
+          f"writer")
     check(st["quarantined"] == 0, "engine: non-finite logits quarantined")
 
     # one decode step through the kernels against impl="ref", from the
@@ -1030,6 +1170,16 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
           f"rel err {worst:.3g} > {LOGITS_REL_TOL}")
     _small_engine_check(torch, np, cfg_mod, M, serve)
     return eng, reqs, launches
+
+
+def print_step_launches(label: str, launches: dict, steps: int) -> None:
+    """The port's kernel launches a decode step, by kernel (counts of
+    the run over its decode steps; the prefill launches none)."""
+    ran = {n: c / steps for n, c in launches.items() if c}
+    print(f"{label}: the port's kernel launches a decode step: "
+          + ", ".join(f"{n} {c:g}" for n, c in ran.items())
+          + " (kv_rows_in_decode: decode launches that wrote the step's "
+          "rows; the trace phase counts every kernel)")
 
 
 def _one_step_logits(torch, cfg, M, params, prompts) -> tuple:
@@ -1102,7 +1252,7 @@ def _to(tree, dev):
 # --- phase 6: kernel timings -----------------------------------------------
 
 def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
-                  decode_err) -> list:
+                  decode_err, writer_launches) -> list:
     F = torch.nn.functional
     cache = eng.cache["scan"]["0"]
     n_layers, skv = cache["k"].shape[0], cache["k"].shape[2]
@@ -1115,6 +1265,8 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
         B, HKV, skv, 128, None, min(-(-kv_len // 128) * 128, skv))
     gen = torch.Generator(device="cuda").manual_seed(7)
     q = torch.randn(B, 1, H, DH, generator=gen, device="cuda").bfloat16()
+    kn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
+    vn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
     kw = dict(window=None, split_len=split_len, n_splits=n_splits,
               bound=bound)
     # cycle over the 48 layers' caches so every call reads cold KV rows,
@@ -1135,6 +1287,19 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
         k, v = next_kv()
         D.decode_partials(q, k, v, pos, impl="cuda", **kw)
 
+    def fused():
+        # as the decode step calls it: the step's rows written first, in
+        # the same launch
+        k, v = next_kv()
+        ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda", k_new=kn,
+                         v_new=vn)
+
+    def pair():
+        # the same work as the standalone writer and then the decode
+        k, v = next_kv()
+        S_.kv_row_update(k, v, kn, vn, pos, impl="cuda")
+        ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda")
+
     def plain():
         k, v = next_kv()
         D.decode_finished(q, k, v, pos, impl="ref", **kw)
@@ -1151,17 +1316,23 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
 
     ms = timed(torch, kern, 480)
     part_ms = timed(torch, partials, 480)
+    fused_ms = timed(torch, fused, 480)
+    pair_ms = timed(torch, pair, 480)
     plain_ms = timed(torch, plain, 48)
     lib_ms = timed(torch, library, 480)
     live = (pos + 1).clamp(max=bound).sum().item()       # KV rows read
     bound_ms, bound_by, n_bytes = decode_bound(B, H, HKV, DH, live, 2)
+    w_bytes = 2 * 2 * B * HKV * DH * 2                   # rows read, written
     decode_row = {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode.cu",
         "replaces": "src/repro/kernels/attention/decode.py:179",
         "launches": launches["flash_decode"], "max_abs_err": decode_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}
+        "bound_by": bound_by, "library_ms": lib_ms,
+        "fused_write_ms": fused_ms,
+        "fused_write_bound_ms": max(bound_ms, (n_bytes + w_bytes)
+                                    / HBM_BYTES_PER_S * 1e3)}
     print(f"timing: flash_decode (ops.flash_decode, finished output, one "
           f"launch) at B={B} Sq=1 kv_len={kv_len} n_splits={n_splits} "
           f"({live} live rows): {ms * 1e3:.2f} us = "
@@ -1169,11 +1340,12 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
           f"{bound_by} bound {bound_ms * 1e3:.2f} us), plain (partials + "
           f"combine_splits + cast) {plain_ms * 1e3:.1f} us, sdpa "
           f"{lib_ms * 1e3:.2f} us; the partials alone (no merge) "
-          f"{part_ms * 1e3:.2f} us (device time by profiler)")
+          f"{part_ms * 1e3:.2f} us; with the step's row write in the same "
+          f"launch, as the decode step calls it, {fused_ms * 1e3:.2f} us, "
+          f"against {pair_ms * 1e3:.2f} us for kv_row_update and then the "
+          f"decode (device time by profiler)")
 
     # KV writer: one layer's K and V rows per launch, at a decode position
-    kn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
-    vn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
     flat = [c.view(n_layers, -1, HKV, DH) for c in (cache["k"], cache["v"])]
     rows = (torch.arange(B, device="cuda") * cache["k"].shape[2]
             + pos).long()
@@ -1194,16 +1366,34 @@ def phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
     wms = timed(torch, wkern, 960)
     wplain_ms = timed(torch, wplain, 96)
     wlib_ms = timed(torch, wlib, 960)
-    w_bytes = 2 * 2 * B * HKV * DH * 2 + B * 4
+    # On the decode path the rows are written inside the decode launch (the
+    # WRITE bodies of csrc/decode.cu, counted as kv_rows_in_decode), so the
+    # row takes that kernel's launches from the engine run and its time is
+    # what the write adds to the decode launch; the standalone writer
+    # (csrc/stores.cu) is held against its plain version in phase 4.
+    add_ms = fused_ms - ms
     writer_row = {
         "name": "kv_row_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stores.cu",
+        "source": "src/repro_torch/kernels/csrc/decode.cu",
         "replaces": "src/repro/kernels/stores.py:235",
-        "launches": launches["kv_row_update"], "max_abs_err": 0.0,
-        "ms": wms, "plain_ms": wplain_ms,
+        "launches": launches["kv_rows_in_decode"], "max_abs_err": 0.0,
+        "ms": add_ms, "plain_ms": wplain_ms,
         "bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": wlib_ms}
-    print(f"timing: kv_row_update at B={B} Sq=1: {wms * 1e3:.2f} us, bound "
+        "library_ms": wlib_ms,
+        "standalone_source": "src/repro_torch/kernels/csrc/stores.cu",
+        "standalone_ms": wms,
+        "standalone_launches": launches["kv_row_update"],
+        "check_launches": writer_launches,
+        "note": "launches: decode launches of the engine run that wrote the "
+                "step's rows (kv_rows_in_decode); ms: the fused decode "
+                "launch less the same launch without the write; the "
+                "standalone kernel's own time is standalone_ms, its launches "
+                "on the path standalone_launches, in phase 4 check_launches"}
+    print(f"timing: kv_row_update at B={B} Sq=1: inside the decode launch "
+          f"+{add_ms * 1e3:.2f} us ({launches['kv_rows_in_decode']} launches "
+          f"on the path), standalone kernel {wms * 1e3:.2f} us "
+          f"({launches['kv_row_update']} launches on the path, "
+          f"{writer_launches} in phase 4), bound "
           f"{writer_row['bound_ms'] * 1e3:.4f} us, plain "
           f"{wplain_ms * 1e3:.1f} us, index_copy_ x2 {wlib_ms * 1e3:.2f} us "
           f"(device time by profiler)")
@@ -1518,11 +1708,13 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
           "paged engine: token id out of vocab")
     check(res[reqs[0].rid] == res[f"{reqs[0].rid}-fork"],
           "paged engine: the greedy fork diverged from its parent")
-    check(launches["flash_decode_paged"] == cfg.n_layers * steps > 0
+    check(launches["flash_decode_paged"] == launches["kv_rows_in_decode"]
+          == cfg.n_layers * steps > 0
           and launches["flash_decode"] == 0
           and launches["kv_row_update"] == 0,
           f"paged engine: launches {launches}, expected flash_decode_paged "
-          f"{cfg.n_layers} x {steps} and no dense kernel")
+          f"and kv_rows_in_decode {cfg.n_layers} x {steps} and no dense "
+          f"kernel or standalone writer")
     check(pool["shared_maps"] > 0 and pool["cow_copies"] >= 1
           and pool["recycled_allocs"] > 0,
           f"paged engine: pool stats {pool}")
@@ -1547,7 +1739,9 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
           f"dense {dense_st['decode_s'] / dense_st['decode_tokens'] * 1e3:.2f}"
           f" ms/step")
     print(f"paged engine: launches {launches} (expected flash_decode_paged "
-          f"{cfg.n_layers} x {steps} = {cfg.n_layers * steps})")
+          f"== kv_rows_in_decode == {cfg.n_layers} x {steps} = "
+          f"{cfg.n_layers * steps})")
+    print_step_launches("paged engine", launches, steps)
     rel, agree = _paged_vs_dense_logits(torch, cfg, M, PG, params,
                                         [r.prompt for r in reqs[:8]])
     print(f"paged engine: one decode step, paged kernel vs dense kernel on "
@@ -1633,8 +1827,8 @@ def _small_paged_check(torch, np, cfg_mod, M, serve) -> None:
           "a fork and a cancel) and paged == dense on the card")
 
 
-def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
-                      flash_launches, flash_err) -> list:
+def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
+                      paged_err, flash_launches, flash_err) -> list:
     """The paged decode kernel at page 16 and the dense timing's live rows,
     and the flash-attention kernel at yi-9b prefill shapes."""
     F = torch.nn.functional
@@ -1651,6 +1845,8 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
                                                     None)
     gen = torch.Generator(device="cuda").manual_seed(14)
     q = torch.randn(B, 1, H, DH, generator=gen, device="cuda").bfloat16()
+    kn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
+    vn = torch.randn(B, 1, HKV, DH, generator=gen, device="cuda").bfloat16()
     kw = dict(window=None, split_len=split_len, n_splits=n_splits,
               bound=bound)
     layer = [0]
@@ -1665,6 +1861,19 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
         ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=kv_len,
                                impl="cuda")
 
+    def fused():
+        # as the decode step calls it: the step's row written first
+        kp, vp = next_pool()
+        ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=kv_len,
+                               impl="cuda", k_new=kn, v_new=vn)
+
+    def pair():
+        # the same work as the plain index write and then the decode
+        kp, vp = next_pool()
+        S_.ref_paged_row_update(kp, vp, bt, kn, vn, pos)
+        ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=kv_len,
+                               impl="cuda")
+
     def partials():
         kp, vp = next_pool()
         D.decode_paged_partials(q, kp, vp, bt, pos, impl="cuda", **kw)
@@ -1675,6 +1884,8 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
 
     ms = timed(torch, kern, 480)
     part_ms = timed(torch, partials, 480)
+    fused_ms = timed(torch, fused, 480)
+    pair_ms = timed(torch, pair, 96)
     plain_ms = timed(torch, plain, 48)
     # the same rows cut into 128-row splits: B*Hkv*4 = 128 blocks, one an
     # SM, where the default 5 splits put two blocks on 28 of the 132 SMs
@@ -1693,7 +1904,11 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
         "replaces": "src/repro/kernels/attention/decode.py:267",
         "launches": paged_launches["flash_decode_paged"],
         "max_abs_err": paged_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "fused_write_ms": fused_ms,
+        "fused_write_bound_ms": max(bound_ms, (n_bytes + 2 * 2 * B * HKV
+                                               * DH * 2) / HBM_BYTES_PER_S
+                                    * 1e3)}
     print(f"timing: flash_decode_paged (ops.flash_decode_paged, finished "
           f"output, one launch) at B={B} Sq=1 page={ps} kv_len={kv_len} "
           f"({n_blocks} table columns, permuted) n_splits={n_splits} "
@@ -1703,7 +1918,10 @@ def phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches, paged_err,
           f"combine_splits + cast) {plain_ms * 1e3:.1f} us; no single "
           f"PyTorch call reads a paged cache, so no library time; the "
           f"partials alone {part_ms * 1e3:.2f} us; at {n4} splits of {sl4} "
-          f"rows ({B * HKV * n4} blocks) {ms4 * 1e3:.2f} us (device time by "
+          f"rows ({B * HKV * n4} blocks) {ms4 * 1e3:.2f} us; with the step's "
+          f"row write in the same launch, as the decode step calls it, "
+          f"{fused_ms * 1e3:.2f} us, against {pair_ms * 1e3:.2f} us for the "
+          f"plain index write and then the decode (device time by "
           f"profiler)")
 
     rows = []
@@ -1888,7 +2106,7 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
         low = name.lower()
         if DECODE_KERNEL.search(name):
             # one kernel body, instantiated with PAGED = false and true
-            paged = ", true>(" in name
+            paged = DECODE_PAGED.search(name) is not None
             groups["flash_decode_paged" if paged else "flash_decode"] += us
         elif "kv_rows_kernel" in name:
             groups["kv_row_update"] += us
@@ -1946,7 +2164,8 @@ def main() -> int:
     decode_err = phase_decode(torch, D, ops)
     paged_err = phase_paged_decode(torch, D, ops)
     flash_err = phase_flash(torch, ops, R)
-    phase_stores(torch, S_)
+    phase_fused_write(torch, D, ops, S_, K)
+    writer_launches = phase_stores(torch, S_, K)
     stream_rows = phase_stream(torch, K, SO, SR, SK,
                                phase_stream_check(torch, K, SO, SR))
     eng, reqs, launches = phase_engine(torch, np, cfg_mod, M, K, serve)
@@ -1955,8 +2174,8 @@ def main() -> int:
     peng, paged_launches = phase_paged_engine(
         torch, np, cfg_mod, M, K, serve, PG, eng.params, eng.stats())
     rows = phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
-                         decode_err)
-    rows += phase_new_timings(torch, D, ops, R, peng, reqs, paged_launches,
+                         decode_err, writer_launches)
+    rows += phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
                               paged_err, flash_launches, flash_err)
     rows += stream_rows
     phase_wide_timings(torch, D, ops, R, reqs)

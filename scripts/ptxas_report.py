@@ -83,10 +83,15 @@ def main() -> int:
 def key(demangled: str) -> str:
     """A kernel's name and template arguments, the parameter list left
     out; the decode bodies' former names (``decode_partials_kernel``,
-    ``decode_partials_f32_kernel``) map to their present ones."""
+    ``decode_partials_f32_kernel``) map to their present ones, and their
+    three template arguments before the WRITE flag to the
+    instantiation with WRITE false."""
     m = re.search(r"(\w+<[^()]*>)\(", demangled)
     name = m.group(1) if m else demangled
-    return name.replace("decode_partials_", "decode_")
+    name = name.replace("decode_partials_", "decode_")
+    if re.fullmatch(r"decode_(f32_)?kernel<[^,]+, [^,]+, [^,]+>", name):
+        name = name[:-1] + ", false>"
+    return name
 
 
 if __name__ == "__main__":

@@ -15,15 +15,14 @@ libraries are built from their own ``csrc``; the change's Python
 wrappers drive the kernels of both, by swapping which library
 ``build.load`` hands them, where their C interfaces are the same. The
 entry points whose interface changed are bound for the parent as the
-parent had them and called directly: the parent's ``sum_reduction``
-writes block partials that ``parts.sum()`` adds up, and its
-``gauss_seidel_2d5pt`` is one launch of every sweep with a scratch row
-past 16,384 interior columns (``PARENT_STREAM_SIGNATURES``,
-``PARENT_STENCIL_SIGNATURES``), each timed against the change's call.
-When a library's C interface changes, bind the parent's as it was here.
-Each kernel is timed parent, change, change, parent with
-``chip_smoke.timed`` (device time by torch.profiler) and printed with
-its two means and their ratio.
+parent had them and called directly: the parent's ``flash_decode`` and
+``flash_decode_paged`` take no rows to write (``PARENT_DECODE_SIGNATURES``),
+so the decode step's row write and decode is, on the parent's side, the
+standalone writer (dense) or the plain index write (paged) and then the
+decode launch, against the change's one launch. When a library's C
+interface changes, bind the parent's as it was here. Each kernel is
+timed parent, change, change, parent with ``chip_smoke.timed`` (device
+time by torch.profiler) and printed with its two means and their ratio.
 """
 
 from __future__ import annotations
@@ -38,15 +37,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 LIBS = ("stream", "stencil", "flash", "decode")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: the parent's sum (fp32 block partials, 8 blocks an SM) and
-#: Gauss-Seidel (all sweeps in one launch, a scratch row of W floats past
-#: 16,384 interior columns), in place of the change's ``stream_sum`` and
-#: ``stencil_gauss_seidel_pass``
-PARENT_STREAM_SIGNATURES = {"stream_sum_partials": [_I, _P, _L, _P, _I, _P]}
-PARENT_STENCIL_SIGNATURES = {
-    "stencil_gauss_seidel_2d5pt": [_P, _P, _P, _I, _I, _I, _P]}
-PARENT_SUM_BLOCKS_PER_SM, PARENT_GS_REGISTER_COLS = 8, 16384
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: the parent's decode entry points, which write no rows
+PARENT_DECODE_SIGNATURES = {
+    "flash_decode": [_P] * 9 + [_I] * 6 + [_L] * 4 + [_I] * 4 + [_F, _P],
+    "flash_decode_paged": [_P] * 10 + [_I] * 9 + [_L] * 4 + [_I] * 4
+    + [_F, _P],
+}
 
 
 def parent_lib(build, csrc: str, name: str, signatures: dict):
@@ -80,7 +78,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import chip_smoke
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, stores
     from repro_torch.kernels.attention import decode as D
     from repro_torch.kernels.attention import flash as FL
     from repro_torch.kernels.stream import kernels as SK
@@ -94,13 +92,7 @@ def main() -> int:
             "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES,
             "decode": D._SIGNATURES}
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    parent_sigs = {
-        "stream": {**{k: v for k, v in sigs["stream"].items()
-                      if k != "stream_sum"}, **PARENT_STREAM_SIGNATURES},
-        "stencil": {**{k: v for k, v in sigs["stencil"].items()
-                       if k != "stencil_gauss_seidel_pass"},
-                    **PARENT_STENCIL_SIGNATURES},
-        "flash": sigs["flash"], "decode": sigs["decode"]}
+    parent_sigs = {**sigs, "decode": PARENT_DECODE_SIGNATURES}
     old = {n: parent_lib(build, csrc, n, parent_sigs[n]) for n in LIBS}
 
     def using(libs, fn):
@@ -126,45 +118,35 @@ def main() -> int:
     j2 = torch.randn(chip_smoke.JACOBI_2D_SHAPE, generator=gen, device="cuda")
     j3 = torch.randn(chip_smoke.JACOBI_3D_SHAPE, generator=gen, device="cuda")
     gs = torch.randn(chip_smoke.GS_SHAPE, generator=gen, device="cuda")
+    gsw = chip_smoke.GS_SWEEPS
     cases += [("jacobi_2d5pt", lambda: SK.jacobi_2d5pt(j2), 10),
-              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5)]
+              ("jacobi_3d7pt", lambda: SK.jacobi_3d7pt(j3), 5),
+              ("sum_reduction f32", lambda: SK.sum_reduction(xs[0]), 10),
+              (f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x {gsw}",
+               lambda: SK.gauss_seidel_2d5pt(gs, gsw), 3)]
     timed = [(label, using(old, fn), using(new, fn), iters)
              for label, fn, iters in cases]
 
-    def stream_now():
-        return torch.cuda.current_stream().cuda_stream
-
-    def parent_sum(x):
-        """The parent's sum: its partials kernel, then ``parts.sum()``."""
-        n = min(-(-x.numel() // (256 * 4)), PARENT_SUM_BLOCKS_PER_SM * torch
-                .cuda.get_device_properties(0).multi_processor_count)
-        parts = torch.empty(n, dtype=torch.float32, device="cuda")
-        rc = old["stream"].stream_sum_partials(0, x.data_ptr(), x.numel(),
-                                               parts.data_ptr(), n,
-                                               stream_now())
-        build.check(old["stream"], rc, "parent sum_reduction")
-        return parts.sum()
-
-    def parent_gs(u, sweeps):
-        """The parent's Gauss-Seidel: every sweep in one launch."""
-        h, w = u.shape
-        o = torch.empty_like(u)
-        scratch = (torch.empty(w, device="cuda")
-                   if w - 2 > PARENT_GS_REGISTER_COLS else None)
-        rc = old["stencil"].stencil_gauss_seidel_2d5pt(
-            u.data_ptr(), o.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), h, w, sweeps,
-            stream_now())
-        build.check(old["stencil"], rc, "parent gauss_seidel_2d5pt")
-        return o
-
-    gsw = chip_smoke.GS_SWEEPS
-    timed += [
-        ("sum_reduction f32", lambda: parent_sum(xs[0]),
-         using(new, lambda: SK.sum_reduction(xs[0])), 10),
-        (f"gauss_seidel_2d5pt {chip_smoke.GS_SHAPE} x {gsw}",
-         lambda: parent_gs(gs, gsw),
-         using(new, lambda: SK.gauss_seidel_2d5pt(gs, gsw)), 3)]
+    def parent_decode(q, k, v, pos, kw, table=None, finished=True):
+        """The parent's decode launch, which writes no rows: the finished
+        output or the partials."""
+        b, sq, h, dh = q.shape
+        hkv = k.shape[2]
+        ws, out, ptrs = D._launch_buffers(q, hkv, kw["n_splits"], finished)
+        head = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+        if table is not None:
+            head.append(table.data_ptr())
+        args = [*head, pos.data_ptr(), *ptrs, D._DTYPE_CODES[q.dtype], b,
+                sq, h, hkv, dh]
+        if table is not None:
+            args += [table.stride(0), k.shape[0], k.shape[1]]
+        args += [k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                 kw["n_splits"], kw["split_len"], kw["bound"], 0,
+                 1.0 / dh ** 0.5, torch.cuda.current_stream().cuda_stream]
+        fn = old["decode"].flash_decode_paged if table is not None \
+            else old["decode"].flash_decode
+        build.check(old["decode"], fn(*args), "parent decode")
+        return out if finished else ws
 
     # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
     # live rows, 48 layers' caches cycled so every call reads cold rows
@@ -193,23 +175,56 @@ def main() -> int:
 
     dkw = dict(window=None, split_len=sl, n_splits=ns, bound=bound)
     pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pb)
+    kn = torch.randn(b, 1, hkv, dh, generator=gen, device="cuda").bfloat16()
+    vn = torch.randn_like(kn)
+    new_rows = dict(k_new=kn, v_new=vn)
+
+    def dense(fused):
+        i = nxt()
+        return D.decode_finished(q, kc[i], vc[i], pos, impl="cuda",
+                                 **dkw, **(new_rows if fused else {}))
+
+    def paged(fused):
+        i = nxt()
+        return D.decode_paged_finished(q, kp[i], vp[i], bt, pos,
+                                       impl="cuda", **pkw,
+                                       **(new_rows if fused else {}))
+
+    def parent_pair(paged_pool):
+        """The parent's decode step: the row write, then the decode."""
+        i = nxt()
+        if paged_pool:
+            stores.ref_paged_row_update(kp[i], vp[i], bt, kn, vn, pos)
+            return parent_decode(q, kp[i], vp[i], pos, pkw, table=bt)
+        stores.kv_row_update(kc[i], vc[i], kn, vn, pos, impl="cuda")
+        return parent_decode(q, kc[i], vc[i], pos, dkw)
+
     decode_cases = {
-        "flash_decode finished":
-            lambda: D.decode_finished(q, kc[nxt()], vc[layer[0]], pos,
-                                      impl="cuda", **dkw),
-        "flash_decode partials alone":
+        "flash_decode finished": (
+            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, dkw),
+            lambda: dense(False)),
+        "flash_decode partials alone": (
+            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, dkw,
+                                  finished=False),
             lambda: D.decode_partials(q, kc[nxt()], vc[layer[0]], pos,
-                                      impl="cuda", **dkw),
-        "flash_decode_paged finished":
-            lambda: D.decode_paged_finished(q, kp[nxt()], vp[layer[0]], bt,
-                                            pos, impl="cuda", **pkw),
-        "flash_decode_paged partials alone":
+                                      impl="cuda", **dkw)),
+        "flash_decode with the step's row write (parent: kv_row_update "
+        "+ decode)": (lambda: parent_pair(False), lambda: dense(True)),
+        "flash_decode_paged finished": (
+            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, pkw,
+                                  table=bt),
+            lambda: paged(False)),
+        "flash_decode_paged partials alone": (
+            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, pkw,
+                                  table=bt, finished=False),
             lambda: D.decode_paged_partials(q, kp[nxt()], vp[layer[0]], bt,
-                                            pos, impl="cuda", **pkw),
+                                            pos, impl="cuda", **pkw)),
+        "flash_decode_paged with the step's row write (parent: index "
+        "write + decode)": (lambda: parent_pair(True), lambda: paged(True)),
     }
-    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
-               using(old, fn), using(new, fn), 480)
-              for name, fn in decode_cases.items()]
+    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16", p_fn,
+               using(new, c_fn), 480)
+              for name, (p_fn, c_fn) in decode_cases.items()]
     for s in (512, 2048):
         fq = torch.randn(1, hq, s, dh, generator=gen,
                          device="cuda").bfloat16()

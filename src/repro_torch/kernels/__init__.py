@@ -26,6 +26,9 @@ IMPLS = ("ref", "cuda", "auto")
 #: kernel launches since the last :func:`reset_launches`, by kernel name
 LAUNCHES = {"flash_decode": 0, "kv_row_update": 0, "flash_decode_paged": 0,
             "flash_attention": 0,
+            # decode launches that also wrote the step's KV rows (counted
+            # under flash_decode or flash_decode_paged as well)
+            "kv_rows_in_decode": 0,
             # the stream suite (kernels/stream)
             "init_store": 0, "init_partial": 0, "init_nt": 0, "copy_nt": 0,
             "update_nt": 0, "stream_triad_nt": 0, "copy": 0, "add": 0,

@@ -26,6 +26,15 @@ fp32 stays on the CUDA cores; see the source. Any number of packed query
 rows ``G * Sq`` works: a call of more than ``KERNEL_MAX_ROWS`` runs
 groups of that many rows side by side.
 
+Called with the decode step's new rows (``k_new``, ``v_new``), a
+finished call first writes them into the cache in place and then
+attends, as the step's row write followed by its decode: on a CUDA
+tensor in the same launch (the kernel writes the rows, and every block
+reading one of them takes it from ``k_new``/``v_new``; its launches count
+under ``LAUNCHES["kv_rows_in_decode"]`` too), in the plain version as
+``stores.ref_kv_row_update`` (dense) or :func:`stores.ref_paged_row_update`
+(paged) before the plain decode.
+
 The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
 horizon is copied or padded on any layer of any token. The paged kernel
@@ -42,6 +51,7 @@ import math
 import torch
 
 from repro_torch.kernels import LAUNCHES, build, pos_vector, use_kernel
+from repro_torch.kernels import stores
 
 NEG_INF = -1e30
 
@@ -57,14 +67,14 @@ KERNEL_MAX_ROWS = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I,
-                     _L, _L, _L, _L,
+                     _L, _L, _L, _L, _I, _I,
                      _I, _I, _I, _I, ctypes.c_float, _P],
-    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I,
-                           _L, _L, _L, _L,
+                           _I, _I, _I, _I,
+                           _L, _L, _L, _L, _I,
                            _I, _I, _I, _I, ctypes.c_float, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -178,6 +188,28 @@ def _check_kernel_inputs(q, k, v, pos, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _new_rows(k, q, k_new, v_new):
+    """The new rows of a fused write as contiguous tensors in the
+    cache's dtype, or ``(None, None)`` without them; raises on rows the
+    kernel does not take: (B, Sq, Hkv, Dh) beside q (B, Sq, H, Dh) and a
+    cache of Hkv heads, on q's device."""
+    if not stores.writes_rows(k_new, v_new, None):
+        return None, None
+    b, sq = q.shape[:2]
+    want = (b, sq, k.shape[2], k.shape[3])
+    out = []
+    for name, x in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(x.shape) != want or x.device != q.device:
+            raise ValueError(f"{name} must be a {want} tensor on {q.device}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+        x = x.to(k.dtype).contiguous()
+        if x.data_ptr() % 16 or x.numel() >= 2 ** 31:
+            raise ValueError(f"{name} data must start 16-byte aligned and "
+                             "hold under 2^31 elements")
+        out.append(x)
+    return out[0], out[1]
+
+
 def workspace_layout(n_splits: int, b: int, sq: int, h: int,
                      dh: int) -> tuple:
     """``(floats, m offset, l offset)`` of one call's fp32 partials
@@ -233,6 +265,10 @@ def needs_workspace(dtype, dh: int, n_splits: int, finished: bool) -> bool:
             or (dtype == torch.float32 and dh == 256))
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch_buffers(q, hkv: int, n_splits: int, finished: bool) -> tuple:
     """What one launch writes, as ``(workspace, out, pointers)``: the
     partials workspace (:func:`needs_workspace`), the finished output
@@ -255,24 +291,36 @@ def _launch_buffers(q, hkv: int, n_splits: int, finished: bool) -> tuple:
                      None if cnt is None else cnt.data_ptr())
 
 
+def _count(name: str, write) -> None:
+    LAUNCHES[name] += 1
+    if write is not None:
+        LAUNCHES["kv_rows_in_decode"] += 1
+
+
 def _decode_kernel(q, k, v, pos, *, window, split_len: int, n_splits: int,
-                   bound: int, finished: bool):
+                   bound: int, finished: bool, k_new=None, v_new=None,
+                   store_flavor=None):
     """One launch of the dense kernel: the finished output, or the
-    partials ``(o, m, l)``."""
+    partials ``(o, m, l)``; with ``k_new``/``v_new``, the rows written into
+    the cache first, in the same launch."""
     b, sq, h, dh = q.shape
     _check_kernel_inputs(q, k, v, pos, window)
     if k.shape[0] != b:
         raise ValueError(f"k has {k.shape[0]} slots, q {b}")
+    k_new, v_new = _new_rows(k, q, k_new, v_new)
+    if k_new is not None and sq > k.shape[1]:
+        raise ValueError(f"{sq} new rows do not fit a {k.shape[1]}-row cache")
+    nt = stores.resolve_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
     ws, out, ptrs = _launch_buffers(q, k.shape[2], n_splits, finished)
     rc = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), *ptrs,
-        _DTYPE_CODES[q.dtype], b, sq, h, k.shape[2], dh,
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        n_splits, split_len, bound, window or 0, 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(k_new), _ptr(v_new), _DTYPE_CODES[q.dtype], b, sq, h,
+        k.shape[2], dh, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        k.shape[1], int(nt), n_splits, split_len, bound, window or 0,
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
+    _count("flash_decode", k_new)
     return out if finished else partials_views(ws, n_splits, b, sq, h, dh)
 
 
@@ -310,22 +358,32 @@ def combine_splits(o_part, m_part, l_part) -> torch.Tensor:
 
 
 def decode_finished(q, k, v, pos, *, window=None, split_len: int,
-                    n_splits: int, bound: int, impl: str = "auto"):
+                    n_splits: int, bound: int, impl: str = "auto",
+                    k_new=None, v_new=None, store_flavor=None):
     """The finished (B, Sq, H, Dh) output in q's dtype under an explicit
     split plan: one launch of the kernel (splits merged inside it), or
-    the plain partials merged by :func:`combine_splits` and cast."""
+    the plain partials merged by :func:`combine_splits` and cast.
+
+    With ``k_new``/``v_new`` (B, Sq, Hkv, Dh) the rows are first written
+    into ``k``/``v`` in place, as ``stores.kv_row_update`` writes them
+    (``store_flavor`` picks the stores): inside the kernel's launch, or by
+    ``stores.ref_kv_row_update`` before the plain version."""
     pos = pos_vector(pos, q.shape[0], q.device)
     if not use_kernel(impl, q):
+        if stores.writes_rows(k_new, v_new, store_flavor):
+            stores.ref_kv_row_update(k, v, k_new, v_new, pos)
         return combine_splits(*ref_decode_partials(
             q, k, v, pos, window=window, split_len=split_len,
             n_splits=n_splits, bound=bound)).to(q.dtype)
     return _decode_kernel(q, k, v, pos, window=window, split_len=split_len,
-                          n_splits=n_splits, bound=bound, finished=True)
+                          n_splits=n_splits, bound=bound, finished=True,
+                          k_new=k_new, v_new=v_new, store_flavor=store_flavor)
 
 
 def flash_decode(q, k, v, pos, *, window: int | None = None, bk: int = 128,
                  n_splits: int | None = None, kv_len: int | None = None,
-                 impl: str = "auto") -> torch.Tensor:
+                 impl: str = "auto", k_new=None, v_new=None,
+                 store_flavor: str | None = None) -> torch.Tensor:
     """Split-KV flash decode against a fixed-horizon KV cache.
 
     q: (B, Sq, H, Dh), the current decode token(s); k, v: (B, Skv, Hkv,
@@ -338,12 +396,15 @@ def flash_decode(q, k, v, pos, *, window: int | None = None, bk: int = 128,
     kernel's grid cuts them; ``bk=128`` rows a block, which the kernel's
     own tiles (64 rows in bf16, 32 in fp32) divide. Returns (B, Sq, H,
     Dh) in q's dtype: on a CUDA tensor from one kernel launch, which
-    merges the splits itself (:func:`decode_finished`).
+    merges the splits itself (:func:`decode_finished`), and writes
+    ``k_new``/``v_new`` into the cache first when given.
     """
     bound, split_len, n_splits = split_plan(q.shape[0], k.shape[2],
                                             k.shape[1], bk, n_splits, kv_len)
     return decode_finished(q, k, v, pos, window=window, split_len=split_len,
-                           n_splits=n_splits, bound=bound, impl=impl)
+                           n_splits=n_splits, bound=bound, impl=impl,
+                           k_new=k_new, v_new=v_new,
+                           store_flavor=store_flavor)
 
 
 def ref_decode(q, k, v, pos, *, window: int | None = None,
@@ -429,9 +490,11 @@ def _check_page_bound(bound: int, ps: int, block_tables) -> None:
 
 def _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos, *, window,
                          split_len: int, n_splits: int, bound: int,
-                         finished: bool):
+                         finished: bool, k_new=None, v_new=None,
+                         store_flavor=None):
     """One launch of the paged kernel: the finished output, or the
-    partials ``(o, m, l)``."""
+    partials ``(o, m, l)``; with ``k_new``/``v_new``, row 0 of each slot's
+    new rows written into its page first, in the same launch."""
     b, sq, h, dh = q.shape
     n_pages, ps = k_pages.shape[0], k_pages.shape[1]
     _check_kernel_inputs(q, k_pages, v_pages, pos, window)
@@ -439,20 +502,22 @@ def _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos, *, window,
             or block_tables.shape[0] != b or block_tables.stride(1) != 1:
         raise ValueError("block_tables must be a (B, NB) int32 tensor on "
                          f"{q.device} with contiguous rows")
+    k_new, v_new = _new_rows(k_pages, q, k_new, v_new)
+    nt = stores.resolve_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
     ws, out, ptrs = _launch_buffers(q, k_pages.shape[2], n_splits,
                                     finished)
     rc = lib.flash_decode_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), *ptrs,
-        _DTYPE_CODES[q.dtype], b, sq, h, k_pages.shape[2], dh,
-        block_tables.stride(0), n_pages, ps,
-        k_pages.stride(0), k_pages.stride(1),
-        v_pages.stride(0), v_pages.stride(1),
+        _ptr(k_new), _ptr(v_new), _DTYPE_CODES[q.dtype], b, sq, h,
+        k_pages.shape[2], dh, block_tables.stride(0), block_tables.shape[1],
+        n_pages, ps, k_pages.stride(0), k_pages.stride(1),
+        v_pages.stride(0), v_pages.stride(1), int(nt),
         n_splits, split_len, bound, window or 0, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_decode_paged")
-    LAUNCHES["flash_decode_paged"] += 1
+    _count("flash_decode_paged", k_new)
     return out if finished else partials_views(ws, n_splits, b, sq, h, dh)
 
 
@@ -480,26 +545,44 @@ def decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
 
 def decode_paged_finished(q, k_pages, v_pages, block_tables, pos, *,
                           window=None, split_len: int, n_splits: int,
-                          bound: int, impl: str = "auto"):
+                          bound: int, impl: str = "auto", k_new=None,
+                          v_new=None, store_flavor=None):
     """The finished (B, Sq, H, Dh) output in q's dtype over a page pool
     under an explicit split plan: one launch of the paged kernel, or the
-    plain partials merged by :func:`combine_splits` and cast."""
+    plain partials merged by :func:`combine_splits` and cast.
+
+    With ``k_new``/``v_new`` (B, Sq, Hkv, Dh), row 0 of each slot's new
+    rows is first written in place at its position, as the reference
+    model's scatter writes it (:func:`stores.ref_paged_row_update`, which
+    is also the plain version): inside the kernel's launch on a CUDA
+    tensor. The kernel's output equals the write followed by the read only
+    if no physical row it writes is read in the same launch through
+    another table column of any slot; the scratch page that every column
+    of a free slot names breaks this, so a free slot's output is undefined
+    there. At a negative position the kernel writes nothing, while the
+    plain version wraps to the table's last columns as the reference's
+    scatter does; a served slot's position is never negative."""
     _check_page_bound(bound, k_pages.shape[1], block_tables)
     pos = pos_vector(pos, q.shape[0], q.device)
     kw = dict(window=window, split_len=split_len, n_splits=n_splits,
               bound=bound)
     if not use_kernel(impl, q):
+        if stores.writes_rows(k_new, v_new, store_flavor):
+            stores.ref_paged_row_update(k_pages, v_pages, block_tables,
+                                        k_new, v_new, pos)
         return combine_splits(*ref_decode_paged_partials(
             q, k_pages, v_pages, block_tables, pos, **kw)).to(q.dtype)
     return _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos,
-                                finished=True, **kw)
+                                finished=True, k_new=k_new, v_new=v_new,
+                                store_flavor=store_flavor, **kw)
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
                        window: int | None = None,
                        n_splits: int | None = None,
                        n_blocks: int | None = None,
-                       impl: str = "auto") -> torch.Tensor:
+                       impl: str = "auto", k_new=None, v_new=None,
+                       store_flavor: str | None = None) -> torch.Tensor:
     """Split-KV flash decode against a paged KV pool.
 
     q: (B, Sq, H, Dh); ``k_pages``/``v_pages``: (P, page, Hkv, Dh)
@@ -510,14 +593,18 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
     holding rows the slot can see: columns past ``pos`` may hold any
     page id. Entries are clipped into ``[0, P - 1]``. Returns (B, Sq, H,
     Dh) in q's dtype: on a CUDA tensor from one kernel launch
-    (:func:`decode_paged_finished`).
+    (:func:`decode_paged_finished`), which writes ``k_new``/``v_new`` first
+    when given; the written column is counted over the table's full width,
+    not ``n_blocks``.
     """
     n_blocks = block_tables.shape[1] if n_blocks is None else n_blocks
     bound, split_len, n_splits = paged_split_plan(
         q.shape[0], k_pages.shape[2], k_pages.shape[1], n_blocks, n_splits)
     return decode_paged_finished(q, k_pages, v_pages, block_tables, pos,
                                  window=window, split_len=split_len,
-                                 n_splits=n_splits, bound=bound, impl=impl)
+                                 n_splits=n_splits, bound=bound, impl=impl,
+                                 k_new=k_new, v_new=v_new,
+                                 store_flavor=store_flavor)
 
 
 def ref_decode_paged(q, k_pages, v_pages, block_tables, pos, *,

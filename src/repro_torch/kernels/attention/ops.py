@@ -51,7 +51,8 @@ def validate_tp_heads(h: int, hkv: int, dh: int, tp: int, *,
 
 def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
                  bk: int = 128, n_splits: int | None = None,
-                 kv_len: int | None = None):
+                 kv_len: int | None = None, k_new=None, v_new=None,
+                 store_flavor: str | None = None):
     """Split-KV decode against a fixed-horizon KV cache, impl-routed.
 
     q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh); ``pos`` scalar or (B,).
@@ -63,6 +64,14 @@ def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
     tensor the finished (B, Sq, H, Dh) output in q's dtype comes from one
     kernel launch: the kernel merges its splits itself, where the plain
     version runs ``decode.combine_splits`` after the partials.
+
+    ``k_new``/``v_new`` (B, Sq, Hkv, Dh), the decode step's new rows, are
+    written into ``k``/``v`` in place before the attention reads them:
+    rows ``pos .. pos + Sq - 1`` of each slot, the start clamped into
+    ``[0, Skv - Sq]`` as ``stores.kv_row_update`` clamps it, with
+    ``store_flavor``'s stores. On a CUDA tensor the same launch writes
+    them; the plain version is ``stores.ref_kv_row_update`` and then the
+    plain decode. Without them nothing is written.
     """
     skv = k.shape[1]
     bound = skv if kv_len is None else max(1, min(int(kv_len), skv))
@@ -70,13 +79,15 @@ def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
     if kv_len is not None:
         bound = min(math.ceil(bound / bk) * bk, skv)
     return D.flash_decode(q, k, v, pos, window=window, bk=bk,
-                          n_splits=n_splits, kv_len=bound, impl=impl)
+                          n_splits=n_splits, kv_len=bound, impl=impl,
+                          k_new=k_new, v_new=v_new, store_flavor=store_flavor)
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
                        window=None, impl: str = "auto",
                        n_splits: int | None = None,
-                       kv_len: int | None = None):
+                       kv_len: int | None = None, k_new=None, v_new=None,
+                       store_flavor: str | None = None):
     """Paged split-KV decode against a shared page pool, impl-routed.
 
     q: (B, Sq, H, Dh); ``k_pages``/``v_pages``: (P, page, Hkv, Dh);
@@ -86,13 +97,20 @@ def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
     analogue of the dense router's block rounding. It reaches the kernel
     as an integer; the table is not sliced. One kernel launch on a CUDA
     tensor, as :func:`flash_decode`.
+
+    ``k_new``/``v_new`` (B, Sq, Hkv, Dh): row 0 of each slot's new rows is
+    written first, in place, to row ``pos % page`` of the page
+    ``block_tables[b, min(pos // page, NB - 1)]`` names, ``NB`` the
+    table's full width (not the ``kv_len`` cut), as the reference model's
+    scatter writes it; on a CUDA tensor in the same launch.
     """
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     if kv_len is not None:
         nb = max(1, min(math.ceil(int(kv_len) / ps), nb))
     return D.flash_decode_paged(q, k_pages, v_pages, block_tables, pos,
                                 window=window, n_splits=n_splits,
-                                n_blocks=nb, impl=impl)
+                                n_blocks=nb, impl=impl, k_new=k_new,
+                                v_new=v_new, store_flavor=store_flavor)
 
 
 #: flash attention forward, impl-routed: q (B, H, S, Dh); k, v (B, Hkv,

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels:
-// 16-byte cp.async copies into shared memory, committed and waited on as
-// groups, and the ldmatrix / mma.sync.m16n8k16 forms of the bf16 tensor
-// core path.
+// Hopper (sm_90a) building blocks shared by the attention kernels and the
+// KV row writer: 16-byte cp.async copies into shared memory, committed and
+// waited on as groups; 16-byte stores, plain or streaming; and the
+// ldmatrix / mma.sync.m16n8k16 forms of the bf16 tensor core path.
 
 #pragma once
 
@@ -31,6 +31,18 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Store 16 bytes to device memory: a plain store, or with `nt` a
+// streaming one (st.global.cs, evict-first: the line is not kept for a
+// reader in this kernel). The bytes written are the same.
+__device__ __forceinline__ void store16(void* dst, const uint4& v, bool nt) {
+  if (nt)
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "r"(v.x), "r"(v.y),
+                 "r"(v.z), "r"(v.w)
+                 : "memory");
+  else
+    *static_cast<uint4*>(dst) = v;
 }
 
 // Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row

@@ -74,6 +74,39 @@
 // column t % DH of every (NT/DH)-th packed row, merging the warps' states
 // once a tile by the factors exp(m_w - m_new). Two barriers a tile.
 //
+// The step's KV rows (WRITE). The decode step writes its new K and V rows
+// into the cache and then reads the cache; on the TPU they are two
+// programs (repro/kernels/stores.py:_kv_write_nt, or XLA's update slice,
+// then this kernel). Here a launch called with k_new and v_new does both,
+// so the write costs no launch of its own (a launch's floor is ~1.3 us, the
+// write moves 16 KiB). Block (row group 0, split 0) of each (KV head, slot)
+// stores that head's new rows into the cache right after it has issued its
+// first copies of K and V rows, so its loads of the new rows wait under
+// those, with st.global.cs under "nt"; split 0 exists in every launch, so
+// the rows are written whether or not they are live. Dense: rows w0 .. w0 + Sq - 1 of the slot, w0 = pos[b] clamped into
+// [0, S - Sq] (a negative pos counted from the end first), as JAX's
+// dynamic_update_slice clamps it. Paged: row pos % page of page table[b,
+// min(pos / page, NB - 1)], NB the table's columns, from k_new[b, 0] (the
+// reference model's scatter); that is logical row w0 = min(pos / page, NB -
+// 1) * page + pos % page. Every block that copies a row of that window
+// takes it from k_new and v_new instead of the cache, so no block reads a
+// cache row the launch writes: the launch needs no ordering inside it, the
+// next launch sees the rows in stream order, and the outputs are those of
+// the write followed by the read, bit for bit (the same bf16 or fp32
+// words). That holds if no physical row the launch writes is read in the
+// same launch through any other (slot, table column): neither another
+// slot's live rows nor another column of the writing slot. The engines
+// keep it for every served slot (the paged engine copies a shared page
+// before its holder writes it). The known exception is the scratch page
+// that every table column of a free or retired slot names: such a slot
+// writes one scratch row while its own and other free slots' blocks read
+// the page, a race that leaves those slots' outputs (which the engine
+// discards) undefined. The caches k and v carry no __restrict__, since
+// the writer stores through them. A paged write at a negative pos stores
+// nothing, where the plain version (stores.ref_paged_row_update, as the
+// reference model's scatter) wraps to the table's last columns; a served
+// slot's pos is never negative.
+//
 // Paged pool. On the TPU the KV block equals the page and a BlockSpec
 // index map fetches one page per grid step. Here a pass or tile spans
 // many pages: the thread that copies a row looks up its
@@ -116,6 +149,56 @@ __device__ __forceinline__ long long row_offset(int row, int page, int in_page, 
                                                 long long s0, long long s1) {
   if constexpr (PAGED) return page * s0 + in_page * s1;
   return b * s0 + row * s1;
+}
+
+// First row of the window a WRITE launch writes, in the slot's (logical)
+// rows: dense, pos clamped into [0, S - Sq] after a negative pos is counted
+// from the end; paged, the written row of page column min(pos / ps,
+// t_cols - 1).
+template <bool PAGED>
+__device__ __forceinline__ int write_start(int p0, int S, int Sq, int ps, int t_cols) {
+  if constexpr (PAGED) return min(p0 / ps, t_cols - 1) * ps + p0 % ps;
+  return min(max(p0 < 0 ? p0 + S : p0, 0), S - Sq);
+}
+
+// Where a block copies row `row` of KV head kvh from, as an offset into
+// k_new or v_new (B, Sq, Hkv, DH): the row's new value if it lies in the
+// written window [w0, w0 + Sq) (one row from k_new[b, 0] for a paged pool),
+// else -1 (the cache). 32-bit: the wrapper keeps k_new under 2^31 elements,
+// and a 64-bit offset costs the bf16 body registers it spills.
+template <int DH, bool PAGED>
+__device__ __forceinline__ int fresh_offset(int row, int w0, int b, int Sq, int Hkv, int kvh) {
+  const int j = row - w0;
+  if (static_cast<unsigned>(j) >= static_cast<unsigned>(PAGED ? 1 : Sq)) return -1;
+  return ((b * Sq + j) * Hkv + kvh) * DH;
+}
+
+// The fused write of a WRITE launch, by all NT threads of a writer block:
+// KV head kvh's new rows of slot b (Sq rows dense, k_new[b, 0] paged) into
+// the caches at window row w0, 16 bytes a thread, streaming under `nt`. A
+// paged write needs pos >= 0 (a served slot's always is).
+template <int DH, bool PAGED, typename T>
+__device__ __forceinline__ void write_rows(const T* k_new, const T* v_new, const T* k,
+                                           const T* v, int p0, int w0, int b, int Sq, int Hkv,
+                                           int kvh, long long k_s0, long long k_s1,
+                                           long long v_s0, long long v_s1,
+                                           const int* __restrict__ table, int t_stride,
+                                           int n_pages, int ps, bool nt) {
+  constexpr int VEC = 16 / sizeof(T), CPR = DH / VEC;
+  const int n = PAGED ? 1 : Sq;
+  if (PAGED && p0 < 0) return;
+  const int col = PAGED ? w0 / ps : 0;
+  const int pg = PAGED ? page_at(col, b, table, t_stride, n_pages) : 0;
+  for (int i = threadIdx.x; i < n * CPR; i += NT) {
+    const int j = i / CPR, c = (i - j * CPR) * VEC;
+    const long long src = ((static_cast<long long>(b) * Sq + j) * Hkv + kvh) * DH + c;
+    const int row = w0 + j;
+    const long long kd = row_offset<PAGED>(row, pg, row - col * ps, b, k_s0, k_s1);
+    const long long vd = row_offset<PAGED>(row, pg, row - col * ps, b, v_s0, v_s1);
+    const size_t hd = size_t(kvh) * DH + c;
+    store16(const_cast<T*>(k) + kd + hd, *reinterpret_cast<const uint4*>(k_new + src), nt);
+    store16(const_cast<T*>(v) + vd + hd, *reinterpret_cast<const uint4*>(v_new + src), nt);
+  }
 }
 
 // Store output elements in q's dtype: fp32 as is, bf16 rounded to nearest
@@ -275,16 +358,18 @@ __host__ __device__ constexpr size_t f32_smem_bytes() {
   return f32_kv_offset<DH, MAXR>() + sizeof(float) * 2 * size_t(F_BK) * (2 * DH + 8);
 }
 
-template <int DH, int MAXR, bool PAGED>
+template <int DH, int MAXR, bool PAGED, bool WRITE>
 __global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
-decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ pos,
+decode_f32_kernel(const float* __restrict__ q, const float* k, const float* v,
+                  const int* __restrict__ pos,
                   float* __restrict__ o_part, float* __restrict__ m_part,
                   float* __restrict__ l_part, float* __restrict__ out,
                   int* __restrict__ counters, int B, int Sq, int H, int Hkv,
                   long long k_s0, long long k_s1, long long v_s0, long long v_s1,
                   int split_len, int bound, int window, float scale,
-                  const int* __restrict__ table, int t_stride, int n_pages, int ps) {
+                  const int* __restrict__ table, int t_stride, int n_pages, int ps,
+                  const float* __restrict__ k_new, const float* __restrict__ v_new, int S,
+                  int t_cols, int nt) {
   constexpr int VEC = 4, CPR = DH / VEC, BK = F_BK, KPW = F_KPW, PARTS = F_PARTS;
   constexpr int UPL = CPR / PARTS;   // 16-byte chunks a lane
   constexpr int KSTR = DH + 8;       // padded K row, in floats
@@ -312,9 +397,12 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = end > start ? (end - start + BK - 1) / BK : 0;
   const float* kb = k + size_t(kvh) * DH;
   const float* vb = v + size_t(kvh) * DH;
+  // WRITE: the written window's first row
+  const int w0 = WRITE ? write_start<PAGED>(p0, S, Sq, ps, t_cols) : 0;
 
   // issue tile j's K and V rows, every 16-byte chunk at once, into stage
-  // j % 2; rows past `end` are zero-filled without a read
+  // j % 2; rows past `end` are zero-filled without a read, rows of the
+  // written window come from k_new and v_new
   auto load_tile = [&](int j) {
     const int t0 = start + j * BK, n = min(BK, end - t0);
     float* ks = k_s + (j & 1) * BK * KSTR;
@@ -324,21 +412,34 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = t + it * NT;
       const int r = i / CPR, c = (i - r * CPR) * VEC;
       const bool ok = r < n;
-      long long ko = 0, vo = 0;
+      const float* ksrc = kb + c;
+      const float* vsrc = vb + c;
       if (ok) {
         const int row = t0 + r, col = PAGED ? row / ps : 0;
         const int pg = PAGED ? page_at(col, b, table, t_stride, n_pages) : 0;
-        ko = row_offset<PAGED>(row, pg, row - col * ps, b, k_s0, k_s1);
-        vo = row_offset<PAGED>(row, pg, row - col * ps, b, v_s0, v_s1);
+        ksrc += row_offset<PAGED>(row, pg, row - col * ps, b, k_s0, k_s1);
+        vsrc += row_offset<PAGED>(row, pg, row - col * ps, b, v_s0, v_s1);
+        if constexpr (WRITE) {
+          const int f = fresh_offset<DH, PAGED>(row, w0, b, Sq, Hkv, kvh);
+          if (f >= 0) {
+            ksrc = k_new + f + c;
+            vsrc = v_new + f + c;
+          }
+        }
       }
-      cp16(ks + r * KSTR + c, kb + ko + c, ok);
-      cp16(vs + r * DH + c, vb + vo + c, ok);
+      cp16(ks + r * KSTR + c, ksrc, ok);
+      cp16(vs + r * DH + c, vsrc, ok);
     }
   };
   if (n_tiles > 0) load_tile(0);
   cp_commit();
   if (n_tiles > 1) load_tile(1);
   cp_commit();
+  // a writer block (WRITE: split 0, row group 0) writes the new rows while
+  // its first tiles are in flight
+  if (WRITE && s == 0 && blockIdx.x < Hkv)
+    write_rows<DH, PAGED>(k_new, v_new, k, v, p0, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
+                          table, t_stride, n_pages, ps, nt);
 
   // packed query rows r0 + r = j*G + g (query token j, head kvh*G + g),
   // scaled, read while the tiles are in flight
@@ -538,16 +639,18 @@ __host__ __device__ constexpr size_t bf16_smem_bytes() {
   return bf16_stats_offset<DH, MAXR>() + sizeof(float) * (3 * NW * 16 + 2 * MAXR);
 }
 
-template <int DH, int MAXR, bool PAGED>
+template <int DH, int MAXR, bool PAGED, bool WRITE>
 __global__ void __launch_bounds__(NT, (DH > 128 ? 1 : 2))
-decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, const int* __restrict__ pos,
               float* __restrict__ o_part, float* __restrict__ m_part,
               float* __restrict__ l_part, __nv_bfloat16* __restrict__ out,
               int* __restrict__ counters, int B, int Sq, int H, int Hkv,
               long long k_s0, long long k_s1, long long v_s0, long long v_s1,
               int split_len, int bound, int window, float scale,
-              const int* __restrict__ table, int t_stride, int n_pages, int ps) {
+              const int* __restrict__ table, int t_stride, int n_pages, int ps,
+              const __nv_bfloat16* __restrict__ k_new, const __nv_bfloat16* __restrict__ v_new,
+              int S, int t_cols, int nt) {
   using bf16 = __nv_bfloat16;
   constexpr int STR = DH + 8;        // shared-memory row, in elements
   constexpr int CPR = DH / 8;        // 16-byte chunks a row
@@ -603,6 +706,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int p0 = pos[b];
   const int start = window > 0 ? max(lo, p0 - window + 1) : lo;
   const int end = min(hi, p0 + Sq);
+  // WRITE: the written window's first row (it needs pos, so a copy tests
+  // it as it is issued)
+  const int w0 = WRITE ? write_start<PAGED>(p0, S, Sq, ps, t_cols) : 0;
 
   // packed query rows r0 + r = j*G + g (query token j, head kvh*G + g),
   // bf16 and unscaled, so the tensor cores' products are exact; rows past
@@ -615,6 +721,43 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
          ok);
   }
 
+  // every 16-byte chunk of pass t0's K and V rows at once; rows outside
+  // [start, end) are zero-filled without a read, rows of the written
+  // window come from k_new and v_new
+  auto issue = [&](int t0) {
+    const int n = min(H_BK, end - t0);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = r_cp + RS * i, row = t0 + r;
+      const bool ok = r < n && row >= start;
+      const long long ko = ok ? row_offset<PAGED>(row, pg[i], in_pg[i], b, k_s0, k_s1) : 0;
+      const long long vo = ok ? row_offset<PAGED>(row, pg[i], in_pg[i], b, v_s0, v_s1) : 0;
+      const bf16* ksrc = kb + ko + c_cp;
+      const bf16* vsrc = vb + vo + c_cp;
+      if constexpr (WRITE) {
+        const int f = ok ? fresh_offset<DH, PAGED>(row, w0, b, Sq, Hkv, kvh) : -1;
+        if (f >= 0) {
+          ksrc = k_new + f + c_cp;
+          vsrc = v_new + f + c_cp;
+        }
+      }
+      cp16(k_s + r * STR + c_cp, ksrc, ok);
+      cp16(v_s + r * STR + c_cp, vsrc, ok);
+    }
+    cp_commit();
+  };
+  // passes of H_BK rows from lo, but for those wholly before the window:
+  // the first pass's copies go out with q's, then a writer block (WRITE:
+  // split 0, row group 0) writes the new rows while they are in flight
+  const int first = lo + (start - lo) / H_BK * H_BK;
+  if (first < end) {
+    if (first > lo) lookup(first);
+    issue(first);
+  }
+  if (WRITE && s == 0 && blockIdx.x < Hkv)
+    write_rows<DH, PAGED>(k_new, v_new, k, v, p0, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
+                          table, t_stride, n_pages, ps, nt);
+
   // warp w serves row block w / WPG and takes every WPG-th 16-key chunk
   // of a pass, with its own online softmax; this thread holds rows
   // 16*rb + lane/4 (_lo) and that + 8 (_hi) of every fragment
@@ -626,27 +769,15 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  for (int t0 = lo; t0 < end; t0 += H_BK) {
-    if (t0 + H_BK <= start) continue;   // a pass wholly before the window
-    if (t0 > lo) {
+  for (int t0 = first; t0 < end; t0 += H_BK) {
+    if (t0 > first) {
       __syncthreads();                  // the last pass is done with K and V
       lookup(t0);
+      issue(t0);
     }
-    // every 16-byte chunk of the pass's K and V rows at once; rows outside
-    // [start, end) are zero-filled without a read
-    const int n = min(H_BK, end - t0);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = r_cp + RS * i, row = t0 + r;
-      const bool ok = r < n && row >= start;
-      const long long ko = ok ? row_offset<PAGED>(row, pg[i], in_pg[i], b, k_s0, k_s1) : 0;
-      const long long vo = ok ? row_offset<PAGED>(row, pg[i], in_pg[i], b, v_s0, v_s1) : 0;
-      cp16(k_s + r * STR + c_cp, kb + ko + c_cp, ok);
-      cp16(v_s + r * STR + c_cp, vb + vo + c_cp, ok);
-    }
-    cp_commit();
     cp_wait<0>();
     __syncthreads();
+    const int n = min(H_BK, end - t0);
 
     for (int ch = wi; ch * 16 < n; ch += WPG) {
       if (t0 + ch * 16 + 16 <= start) continue;   // a chunk wholly before the window
@@ -792,7 +923,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 // What a launch reads and writes, and its scalar arguments, passed through
 // the launch helpers unchanged. `out` is null for the partials alone;
 // counters (and o, m, l but in fp32 at DH = 256) may be null when out is
-// set and n_splits == 1.
+// set and n_splits == 1. k_new and v_new (B, Sq, Hkv, DH), or null: the
+// rows to write first (WRITE); S is the dense cache's rows, t_cols the
+// block table's columns, nt the streaming stores.
 struct Args {
   const void *q, *k, *v, *pos;
   void *o, *m, *l, *out;
@@ -803,25 +936,28 @@ struct Args {
   float scale;
   const int* table;
   int t_stride, n_pages, ps;
+  const void *k_new, *v_new;
+  int S, t_cols, nt;
 };
 
 // the body and its shared memory for each dtype
-template <typename T, int DH, int MAXR, bool PAGED> struct Body;
+template <typename T, int DH, int MAXR, bool PAGED, bool WRITE> struct Body;
 
-template <int DH, int MAXR, bool PAGED> struct Body<float, DH, MAXR, PAGED> {
-  static constexpr auto kern = decode_f32_kernel<DH, MAXR, PAGED>;
+template <int DH, int MAXR, bool PAGED, bool WRITE> struct Body<float, DH, MAXR, PAGED, WRITE> {
+  static constexpr auto kern = decode_f32_kernel<DH, MAXR, PAGED, WRITE>;
   static constexpr size_t smem = f32_smem_bytes<DH, MAXR>();
 };
 
-template <int DH, int MAXR, bool PAGED> struct Body<__nv_bfloat16, DH, MAXR, PAGED> {
-  static constexpr auto kern = decode_kernel<DH, MAXR, PAGED>;
+template <int DH, int MAXR, bool PAGED, bool WRITE>
+struct Body<__nv_bfloat16, DH, MAXR, PAGED, WRITE> {
+  static constexpr auto kern = decode_kernel<DH, MAXR, PAGED, WRITE>;
   static constexpr size_t smem = bf16_smem_bytes<DH, MAXR>();
 };
 
-template <typename T, int DH, int MAXR, bool PAGED>
+template <typename T, int DH, int MAXR, bool PAGED, bool WRITE>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = Body<T, DH, MAXR, PAGED>::kern;
-  constexpr size_t shm = Body<T, DH, MAXR, PAGED>::smem;
+  auto kern = Body<T, DH, MAXR, PAGED, WRITE>::kern;
+  constexpr size_t shm = Body<T, DH, MAXR, PAGED, WRITE>::smem;
   static bool configured = false;   // once per instantiation
   if (!configured) {
     const cudaError_t e =
@@ -836,8 +972,16 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const int*>(a.pos), static_cast<float*>(a.o), static_cast<float*>(a.m),
       static_cast<float*>(a.l), static_cast<T*>(a.out), a.counters, a.B, a.Sq, a.H, a.Hkv,
       a.k_s0, a.k_s1, a.v_s0, a.v_s1, a.split_len, a.bound, a.window, a.scale, a.table,
-      a.t_stride, a.n_pages, a.ps);
+      a.t_stride, a.n_pages, a.ps, static_cast<const T*>(a.k_new),
+      static_cast<const T*>(a.v_new), a.S, a.t_cols, a.nt);
   return int(cudaGetLastError());
+}
+
+// the body with the fused row write when the launch has rows to write
+template <typename T, int DH, int MAXR, bool PAGED>
+int launch_write(const Args& a, cudaStream_t st) {
+  if (a.k_new != nullptr) return launch<T, DH, MAXR, PAGED, true>(a, st);
+  return launch<T, DH, MAXR, PAGED, false>(a, st);
 }
 
 // packed rows a block: the fp32 body is built for 8, 16 and 32, the bf16
@@ -847,9 +991,9 @@ template <typename T, int DH, bool PAGED>
 int launch_rows(const Args& a, cudaStream_t st) {
   const int R = (a.H / a.Hkv) * a.Sq;
   if constexpr (sizeof(T) == 4)
-    if (R <= 8) return launch<T, DH, 8, PAGED>(a, st);
-  if (R <= 16) return launch<T, DH, 16, PAGED>(a, st);
-  return launch<T, DH, 32, PAGED>(a, st);
+    if (R <= 8) return launch_write<T, DH, 8, PAGED>(a, st);
+  if (R <= 16) return launch_write<T, DH, 16, PAGED>(a, st);
+  return launch_write<T, DH, 32, PAGED>(a, st);
 }
 
 template <typename T, bool PAGED>
@@ -883,34 +1027,48 @@ extern "C" {
 // partials alone. With out and n_splits > 1, counters is Hkv *
 // ceil(G * Sq / 32) * B int32 zeros, zeros again when the kernel ends;
 // with out and n_splits == 1 the counters are not touched, nor the
-// scratch but in fp32 at Dh = 256.
+// scratch but in fp32 at Dh = 256. k_new, v_new: (B, Sq, Hkv, Dh) rows in
+// q's dtype, contiguous and 16-byte aligned, written into the caches
+// (rows pos[b] .. pos[b] + Sq - 1 of slot b, the start clamped into
+// [0, S - Sq] after a negative pos is counted from the end; S the caches'
+// rows) before they are read, in the same launch, with streaming stores
+// if nt; or NULL (no write).
 // Returns a CUDA error code (0 on success).
 int flash_decode(const void* q, const void* k, const void* v, const void* pos,
                  void* o_part, void* m_part, void* l_part, void* out, void* counters,
-                 int dtype, int B, int Sq, int H, int Hkv, int Dh, long long k_sb,
-                 long long k_ss, long long v_sb, long long v_ss, int n_splits,
-                 int split_len, int bound, int window, float scale, void* stream) {
+                 const void* k_new, const void* v_new, int dtype, int B, int Sq, int H,
+                 int Hkv, int Dh, long long k_sb, long long k_ss, long long v_sb,
+                 long long v_ss, int S, int nt, int n_splits, int split_len, int bound,
+                 int window, float scale, void* stream) {
+  if ((k_new == nullptr) != (v_new == nullptr) || (k_new != nullptr && Sq > S))
+    return int(cudaErrorInvalidValue);
   const Args a{q, k, v, pos, o_part, m_part, l_part, out, static_cast<int*>(counters),
                B, Sq, H, Hkv, k_sb, k_ss, v_sb, v_ss, n_splits, split_len, bound,
-               window, scale, nullptr, 0, 0, 1};
+               window, scale, nullptr, 0, 0, 1, k_new, v_new, S, 0, nt};
   return launch_dtype<false>(dtype, Dh, a, stream);
 }
 
 // The same over page pools k, v (P, page, Hkv, Dh) through the (B, NB)
-// int32 block table `table` (row stride t_stride). Page and row strides
-// are in elements; bound is the number of logical rows that may be read
-// (at most the table's columns times page_size).
+// int32 block table `table` (row stride t_stride, t_cols = NB columns).
+// Page and row strides are in elements; bound is the number of logical
+// rows that may be read (at most the table's columns times page_size).
+// With k_new, v_new, row 0 of each slot's new rows is written first to row
+// pos[b] % page_size of page table[b, min(pos[b] / page_size, NB - 1)]
+// (nothing at pos < 0); no physical row written may be read through
+// another column of any slot in the same launch (see the WRITE paragraph
+// above).
 int flash_decode_paged(const void* q, const void* k, const void* v, const void* table,
                        const void* pos, void* o_part, void* m_part, void* l_part,
-                       void* out, void* counters, int dtype, int B, int Sq, int H,
-                       int Hkv, int Dh, int t_stride, int n_pages, int page_size,
-                       long long k_ps, long long k_rs, long long v_ps, long long v_rs,
-                       int n_splits, int split_len, int bound, int window, float scale,
-                       void* stream) {
+                       void* out, void* counters, const void* k_new, const void* v_new,
+                       int dtype, int B, int Sq, int H, int Hkv, int Dh, int t_stride,
+                       int t_cols, int n_pages, int page_size, long long k_ps, long long k_rs,
+                       long long v_ps, long long v_rs, int nt, int n_splits, int split_len,
+                       int bound, int window, float scale, void* stream) {
+  if ((k_new == nullptr) != (v_new == nullptr)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, pos, o_part, m_part, l_part, out, static_cast<int*>(counters),
                B, Sq, H, Hkv, k_ps, k_rs, v_ps, v_rs, n_splits, split_len, bound,
                window, scale, static_cast<const int*>(table), t_stride, n_pages,
-               page_size};
+               page_size, k_new, v_new, 0, t_cols, nt};
   return launch_dtype<true>(dtype, Dh, a, stream);
 }
 

@@ -12,13 +12,37 @@
 // bound by bytes, ~0.04 ms at (4098, 4096): the grid read once and
 // written once.
 //
-// Design. Jacobi: one thread an output point, a block a 256-point run of
-// one output row; the block's id names the row (and plane) and the run,
-// so any shape works (the TPU wrapper asserts (H-2) % bm == 0 and
-// (D-2) % bz == 0). Each thread reads its neighbours from global memory;
-// the runs of neighbouring rows are read by blocks scheduled together, so
-// the halo rows come from L1 or L2 and device memory sees each input byte
-// about once. The sums run in the plain version's order with the _rn
+// Design. Jacobi 2-D: one thread an output point, a block a 256-point run
+// of one output row; the block's id names the row and the run, so any
+// shape works (the TPU wrapper asserts (H-2) % bm == 0). Each thread reads
+// its neighbours from global memory; the runs of neighbouring rows are
+// read by blocks scheduled together, so the halo rows come from L1 or L2
+// and device memory sees each input byte about once.
+//
+// Jacobi 3-D: one thread a point reading its six neighbours from global
+// memory took 2.03x the time of a copy of the same bytes on the H100
+// (1440.7 against 711 us at (514, 512, 1024)): every input word crossed
+// from L2 to an SM about six times. Here a block owns a tile of 16 x 128
+// output columns (rows x columns) and marches down z through a chunk of
+// planes; any shape works (the TPU wrapper asserts (D-2) % bz == 0). Each
+// input plane's box of the tile and its halo, 18 x 132 floats (whole
+// 16-byte rows, 9.4 KB), comes into a ring of 8 shared-memory slots 6
+// planes ahead (77 KB of dynamic shared memory, two blocks an SM): one TMA
+// tensor copy a plane where rows are 16-byte aligned (W % 4 == 0, an
+// aligned input), 4-byte cp.async copies (10 a thread a plane) otherwise.
+// A thread owns one column of the tile in 8 rows, keeps the centre of the
+// planes below and at its point in registers, reads the plane above's
+// centre and its four in-plane neighbours from the ring, and stores its
+// outputs 4 bytes at a time, a warp a 128-byte run (output rows are W - 2
+// floats, not whole 16-byte rows in general). z is cut into
+// chunks so that ~16384 blocks run (64 chunks of 8 planes at (514, 512,
+// 1024)): each block then has most of its chunk in flight at once, and a
+// chunk's two extra planes are read while the neighbouring chunk's blocks,
+// launched beside it, read them too, so they mostly hit L2. Narrower or
+// shorter tiles, fewer planes ahead and longer chunks all ran slower on
+// the H100 (scripts/jacobi3d_probe.py times them).
+//
+// Both Jacobi sweeps sum in the plain version's order with the _rn
 // intrinsics: the outputs are bit-identical to PyTorch's.
 //
 // Gauss-Seidel: new[i][j] = 0.25 * (((new[i-1][j] + old[i+1][j]) +
@@ -95,24 +119,6 @@ __global__ void __launch_bounds__(kThreads)
   const long long c = (row + 1) * w + x + 1;
   const float s = __fadd_rn(__fadd_rn(__fadd_rn(u[c - w], u[c + w]), u[c - 1]), u[c + 1]);
   o[row * ow + x] = __fmul_rn(0.25f, s);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    jacobi3d_kernel(const float* __restrict__ u, float* __restrict__ o, int h, int w,
-                    int runs) {
-  const long long row = blockIdx.x / runs;  // (z, y) of the output
-  const int x = (blockIdx.x % runs) * kThreads + threadIdx.x;
-  const int oh = h - 2, ow = w - 2;
-  if (x >= ow) return;
-  const long long z = row / oh, y = row % oh;
-  const long long plane = static_cast<long long>(h) * w;
-  const long long c = (z + 1) * plane + (y + 1) * w + x + 1;
-  float s = __fadd_rn(u[c - plane], u[c + plane]);
-  s = __fadd_rn(s, u[c - w]);
-  s = __fadd_rn(s, u[c + w]);
-  s = __fadd_rn(s, u[c - 1]);
-  s = __fadd_rn(s, u[c + 1]);
-  o[row * ow + x] = __fmul_rn(static_cast<float>(1.0 / 6.0), s);
 }
 
 // --- Gauss-Seidel ----------------------------------------------------------
@@ -435,17 +441,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major (h, w) fp32 map with boxes of box_w x box_h, no swizzle,
-// zeros outside. Returns false where it cannot be made.
-bool tensor_map(CUtensorMap* map, const float* base, int h, int w, int box_w, int box_h) {
+// A row-major fp32 map of `rank` (2 or 3) dims, dims[0] the fastest, with
+// boxes of box[0] x box[1] (x box[2]), no swizzle, zeros outside. Returns
+// false where it cannot be made.
+bool tensor_map(CUtensorMap* map, const float* base, int rank, const cuuint64_t* dims,
+                const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(w) * 4};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_w), static_cast<cuuint32_t>(box_h)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  cuuint64_t strides[2], stride = 4;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -458,8 +465,9 @@ int launch_gauss_seidel(const float* x, float* y, int h, int w, cudaStream_t st)
   const bool tma = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   using Geo = GsGeom<F, true>;
-  if (tma && !(tensor_map(&tmx, x, h, w, Geo::RC, Geo::ROWS) &&
-               tensor_map(&tmy, y, h, w, Geo::W, Geo::ROWS)))
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h)};
+  const cuuint32_t box_x[2] = {Geo::RC, Geo::ROWS}, box_y[2] = {Geo::W, Geo::ROWS};
+  if (tma && !(tensor_map(&tmx, x, 2, dims, box_x) && tensor_map(&tmy, y, 2, dims, box_y)))
     return int(cudaErrorInvalidValue);
   const int W = tma ? GsGeom<F, true>::W : GsGeom<F, false>::W;
   const unsigned strips = static_cast<unsigned>((static_cast<long long>(w) + W - 1) / W);
@@ -472,6 +480,175 @@ int launch_gauss_seidel(const float* x, float* y, int h, int w, cudaStream_t st)
 
 int check_grid(long long blocks) {
   return blocks < 1 || blocks > 0x7fffffffLL ? int(cudaErrorInvalidValue) : 0;
+}
+
+// --- Jacobi 3-D --------------------------------------------------------------
+
+constexpr int kJ3Threads = 256;
+constexpr int kJ3X = 128, kJ3Y = 16;                   // output columns and rows a block
+constexpr int kJ3BoxW = kJ3X + 4, kJ3BoxH = kJ3Y + 2;  // a plane's box: tile and halo
+constexpr int kJ3Box = kJ3BoxW * kJ3BoxH;
+constexpr int kJ3Stage = (kJ3Box + 31) / 32 * 32;     // a ring slot, a multiple of 128 bytes
+constexpr int kJ3Stages = 8;                           // ring slots, kJ3Stages - 2 planes ahead
+// dynamic shared memory a block: the ring, then a barrier a slot
+constexpr int kJ3Smem = kJ3Stages * (kJ3Stage * 4 + 8);
+constexpr int kJ3RowStep = kJ3Threads / kJ3X;          // rows between a thread's outputs
+constexpr int kJ3Rows = kJ3Y / kJ3RowStep;             // output rows a thread
+constexpr int kJ3Copies = (kJ3Box + kJ3Threads - 1) / kJ3Threads;  // 4-byte copies a thread a plane
+constexpr long long kJ3Blocks = 16384;                 // blocks the chunks of z aim for
+
+// One box of a 3-D tensor map into shared memory at coordinates (column,
+// row, plane), completing on `bar`; elements outside the tensor are
+// zero-filled.
+__device__ __forceinline__ void tensor_load_3d(float* dst, const CUtensorMap* map, int col,
+                                               int row, int plane, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// o (d-2, h-2, w-2) = the 7-point mean of u (d, h, w)'s interior. Block
+// (tile, chunk): output rows [y0, y0 + kJ3Y) and columns [x0, x0 + kJ3X)
+// of output planes [z0, z0 + chunk), reading input planes z0 .. z0 + chunk
+// + 1, each as the box of input rows [y0, y0 + kJ3BoxH) and columns [x0,
+// x0 + kJ3BoxW) in ring slot (plane - z0) % kJ3Stages. TMA: tmu maps u (w
+// % 4 == 0, 16-byte aligned) with boxes of one plane's box; else unused.
+// Box elements outside u are zeros and feed only outputs outside o, which
+// are not stored.
+template <bool TMA>
+__global__ void __launch_bounds__(kJ3Threads)
+    jacobi3d_kernel(const float* __restrict__ u, float* __restrict__ o, int d, int h, int w,
+                    int tiles_x, int chunk, const __grid_constant__ CUtensorMap tmu) {
+  extern __shared__ __align__(128) unsigned char j3_smem[];
+  float* ring = reinterpret_cast<float*>(j3_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kJ3Stages * kJ3Stage);
+  const int t = threadIdx.x, tx = t % kJ3X, ty = t / kJ3X;
+  const int x0 = (blockIdx.x % tiles_x) * kJ3X, y0 = (blockIdx.x / tiles_x) * kJ3Y;
+  const int z0 = blockIdx.y * chunk;
+  const int n_in = min(chunk, d - 2 - z0) + 2;  // input planes the chunk reads
+  const long long plane = static_cast<long long>(h) * w;
+  // the 4-byte route: this thread's copies of a box, element e = t +
+  // kJ3Threads k at offset src[k] from its plane's first element
+  long long src[TMA ? 1 : kJ3Copies];
+  unsigned ok = 0;
+  if constexpr (TMA) {
+    if (t < kJ3Stages) mbar_init(&full[t]);
+    fence_async_smem();
+  } else {
+#pragma unroll
+    for (int k = 0; k < kJ3Copies; ++k) {
+      const int e = t + kJ3Threads * k, r = e / kJ3BoxW, c = e - r * kJ3BoxW;
+      const bool in = e < kJ3Box && y0 + r < h && x0 + c < w;
+      ok |= unsigned(in) << k;
+      src[k] = in ? static_cast<long long>(y0 + r) * w + x0 + c : 0;
+    }
+  }
+  __syncthreads();
+  // input plane z0 + p into its slot; past the chunk nothing (the 4-byte
+  // route still commits a group, so the group count stays in step)
+  auto issue = [&](int p) {
+    float* dst = ring + (p % kJ3Stages) * kJ3Stage;
+    if constexpr (TMA) {
+      if (p < n_in && t == 0) {
+        uint64_t* bar = &full[p % kJ3Stages];
+        fence_async_smem();  // the slot's last reads before the copy's writes
+        mbar_expect(bar, kJ3Box * 4);
+        tensor_load_3d(dst, &tmu, x0, y0, z0 + p, bar);
+      }
+    } else {
+      if (p < n_in) {
+        const float* base = u + (z0 + p) * plane;
+#pragma unroll
+        for (int k = 0; k < kJ3Copies; ++k) {
+          const int e = t + kJ3Threads * k;
+          const bool in = (ok >> k) & 1;
+          if (e < kJ3Box) cp4(dst + e, in ? base + src[k] : u, in);
+        }
+      }
+      cp_commit();
+    }
+  };
+  for (int p = 0; p < kJ3Stages - 2; ++p) issue(p);
+  // centre of this thread's output row i (tile row ty + kJ3RowStep i) in a
+  // slot, and its output at the chunk's first plane
+  const int c0 = (ty + 1) * kJ3BoxW + tx + 1;
+  const long long ow = w - 2;
+  float* oc = o + (static_cast<long long>(z0) * (h - 2) + y0 + ty) * ow + x0 + tx;
+  const bool col_ok = x0 + tx < w - 2;
+  float below[kJ3Rows] = {}, at[kJ3Rows] = {};  // centres of planes p - 2 and p - 1
+  for (int p = 0; p < n_in; ++p) {
+    if constexpr (TMA)
+      mbar_wait(&full[p % kJ3Stages], (p / kJ3Stages) & 1);
+    else
+      cp_wait<kJ3Stages - 3>();
+    __syncthreads();  // plane p is in; no thread reads plane p - 2's slot any more
+    issue(p + kJ3Stages - 2);
+    const float* above_s = ring + (p % kJ3Stages) * kJ3Stage;
+    const float* at_s = ring + ((p + kJ3Stages - 1) % kJ3Stages) * kJ3Stage;
+#pragma unroll
+    for (int i = 0; i < kJ3Rows; ++i) {
+      const int ci = c0 + i * kJ3RowStep * kJ3BoxW;
+      const float above = above_s[ci];
+      if (p >= 2) {
+        // output plane z0 + p - 2 (centre plane p - 1), the plain version's order
+        float sum = __fadd_rn(below[i], above);
+        sum = __fadd_rn(sum, at_s[ci - kJ3BoxW]);
+        sum = __fadd_rn(sum, at_s[ci + kJ3BoxW]);
+        sum = __fadd_rn(sum, at_s[ci - 1]);
+        sum = __fadd_rn(sum, at_s[ci + 1]);
+        if (col_ok && y0 + ty + i * kJ3RowStep < h - 2)
+          oc[(static_cast<long long>(p - 2) * (h - 2) + i * kJ3RowStep) * ow] =
+              __fmul_rn(static_cast<float>(1.0 / 6.0), sum);
+      }
+      below[i] = at[i];
+      at[i] = above;
+    }
+  }
+}
+
+// The 3-D Jacobi grid: tiles of kJ3Y x kJ3X output points, and the d - 2
+// output planes cut into chunks of `chunk` planes so that about kJ3Blocks
+// blocks run.
+struct Jacobi3dGrid {
+  long long tiles;
+  int tiles_x, chunks, chunk;
+};
+
+Jacobi3dGrid jacobi3d_grid(int d, int h, int w) {
+  Jacobi3dGrid g;
+  g.tiles_x = (w - 2 + kJ3X - 1) / kJ3X;
+  g.tiles = static_cast<long long>(g.tiles_x) * ((h - 2 + kJ3Y - 1) / kJ3Y);
+  const long long want = (kJ3Blocks + g.tiles - 1) / g.tiles;
+  const int chunks = static_cast<int>(want < d - 2 ? want : d - 2);
+  g.chunk = (d - 2 + chunks - 1) / chunks;
+  g.chunks = (d - 2 + g.chunk - 1) / g.chunk;
+  return g;
+}
+
+// The tensor route where u's rows start 16-byte aligned, else the 4-byte
+// route.
+int launch_jacobi3d(const float* u, float* o, int d, int h, int w, cudaStream_t st) {
+  const Jacobi3dGrid g = jacobi3d_grid(d, h, w);
+  if (int rc = check_grid(g.tiles)) return rc;
+  CUtensorMap tmu{};
+  const bool tma = w % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(d)};
+  const cuuint32_t box[3] = {kJ3BoxW, kJ3BoxH, 1};
+  if (tma && !tensor_map(&tmu, u, 3, dims, box)) return int(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(g.tiles), static_cast<unsigned>(g.chunks));
+  auto kern = tma ? jacobi3d_kernel<true> : jacobi3d_kernel<false>;
+  static bool configured[2] = {false, false};  // once per route
+  if (!configured[tma]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kJ3Smem);
+    if (e != cudaSuccess) return int(e);
+    configured[tma] = true;
+  }
+  kern<<<grid, kJ3Threads, kJ3Smem, st>>>(u, o, d, h, w, g.tiles_x, g.chunk, tmu);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -494,13 +671,8 @@ int stencil_jacobi_2d5pt(const void* u, void* o, int h, int w, void* stream) {
 // o (d-2, h-2, w-2) = 7-point mean of the interior of u (d, h, w).
 int stencil_jacobi_3d7pt(const void* u, void* o, int d, int h, int w, void* stream) {
   if (d < 3 || h < 3 || w < 3) return int(cudaErrorInvalidValue);
-  const int runs = (w - 2 + kThreads - 1) / kThreads;
-  const long long blocks = static_cast<long long>(d - 2) * (h - 2) * runs;
-  if (int rc = check_grid(blocks)) return rc;
-  jacobi3d_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(u), static_cast<float*>(o), h, w, runs);
-  return int(cudaGetLastError());
+  return launch_jacobi3d(static_cast<const float*>(u), static_cast<float*>(o), d, h, w,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // y (h, w) = x after `sweeps` Gauss-Seidel sweeps fused in one pass,

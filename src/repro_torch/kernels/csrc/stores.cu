@@ -19,17 +19,18 @@
 // (st.global.cs, evict-first: the rows are not read again before the
 // next layer's traffic evicts them); "standard" issues plain stores. The
 // bytes written are identical.
+//
+// The decode step does not launch this kernel: the decode kernels
+// (decode.cu) write the step's rows themselves, in the launch that reads
+// the cache right after. This is the standalone writer, for callers that
+// write rows without attending.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "async.cuh"
 
-__device__ __forceinline__ void store_cs(uint4* dst, const uint4& v) {
-  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "r"(v.x),
-               "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
+namespace {
 
 template <bool NT>
 __global__ void kv_rows_kernel(const uint4* __restrict__ k_new,
@@ -45,15 +46,8 @@ __global__ void kv_rows_kernel(const uint4* __restrict__ k_new,
   uint4* kd = k_cache + b * kc_sb + p * kc_ss;
   uint4* vd = v_cache + b * vc_sb + p * vc_ss;
   for (int i = threadIdx.x; i < row_vecs; i += blockDim.x) {
-    const uint4 a = k_new[src + i];
-    const uint4 c = v_new[src + i];
-    if (NT) {
-      store_cs(kd + i, a);
-      store_cs(vd + i, c);
-    } else {
-      kd[i] = a;
-      vd[i] = c;
-    }
+    store16(kd + i, k_new[src + i], NT);
+    store16(vd + i, v_new[src + i], NT);
   }
 }
 

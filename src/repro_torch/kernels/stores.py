@@ -6,7 +6,12 @@ The counterpart of ``repro/kernels/stores.py``. The kernel
 ``stores.py:_kv_write_nt`` (body ``_kv_row_kernel``): one launch writes
 the K and the V rows of one layer in place, one thread block per
 (slot, token), and touches no other row. On the H100 it is bound by
-launch latency: at yi-9b's shapes a launch moves 16 KiB each way.
+launch latency: at yi-9b's shapes a launch moves 16 KiB each way. So
+the decode step does not launch it: the decode kernels write the step's
+rows in the launch that reads the cache right after
+(``attention.decode.flash_decode`` with ``k_new``/``v_new``, the same
+rows and flavors). This module keeps the standalone writer and the plain
+versions of both writes.
 
 Store flavors:
 
@@ -81,6 +86,36 @@ def ref_kv_row_update(k_cache, v_cache, k_new, v_new, pos) -> None:
     v_cache[slots, rows] = v_new.to(v_cache.dtype)
 
 
+def writes_rows(k_new, v_new, flavor: str | None) -> bool:
+    """Whether a decode call is given new rows to write: validates the
+    flavor, and that ``k_new`` and ``v_new`` come together."""
+    resolve_flavor(flavor)
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new come together")
+    return k_new is not None
+
+
+def ref_paged_row_update(k_pages, v_pages, block_tables, k_new, v_new,
+                         pos) -> None:
+    """Plain version of the paged decode kernel's row write, in place:
+    the reference model's scatter (``repro/models/model.py``, paged
+    decode). Row 0 of slot ``b``'s new rows (B, Sq, Hkv, Dh) lands at row
+    ``pos[b] % page`` of page ``block_tables[b, min(pos[b] // page, NB -
+    1)]`` of the (P, page, Hkv, Dh) pools, ``NB`` the table's columns (the
+    clamp retires an overshooting slot onto its last column). A negative
+    ``pos[b]`` wraps to the table's last columns, as the reference's
+    indexing does; the kernel writes nothing there."""
+    b = k_new.shape[0]
+    ps, nb = k_pages.shape[1], block_tables.shape[1]
+    dev = k_pages.device
+    p1 = pos_vector(pos, b, dev).long()
+    lp = torch.clamp(p1 // ps, max=nb - 1)
+    phys = block_tables.to(dev)[torch.arange(b, device=dev), lp].long()
+    row = p1 % ps
+    k_pages[phys, row] = k_new[:, 0].to(k_pages.dtype)
+    v_pages[phys, row] = v_new[:, 0].to(v_pages.dtype)
+
+
 def _check_kernel_inputs(k_cache, v_cache, k_new, v_new, pos) -> None:
     """Raise on anything the CUDA kernel does not take."""
     b, s, hkv, dh = k_cache.shape
@@ -123,9 +158,9 @@ def kv_row_update(k_cache, v_cache, k_new, v_new, pos, *,
     ``cache[b, pos[b]:pos[b]+Sq]``, its start clamped into ``[0, S-Sq]``
     as JAX's ``dynamic_update_slice`` clamps it (a negative start counts
     from the end first, as in JAX). The caches keep their
-    storage (same ``data_ptr()``). This is the single door every decode
-    KV write goes through; ``flavor`` picks the store path (see the
-    module docstring), ``impl`` the kernel or its plain version.
+    storage (same ``data_ptr()``). ``flavor`` picks the store path (see
+    the module docstring), ``impl`` the kernel or its plain version. The
+    decode step writes the same rows through the decode call instead.
     """
     run = resolve_flavor(flavor)
     pos = pos_vector(pos, k_cache.shape[0], k_cache.device)

@@ -308,12 +308,12 @@ def jacobi_2d5pt(u):
 
 def jacobi_3d7pt(u):
     """(D, H, W) -> (D-2, H-2, W-2) interior 7-point mean, any D, H, W
-    >= 3."""
+    >= 3: a block a tile of output columns marching down a chunk of
+    planes, one launch."""
     _check_grid("jacobi_3d7pt", u, 3)
     d, h, w = u.shape
-    if (d - 2) * (h - 2) * -(-(w - 2) // 256) > _INT_MAX:
-        raise ValueError(f"jacobi_3d7pt kernel: {tuple(u.shape)} needs "
-                         "more than 2^31 - 1 blocks")
+    # a grid of more than 2^31 - 1 tiles is refused by check_grid in
+    # csrc/stencil.cu, and build.check raises
     o = torch.empty((d - 2, h - 2, w - 2), dtype=u.dtype, device=u.device)
     lib = build.load("stencil", _STENCIL_SIGNATURES)
     rc = lib.stencil_jacobi_3d7pt(u.data_ptr(), o.data_ptr(), d, h, w,

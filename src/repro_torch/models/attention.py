@@ -11,6 +11,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import stores
 from repro_torch.kernels.attention import ops as kops
 
 NEG_INF = -1e30
@@ -114,7 +115,8 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
                      impl: str = "auto", kv_len: int | None = None,
-                     block_tables=None) -> torch.Tensor:
+                     block_tables=None, k_new=None, v_new=None,
+                     store_flavor: str | None = None) -> torch.Tensor:
     """Decode: q (B, Sq, H, Dh) against the slot cache (B, Skv, Hkv, Dh).
 
     ``pos`` (B,) is each slot's position of the first query token; cache
@@ -130,16 +132,26 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
     impl or a ``kv_len`` runs ``ops.flash_decode_paged``; ``"ref"`` with
     no bound gathers the pages in logical order and falls through to the
     dense computation, as the reference does.
+
+    ``k_new``/``v_new`` (B, Sq, Hkv, Dh) are the step's new K and V rows:
+    the call writes them into the cache in place first (``store_flavor``
+    picks the stores), then attends, in one kernel launch on a CUDA
+    tensor (``ops.flash_decode``, ``ops.flash_decode_paged``).
     """
+    new = dict(k_new=k_new, v_new=v_new, store_flavor=store_flavor)
     if block_tables is not None:
         if impl != "ref" or kv_len is not None:
             return kops.flash_decode_paged(q, k_cache, v_cache, block_tables,
                                            pos, window=window, impl=impl,
-                                           kv_len=kv_len)
+                                           kv_len=kv_len, **new)
+        if stores.writes_rows(k_new, v_new, store_flavor):
+            stores.ref_paged_row_update(k_cache, v_cache, block_tables,
+                                        k_new, v_new, pos)
+        new = {}
         b = q.shape[0]
         hkv, dh = k_cache.shape[2], k_cache.shape[3]
         bt = block_tables.long()
         k_cache = k_cache[bt].reshape(b, -1, hkv, dh)
         v_cache = v_cache[bt].reshape(b, -1, hkv, dh)
     return kops.flash_decode(q, k_cache, v_cache, pos, window=window,
-                             impl=impl, kv_len=kv_len)
+                             impl=impl, kv_len=kv_len, **new)

@@ -239,34 +239,21 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
     v = _project(x, p["wv"])
     window = cfg.sliding_window if local else None
     new_cache = None
-    if mode == "decode" and block_tables is not None:
-        # paged cache: the leaves are physical page pools (P, page, Hkv,
-        # Dh) shared by all slots; each slot's new row goes to the page
-        # its block table names for the current logical page. The engine
-        # has made every page a chunk writes exist and be exclusively
-        # held (copy on write done), so the in-place write never reaches
-        # a shared page. A plain index write, as the reference's scatter.
-        ps = cache["k"].shape[1]
-        nb = block_tables.shape[1]
-        p1 = pos.long()
-        lp = torch.clamp(p1 // ps, max=nb - 1)   # overshoot-retiring clamp
-        phys = block_tables[torch.arange(b, device=x.device), lp].long()
-        row = p1 % ps
-        cache["k"][phys, row] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][phys, row] = v[:, 0].to(cache["v"].dtype)
+    if mode == "decode":
+        # the new K and V rows are written into the cache in place by the
+        # decode call itself, then read: a dense slot cache at rows pos ..
+        # pos + Sq - 1 (the start clamped as JAX's dynamic_update_slice
+        # clamps it), a page pool (P, page, Hkv, Dh) at the page its block
+        # table names for the current logical page, as the reference's
+        # scatter writes it. The engine has made every page a chunk writes
+        # exist and be exclusively held (copy on write done), so the
+        # in-place write never reaches a shared page. Attention reads the
+        # whole cache bounded by kv_len (no slice, no copy).
         y = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
                                       window=window, impl=impl,
                                       kv_len=kv_len,
-                                      block_tables=block_tables)
-        new_cache = cache
-    elif mode == "decode":
-        # in-place KV row writes through the store door, then attention
-        # over the whole cache bounded by kv_len (no slice, no copy)
-        stores_lib.kv_row_update(cache["k"], cache["v"], k, v, pos,
-                                 flavor=store_flavor, impl=impl)
-        y = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
-                                      window=window, impl=impl,
-                                      kv_len=kv_len)
+                                      block_tables=block_tables, k_new=k,
+                                      v_new=v, store_flavor=store_flavor)
         new_cache = cache
     else:
         y = attn_lib.chunked_causal_attention(
@@ -329,16 +316,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
           ((B,) int32 tensor, or a scalar), writes their KV rows into
           ``cache`` in place and returns (B, 1, V) logits and the same
           cache. ``kv_len`` bounds the cache rows attention reads.
-    ``impl`` routes both decode kernels (KV row writer and split-KV
-    attention): ``"auto"`` runs them on a CUDA tensor and their plain
-    versions on a CPU tensor; ``"ref"`` always runs the plain versions.
-    ``store_flavor`` picks the KV store path (``kernels.stores``).
+    ``impl`` routes the decode kernel, which writes the step's KV rows
+    and then attends in one launch: ``"auto"`` runs it on a CUDA tensor
+    and its plain version (the row write, then the plain decode) on a CPU
+    tensor; ``"ref"`` always runs the plain version.
+    ``store_flavor`` picks the KV row stores (``kernels.stores``).
     ``block_tables`` ((B, NB) int32) switches decode to the paged cache
     (``serve.pages``): every cache leaf is then a page pool, row ``pos``
     of slot ``b`` lives in page ``block_tables[b, pos // page]``, the KV
-    rows are written there with a plain index write (not through the row
-    writer) and attention runs the paged decode kernel, with ``kv_len``
-    bounding the table columns read.
+    rows are written there and attention runs the paged decode kernel,
+    with ``kv_len`` bounding the table columns read.
     ``aux`` is a zero scalar (no MoE blocks).
     """
     if mode not in ("prefill", "decode"):

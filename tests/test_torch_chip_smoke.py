@@ -120,3 +120,24 @@ def test_finished_ok_is_one_bf16_ulp_over_the_fp32_tolerance(want, got,
     w = torch.tensor([0.25, want], dtype=torch.float32)
     g = torch.tensor([0.25, got], dtype=torch.float32).to(dt)
     assert chip_smoke.finished_ok(torch, g, w)[0] is ok
+
+
+@pytest.mark.parametrize("name,decode,paged", [
+    ("void (anonymous namespace)::decode_kernel<128, 16, false, true>"
+     "(__nv_bfloat16 const*, ...)", True, False),      # dense, writing
+    ("void (anonymous namespace)::decode_kernel<128, 16, true, true>"
+     "(__nv_bfloat16 const*, ...)", True, True),       # paged, writing
+    ("void (anonymous namespace)::decode_f32_kernel<256, 32, true, false>"
+     "(float const*, ...)", True, True),
+    ("void (anonymous namespace)::decode_kernel<128, 16, false>"
+     "(__nv_bfloat16 const*, ...)", True, False),      # a parent's names
+    ("void (anonymous namespace)::decode_partials_kernel<128, 16, true>"
+     "(__nv_bfloat16 const*, ...)", True, True),
+    ("void (anonymous namespace)::kv_rows_kernel<true>(uint4 const*, ...)",
+     False, False),
+])
+def test_trace_groups_decode_kernels_by_layout(name, decode, paged):
+    """The trace phase tells the dense and the paged decode instantiations
+    apart by their PAGED template argument, whatever follows it."""
+    assert bool(chip_smoke.DECODE_KERNEL.search(name)) == decode
+    assert bool(chip_smoke.DECODE_PAGED.search(name)) == paged

@@ -280,6 +280,114 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
                                atol=tol)
 
 
+# the fused row write: (b, skv, h, hkv, dh, sq, window, n_splits); head
+# dims 64, 128 and 256, one split and many, more than 32 packed rows
+FUSED_WRITE_SHAPES = [
+    (4, 300, 8, 2, 64, 1, None, 1), (4, 300, 8, 2, 64, 3, 40, None),
+    (8, 1024, 32, 4, 128, 1, None, None), (8, 1024, 32, 4, 128, 1, None, 1),
+    (4, 300, 4, 2, 256, 2, None, 6), (4, 300, 16, 2, 256, 1, 40, 1),
+    (3, 200, 32, 2, 128, 4, None, None),        # G*Sq = 64: two row groups
+]
+
+
+def _same_bytes(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("flavor", ["standard", "nt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,ns", FUSED_WRITE_SHAPES)
+def test_fused_write_matches_unfused_pair_dense(cuda, flavor, dtype, b, skv,
+                                                h, hkv, dh, sq, window, ns):
+    """One decode launch given the step's rows against the standalone
+    writer and then the decode kernel: the output bit for bit, both caches
+    byte for byte. Slot 0's position is negative (counted from the end),
+    the last slot's overshoots the cache (its window clamps below pos)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(b, sq, h, dh, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    kn = torch.randn(b, sq, hkv, dh, generator=g, device=cuda).to(dtype)
+    vn = torch.randn(b, sq, hkv, dh, generator=g, device=cuda).to(dtype)
+    pos = torch.linspace(0, skv - sq, b, device=cuda).round().int()
+    pos[0], pos[-1] = -2, skv + 3
+    bound, split_len, n = D.split_plan(b, hkv, skv, 128, ns, None)
+    kw = dict(window=window, split_len=split_len, n_splits=n, bound=bound)
+    kr, vr = kc.clone(), vc.clone()
+    stores.kv_row_update(kr, vr, kn, vn, pos, flavor=flavor, impl="cuda")
+    want = D.decode_finished(q, kr, vr, pos, impl="cuda", **kw)
+    K.reset_launches()
+    got = D.decode_finished(q, kc, vc, pos, impl="cuda", k_new=kn, v_new=vn,
+                            store_flavor=flavor, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_decode"] == 1
+    assert K.LAUNCHES["kv_rows_in_decode"] == 1
+    assert K.LAUNCHES["kv_row_update"] == 0
+    assert _same_bytes(got, want)
+    assert _same_bytes(kc, kr) and _same_bytes(vc, vr)
+    assert not D.split_counters(cuda).any()
+
+
+@pytest.mark.parametrize("flavor", ["standard", "nt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,ns", FUSED_WRITE_SHAPES)
+def test_fused_write_matches_unfused_pair_paged(cuda, flavor, dtype, b, skv,
+                                                h, hkv, dh, sq, window, ns):
+    """The paged kernel given the step's rows against the plain index
+    write and then the paged kernel, under a shuffled table, with the
+    table read in full and cut below the last slot's written column (the
+    write counts the table's full width); the last slot's position
+    overshoots the table and retires onto its last column."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    ps = 16
+    q = torch.randn(b, sq, h, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    kn = torch.randn(b, sq, hkv, dh, generator=g, device=cuda).to(dtype)
+    vn = torch.randn(b, sq, hkv, dh, generator=g, device=cuda).to(dtype)
+    pos = torch.linspace(0, skv - 60, b, device=cuda).round().int()
+    nb = -(-skv // ps)
+    pos[-1] = nb * ps + 5
+    # every column a slot writes or reads is its own page; the last slot's
+    # whole row, the others' past their last live row name the NaN page
+    kp, vp, bt = _paged_layout(k, v, ps, torch.Generator().manual_seed(15),
+                               (pos + sq - 1).tolist())
+    for n_blocks in (nb, -(-(int(pos[:-1].max()) + sq) // ps)):
+        bound, split_len, n = D.paged_split_plan(b, hkv, ps, n_blocks, ns)
+        kw = dict(window=window, split_len=split_len, n_splits=n,
+                  bound=bound)
+        kr, vr = kp.clone(), vp.clone()
+        stores.ref_paged_row_update(kr, vr, bt, kn, vn, pos)
+        want = D.decode_paged_finished(q, kr, vr, bt, pos, impl="cuda", **kw)
+        K.reset_launches()
+        got = D.decode_paged_finished(q, kp, vp, bt, pos, impl="cuda",
+                                      k_new=kn, v_new=vn,
+                                      store_flavor=flavor, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["flash_decode_paged"] == 1
+        assert K.LAUNCHES["kv_rows_in_decode"] == 1
+        assert _same_bytes(got, want)
+        assert _same_bytes(kp, kr) and _same_bytes(vp, vr)
+    # the written rows landed where the reference's scatter puts them
+    last = bt[-1, nb - 1].long()
+    assert _same_bytes(kp[last, (nb * ps + 5) % ps], kn[-1, 0])
+
+
+def test_fused_write_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(2, 1, 4, 32, device=cuda)
+    kc = torch.randn(2, 16, 2, 32, device=cuda)
+    kn = torch.randn(2, 1, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="come together"):
+        ops.flash_decode(q, kc, kc.clone(), 3, k_new=kn, impl="cuda")
+    with pytest.raises(ValueError, match="k_new must be"):
+        ops.flash_decode(q, kc, kc.clone(), 3, k_new=kn[:, :, :1],
+                         v_new=kn[:, :, :1], impl="cuda")
+    with pytest.raises(ValueError, match="unknown store flavor"):
+        ops.flash_decode(q, kc, kc.clone(), 3, k_new=kn, v_new=kn,
+                         store_flavor="fast", impl="cuda")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv,s,dh,window,bq,bk,causal", [
     (4, 2, 77, 32, None, None, 64, True),        # ragged S
@@ -594,6 +702,26 @@ def test_stream_stencils_take_offset_views(cuda, name, shape, sweeps):
         SK.gauss_seidel_plan(*shape, sweeps, aligned=False).fused))
     torch.testing.assert_close(got, getattr(SR, name)(u, *args), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((6, 9, 13), 0), ((17, 29, 101), 0), ((18, 34, 130), 0),
+    ((18, 34, 132), 0), ((20, 40, 256), 0), ((3, 3, 3), 0),
+    ((40, 20, 20), 0), ((130, 7, 68), 0),
+    ((17, 29, 100), 1),              # an offset view: the 4-byte route
+])
+def test_jacobi_3d7pt_bit_identical(cuda, shape, offset):
+    """The plane-tile kernel against its plain version, bit for bit, in one
+    launch: both TMA (W % 4 == 0, aligned) and 4-byte routes, ragged tiles
+    and chunks, a single point."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    n = int(np.prod(shape))
+    u = torch.randn(n + offset, generator=g, device=cuda)[offset:].view(shape)
+    K.reset_launches()
+    got = SO.jacobi_3d7pt(u)
+    assert K.LAUNCHES["jacobi_3d7pt"] == 1
+    want = SR.jacobi_3d7pt(u)
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 def test_stream_kernels_refuse_what_they_do_not_take(cuda):
