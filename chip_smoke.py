@@ -22,11 +22,15 @@ Phases, each printed on its own line:
    at (16386, 16384) and (514, 512, 1024), Gauss-Seidel at (4098, 4096)
    with 2 sweeps; its checks also run Gauss-Seidel on rows of 20000 and
    40002 columns), launch counts zeroed before and read after, each
-   output held against its plain version; then each kernel's time
-   beside its bound, its plain version's and one PyTorch call's, the
-   three INITs' GB/s, standard against NT stores, and copy, add and
-   triad at 2^21 f32 an array (L2-resident). Its buffers are freed
-   before the serving phases;
+   output held against its plain version; ``sum_reduction`` and
+   ``pi_integration`` each one kernel event a call, their block counters
+   back at 0 and repeats bit-identical; then each kernel's time beside
+   its bound, its plain version's and one PyTorch call's (pi's also
+   beside its reckoned SFU and issue floors at the SM clock
+   ``nvidia-smi`` reads, and its distance from the float64 sum of its
+   terms), the three INITs' GB/s, standard against NT stores, and copy,
+   add and triad at 2^21 f32 an array (L2-resident). Its buffers are
+   freed before the serving phases;
 3. the split-KV decode kernel against its plain PyTorch version at
    yi-9b's head shapes (B=8, H=32, Hkv=4, Dh=128, bf16): Skv 4096 and
    4095, per-slot positions spread over the cache, Sq 1 and 4, no window
@@ -358,6 +362,11 @@ STREAM_S = 2.0                       # the UPDATE and triad scalar
 STREAM_SUM_RTOL = 1e-5
 STENCIL_TOL = 1e-6
 PI_OPS_PER_POINT = 6                 # +0.5, /n, x*x, 1+, 4/, the sum
+#: Hopper's rates behind pi_integration's reckoned floors: MUFU.RCP
+#: results an SM a clock (16 SFU lanes), and thread instructions an SM
+#: issues a clock (4 schedulers, a warp instruction each)
+SFU_RCP_PER_SM_CLOCK = 16
+ISSUE_PER_SM_CLOCK = 128
 STREAM_KPY = "src/repro/kernels/stream/kernels.py"
 # name: (line of its pallas_call or function in STREAM_KPY, CUDA source)
 STREAM_KERNELS = {
@@ -444,7 +453,7 @@ def stream_inits(SO) -> dict:
 BIT_IDENTICAL_STENCILS = ("jacobi_3d7pt", "gauss_seidel_2d5pt")
 
 
-def phase_stream_check(torch, K, SO, SR) -> dict:
+def phase_stream_check(torch, K, SO, SR, SK) -> dict:
     """Every stream kernel through ``ops`` (impl="auto") on CUDA tensors
     at an aligned and a ragged shape, against its plain version: f32
     elementwise bit for bit, bf16 within one bf16 ulp of the plain
@@ -505,6 +514,10 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
         err = (got - want).abs().item()
         note("pi_integration", err, err <= STREAM_SUM_RTOL * want.item()
              and abs(got.item() - math.pi) < 1e-4 * math.pi, f"n={n}")
+    check_one_launch_calls(torch, lambda: SO.pi_integration(262143,
+                                                             device="cuda"),
+                           SK.pi_scratch("cuda")[0],
+                           "stream: pi_integration", PI_KERNEL)
     for name, shape, args in (
             ("jacobi_2d5pt", (258, 514), ()), ("jacobi_2d5pt", (253, 484), ()),
             ("jacobi_3d7pt", (18, 34, 130), ()),
@@ -553,22 +566,113 @@ def phase_stream_check(torch, K, SO, SR) -> dict:
     return errs
 
 
-def check_sum_calls(torch, SO, SK, x) -> None:
-    """``sum_reduction`` of ``x``: its block counter back at 0 after each
-    call, two calls bit-identical, and one call one kernel event."""
-    got = SO.sum_reduction(x)
+def pi_reference64(torch, n: int) -> float:
+    """The float64 sum of the fp32 terms RN(4 / RN(1 + RN(x * x))), x =
+    RN((i + 0.5) / n) by IEEE division (the TPU kernel's and the CPU
+    plain version's terms), over n: the exact sum's pi for those terms.
+    The divisor is a tensor, since PyTorch on the card divides by a
+    Python number as a product with its reciprocal."""
+    i = torch.arange(n, dtype=torch.float32, device="cuda")
+    x = (i + 0.5) / torch.full_like(i, float(n))
+    return (4.0 / (1.0 + x * x)).double().sum().item() / n
+
+
+def check_one_launch_calls(torch, call, counter, what: str, kernel) -> None:
+    """``call()``, a one-launch reduction (``sum_reduction``,
+    ``pi_integration``): its block ``counter`` back at 0 after each call,
+    two calls bit-identical, and one call one kernel event."""
+    got = call()
     torch.cuda.synchronize()
-    counter = SK.sum_counter(x.device)
-    check(not counter.any(), "stream: sum_reduction counter not 0 after a "
-          "call")
-    again = SO.sum_reduction(x)
+    check(not counter.any(), f"{what} counter not 0 after a call")
+    again = call()
     torch.cuda.synchronize()
-    check(not counter.any(), "stream: sum_reduction counter not 0 after a "
-          "call")
+    check(not counter.any(), f"{what} counter not 0 after a call")
     check(same_bits(torch, got.reshape(1), again.reshape(1)),
-          "stream: two sum_reduction calls differ")
-    one_kernel_event(torch, lambda: SO.sum_reduction(x),
-                     "stream: sum_reduction", SUM_KERNEL)
+          f"{what}: two calls differ")
+    one_kernel_event(torch, call, what, kernel)
+
+
+def sass_loops(sass: str, function: str) -> list:
+    """``(instructions, MUFU.RCP instructions)`` of each loop of the first
+    function in ``cuobjdump -sass`` output whose name holds ``function``:
+    a loop is the span from a backward branch's target to the branch."""
+    body = None
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            body = part
+            break
+    if body is None:
+        return []
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
+        r"([^;]*);", body)]
+    loops = []
+    for addr, op, rest in ins:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+            span = [o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr]
+            loops.append((len(span),
+                          sum(o.startswith("MUFU.RCP") for o in span)))
+    return loops
+
+
+def pi_issue_per_point(build) -> float | None:
+    """Instructions a point in ``pi_kernel<true>``'s fast loop (its loop
+    with the fewest instructions a MUFU.RCP among those of a whole chunk
+    of points), from the stream library's SASS; None without
+    ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path("stream"))],
+                          check=True, capture_output=True, text=True).stdout
+    loops = [n / r for n, r in sass_loops(sass, "pi_kernelILb1E") if r >= 16]
+    return min(loops) if loops else None
+
+
+def sm_clocks_mhz() -> tuple:
+    """The SM clock ``nvidia-smi`` reads now, and its maximum, in MHz."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    now, top = (float(v) for v in line.split(","))
+    return now, top
+
+
+def pi_floors_us(n: int, sms: int, mhz: float, per_point) -> tuple:
+    """pi_integration's reckoned floors at an SM clock of ``mhz``: one
+    MUFU.RCP a point over the SFUs, and ``per_point`` instructions a
+    point over the schedulers' issue (None where it is not known)."""
+    hz = mhz * 1e6
+    sfu = n / (sms * SFU_RCP_PER_SM_CLOCK * hz) * 1e6
+    issue = None if per_point is None else \
+        n * per_point / (sms * ISSUE_PER_SM_CLOCK * hz) * 1e6
+    return sfu, issue
+
+
+def print_pi_floors(torch, build, ms: float) -> None:
+    """pi_integration's reckoned SFU and issue floors at n = ``PI_N``,
+    at the SM clock ``nvidia-smi`` reads right after its timing and at
+    the card's maximum, beside its time ``ms`` and its operation bound."""
+    now, top = sm_clocks_mhz()
+    per_point = pi_issue_per_point(build)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    what = []
+    for mhz in (now, top):
+        sfu, issue = pi_floors_us(PI_N, sms, mhz, per_point)
+        what.append(f"at {mhz:.0f} MHz: SFU {sfu:.1f} us, issue "
+                    + ("not measured" if issue is None else f"{issue:.1f} us"))
+    ops = PI_N * PI_OPS_PER_POINT / FP32_FLOPS * 1e6
+    print(f"timing: pi_integration {ms * 1e3:.1f} us against reckoned "
+          f"floors (one MUFU.RCP a point, {SFU_RCP_PER_SM_CLOCK} an SM a "
+          f"clock; "
+          + ("instructions a point not measured" if per_point is None else
+             f"{per_point:.2f} instructions a point in the hot loop's SASS")
+          + f", {ISSUE_PER_SM_CLOCK} an SM a clock) {'; '.join(what)} "
+          f"(SM clock read now, then its maximum); bound {ops:.1f} us "
+          f"({PI_OPS_PER_POINT} fp32 operations a point at "
+          f"{FP32_FLOPS / 1e12:.0f} TFLOP/s)")
 
 
 def phase_stream(torch, K, SO, SR, SK, errs) -> list:
@@ -619,9 +723,17 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
     for n, want in (("sum_reduction", SR.sum_reduction(xs[0])),
                     ("pi_integration", SR.pi_integration(PI_N,
                                                          device="cuda"))):
-        err = (outs.pop(n) - want).abs().item()
+        got = outs.pop(n)
+        err = (got - want).abs().item()
         check(err <= STREAM_SUM_RTOL * abs(want.item()),
               f"stream: {n} main path error {err:.3g}")
+        if n == "pi_integration":
+            ref = pi_reference64(torch, PI_N)
+            print(f"stream: pi_integration n=2^{int(math.log2(PI_N))}: "
+                  f"kernel {got.item()!r}, plain {want.item()!r}; against "
+                  f"the float64 sum of the IEEE fp32 terms ({ref!r}) the "
+                  f"kernel is off by {abs(got.item() - ref):.3g}, the plain "
+                  f"version by {abs(want.item() - ref):.3g}")
     for n, (u, a) in stencils.items():
         got, want = outs.pop(n), getattr(SR, n)(u, *a)
         err = (got - want).abs().max().item()
@@ -629,7 +741,9 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
         check(n not in BIT_IDENTICAL_STENCILS or torch.equal(got, want),
               f"stream: {n} main path not bit-identical to plain")
         errs[n] = max(errs[n], err)
-    check_sum_calls(torch, SO, SK, xs[0])
+    check_one_launch_calls(torch, lambda: SO.sum_reduction(xs[0]),
+                           SK.sum_counter(xs[0].device),
+                           "stream: sum_reduction", SUM_KERNEL)
     print(f"stream main path: 16 kernels through ops (impl='auto') at "
           f"2^{int(math.log2(n_el))} f32 an array {STREAM_HBM_SHAPE}, pi "
           f"n=2^{int(math.log2(PI_N))}, jacobi "
@@ -688,9 +802,10 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
         "torch.sum", n_el * 4, n_el, what=f"f32 {STREAM_HBM_SHAPE}")
     row("pi_integration", lambda: SO.pi_integration(PI_N, device="cuda"),
         lambda: SR.pi_integration(PI_N, device="cuda"), None,
-        "no single PyTorch call:", -(-PI_N // 4096) * 4,   # its partials
+        "no single PyTorch call:", 4,   # its output
         PI_N * PI_OPS_PER_POINT, what=f"n={PI_N} ({PI_OPS_PER_POINT} fp32 "
         f"operations a point)")
+    print_pi_floors(torch, SK.build, ms_of["pi_integration"])
     w2 = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
                        [0.0, 0.25, 0.0]], device="cuda")[None, None]
     w3 = torch.zeros(1, 1, 3, 3, 3, device="cuda")
@@ -827,8 +942,10 @@ DECODE_KERNEL = re.compile(r"\bdecode_(partials_)?(f32_)?kernel<")
 #: the decode kernels' instantiations over a page pool: the third
 #: template argument is PAGED (a fourth, WRITE, may follow)
 DECODE_PAGED = re.compile(r"kernel<\d+, \d+, true\b")
-#: sum_reduction's kernel as the profiler demangles it
+#: sum_reduction's and pi_integration's kernels as the profiler
+#: demangles them
 SUM_KERNEL = re.compile(r"\bsum_kernel<")
+PI_KERNEL = re.compile(r"\bpi_kernel<")
 
 
 def one_kernel_event(torch, call, what: str, kernel=DECODE_KERNEL) -> None:
@@ -2167,7 +2284,7 @@ def main() -> int:
     phase_fused_write(torch, D, ops, S_, K)
     writer_launches = phase_stores(torch, S_, K)
     stream_rows = phase_stream(torch, K, SO, SR, SK,
-                               phase_stream_check(torch, K, SO, SR))
+                               phase_stream_check(torch, K, SO, SR, SK))
     eng, reqs, launches = phase_engine(torch, np, cfg_mod, M, K, serve)
     flash_launches = phase_prefill_attention(torch, np, eng.cfg, M, L, K,
                                              ops, R, eng.params)

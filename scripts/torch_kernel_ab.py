@@ -15,12 +15,12 @@ libraries are built from their own ``csrc``; the change's Python
 wrappers drive the kernels of both, by swapping which library
 ``build.load`` hands them, where their C interfaces are the same. The
 entry points whose interface changed are bound for the parent as the
-parent had them and called directly: the parent's ``flash_decode`` and
-``flash_decode_paged`` take no rows to write (``PARENT_DECODE_SIGNATURES``),
-so the decode step's row write and decode is, on the parent's side, the
-standalone writer (dense) or the plain index write (paged) and then the
-decode launch, against the change's one launch. When a library's C
-interface changes, bind the parent's as it was here. Each kernel is
+parent had them and called directly: the parent's
+``pi_integration`` is its partials kernel (``stream_pi_partials``,
+``PARENT_PI_SIGNATURE``), then ``parts.sum() / n``, against the change's
+one launch; both results' distance from the float64 sum of the IEEE fp32
+terms is printed. When a library's C interface changes, bind the
+parent's as it was here. Each kernel is
 timed parent, change, change, parent with ``chip_smoke.timed`` (device
 time by torch.profiler) and printed with its two means and their ratio.
 """
@@ -37,14 +37,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 LIBS = ("stream", "stencil", "flash", "decode")
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
-#: the parent's decode entry points, which write no rows
-PARENT_DECODE_SIGNATURES = {
-    "flash_decode": [_P] * 9 + [_I] * 6 + [_L] * 4 + [_I] * 4 + [_F, _P],
-    "flash_decode_paged": [_P] * 10 + [_I] * 9 + [_L] * 4 + [_I] * 4
-    + [_F, _P],
-}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the parent's pi entry point, block partials summed by PyTorch
+PARENT_PI_SIGNATURE = {"stream_pi_partials": [_L, _I, _P, _P]}
 
 
 def parent_lib(build, csrc: str, name: str, signatures: dict):
@@ -78,7 +73,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import chip_smoke
-    from repro_torch.kernels import build, stores
+    from repro_torch.kernels import build
     from repro_torch.kernels.attention import decode as D
     from repro_torch.kernels.attention import flash as FL
     from repro_torch.kernels.stream import kernels as SK
@@ -92,7 +87,9 @@ def main() -> int:
             "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES,
             "decode": D._SIGNATURES}
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    parent_sigs = {**sigs, "decode": PARENT_DECODE_SIGNATURES}
+    parent_sigs = {**sigs,
+                   "stream": {**{k: v for k, v in sigs["stream"].items()
+                                 if k != "stream_pi"}, **PARENT_PI_SIGNATURE}}
     old = {n: parent_lib(build, csrc, n, parent_sigs[n]) for n in LIBS}
 
     def using(libs, fn):
@@ -112,9 +109,7 @@ def main() -> int:
     cases += [
         ("init_store f32", lambda: SK.init_store(sh, 2.0), 10),
         ("init_nt f32", lambda: SK.init_nt(sh, 2.0), 10),
-        ("init_partial f32", lambda: SK.init_partial(sh, 2.0), 10),
-        ("pi_integration n=2^28",
-         lambda: SK.pi_integration(chip_smoke.PI_N), 10)]
+        ("init_partial f32", lambda: SK.init_partial(sh, 2.0), 10)]
     j2 = torch.randn(chip_smoke.JACOBI_2D_SHAPE, generator=gen, device="cuda")
     j3 = torch.randn(chip_smoke.JACOBI_3D_SHAPE, generator=gen, device="cuda")
     gs = torch.randn(chip_smoke.GS_SHAPE, generator=gen, device="cuda")
@@ -126,27 +121,21 @@ def main() -> int:
                lambda: SK.gauss_seidel_2d5pt(gs, gsw), 3)]
     timed = [(label, using(old, fn), using(new, fn), iters)
              for label, fn, iters in cases]
+    pi_n = chip_smoke.PI_N
 
-    def parent_decode(q, k, v, pos, kw, table=None, finished=True):
-        """The parent's decode launch, which writes no rows: the finished
-        output or the partials."""
-        b, sq, h, dh = q.shape
-        hkv = k.shape[2]
-        ws, out, ptrs = D._launch_buffers(q, hkv, kw["n_splits"], finished)
-        head = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-        if table is not None:
-            head.append(table.data_ptr())
-        args = [*head, pos.data_ptr(), *ptrs, D._DTYPE_CODES[q.dtype], b,
-                sq, h, hkv, dh]
-        if table is not None:
-            args += [table.stride(0), k.shape[0], k.shape[1]]
-        args += [k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                 kw["n_splits"], kw["split_len"], kw["bound"], 0,
-                 1.0 / dh ** 0.5, torch.cuda.current_stream().cuda_stream]
-        fn = old["decode"].flash_decode_paged if table is not None \
-            else old["decode"].flash_decode
-        build.check(old["decode"], fn(*args), "parent decode")
-        return out if finished else ws
+    def parent_pi():
+        """The parent's pi: its block partials, then PyTorch's sum."""
+        parts = torch.empty(-(-pi_n // SK.PI_BLOCK), dtype=torch.float32,
+                            device="cuda")
+        build.check(old["stream"], old["stream"].stream_pi_partials(
+            pi_n, SK.PI_BLOCK, parts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "parent pi")
+        return parts.sum() / pi_n
+
+    pi_label = f"pi_integration n=2^{pi_n.bit_length() - 1}"
+    timed.insert(len(cases), (pi_label, parent_pi,
+                              using(new, lambda: SK.pi_integration(pi_n)),
+                              10))
 
     # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
     # live rows, 48 layers' caches cycled so every call reads cold rows
@@ -190,41 +179,19 @@ def main() -> int:
                                        impl="cuda", **pkw,
                                        **(new_rows if fused else {}))
 
-    def parent_pair(paged_pool):
-        """The parent's decode step: the row write, then the decode."""
-        i = nxt()
-        if paged_pool:
-            stores.ref_paged_row_update(kp[i], vp[i], bt, kn, vn, pos)
-            return parent_decode(q, kp[i], vp[i], pos, pkw, table=bt)
-        stores.kv_row_update(kc[i], vc[i], kn, vn, pos, impl="cuda")
-        return parent_decode(q, kc[i], vc[i], pos, dkw)
-
     decode_cases = {
-        "flash_decode finished": (
-            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, dkw),
-            lambda: dense(False)),
-        "flash_decode partials alone": (
-            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, dkw,
-                                  finished=False),
-            lambda: D.decode_partials(q, kc[nxt()], vc[layer[0]], pos,
-                                      impl="cuda", **dkw)),
-        "flash_decode with the step's row write (parent: kv_row_update "
-        "+ decode)": (lambda: parent_pair(False), lambda: dense(True)),
-        "flash_decode_paged finished": (
-            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, pkw,
-                                  table=bt),
-            lambda: paged(False)),
-        "flash_decode_paged partials alone": (
-            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, pkw,
-                                  table=bt, finished=False),
-            lambda: D.decode_paged_partials(q, kp[nxt()], vp[layer[0]], bt,
-                                            pos, impl="cuda", **pkw)),
-        "flash_decode_paged with the step's row write (parent: index "
-        "write + decode)": (lambda: parent_pair(True), lambda: paged(True)),
+        "flash_decode finished": lambda: dense(False),
+        "flash_decode partials alone": lambda: D.decode_partials(
+            q, kc[nxt()], vc[layer[0]], pos, impl="cuda", **dkw),
+        "flash_decode with the step's row write": lambda: dense(True),
+        "flash_decode_paged finished": lambda: paged(False),
+        "flash_decode_paged partials alone": lambda: D.decode_paged_partials(
+            q, kp[nxt()], vp[layer[0]], bt, pos, impl="cuda", **pkw),
+        "flash_decode_paged with the step's row write": lambda: paged(True),
     }
-    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16", p_fn,
-               using(new, c_fn), 480)
-              for name, (p_fn, c_fn) in decode_cases.items()]
+    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
+               using(old, fn), using(new, fn), 480)
+              for name, fn in decode_cases.items()]
     for s in (512, 2048):
         fq = torch.randn(1, hq, s, dh, generator=gen,
                          device="cuda").bfloat16()
@@ -247,6 +214,14 @@ def main() -> int:
               f"{t[1]:.2f} / {t[2]:.2f} us, change / parent "
               f"{chg / par:.4f} (device time by profiler)")
     build._LIBS.update(new)
+    if only in pi_label:
+        ref = chip_smoke.pi_reference64(torch, pi_n)
+        got = {"parent": parent_pi().item(),
+               "change": SK.pi_integration(pi_n).item()}
+        print(f"ab: {pi_label}: against the float64 sum of the IEEE fp32 "
+              f"terms ({ref!r}): " + ", ".join(
+                  f"{k} {v!r} off by {abs(v - ref):.3g}"
+                  for k, v in got.items()))
     return 0
 
 

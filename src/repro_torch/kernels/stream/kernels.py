@@ -30,6 +30,7 @@ bfloat16); the stencils and Gauss-Seidel take float32.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
@@ -42,7 +43,7 @@ _STREAM_SIGNATURES = {
     "stream_elementwise": [_I, _I, _I, _P, _P, _P, _P, _L, _F, _P],
     "stream_init_partial": [_I, _P, _L, _L, _F, _P],
     "stream_sum": [_I, _P, _L, _P, _I, _P, _P, _P],
-    "stream_pi_partials": [_L, _I, _P, _P],
+    "stream_pi": [_L, _I, _P, _I, _P, _P, _P],
 }
 _STENCIL_SIGNATURES = {
     "stencil_jacobi_2d5pt": [_P, _P, _I, _I, _P],
@@ -54,16 +55,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # operation codes of csrc/stream.cu
 _FILL, _COPY, _SCALE, _ADD, _TRIAD, _SCHOENAUER = range(6)
 
-#: points per pi_integration block partial (the TPU kernel's ``bn``)
+#: points a pi_integration warp takes at a time (the TPU kernel's ``bn``)
 PI_BLOCK = 4096
+#: resident pi_integration blocks an SM and warps a block (kPiBlocksPerSm,
+#: kThreads / 32)
+PI_BLOCKS_PER_SM, PI_WARPS = 4, 8
 #: sweeps one Gauss-Seidel pass fuses (csrc/stencil.cu kGsMaxFused)
 GS_MAX_FUSED = 4
 #: resident sum_reduction blocks an SM, threads a block and 16-byte loads
 #: a thread keeps in flight (kSumBlocksPerSm, kThreads, kSumLoads)
 SUM_BLOCKS_PER_SM, SUM_THREADS, SUM_LOADS = 4, 256, 8
 _INT_MAX = 2 ** 31 - 1
-#: sum_reduction's int32 block counter, one zeroed tensor per device
-_SUM_COUNTERS: dict = {}
+#: zeroed device buffers made once: (name, device) -> tensor
+_SCRATCH: dict = {}
 
 
 def _stream(device) -> int:
@@ -216,6 +220,19 @@ def sum_plan(n: int, element_size: int, sms: int) -> tuple:
     return max(1, min(SUM_BLOCKS_PER_SM * sms, -(-work // per_block))), 1
 
 
+def _scratch(name: str, device, numel: int, dtype) -> torch.Tensor:
+    """A zeroed buffer of ``numel`` elements on ``device``, made at the
+    first call for ``name`` and the same tensor at every later one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _SCRATCH.get((name, device))
+    if t is None:
+        t = _SCRATCH[(name, device)] = torch.zeros(numel, dtype=dtype,
+                                                    device=device)
+    return t
+
+
 def sum_counter(device) -> torch.Tensor:
     """The int32 block counter of ``sum_reduction`` on ``device``.
 
@@ -224,14 +241,7 @@ def sum_counter(device) -> torch.Tensor:
     stream at a time: calls in flight on two streams at once would share
     it.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    c = _SUM_COUNTERS.get(device)
-    if c is None:
-        c = _SUM_COUNTERS[device] = torch.zeros(1, dtype=torch.int32,
-                                                device=device)
-    return c
+    return _scratch("sum_counter", device, 1, torch.int32)
 
 
 def sum_reduction(x):
@@ -258,25 +268,75 @@ def sum_reduction(x):
     return out
 
 
-def pi_integration(n: int, *, device="cuda"):
-    """Midpoint-rule quadrature of 4/(1+x^2) on [0,1) with ``n`` points:
-    one fp32 partial a block of ``PI_BLOCK`` points (the last one masked,
-    so any ``n`` works where the TPU wrapper asserts ``n % 4096 == 0``),
-    summed and divided by ``n`` outside the kernel. Returns a 0-d float32
-    tensor."""
-    device = _cuda_device(device)
+def pi_quotient_by_reciprocal(n: int) -> bool:
+    """Whether ``pi_integration``'s kernel takes each point's RN(a / fn),
+    fn = float32(n), as q0 = RN(a * y), y = RN(1 / fn), corrected once:
+    RN(q0 + RN(a - fn * q0) * y), two FMAs. That is correctly rounded
+    wherever the odd part B of fn has 3 * B < 2^24 (every n up to 2^22,
+    every power of two); other n take IEEE division.
+
+    Why (a > 0 and fn floats, u = 2^-24, q = a / fn in [2^e, 2^(e+1))):
+    y = (1 / fn)(1 + d) with |d| <= u, so |q - q0| < 1.5 * 2^(e-23).
+    Then r = a - fn * q0 is a float (below 3B units of fn's and q0's
+    lowest bits, or below 3 units of a's), so the FMA takes it exactly,
+    and q0 + r * y = q + (q - q0) * d lies within E < 1.5 * 2^(e-47) of
+    q. A midpoint m = M * 2^(e-24) (M odd, 2^24 <= M < 2^25) is never q
+    (a's odd part is below 2^24 < M * B's), so a - fn * m is a nonzero
+    multiple of 2^(e-24) * fn / B or of a's lowest bit, and |q - m| is
+    at least 2^(e-24) / B > E (where 3 * B < 2^24) or at least that bit
+    / fn > E (always). No midpoint lies within E of q: RN(q + E) = RN(q).
+    """
+    fn = int(struct.unpack("f", struct.pack("f", float(n)))[0])
+    return 3 * (fn >> ((fn & -fn).bit_length() - 1)) < 2 ** 24
+
+
+def pi_plan(n: int, sms: int) -> tuple:
+    """``(blocks, reciprocal)`` of one ``pi_integration`` launch over
+    ``n`` points on a card of ``sms`` SMs: a warp a ``PI_BLOCK``-point
+    block at a time, at most one wave of ``PI_BLOCKS_PER_SM`` blocks an
+    SM; ``reciprocal`` is :func:`pi_quotient_by_reciprocal`. Raises
+    unless 1 <= n <= (2^31 - 1) * ``PI_BLOCK``."""
     n = int(n)
     if n < 1 or -(-n // PI_BLOCK) > _INT_MAX:
         raise ValueError(f"pi_integration kernel takes 1 <= n <= "
                          f"{_INT_MAX * PI_BLOCK}, got {n}")
-    parts = torch.empty(-(-n // PI_BLOCK), dtype=torch.float32,
-                        device=device)
+    warps = -(-n // PI_BLOCK)
+    return (min(PI_BLOCKS_PER_SM * sms, -(-warps // PI_WARPS)),
+            pi_quotient_by_reciprocal(n))
+
+
+def pi_scratch(device) -> tuple:
+    """``(counter, parts)`` of ``pi_integration`` on ``device``: its int32
+    block counter and a float32 partial for each block of the largest
+    grid, made and zeroed once; the kernel's last block sets the counter
+    back to 0, so calls need no memset and allocate only their output."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return (_scratch("pi_counter", device, 1, torch.int32),
+            _scratch("pi_parts", device, PI_BLOCKS_PER_SM * sms,
+                     torch.float32))
+
+
+def pi_integration(n: int, *, device="cuda"):
+    """Midpoint-rule quadrature of 4/(1+x^2) on [0,1) with ``n`` points
+    in one launch: each warp sums the TPU kernel's ``PI_BLOCK``-point
+    blocks (the last one masked, so any ``n`` works where the TPU wrapper
+    asserts ``n % 4096 == 0``), and the last block to finish sums the
+    block partials in a fixed order and divides by ``n`` (repeats are
+    bit-identical). Each point's term is IEEE division's bit for bit, as
+    in the TPU kernel and the plain version on CPU tensors (on the card,
+    PyTorch divides by the Python number n through its reciprocal).
+    Returns a 0-d float32 tensor."""
+    device = _cuda_device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks, recip = pi_plan(n, sms)
+    counter, parts = pi_scratch(device)
+    out = torch.empty((), dtype=torch.float32, device=device)
     lib = build.load("stream", _STREAM_SIGNATURES)
-    rc = lib.stream_pi_partials(n, PI_BLOCK, parts.data_ptr(),
-                                _stream(device))
+    rc = lib.stream_pi(int(n), int(recip), parts.data_ptr(), blocks,
+                       counter.data_ptr(), out.data_ptr(), _stream(device))
     build.check(lib, rc, "pi_integration")
     LAUNCHES["pi_integration"] += 1
-    return parts.sum() / n
+    return out
 
 
 # --- stencils -------------------------------------------------------------

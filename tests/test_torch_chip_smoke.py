@@ -141,3 +141,41 @@ def test_trace_groups_decode_kernels_by_layout(name, decode, paged):
     apart by their PAGED template argument, whatever follows it."""
     assert bool(chip_smoke.DECODE_KERNEL.search(name)) == decode
     assert bool(chip_smoke.DECODE_PAGED.search(name)) == paged
+
+
+#: two functions of ``cuobjdump -sass`` output, as it prints them on an H100
+FAKE_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN4_GLOBAL__N_9pi_kernelILb0EEEvxfPfPiS1_
+        /*0000*/                   MUFU.RCP R2, R3 ;     /* 0x0000000300027308 */
+        /*0010*/              @P0 BRA 0x0 ;             /* 0xfffffffc00000947 */
+\t\tFunction : _ZN4_GLOBAL__N_9pi_kernelILb1EEEvxfPfPiS1_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.RCP R2, R3 ;
+        /*0020*/                   FFMA R4, -R3, R2, 1 ;
+        /*0030*/                   FADD R5, R5, R4 ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   BRA.U !UP0, 0x70 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_loops_spans_backward_branches():
+    """A loop is a backward branch's span (target to branch, both in);
+    forward branches are none, and only the named function is read."""
+    assert chip_smoke.sass_loops(FAKE_SASS, "pi_kernelILb1E") == [(4, 1),
+                                                                 (8, 1)]
+    assert chip_smoke.sass_loops(FAKE_SASS, "pi_kernelILb0E") == [(2, 1)]
+    assert chip_smoke.sass_loops(FAKE_SASS, "sum_kernel") == []
+
+
+def test_pi_floors():
+    """One MUFU.RCP a point at 16 an SM a clock, and the hot loop's
+    instructions at 128 an SM a clock: 2^28 points on 132 SMs at
+    1980 MHz."""
+    sfu, issue = chip_smoke.pi_floors_us(2 ** 28, 132, 1980.0, 12)
+    assert sfu == pytest.approx(2 ** 28 / (132 * 16 * 1.98e9) * 1e6)
+    assert sfu == pytest.approx(64.19, abs=0.01)
+    assert issue == pytest.approx(96.29, abs=0.01)
+    assert chip_smoke.pi_floors_us(2 ** 28, 132, 1980.0, None)[1] is None

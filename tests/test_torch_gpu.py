@@ -27,6 +27,7 @@ from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+import _pi_model as PM  # noqa: E402
 import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
@@ -630,14 +631,48 @@ def test_stream_sum_kernel_matches_plain(cuda, shape, dtype):
                                 "sum_reduction", chip_smoke.SUM_KERNEL)
 
 
-@pytest.mark.parametrize("n", [262144, 262143])
+@pytest.mark.parametrize("n", [262144, 262143, 1, 4097, 2 ** 24 + 8,
+                               2 ** 24 - 1, 2 ** 28])
 def test_stream_pi_kernel_matches_plain(cuda, n):
+    """One launch returning a 0-d float32 pi within 1e-5 of the plain
+    version, at ragged n (the last block masked), at an n outside the
+    reciprocal route's proof (2^24 - 1, IEEE division) and the main
+    path's; within 1e-4 * pi of pi where the rule has points enough."""
     K.reset_launches()
     got = SO.pi_integration(n, device=cuda)
     assert K.LAUNCHES["pi_integration"] == 1
+    assert got.shape == () and got.dtype == torch.float32
     want = SR.pi_integration(n, device=cuda)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    assert abs(got.item() - np.pi) < 1e-4 * np.pi
+    if n >= 262143:
+        assert abs(got.item() - np.pi) < 1e-4 * np.pi
+
+
+@pytest.mark.parametrize("n", [4097, 2 ** 24 + 8])
+def test_stream_pi_one_event_counter_and_repeats(cuda, n):
+    """A call is one device event, the pi kernel (no sum, no division
+    after it); its block counter is 0 after every call, and repeats are
+    bit-identical."""
+    counter, _ = SK.pi_scratch(cuda)
+    first = SO.pi_integration(n, device=cuda)
+    torch.cuda.synchronize()
+    assert not counter.any()
+    again = SO.pi_integration(n, device=cuda)
+    torch.cuda.synchronize()
+    assert not counter.any()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    chip_smoke.one_kernel_event(torch, lambda: SO.pi_integration(
+        n, device=cuda), "pi_integration", chip_smoke.PI_KERNEL)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 262143, 2 ** 24 + 8, 2 ** 24 - 1])
+def test_stream_pi_kernel_is_its_model(cuda, n):
+    """The kernel's result bit for bit the numpy model's
+    (``tests/_pi_model.py``: each point's arithmetic and the reduction
+    order, on this card's SM count)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = SO.pi_integration(n, device=cuda).item()
+    assert np.float32(got) == PM.kernel_sum(n, sms)
 
 
 @pytest.mark.parametrize("name,shape,sweeps", [

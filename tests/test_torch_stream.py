@@ -11,6 +11,8 @@ where the port's plain version (PyTorch) rounds the product too but the
 CUDA kernel rounds once.
 """
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro_torch.kernels.stream import kernels as K
 from repro_torch.kernels.stream import ops
 from repro_torch.kernels.stream import ref as R
 
+import _pi_model as PM
 from _torch_common import f32
 
 torch.set_num_threads(1)
@@ -154,6 +157,123 @@ def test_pi_index_is_float32_above_2_24():
     assert float(i[-1]) != n - 1                     # inexact up there
     np.testing.assert_allclose(float(R.pi_integration(n)),
                                float(JR.pi_integration(n)), rtol=1e-6)
+
+
+def _rn32(fr: Fraction) -> np.float32:
+    """A Fraction rounded to float32, to nearest, ties to even."""
+    x = np.float32(float(fr))
+    cands = (x, np.nextafter(x, np.float32(np.inf)),
+             np.nextafter(x, np.float32(-np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - fr),
+                                     int(np.array(v).view(np.uint32)) & 1))
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def test_pi_model_fma_is_exact():
+    """The model's float32 FMA rounds a * b + c once, as the card's does:
+    held against exact rational arithmetic on random and near-cancelling
+    operands, and on sums that float64 leaves on a float32 midpoint,
+    where only the lost low bits decide the rounding."""
+    rng = np.random.default_rng(5)
+    a = (rng.standard_normal(3000) * rng.choice([1e-3, 1, 1e3], 3000)) \
+        .astype(np.float32)
+    b = rng.standard_normal(3000).astype(np.float32)
+    c = rng.standard_normal(3000).astype(np.float32)
+    near = (-(a.astype(np.float64) * b) * (1 + rng.standard_normal(3000)
+                                           * 1e-6)).astype(np.float32)
+    c = np.where(np.arange(3000) % 2 == 0, c, near)
+    t = np.float32(1 + 2.0 ** -12)          # t * t = 1 + 2^-11 + 2^-24
+    a = np.append(a, [t, t])
+    b = np.append(b, [t, t])
+    c = np.append(c, np.float32([2.0 ** -60, -2.0 ** -60]))
+    got = PM.fma32(a, b, c)
+    want = [_rn32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+            for x, y, z in zip(a, b, c)]
+    assert np.array_equal(_bits(got), _bits(want))
+    assert got[-2] == np.float32(1 + 2.0 ** -11 + 2.0 ** -23)   # up
+    assert got[-1] == np.float32(1 + 2.0 ** -11)                # down
+
+
+def _hold_terms(n: int, idx: np.ndarray) -> None:
+    """The kernel's index and 4 * its term at ``idx`` against the plain
+    version's, bit for bit."""
+    want_a = idx.astype(np.float32) + np.float32(0.5)
+    assert np.array_equal(_bits(PM.kernel_index(n, idx)), _bits(want_a))
+    assert np.array_equal(_bits(np.float32(4) * PM.kernel_terms(n, idx)),
+                          _bits(PM.plain_terms(n, idx)))
+
+
+@pytest.mark.parametrize("n", [4095, 262143, 2 ** 24 + 8])
+def test_pi_kernel_terms_bit_identical(n):
+    """Every point of ``n``: the kernel's arithmetic (the index from an
+    exact chunk offset, the quotient as one FMA correction of a * RN(1/n),
+    one reciprocal, the 4 applied at the end) gives the plain version's
+    term, two IEEE divisions, bit for bit."""
+    assert K.pi_quotient_by_reciprocal(n)
+    for s in range(0, n, 1 << 22):
+        _hold_terms(n, np.arange(s, min(n, s + (1 << 22)), dtype=np.int64))
+
+
+def test_pi_kernel_terms_bit_identical_at_2_28():
+    """n = 2^28, the main path's: a stride coprime to the 4096-point
+    block (every offset in a block is hit), and whole blocks at the edges
+    of the kernel's index paths (2^23, 2^24) and at the end."""
+    n = 2 ** 28
+    edges = [np.arange(e - 4096, e + 4096) for e in (2 ** 23, 2 ** 24)]
+    idx = np.unique(np.concatenate([np.arange(0, n, 4099), *edges,
+                                    np.arange(n - 8192, n)]))
+    _hold_terms(n, idx.astype(np.int64))
+
+
+def test_pi_plain_terms_are_the_reference_terms():
+    """The model's plain terms at chosen points are ``ref.pi_integration``'s
+    (its arange values are float32(i))."""
+    n = 40000
+    i = torch.arange(n, dtype=torch.float32)
+    x = (i + 0.5) / n
+    want = (4.0 / (1.0 + x * x)).numpy()
+    assert np.array_equal(_bits(PM.plain_terms(n, np.arange(n))), _bits(want))
+
+
+def test_pi_quotient_route_rule():
+    """The reciprocal route is taken where its proof holds (3 * B < 2^24,
+    B the odd part of float32(n)) and nowhere else; at the largest odd
+    part the proof admits, every point's quotient is still IEEE's."""
+    assert all(map(K.pi_quotient_by_reciprocal,
+                   (1, 4095, 262143, 2 ** 22, 2 ** 24 + 8, 3 * 2 ** 20 + 7,
+                    5592405, 2 ** 28, 10 ** 9)))
+    assert not any(map(K.pi_quotient_by_reciprocal,
+                       (5592407, 2 ** 24 - 1, 2 ** 23 - 1)))
+    n = 5592405                           # 3 * n = 2^24 - 1
+    for s in range(0, n, 1 << 22):
+        _hold_terms(n, np.arange(s, min(n, s + (1 << 22)), dtype=np.int64))
+
+
+def test_pi_plan():
+    """A warp a 4096-point block at a time, at most one wave of 4 blocks
+    an SM; the route by the rule; n out of range raises."""
+    assert K.pi_plan(4095, 132) == (1, True)
+    assert K.pi_plan(8 * 4096 + 1, 132) == (2, True)
+    assert K.pi_plan(2 ** 28, 132) == (528, True)
+    assert K.pi_plan(2 ** 24 - 1, 132) == (512, False)
+    assert K.pi_plan(2 ** 28, 114) == (456, True)
+    for bad in (0, -1, (2 ** 31 - 1) * 4096 + 1):
+        with pytest.raises(ValueError, match="pi_integration kernel takes"):
+            K.pi_plan(bad, 132)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 262143, 2 ** 24 + 8])
+def test_pi_kernel_model_matches_plain(n):
+    """The kernel's whole sum, modelled in its reduction order on an
+    H100's 132 SMs, stays within 1e-5 of the plain version at ragged n
+    (the last block masked)."""
+    got = PM.kernel_sum(n, 132)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(float(got), float(R.pi_integration(n)),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(130, 256), (66, 384), (258, 128)])
