@@ -73,8 +73,12 @@ Phases, each printed on its own line:
 5. the full-width 48-layer yi-9b ``ServeEngine`` (random weights from a
    seeded generator on the card): 16 greedy requests, prompts of 128 to
    512 tokens, 64 new tokens each, 8 slots, a 2048-row horizon, 8-token
-   chunks. Kernel launch counts are zeroed just before the run and read
-   just after: every decode launch writes the step's rows
+   chunks, each chunk one CUDA-graph replay: the 16 graphs (one a
+   128-row ``kv_len`` bucket) are captured before the run, their number,
+   capture time and pool bytes printed, and no dispatch captures one.
+   Kernel launch counts are zeroed just before the run and read
+   just after (a replay counts its kernels as the eager chunk's calls
+   do): every decode launch writes the step's rows
    (``kv_rows_in_decode``), the standalone writer never runs. One decode
    step's logits through the kernels are held
    against the same step with ``impl="ref"`` for four prompt sets, and a
@@ -88,10 +92,16 @@ Phases, each printed on its own line:
    tokens each, 64 new), one forked after its first chunk and one
    cancelled. Launch counts zeroed before and read after (every paged
    decode launch writes the step's row), the pool checked after every
-   round; then one decode step through the paged
+   round, its 16 graphs captured first as in phase 5; then one decode
+   step through the paged
    kernel against the dense kernel on the same prompts, and a smoke-size
    fp32 paged engine's greedy streams on the card against the CPU and
    against the dense engine;
+5d. graphs against the eager chunk at full width: 8 requests of 24 new
+   tokens through an engine with ``cuda_graphs=False`` and one with the
+   graphs (the same ``kv_len`` buckets), dense and paged, greedy and
+   sampled at temperature 0.8, a cancel on both schedules and a fork on
+   the paged one: the token streams byte-identical;
 6. per kernel its time at the path's shapes, its bound, its plain
    version's time and a library call's time (none for the paged kernel:
    no single PyTorch call reads a paged cache), with the achieved GB/s
@@ -105,8 +115,12 @@ Phases, each printed on its own line:
    three attention kernels at gemma3-4b's heads (Dh=256) beside their
    bounds and sdpa; then, for the dense and the paged engine, two
    full-width decode dispatches of the same 8 requests timed once on the
-   wall clock and once under the profiler: the device's busy time and
-   kernel launches per step, its idle share and where the time goes; the
+   wall clock and once under the profiler: the device's busy time, its
+   kernels per step and the host API calls a step that launched them
+   (kernel and graph launches, copies), its idle share and where the
+   time goes (the phase fails unless the window's ``LAUNCHES`` decode
+   count is layers times steps and the profile holds as many decode
+   kernel events, bar the profiler's known drops); the
    ``kernels`` JSON line (all 20 kernels, phase 2a's among them) comes
    last but one.
 
@@ -174,6 +188,15 @@ PROFILE_ATTEMPTS = 3              # profiler windows before a timing fails
 #: that can stay in L2 between timed calls: the L2 rung, the decode
 #: kernels' ~6 MB of live rows) is no floor and is not checked.
 FLOOR_KINDS = ("hbm", "operations")
+#: host API calls that put work on the card, by kind (name prefixes of
+#: the profiler's runtime and driver events)
+HOST_CALLS = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel"),
+              "graph": ("cudaGraphLaunch", "cuGraphLaunch"),
+              "copy": ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")}
+#: the parity phase: new tokens a request, and the sampled engines'
+#: temperature
+PARITY_NEW = 24
+PARITY_TEMPERATURE = 0.8
 
 
 class PhaseError(RuntimeError):
@@ -211,6 +234,41 @@ def device_us(prof, counts: dict | None = None) -> dict:
     return out
 
 
+def runtime_calls(prof) -> dict:
+    """Host-side events of a profile whose names are host API calls that
+    put work on the card (:data:`HOST_CALLS`), counted by name."""
+    from torch.autograd import DeviceType
+    prefixes = sum(HOST_CALLS.values(), ())
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() != DeviceType.CUDA and name.startswith(prefixes):
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+#: the share of a window's kernel events the profiler may drop on the
+#: H100 (seen: 3 of 480 decode launches, every window)
+PROFILER_DROPS = 0.01
+
+
+def profiler_drops(events: int) -> int:
+    """Events of ``events`` the profiler may miss: :data:`PROFILER_DROPS`
+    of them, at least 3."""
+    return max(3, int(events * PROFILER_DROPS))
+
+
+def host_launches(calls: dict) -> dict:
+    """Host API calls by kind of :data:`HOST_CALLS` ("kernel", "graph",
+    "copy"), from counts by call name; other names are not counted."""
+    out = dict.fromkeys(HOST_CALLS, 0)
+    for name, n in calls.items():
+        for kind, prefixes in HOST_CALLS.items():
+            if name.startswith(prefixes):
+                out[kind] += n
+    return out
+
+
 def under_bound(by_name_us: dict, bounds_us: dict) -> list:
     """The readings that fall under a bound that is a true floor.
 
@@ -227,10 +285,12 @@ def under_bound(by_name_us: dict, bounds_us: dict) -> list:
 
 
 def profiled(torch, run, what: str, setup=None, counts=None,
-             faults=None) -> dict:
+             faults=None, host=None) -> dict:
     """Device microseconds by name over one ``run()``, under
     ``torch.profiler``; ``setup()``, when given, runs before each window,
-    outside it. ``counts``, when given, gets the window's events by name.
+    outside it. ``counts``, when given, gets the window's events by name;
+    ``host`` its host API calls that put work on the card
+    (:func:`runtime_calls`).
 
     Rarely a profile on the card records no device event at all (seen
     once on an H100); such a window is taken again, up to
@@ -251,6 +311,9 @@ def profiled(torch, run, what: str, setup=None, counts=None,
         if counts is not None:
             counts.clear()
         by_name = device_us(prof, counts)
+        if host is not None:
+            host.clear()
+            host.update(runtime_calls(prof))
         if sum(by_name.values()) <= 0:
             print(f"{what}: the profiler saw no device time in window "
                   f"{attempt}")
@@ -1144,11 +1207,12 @@ def phase_fused_write(torch, D, ops, S_, K) -> None:
                 pos = torch.linspace(0, skv - sq, b,
                                      device="cuda").round().int()
                 pos[0], pos[-1] = -2, skv + 3
-                # paged: the last slot overshoots the table onto its last
-                # column, a kv_len cut reads below that column
+                # paged: slot 0's negative position wraps to its table's
+                # last column, the last slot overshoots the table onto its
+                # last column, a kv_len cut reads below that column
                 ppos = torch.linspace(0, skv - 64, b,
                                       device="cuda").round().int()
-                ppos[-1] = skv + 5
+                ppos[0], ppos[-1] = -3, skv + 5
                 cut = -(-(int(ppos[:-1].max()) + sq) // ps)
                 for flavor in ("standard", "nt"):
                     for ns in (1, None):
@@ -1217,8 +1281,8 @@ def phase_fused_write(torch, D, ops, S_, K) -> None:
           f"rows bit-identical to the unfused pair (writer or index write, "
           f"then decode), caches byte-identical (yi-9b heads, Dh=256 and "
           f"G*Sq=64; bf16 and fp32; Sq 1/4; standard and nt; one/default "
-          f"splits; negative, overshooting and clamped positions; a kv_len "
-          f"cut below the written page)")
+          f"splits; negative (dense and paged), overshooting and clamped "
+          f"positions; a kv_len cut below the written page)")
 
 
 # --- phase 5: full-width serving -------------------------------------------
@@ -1240,6 +1304,7 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
             for i, n in enumerate(lens)]
     eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048, chunk=8,
                             device="cuda")
+    capture_graphs(torch, eng, "engine")
     K.reset_launches()
     t0 = time.perf_counter()
     res = eng.run(reqs)
@@ -1254,6 +1319,7 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
     check(all(int(v.min()) >= 0 and int(v.max()) < cfg.vocab_size
               for v in res.values()), "engine: token id out of vocab")
     steps = st["decode_tokens"]
+    check(len(eng.graphs.graphs) == 16, "engine: a dispatch captured a graph")
     print(f"engine: {len(res)} requests, {n_tok} tokens in {wall:.2f} s = "
           f"{n_tok / wall:.1f} tok/s; prefill {st['prefill_s']:.2f} s "
           f"({st['prefill_dispatches']} dispatches), decode "
@@ -1287,6 +1353,33 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
           f"rel err {worst:.3g} > {LOGITS_REL_TOL}")
     _small_engine_check(torch, np, cfg_mod, M, serve)
     return eng, reqs, launches
+
+
+def graph_pool_bytes(torch, pool) -> int | None:
+    """Bytes of the allocator's segments in the graph memory pool
+    ``pool``; None where its snapshot names no segment of it."""
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(pool)]
+    return sum(seg["total_size"] for seg in segs) if segs else None
+
+
+def capture_graphs(torch, eng, label: str) -> None:
+    """Capture the decode chunk's graph of every ``kv_len`` bucket of
+    ``eng`` (before any timed window), and print how many, the time it
+    took and the graph pool's bytes."""
+    from repro_torch.serve.engine import KV_BUCKET
+    check(eng.graphs is not None, f"{label}: the engine runs no graphs")
+    t0 = time.perf_counter()
+    n = eng.capture_graphs()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    pool = graph_pool_bytes(torch, eng.graphs.pool)
+    print(f"{label}: {n} CUDA graphs captured in {sec:.2f} s (one a "
+          f"{KV_BUCKET}-row kv_len bucket to {eng.max_len} rows, "
+          f"{len(eng.graphs.graphs)} held; warm-up and capture "
+          f"{eng.graphs.capture_s:.2f} s in all); graph pool "
+          + ("not in the allocator's snapshot" if pool is None
+             else f"{pool / 2 ** 20:.1f} MiB"))
 
 
 def print_step_launches(label: str, launches: dict, steps: int) -> None:
@@ -1801,6 +1894,7 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
     eng = serve.PagedServeEngine(cfg, params, page_size=ps, n_pages=n_pages,
                                  max_slots=8, max_len=2048, chunk=8,
                                  device="cuda")
+    capture_graphs(torch, eng, "paged engine")
     peak = [0]
 
     def held(e):
@@ -1836,6 +1930,8 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
           and pool["recycled_allocs"] > 0,
           f"paged engine: pool stats {pool}")
     check(st["quarantined"] == 0, "paged engine: non-finite logits")
+    check(len(eng.graphs.graphs) == 16,
+          "paged engine: a dispatch captured a graph")
     n_tok = sum(len(v) for v in res.values())
     page_bytes = PG.paged_kv_bytes(cfg, 1, ps)
     print(f"paged engine: yi-9b, page {ps}, {n_pages} + 1 pages "
@@ -1942,6 +2038,50 @@ def _small_paged_check(torch, np, cfg_mod, M, serve) -> None:
     print("paged engine: smoke-size fp32 greedy streams identical on the "
           "card and the CPU (6 requests sharing a prefix, 3 slots, chunk 3, "
           "a fork and a cancel) and paged == dense on the card")
+
+
+def phase_graph_parity(torch, np, serve, cfg, params) -> None:
+    """The graphed chunk against the eager one at full width: the same
+    requests through an engine with ``cuda_graphs=False`` and one with
+    the graphs, which compute the same ``kv_len`` buckets, dense and
+    paged, greedy and sampled. The paged schedule forks a request after
+    the first chunk and both cancel one (``serve_schedule``). The token
+    streams must be identical, byte for byte as int32."""
+    rng = np.random.default_rng(9)
+    reqs = {False: [serve.Request(f"g{i}", tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size, n)), PARITY_NEW)
+        for i, n in enumerate(rng.integers(128, 513, size=8))],
+        True: paged_requests(np, serve, cfg.vocab_size, 8, 9, 256, 256,
+                             PARITY_NEW)}
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        for temperature in (0.0, PARITY_TEMPERATURE):
+            out, buckets = {}, None
+            for graphs in (False, True):
+                kw = dict(max_slots=8, max_len=2048, chunk=8,
+                          temperature=temperature, device="cuda",
+                          cuda_graphs=graphs)
+                eng = serve.PagedServeEngine(cfg, params, page_size=16,
+                                             n_pages=320, **kw) \
+                    if paged else serve.ServeEngine(cfg, params, **kw)
+                got = serve_schedule(eng, reqs[paged], fork=paged,
+                                     cancel_after=1)
+                out[graphs] = {r: np.asarray(t, np.int32).tobytes()
+                               for r, t in got.items()}
+                if graphs:
+                    buckets = sorted(eng.graphs.graphs)
+                del eng
+                torch.cuda.empty_cache()
+            n_tok = sum(len(t) for t in out[False].values()) // 4
+            differ = [r for r, t in out[False].items()
+                      if out[True].get(r) != t]
+            check(not differ and out[True].keys() == out[False].keys(),
+                  f"parity: {kind} T={temperature}: graphed streams differ "
+                  f"from eager: {differ}")
+            print(f"parity: {kind} T={temperature}: {len(out[True])} streams"
+                  f" ({n_tok} tokens{', a fork' if paged else ''} and a "
+                  f"cancel) byte-identical, graphed vs eager, kv_len "
+                  f"buckets {buckets}")
 
 
 def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
@@ -2179,10 +2319,21 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     take the wall time of two chunked dispatches, once under the
     profiler to take the device's busy time in the same two dispatches.
     Greedy decoding repeats the same tokens, positions and occupancy
-    bounds, so both passes do the same work. Prints the kernel launches
-    a step beside the copies and fills, as the profiler counts them.
+    bounds, so both passes do the same work. Prints the device kernels a
+    step beside the copies and fills, as the profiler counts them, and
+    the host API calls a step that put that work on the card (kernel
+    launches, graph launches, copies). An engine with CUDA graphs has
+    every bucket's captured first, outside the windows. ``LAUNCHES`` is
+    set to 0 at the start of each window; the phase fails unless its
+    decode counts are the steps' (layers times steps) and the profile
+    holds as many decode kernel events, bar the profiler's known drops
+    (:data:`PROFILER_DROPS`): so a replay whose kernels the profile does
+    not see fails, and so do replays whose counts are bookkeeping alone.
     """
+    from repro_torch.kernels import LAUNCHES, reset_launches
     check(not any(eng.slots), f"{label}: engine not idle")
+    if getattr(eng, "graphs", None) is not None:
+        capture_graphs(torch, eng, label)
 
     def admit_and_warm(tag):
         # 1 token from the prefill and 3 chunks: the warm dispatch, then
@@ -2201,21 +2352,40 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     check(not any(eng.slots), f"{label}: requests did not retire")
-    passes = []
+    passes, counted = [], []
 
     def run():
+        reset_launches()
         t0 = time.perf_counter()
         eng.step()
         eng.step()
         torch.cuda.synchronize()
         passes.append((time.perf_counter() - t0) / steps * 1e3)
+        counted.append(LAUNCHES["flash_decode"]
+                       + LAUNCHES["flash_decode_paged"])
 
     # a window taken again serves the requests once more, from idle
-    counts = {}
+    counts, host = {}, {}
     by_name = profiled(torch, run, label, setup=lambda: admit_and_warm(
-        f"trace{len(passes)}"), counts=counts)
+        f"trace{len(passes)}"), counts=counts, host=host)
     check(not any(eng.slots), f"{label}: requests did not retire")
     prof_wall_ms = passes[-1]
+    # before any reading is printed: the replays' kernels are in the
+    # profile, and so are the host calls that launched them
+    decode = sum(n for name, n in counts.items()
+                 if DECODE_KERNEL.search(name))
+    want = eng.cfg.n_layers * steps
+    print(f"{label}: decode kernels in the window: {decode} profiler "
+          f"events, {counted[-1]} counted by LAUNCHES ({want} expected)")
+    check(counted[-1] == want, f"{label}: LAUNCHES counted {counted[-1]} "
+          f"decode launches in the window, expected {want}")
+    check(want - profiler_drops(want) <= decode <= want,
+          f"{label}: the profile holds {decode} decode kernels of the "
+          f"{want} LAUNCHES counted (at most {profiler_drops(want)} "
+          f"dropped)")
+    calls = host_launches(host)
+    check(calls["kernel"] + calls["graph"] > 0,
+          f"{label}: the profile holds no host launch call")
     total = sum(by_name.values())
     groups = {"flash_decode": 0.0, "flash_decode_paged": 0.0,
               "kv_row_update": 0.0, "matmul": 0.0, "other": 0.0}
@@ -2240,10 +2410,15 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
           f"under the profiler {prof_wall_ms:.2f} ms/step wall")
     copies = sum(n for name, n in counts.items()
                  if name.startswith(("Memcpy", "Memset")))
-    print(f"{label}: kernel launches a step "
+    print(f"{label}: device kernels a step "
           f"{(sum(counts.values()) - copies) / steps:.1f}, plus "
           f"{copies / steps:.1f} copies and fills (profiler events; it "
           f"drops a few)")
+    print(f"{label}: host launch calls a step "
+          f"{(calls['kernel'] + calls['graph']) / steps:.3f} "
+          f"({calls['kernel'] / steps:.3f} kernel launches, "
+          f"{calls['graph'] / steps:.3f} graph launches), plus "
+          f"{calls['copy'] / steps:.3f} copy calls")
     print(f"{label}: device time by group: " + ", ".join(
         f"{g} {us / 1e3 / steps:.3f} ms/step ({us / total:.3f})"
         for g, us in groups.items()))
@@ -2290,6 +2465,7 @@ def main() -> int:
                                              ops, R, eng.params)
     peng, paged_launches = phase_paged_engine(
         torch, np, cfg_mod, M, K, serve, PG, eng.params, eng.stats())
+    phase_graph_parity(torch, np, serve, eng.cfg, eng.params)
     rows = phase_timings(torch, np, D, ops, S_, eng, reqs, launches,
                          decode_err, writer_launches)
     rows += phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,

@@ -13,9 +13,11 @@ kernels built from that checkout's ``csrc``), builds chip_smoke's
 engines (yi-9b at full width, random weights from seed 0, 8 slots, a
 2048-row horizon, 8-token chunks; the paged one with pages of 16 and
 320 pages) and measures each with the change's ``chip_smoke.phase_trace``:
-device busy ms a step, kernel launches a step, wall ms a step and the
-idle share, over the same 8 requests. The runs go parent, change,
-change, parent, and every line is printed with its side.
+device busy ms a step, device kernels and host launch calls a step,
+wall ms a step and the idle share, over the same 8 requests (an engine
+that replays CUDA graphs captures them all first, outside the timed
+windows). The runs go parent, change, change, parent, and every line is
+printed with its side.
 """
 
 from __future__ import annotations

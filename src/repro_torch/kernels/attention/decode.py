@@ -82,6 +82,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the split counters of the fused merge, one zeroed int32 tensor per
 #: device (see :func:`split_counters`)
 _COUNTERS: dict = {}
+#: counters tensors a larger one replaced, never freed: a CUDA graph
+#: captured over one reads its address at every replay
+_RETIRED: list = []
 
 
 def default_splits(b: int, hkv: int, n_blocks: int) -> int:
@@ -245,12 +248,24 @@ def split_counters(device, n: int = 0) -> torch.Tensor:
     no memset between them. One tensor serves one stream at a time, as
     the engines use it: calls in flight on two streams at once would
     share counters.
+
+    A tensor handed out stays alive when a larger one replaces it, since
+    a CUDA graph may hold its address. Growing them while the stream
+    captures a graph raises: the zero fill would be a node of the graph,
+    not done now. Size them before a capture (``serve.decode.ChunkGraphs``
+    does).
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     c = _COUNTERS.get(device)
     if c is None or c.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split counters grow to {n} under a CUDA-graph capture; "
+                f"size them before it (split_counters(device, n))")
+        if c is not None:
+            _RETIRED.append(c)
         c = _COUNTERS[device] = torch.zeros(max(n, 1), dtype=torch.int32,
                                             device=device)
     return c
@@ -559,9 +574,10 @@ def decode_paged_finished(q, k_pages, v_pages, block_tables, pos, *,
     if no physical row it writes is read in the same launch through
     another table column of any slot; the scratch page that every column
     of a free slot names breaks this, so a free slot's output is undefined
-    there. At a negative position the kernel writes nothing, while the
-    plain version wraps to the table's last columns as the reference's
-    scatter does; a served slot's position is never negative."""
+    there. At a negative position both wrap to the table's last columns,
+    as the reference's scatter does: row ``pos % page`` of column
+    ``pos // page + NB`` (the kernel clips to column 0 below ``-NB *
+    page``, where the plain version's index raises)."""
     _check_page_bound(bound, k_pages.shape[1], block_tables)
     pos = pos_vector(pos, q.shape[0], q.device)
     kw = dict(window=window, split_len=split_len, n_splits=n_splits,

@@ -102,10 +102,11 @@
 // writes one scratch row while its own and other free slots' blocks read
 // the page, a race that leaves those slots' outputs (which the engine
 // discards) undefined. The caches k and v carry no __restrict__, since
-// the writer stores through them. A paged write at a negative pos stores
-// nothing, where the plain version (stores.ref_paged_row_update, as the
-// reference model's scatter) wraps to the table's last columns; a served
-// slot's pos is never negative.
+// the writer stores through them. A paged write at a negative pos wraps to
+// the table's last columns, as the plain version
+// (stores.ref_paged_row_update, the reference model's scatter) does: row
+// pos mod page of column floor(pos / page) + NB (column 0 below pos =
+// -NB * page, where the plain version's index raises).
 //
 // Paged pool. On the TPU the KV block equals the page and a BlockSpec
 // index map fetches one page per grid step. Here a pass or tile spans
@@ -153,11 +154,17 @@ __device__ __forceinline__ long long row_offset(int row, int page, int in_page, 
 
 // First row of the window a WRITE launch writes, in the slot's (logical)
 // rows: dense, pos clamped into [0, S - Sq] after a negative pos is counted
-// from the end; paged, the written row of page column min(pos / ps,
-// t_cols - 1).
+// from the end; paged, row pos mod ps of page column floor(pos / ps),
+// clamped to t_cols - 1 above and, when negative, counted from the
+// table's end (clipped to column 0 below -t_cols), as Python indexing
+// does in the reference's scatter.
 template <bool PAGED>
 __device__ __forceinline__ int write_start(int p0, int S, int Sq, int ps, int t_cols) {
-  if constexpr (PAGED) return min(p0 / ps, t_cols - 1) * ps + p0 % ps;
+  if constexpr (PAGED) {
+    const int q = p0 >= 0 ? p0 / ps : (p0 + 1) / ps - 1;
+    const int col = q < 0 ? max(q + t_cols, 0) : min(q, t_cols - 1);
+    return col * ps + (p0 - q * ps);
+  }
   return min(max(p0 < 0 ? p0 + S : p0, 0), S - Sq);
 }
 
@@ -175,18 +182,16 @@ __device__ __forceinline__ int fresh_offset(int row, int w0, int b, int Sq, int 
 
 // The fused write of a WRITE launch, by all NT threads of a writer block:
 // KV head kvh's new rows of slot b (Sq rows dense, k_new[b, 0] paged) into
-// the caches at window row w0, 16 bytes a thread, streaming under `nt`. A
-// paged write needs pos >= 0 (a served slot's always is).
+// the caches at window row w0, 16 bytes a thread, streaming under `nt`.
 template <int DH, bool PAGED, typename T>
 __device__ __forceinline__ void write_rows(const T* k_new, const T* v_new, const T* k,
-                                           const T* v, int p0, int w0, int b, int Sq, int Hkv,
+                                           const T* v, int w0, int b, int Sq, int Hkv,
                                            int kvh, long long k_s0, long long k_s1,
                                            long long v_s0, long long v_s1,
                                            const int* __restrict__ table, int t_stride,
                                            int n_pages, int ps, bool nt) {
   constexpr int VEC = 16 / sizeof(T), CPR = DH / VEC;
   const int n = PAGED ? 1 : Sq;
-  if (PAGED && p0 < 0) return;
   const int col = PAGED ? w0 / ps : 0;
   const int pg = PAGED ? page_at(col, b, table, t_stride, n_pages) : 0;
   for (int i = threadIdx.x; i < n * CPR; i += NT) {
@@ -438,7 +443,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* k, const float* v,
   // a writer block (WRITE: split 0, row group 0) writes the new rows while
   // its first tiles are in flight
   if (WRITE && s == 0 && blockIdx.x < Hkv)
-    write_rows<DH, PAGED>(k_new, v_new, k, v, p0, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
+    write_rows<DH, PAGED>(k_new, v_new, k, v, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
                           table, t_stride, n_pages, ps, nt);
 
   // packed query rows r0 + r = j*G + g (query token j, head kvh*G + g),
@@ -755,7 +760,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k,
     issue(first);
   }
   if (WRITE && s == 0 && blockIdx.x < Hkv)
-    write_rows<DH, PAGED>(k_new, v_new, k, v, p0, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
+    write_rows<DH, PAGED>(k_new, v_new, k, v, w0, b, Sq, Hkv, kvh, k_s0, k_s1, v_s0, v_s1,
                           table, t_stride, n_pages, ps, nt);
 
   // warp w serves row block w / WPG and takes every WPG-th 16-key chunk

@@ -104,7 +104,7 @@ def ref_paged_row_update(k_pages, v_pages, block_tables, k_new, v_new,
     1)]`` of the (P, page, Hkv, Dh) pools, ``NB`` the table's columns (the
     clamp retires an overshooting slot onto its last column). A negative
     ``pos[b]`` wraps to the table's last columns, as the reference's
-    indexing does; the kernel writes nothing there."""
+    indexing does, and so does the paged decode kernel's fused write."""
     b = k_new.shape[0]
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     dev = k_pages.device

@@ -50,15 +50,27 @@ def sum_reduction(a):
     return torch.sum(a)
 
 
-def pi_integration(n: int, dtype=torch.float32, device="cpu"):
-    """pi by midpoint integration of 4/(1+x^2) on [0,1].
+def pi_terms(n: int, dtype=torch.float32, device="cpu"):
+    """The n terms 4/(1+x^2) of :func:`pi_integration`, x = (i + 0.5) / n.
 
     The index is built in ``dtype`` (float32 by default, as in both JAX
-    versions), so ``i`` is inexact above 2^24.
+    versions), so ``i`` is inexact above 2^24. Each quotient is the
+    correctly rounded one on any device: ``n`` enters as a 0-d tensor on
+    ``device``, since PyTorch's CUDA division by a Python number is a
+    product with RN(1/n), which differs from RN(i/n) on up to half the
+    points. ``4 / d`` is ``4 * RN(1/d)`` on both devices.
     """
+    fn = torch.tensor(n, dtype=dtype, device=device)
     i = torch.arange(n, dtype=dtype, device=device)
-    x = (i + 0.5) / n
-    return torch.sum(4.0 / (1.0 + x * x)) / n
+    x = (i + 0.5) / fn
+    return 4.0 / (1.0 + x * x)
+
+
+def pi_integration(n: int, dtype=torch.float32, device="cpu"):
+    """pi by midpoint integration of 4/(1+x^2) on [0,1]: the sum of
+    :func:`pi_terms` over n, divided as they are."""
+    fn = torch.tensor(n, dtype=dtype, device=device)
+    return torch.sum(pi_terms(n, dtype, device)) / fn
 
 
 def jacobi_2d5pt(u):

@@ -19,8 +19,15 @@ share the engine skeleton:
 
 Each dispatch reads back the chunk's tokens once. Inside the chunk
 nothing leaves the device; the attention occupancy bound ``kv_len`` is
-worked out on the host from the slots' known positions, so the kernels
-read only rows some active slot can see.
+worked out on the host from the slots' known positions and rounded up to
+a bucket of ``KV_BUCKET`` rows (:func:`kv_bucket`), so the kernels read
+only rows some active slot can see, at one of a few fixed bounds.
+
+On a CUDA device a chunk is one replay of a CUDA graph, captured once per
+bucket (``serve.decode.ChunkGraphs``): the counterpart of the JAX step's
+one compilation per static ``kv_len``. A capture or replay that fails
+raises; ``cuda_graphs=False`` runs the same chunk eagerly on the card,
+the graphs' parity reference. A CPU engine runs the chunk eagerly.
 
 Sampled streams (``temperature > 0``) draw from one ``torch.Generator``
 per request, seeded from the engine seed and the request id, so a
@@ -45,9 +52,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.serve import pages as pages_lib
-from repro_torch.serve.decode import make_chunked_decode_step, sample
-from repro_torch.serve.slots import insert
+from repro_torch.serve.decode import (ChunkGraphs, draw_noise,
+                                     make_chunk_body, sample)
+from repro_torch.serve.slots import assign, insert
 from repro_torch.train import serve as serve_lib
+
+#: rows of a ``kv_len`` bucket: the dense kernel's block, 16 buckets (16
+#: graphs) to a 2048-row horizon
+KV_BUCKET = 128
+
+
+def kv_bucket(rows: int, max_len: int) -> int:
+    """The occupancy bound a chunk runs at: ``rows`` rounded up to a
+    multiple of :data:`KV_BUCKET`, at most ``max_len``. The kernels visit
+    only rows at or below each slot's position, so a wider bound reads
+    no more rows; it only moves split boundaries."""
+    return min(max_len, -(-rows // KV_BUCKET) * KV_BUCKET)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,20 +95,23 @@ class ServeEngine:
     hand-written kernels on a CUDA device). ``device`` is where the cache
     lives and must hold ``params``. ``run(requests)`` drives admit ->
     decode-chunk -> retire rounds until every request has its tokens.
+    On a CUDA device each chunk replays a CUDA graph (``graphs``, one per
+    ``kv_len`` bucket, captured at its first use or by
+    :meth:`capture_graphs`) unless ``cuda_graphs=False``.
 
     Subclass hooks (:class:`PagedServeEngine` overrides all five):
     ``_build_state`` allocates the cache and builds the steps,
     ``_insert_prefilled`` lands one prefilled request in a slot,
     ``_release_slot`` retires a slot, ``_pre_dispatch`` runs host-side
-    bookkeeping before each chunk, ``_decode_args`` gives the chunk's
-    leading arguments.
+    bookkeeping before each chunk, ``_step_inputs`` gives the chunk's
+    host inputs.
     """
 
     paged = False
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int,
                  max_len: int, chunk: int, temperature: float = 0.0,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", cuda_graphs: bool = True):
         if not cfg.embed_inputs:
             raise ValueError("serve engine needs a token-id model")
         self.device = torch.device(device)
@@ -101,6 +124,15 @@ class ServeEngine:
         self.temperature = float(temperature)
         self.seed = int(seed)
         self._build_state()
+        # the chunk's device work, run eagerly or captured by the graphs
+        self._body = make_chunk_body(cfg, self.chunk, self.temperature)
+        self.graphs = None
+        if self.device.type == "cuda" and cuda_graphs:
+            self.graphs = ChunkGraphs(
+                self._body, cfg, params, self.cache, batch=max_slots,
+                n_tokens=self.chunk, sampled=self.temperature > 0,
+                device=self.device,
+                table_cols=self.pages_per_slot if self.paged else None)
         # feeds the rows of free slots when sampling (their tokens are
         # discarded)
         self._idle_gen = self._generator(f"\0idle:{self.seed}")
@@ -118,11 +150,9 @@ class ServeEngine:
 
     # -- layout hooks -------------------------------------------------------
     def _build_state(self) -> None:
-        """Allocate the cache and build the prefill and decode steps."""
+        """Allocate the cache and build the prefill step."""
         self.cache = M.init_cache(self.cfg, self.max_slots, self.max_len,
                                   self.device)
-        self._decode = make_chunked_decode_step(self.cfg, self.chunk,
-                                                self.temperature)
         self._prefill = serve_lib.make_prefill_step(self.cfg,
                                                     cache_len=self.max_len)
 
@@ -137,11 +167,10 @@ class ServeEngine:
     def _pre_dispatch(self) -> None:
         """Host-side bookkeeping before a chunk (none for dense slots)."""
 
-    def _decode_args(self) -> tuple:
-        """Leading arguments of one decode dispatch."""
-        return (self.params, self.cache,
-                torch.from_numpy(self._tok).to(self.device),
-                torch.from_numpy(self._pos).to(self.device))
+    def _step_inputs(self) -> dict:
+        """A chunk's per-dispatch inputs as host arrays, by the step's
+        argument names."""
+        return {"tokens": self._tok, "pos": self._pos}
 
     # -- helpers ------------------------------------------------------------
     def _generator(self, rid: str) -> torch.Generator:
@@ -223,7 +252,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         tokens = torch.tensor([list(r.prompt) for r in reqs],
                               dtype=torch.int64, device=self.device)
-        logits, self.cache = self._prefill(self.params, {"tokens": tokens})
+        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        assign(self.cache, cache)      # in place: the graphs hold the cache
+        del cache
         self.prefill_dispatches += 1
         gens = [self._generator(r.rid) if self.temperature > 0 else None
                 for r in reqs]
@@ -264,18 +295,27 @@ class ServeEngine:
             return retired
         self._pre_dispatch()
         # rows any kept token can reach this chunk: pos + chunk at most
-        kv_len = min(self.max_len,
-                     int(self._pos[active].max()) + self.chunk)
+        kv_len = kv_bucket(int(self._pos[active].max()) + self.chunk,
+                           self.max_len)
         gens = None
         if self.temperature > 0:
             gens = [st.generator if st is not None else self._idle_gen
                     for st in self.slots]
         t0 = time.perf_counter()
-        out = self._decode(*self._decode_args(), gens, kv_len)
+        inputs = {k: torch.from_numpy(v)
+                  for k, v in self._step_inputs().items()}
+        if self.graphs is not None:
+            toks, _, ok = self.graphs.run(kv_len, generators=gens, **inputs)
+        else:
+            noise = None if gens is None else draw_noise(
+                gens, self.chunk, self.cfg.vocab_size, self.device)
+            toks, _, ok = self._body(
+                self.params, self.cache, noise=noise, kv_len=kv_len,
+                **{k: v.to(self.device) for k, v in inputs.items()})
         self.decode_dispatches += 1
         self.decode_tokens += self.chunk
-        toks = out[0].cpu().numpy()
-        ok = out[3].cpu().numpy()
+        toks = toks.cpu().numpy()
+        ok = ok.cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         for i in active:
             st = self.slots[i]
@@ -295,6 +335,28 @@ class ServeEngine:
                 retired.append((st.rid, np.asarray(st.out, np.int32)))
                 self._release_slot(i)
         return retired
+
+    def capture_graphs(self) -> int:
+        """Capture the chunk's graph of every ``kv_len`` bucket up to the
+        horizon not captured yet, so that no later dispatch captures one;
+        returns how many were captured.
+
+        The captures run on the chunk inputs the next dispatch would
+        load, bar its noise: each writes the KV rows a chunk from the
+        slots' current positions writes, rows the next chunk writes again
+        before any token reads them (a free slot's rows are replaced at
+        admission; a free paged slot writes the scratch page).
+        """
+        if self.graphs is None:
+            raise RuntimeError("this engine runs no CUDA graphs")
+        self.graphs.load(**{k: torch.from_numpy(v)
+                            for k, v in self._step_inputs().items()})
+        buckets = {kv_bucket(r, self.max_len) for r in
+                   range(KV_BUCKET, self.max_len + KV_BUCKET, KV_BUCKET)}
+        todo = sorted(buckets - set(self.graphs.graphs))
+        for kv in todo:
+            self.graphs.capture(kv)
+        return len(todo)
 
     def stats(self) -> dict:
         """Dispatch and token counters and wall times."""
@@ -369,8 +431,6 @@ class PagedServeEngine(ServeEngine):
                                                 ps, self.device)
         self.block_tables = np.full((self.max_slots, self.pages_per_slot),
                                     -1, np.int32)
-        self._decode = make_chunked_decode_step(self.cfg, self.chunk,
-                                                self.temperature, paged=True)
         # prefill at exactly the prompt length: no horizon zero-fill;
         # fresh pages get real rows, recycled pages keep stale ones
         self._prefill = serve_lib.make_prefill_step(self.cfg, cache_len=None)
@@ -431,12 +491,10 @@ class PagedServeEngine(ServeEngine):
                                   if st is not None]]
         self.gather_pages += int((live >= 0).sum())
 
-    def _decode_args(self) -> tuple:
+    def _step_inputs(self) -> dict:
         bt = np.where(self.block_tables < 0, self._scratch,
                       self.block_tables).astype(np.int32)
-        params, cache, tok, pos = super()._decode_args()
-        return (params, cache, torch.from_numpy(bt).to(self.device), tok,
-                pos)
+        return dict(super()._step_inputs(), block_tables=bt)
 
     # -- paged-only surface -------------------------------------------------
     def fork(self, rid: str, new_rid: str,

@@ -27,3 +27,11 @@ def insert(cache: dict, one: dict, slot: int) -> None:
         if part in cache:
             for big, small in _pairs(cache[part], one[part]):
                 big.narrow(axis, slot, 1).copy_(small)
+
+
+def assign(cache: dict, new: dict) -> None:
+    """Copy a whole cache ``new`` of the same shapes into ``cache``, in
+    place (a batched prefill lands here, so the cache tensors that a
+    captured decode graph reads stay the same)."""
+    for big, small in _pairs(cache, new):
+        big.copy_(small)

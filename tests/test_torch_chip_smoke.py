@@ -179,3 +179,63 @@ def test_pi_floors():
     assert sfu == pytest.approx(64.19, abs=0.01)
     assert issue == pytest.approx(96.29, abs=0.01)
     assert chip_smoke.pi_floors_us(2 ** 28, 132, 1980.0, None)[1] is None
+
+
+class _Event:
+    """A raw profiler event as ``runtime_calls`` reads it."""
+
+    def __init__(self, name, device):
+        self._name, self._device = name, device
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+        return getattr(DeviceType, self._device)
+
+
+class _Profile:
+    """A profile of the trace phase's kind: a greedy chunk as one graph
+    replay (2 input copies, one graph launch, 2 readbacks), beside the
+    eager calls of a prefill."""
+
+    def __init__(self, events):
+        results = type("R", (), {"events": lambda _self: events})()
+        self.profiler = type("P", (), {"kineto_results": results})()
+
+
+@pytest.mark.parametrize("events,drops", [(0, 3), (100, 3), (768, 7),
+                                          (1008, 10)])
+def test_profiler_drops_a_hundredth_at_least_three(events, drops):
+    assert chip_smoke.profiler_drops(events) == drops
+
+
+def test_host_launches_counts_by_kind():
+    calls = {"cudaLaunchKernel": 5, "cudaLaunchKernelExC": 2,
+             "cuLaunchKernel": 1, "cuLaunchKernelEx": 1,
+             "cudaGraphLaunch": 3, "cudaMemcpyAsync": 7,
+             "cudaMemsetAsync": 1, "cudaStreamSynchronize": 4,
+             "aten::mm": 9}
+    assert chip_smoke.host_launches(calls) == {"kernel": 9, "graph": 3,
+                                               "copy": 8}
+    assert chip_smoke.host_launches({}) == {"kernel": 0, "graph": 0,
+                                            "copy": 0}
+
+
+def test_runtime_calls_read_only_host_api_events():
+    """Host API calls are counted by name; device events (kernels inside
+    a replay among them) and other host events are not."""
+    events = ([_Event("cudaMemcpyAsync", "CPU")] * 2
+              + [_Event("cudaGraphLaunch", "CPU")]
+              + [_Event("void decode_kernel<128, 16, false, true>()",
+                        "CUDA")] * 48
+              + [_Event("Memcpy HtoD (Pageable -> Device)", "CUDA")] * 2
+              + [_Event("cudaMemcpyAsync", "CPU")] * 2
+              + [_Event("aten::mm", "CPU"), _Event("cudaLaunchKernel", "CPU"),
+                 _Event("cudaStreamSynchronize", "CPU")])
+    calls = chip_smoke.runtime_calls(_Profile(events))
+    assert calls == {"cudaMemcpyAsync": 4, "cudaGraphLaunch": 1,
+                     "cudaLaunchKernel": 1}
+    assert chip_smoke.host_launches(calls) == {"kernel": 1, "graph": 1,
+                                               "copy": 4}

@@ -278,6 +278,19 @@ def test_split_counters_grow_zeroed_and_are_kept():
     D._COUNTERS.pop(dev, None)
 
 
+def test_split_counters_keep_what_they_handed_out():
+    """A tensor a larger one replaces stays referenced (a CUDA graph
+    captured over it reads its address at every replay)."""
+    dev = torch.device("cpu")
+    D._COUNTERS.pop(dev, None)
+    small = D.split_counters(dev, 4)
+    big = D.split_counters(dev, 96)
+    assert big is not small
+    assert any(t is small for t in D._RETIRED)
+    assert not any(t is big for t in D._RETIRED)
+    D._COUNTERS.pop(dev, None)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_finished_output_is_combined_partials_in_q_dtype(dtype):
     """On the CPU the finished output is the plain partials merged by

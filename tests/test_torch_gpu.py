@@ -24,6 +24,8 @@ from repro_torch.kernels.stream import ops as SO
 from repro_torch.kernels.stream import ref as SR
 from repro_torch.models import model as M
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+from repro_torch.serve import decode as SD
+from repro_torch.train import serve as TS
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -330,16 +332,20 @@ def test_fused_write_matches_unfused_pair_dense(cuda, flavor, dtype, b, skv,
     assert not D.split_counters(cuda).any()
 
 
+@pytest.mark.parametrize("pos0", [None, -3, -37])
 @pytest.mark.parametrize("flavor", ["standard", "nt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,ns", FUSED_WRITE_SHAPES)
 def test_fused_write_matches_unfused_pair_paged(cuda, flavor, dtype, b, skv,
-                                                h, hkv, dh, sq, window, ns):
+                                                h, hkv, dh, sq, window, ns,
+                                                pos0):
     """The paged kernel given the step's rows against the plain index
     write and then the paged kernel, under a shuffled table, with the
     table read in full and cut below the last slot's written column (the
     write counts the table's full width); the last slot's position
-    overshoots the table and retires onto its last column."""
+    overshoots the table and retires onto its last column. ``pos0``, when
+    given, is slot 0's negative position, whose write wraps to column
+    ``pos0 // 16 + NB`` of its own table, as the plain route's does."""
     g = torch.Generator(device=cuda).manual_seed(14)
     ps = 16
     q = torch.randn(b, sq, h, dh, generator=g, device=cuda).to(dtype)
@@ -352,8 +358,12 @@ def test_fused_write_matches_unfused_pair_paged(cuda, flavor, dtype, b, skv,
     pos[-1] = nb * ps + 5
     # every column a slot writes or reads is its own page; the last slot's
     # whole row, the others' past their last live row name the NaN page
+    # (but a slot 0 at a negative position's, which it writes)
+    dead = (pos + sq - 1).tolist()
+    if pos0 is not None:
+        pos[0], dead[0] = pos0, nb * ps
     kp, vp, bt = _paged_layout(k, v, ps, torch.Generator().manual_seed(15),
-                               (pos + sq - 1).tolist())
+                               dead)
     for n_blocks in (nb, -(-(int(pos[:-1].max()) + sq) // ps)):
         bound, split_len, n = D.paged_split_plan(b, hkv, ps, n_blocks, ns)
         kw = dict(window=window, split_len=split_len, n_splits=n,
@@ -373,6 +383,9 @@ def test_fused_write_matches_unfused_pair_paged(cuda, flavor, dtype, b, skv,
     # the written rows landed where the reference's scatter puts them
     last = bt[-1, nb - 1].long()
     assert _same_bytes(kp[last, (nb * ps + 5) % ps], kn[-1, 0])
+    if pos0 is not None:
+        assert _same_bytes(kp[bt[0, pos0 // ps + nb].long(), pos0 % ps],
+                           kn[0, 0])
 
 
 def test_fused_write_refuses_what_it_does_not_take(cuda):
@@ -491,6 +504,227 @@ def test_paged_engine_on_card_matches_dense_and_cpu(cuda):
     dense = _paged_schedule(ServeEngine(cfg, to(params, cuda), device=cuda,
                                         **kw), prompts, False)
     assert paged(cuda, False) == dense
+
+
+# --- the decode chunk as CUDA-graph replays ---------------------------------
+
+def _smoke_on_card(cuda):
+    cfg = dataclasses.replace(get_smoke_config("yi-9b"),
+                              param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    to = lambda t: {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                    for k, v in t.items()}
+    return cfg, to(params)
+
+
+def _random_chunk_state(cfg, cuda, b, horizon, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cache = M.init_cache(cfg, b, horizon, cuda)
+    for part in cache["scan"].values():
+        for leaf in part.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                           device=cuda)
+    return cache, tokens
+
+
+def _clone_cache(cache):
+    return {k: _clone_cache(v) if isinstance(v, dict) else v.clone()
+            for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_engine_matches_eager(cuda, paged, temperature):
+    """Smoke fp32 engines on the card, a 300-row horizon: the chunk as
+    CUDA-graph replays gives the eager chunk's streams token for token,
+    greedy and sampled, dense and paged (a fork and a cancel on the
+    paged schedule), over prompts whose chunks cross the 128- and
+    256-row buckets; one graph a bucket; split counters 0 after."""
+    cfg, params = _smoke_on_card(cuda)
+    rng = np.random.default_rng(8)
+    system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    prompts = [system + tuple(int(t) for t in
+                              rng.integers(0, cfg.vocab_size, n - 8))
+               for n in (120, 9, 250, 126)]
+    cls, kw = (PagedServeEngine, dict(page_size=16)) if paged \
+        else (ServeEngine, {})
+    out, engines = {}, {}
+    for graphs in (False, True):
+        eng = cls(cfg, params, max_slots=3, max_len=300, chunk=4,
+                  temperature=temperature, seed=3, device=cuda,
+                  cuda_graphs=graphs, **kw)
+        out[graphs] = _paged_schedule(eng, prompts, fork=paged)
+        engines[graphs] = eng
+    assert out[True] == out[False]
+    assert engines[False].graphs is None
+    buckets = set(engines[True].graphs.graphs)
+    assert len(buckets) >= 2 and buckets <= {128, 256, 300}
+    torch.cuda.synchronize()
+    assert not D.split_counters(cuda).any()
+
+
+def test_graphed_engine_batched_admission(cuda):
+    """All slots free and equal prompt lengths: the batched prefill lands
+    in the cache tensors the graphs read (in place), and the graphed
+    streams are the eager engine's."""
+    cfg, params = _smoke_on_card(cuda)
+    rng = np.random.default_rng(12)
+    reqs = [Request(str(i), tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, 9)), m) for i, m in enumerate((7, 4, 10))]
+    out = {}
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, params, max_slots=3, max_len=40, chunk=3,
+                          device=cuda, cuda_graphs=graphs)
+        ptrs = [t.data_ptr() for t in eng.cache["scan"]["0"].values()]
+        out[graphs] = {r: t.tolist() for r, t in eng.run(reqs).items()}
+        assert eng.prefill_dispatches == 1
+        assert [t.data_ptr() for t in eng.cache["scan"]["0"].values()] \
+            == ptrs
+    assert out[True] == out[False]
+
+
+def test_chunk_graph_replay_counts_like_the_eager_chunk(cuda):
+    """One replay advances ``LAUNCHES`` exactly as one eager call of the
+    same chunk does, gives its tokens and its cache bit for bit, leaves
+    the split counters at 0; a bucket is never captured twice."""
+    cfg, params = _smoke_on_card(cuda)
+    b, n = 3, 4
+    cache, tokens = _random_chunk_state(cfg, cuda, b, 300, 9)
+    pos = torch.tensor([100, 7, 180], dtype=torch.int32, device=cuda)
+    body = SD.make_chunk_body(cfg, n)
+    eager_cache = _clone_cache(cache)
+    K.reset_launches()
+    want = body(params, eager_cache, tokens, pos, None, 256)
+    torch.cuda.synchronize()
+    eager = dict(K.LAUNCHES)
+    assert eager["flash_decode"] == eager["kv_rows_in_decode"] \
+        == cfg.n_layers * n
+    graphs = SD.ChunkGraphs(body, cfg, params, cache, batch=b, n_tokens=n,
+                            sampled=False, device=cuda)
+    graphs.load(tokens, pos)
+    graphs.capture(256)
+    with pytest.raises(RuntimeError, match="captured already"):
+        graphs.capture(256)
+    for _ in range(2):
+        K.reset_launches()
+        got = graphs.run(256, tokens, pos)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == eager
+        assert not D.split_counters(cuda).any()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(torch.equal(cache["scan"]["0"][k], eager_cache["scan"]["0"][k])
+               for k in ("k", "v"))
+    assert list(graphs.graphs) == [256]
+
+
+def test_chunk_graph_survives_split_counters_growth(cuda):
+    """A decode call that needs more split counters than a captured graph
+    was captured with grows them to a new tensor; the graph still
+    replays the eager chunk's tokens and cache bit for bit, with memory
+    handed out after the growth filled with nonzero words, and its own
+    counters back at 0."""
+    cfg, params = _smoke_on_card(cuda)
+    b, n = 3, 4
+    cache, tokens = _random_chunk_state(cfg, cuda, b, 300, 13)
+    pos = torch.tensor([150, 20, 260], dtype=torch.int32, device=cuda)
+    body = SD.make_chunk_body(cfg, n)
+    graphs = SD.ChunkGraphs(body, cfg, params, cache, batch=b, n_tokens=n,
+                            sampled=False, device=cuda)
+    eager_cache = _clone_cache(cache)
+    graphs.load(tokens, pos)
+    graphs.capture(300)
+    # the capture wrote the chunk's rows into the cache: so does the
+    # eager reference, before its own chunk
+    body(params, eager_cache, tokens, pos, None, 300)
+    want = body(params, eager_cache, tokens, pos, None, 300)
+    old = D.split_counters(cuda)
+    # a larger decode call in two splits: one counter a slot, more slots
+    # than there are counters
+    nb = old.numel() + 1
+    q = torch.randn(nb, 1, 1, 32, device=cuda).bfloat16()
+    k = torch.randn(nb, 256, 1, 32, device=cuda).bfloat16()
+    pos_b = torch.full((nb,), 255, dtype=torch.int32, device=cuda)
+    ops.flash_decode(q, k, k, pos_b, n_splits=2, impl="cuda")
+    assert D.split_counters(cuda) is not old
+    del q, k, pos_b
+    junk = [torch.full((old.numel(),), 7, dtype=torch.int32, device=cuda)
+            for _ in range(8)]
+    got = graphs.run(300, tokens, pos)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(torch.equal(cache["scan"]["0"][k], eager_cache["scan"]["0"][k])
+               for k in ("k", "v"))
+    assert not old.any() and not D.split_counters(cuda).any()
+    assert all(bool((j == 7).all()) for j in junk)
+
+
+def test_engine_captures_each_bucket_once(cuda):
+    """``capture_graphs`` captures every bucket of the horizon once; a
+    served run after it captures nothing and counts its launches as the
+    eager engine does."""
+    cfg, params = _smoke_on_card(cuda)
+    rng = np.random.default_rng(10)
+    reqs = [Request(str(i), tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)), 9) for i, n in enumerate((130, 20, 250))]
+    counts = {}
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, params, max_slots=2, max_len=300, chunk=4,
+                          device=cuda, cuda_graphs=graphs)
+        if graphs:
+            assert eng.capture_graphs() == 3
+            assert sorted(eng.graphs.graphs) == [128, 256, 300]
+            assert eng.capture_graphs() == 0
+            spent = eng.graphs.capture_s
+        K.reset_launches()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[graphs] = dict(K.LAUNCHES)
+    assert eng.graphs.capture_s == spent and len(eng.graphs.graphs) == 3
+    assert counts[True] == counts[False]
+
+
+def test_decode_loop_step_replays_on_the_card(cuda):
+    """``make_decode_loop_step`` on CUDA tensors: one graph for a set of
+    parameter and cache tensors, replayed; its tokens and cache equal
+    the eager chunked step's."""
+    cfg, params = _smoke_on_card(cuda)
+    cache, tokens = _random_chunk_state(cfg, cuda, 2, 40, 11)
+    ref = _clone_cache(cache)
+    step = SD.make_chunked_decode_step(cfg, 3)
+    loop = TS.make_decode_loop_step(cfg, 3)
+    for p in (5, 8):
+        want, _, _, _ = step(params, ref, tokens, p)
+        got, out = loop(params, cache, {"tokens": tokens}, p)
+        assert torch.equal(got, want)
+        assert out["scan"]["0"]["k"] is cache["scan"]["0"]["k"]
+    assert all(torch.equal(cache["scan"]["0"][k], ref["scan"]["0"][k])
+               for k in ("k", "v"))
+
+
+def test_decode_loop_step_holds_one_graph(cuda):
+    """The loop called on one cache, then on another, then on the first
+    again: one graph held at a time, over the last call's tensors, and
+    each call's tokens and cache equal the eager chunked step's."""
+    cfg, params = _smoke_on_card(cuda)
+    loop = TS.make_decode_loop_step(cfg, 3)
+    step = SD.make_chunked_decode_step(cfg, 3)
+    states = [_random_chunk_state(cfg, cuda, 2, 40, seed) for seed in (15, 16)]
+    refs = [_clone_cache(c) for c, _ in states]
+    held = []
+    for i, p in ((0, 5), (1, 9), (1, 12), (0, 8)):
+        cache, tokens = states[i]
+        want, _, _, _ = step(params, refs[i], tokens, p)
+        got, _ = loop(params, cache, {"tokens": tokens}, p)
+        assert torch.equal(got, want)
+        assert loop.graphs.cache is cache and len(loop.graphs.graphs) == 1
+        held.append(loop.graphs)
+    # a new graph for each change of cache, the same one while it stays
+    assert held[1] is held[2]
+    assert len({id(g) for g in held}) == 3
+    for (cache, _), ref in zip(states, refs):
+        assert all(torch.equal(cache["scan"]["0"][k], ref["scan"]["0"][k])
+                   for k in ("k", "v"))
 
 
 # --- the stream suite -------------------------------------------------------
@@ -637,7 +871,13 @@ def test_stream_pi_kernel_matches_plain(cuda, n):
     """One launch returning a 0-d float32 pi within 1e-5 of the plain
     version, at ragged n (the last block masked), at an n outside the
     reciprocal route's proof (2^24 - 1, IEEE division) and the main
-    path's; within 1e-4 * pi of pi where the rule has points enough."""
+    path's; within 1e-4 * pi of pi where the rule has points enough.
+
+    The plain version's terms on the card are the kernel's, bit for bit:
+    4 times the numpy model's quotient and reciprocal (the model the
+    kernel's sum is held to in ``test_stream_pi_kernel_is_its_model``),
+    on every point up to 2^24 + 8 and on a sample of 2^28. Only the two
+    sums' orders differ."""
     K.reset_launches()
     got = SO.pi_integration(n, device=cuda)
     assert K.LAUNCHES["pi_integration"] == 1
@@ -646,6 +886,14 @@ def test_stream_pi_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     if n >= 262143:
         assert abs(got.item() - np.pi) < 1e-4 * np.pi
+    terms = SR.pi_terms(n, device=cuda)
+    idx = np.arange(n, dtype=np.int64) if n <= 2 ** 25 else np.unique(
+        np.concatenate([np.arange(0, n, 4099), np.arange(n - 8192, n)]))
+    for s in range(0, len(idx), 1 << 22):
+        part = idx[s:s + (1 << 22)]
+        plain = terms[torch.from_numpy(part).to(cuda)].cpu().numpy()
+        model = np.float32(4) * PM.kernel_terms(n, part)
+        assert np.array_equal(plain.view(np.uint32), model.view(np.uint32))
 
 
 @pytest.mark.parametrize("n", [4097, 2 ** 24 + 8])

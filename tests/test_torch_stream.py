@@ -238,6 +238,20 @@ def test_pi_plain_terms_are_the_reference_terms():
     assert np.array_equal(_bits(PM.plain_terms(n, np.arange(n))), _bits(want))
 
 
+def test_pi_plain_terms_are_ieee_quotients():
+    """``ref.pi_terms`` at n = 2^24 - 1 (an n whose RN(i * RN(1/n))
+    differs from RN(i / n) on 8,388,607 points) equal numpy's float32
+    IEEE quotients 4 / (1 + x^2), x = (i + 0.5) / n, on every point; its
+    sum over n is numpy's float32 quotient of the sum."""
+    n = 2 ** 24 - 1
+    x = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+    want = np.float32(4) / (np.float32(1) + x * x)
+    got = R.pi_terms(n)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    pi = R.pi_integration(n)
+    assert _bits(pi.numpy()) == _bits(torch.sum(got).numpy() / np.float32(n))
+
+
 def test_pi_quotient_route_rule():
     """The reciprocal route is taken where its proof holds (3 * B < 2^24,
     B the odd part of float32(n)) and nowhere else; at the largest odd
