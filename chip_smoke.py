@@ -41,7 +41,10 @@ Phases, each printed on its own line:
    Sq 1 and 4 (16 and 64 packed rows: one and two row groups). At each
    shape both the per-split partials (merged by ``combine_splits``) and
    the finished output (splits merged inside the kernel, in q's dtype)
-   against the plain partials merged and cast (:func:`finished_ok`); the
+   against the plain partials merged and cast (:func:`finished_ok`); in
+   bf16 at Sq 1 the attention family's shapes (qwen2-vl-7b's G=7,
+   musicgen-large's G=1 at Dh=64, gemma3-4b's heads with its 1024-row
+   window over a 2048-row cache, positions on both sides of it); the
    split counters all 0 after each call, a repeated call bit-identical,
    and one ``ops.flash_decode`` call one kernel event in a profiler
    window;
@@ -50,7 +53,8 @@ Phases, each printed on its own line:
    dead table columns naming a NaN scratch page, Sq 1 and 4, no window
    and 256, one and the default split count, a kv_len cut below the
    horizon; against the dense kernel on the same logical cache; and the
-   Dh=256 and 64-packed-row shapes of phase 3; partials and finished
+   Dh=256 and 64-packed-row shapes of phase 3 and its family shapes
+   (pages of 16, also against the dense kernel); partials and finished
    output, counters, repeats and one ``ops.flash_decode_paged`` event as
    in phase 3;
 3b. the flash-attention kernel against its plain version at yi-9b
@@ -123,6 +127,29 @@ Phases, each printed on its own line:
    kernel events, bar the profiler's known drops); the
    ``kernels`` JSON line (all 20 kernels, phase 2a's among them) comes
    last but one.
+5e. (after phase 6's trace phases, the yi-9b engines freed) gemma3-4b
+   at its published width and depth (34 layers, 5 x 6 + a tail of 4,
+   a 1024-row window in 29 of them, Dh=256, a tied 262144-row head;
+   random weights from a seeded generator on the card) through the
+   dense ``ServeEngine``: 8 slots, a 2048-row horizon, 8-token chunks,
+   its 16 graphs captured first; 16 greedy requests of 1100-1900-token
+   prompts, 32-64 new tokens each. Prints tok/s, prefill s, ms a step
+   beside the step's bound (weights and the run's live K and V rows
+   over the HBM rate), and fails unless every decode launch is a
+   ``flash_decode`` writing the step's rows (34 x steps) and the
+   standalone writer never ran. One decode step's logits through the
+   kernels against ``impl="ref"`` at positions past the window, and 4
+   requests of 16 tokens graphed against eager, byte-identical;
+5f. one gemma3-4b decode step through ``flash_decode_paged`` (page 16)
+   against the dense kernel on the same prompts past the window; then
+   a trace phase of the gemma3-4b engine (device busy, idle share,
+   time by kernel group) as phase 6's;
+5g. qwen2-vl-7b (QKV bias, M-RoPE with distinct 3-D prefill positions,
+   G=7), minitron-8b (squared ReLU, Hkv=8) and musicgen-large (random
+   frame embeddings, sinusoidal positions, G=1, Dh=64) at full width
+   and depth: 8 slots prefilled, then 4 decode steps through the
+   kernels against their plain versions on a copy of the cache, logits
+   held as in phase 5 and the decode launches counted.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -181,7 +208,12 @@ LOGITS_SEEDS = (11, 12, 13)       # prompt sets beside the served prompts
 # products in fp32 in different orders over up to 2048 keys; the outputs
 # (weighted means of unit normals) agree to ~1e-6
 FLASH_F32_TOL = 1e-4
-PROFILE_ATTEMPTS = 3              # profiler windows before a timing fails
+PROFILE_ATTEMPTS = 3              # windows read under a bound before a
+                                  # timing fails
+#: profiler windows with no device event at all before a phase fails: a
+#: loss of the profiler's, not a reading (seen for up to 3 windows in a
+#: row at the fused-write phase's first window on an H100)
+EMPTY_WINDOWS = 8
 #: kinds of bound under which no reading can fall: the bytes of a working
 #: set that lives in device memory (far larger than the 50 MB L2), and
 #: any operation count. A bound of kind "l2" (the bytes of a working set
@@ -292,16 +324,18 @@ def profiled(torch, run, what: str, setup=None, counts=None,
     ``host`` its host API calls that put work on the card
     (:func:`runtime_calls`).
 
-    Rarely a profile on the card records no device event at all (seen
-    once on an H100); such a window is taken again, up to
-    ``PROFILE_ATTEMPTS`` windows in all, and said so. So is a window for
-    which ``faults(by_name, counts)``, when given, returns a non-empty
-    list of what is wrong with it (a reading under its bound; see
-    :func:`timed`), each named. If no window is free of both the phase
-    fails: there is no fallback to another clock.
+    Now and then a profile on the card records no device event at all;
+    such a window is taken again, up to ``EMPTY_WINDOWS`` of them, and
+    said so. So is a window for which ``faults(by_name, counts)``, when
+    given, returns a non-empty list of what is wrong with it (a reading
+    under its bound; see :func:`timed`), each named, up to
+    ``PROFILE_ATTEMPTS`` of them. Past either count the phase fails:
+    there is no fallback to another clock.
     """
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+    empty = faulty = 0
+    while empty < EMPTY_WINDOWS and faulty < PROFILE_ATTEMPTS:
+        attempt = empty + faulty + 1
         if setup is not None:
             setup()
         with profile(activities=[ProfilerActivity.CPU,
@@ -317,18 +351,19 @@ def profiled(torch, run, what: str, setup=None, counts=None,
         if sum(by_name.values()) <= 0:
             print(f"{what}: the profiler saw no device time in window "
                   f"{attempt}")
+            empty += 1
             continue
         wrong = faults(by_name, counts) if faults is not None else []
         if wrong:
             print(f"{what}: window {attempt} taken again: "
                   + "; ".join(wrong))
+            faulty += 1
             continue
         if attempt > 1:
             print(f"{what}: measured in window {attempt}")
         return by_name
-    raise PhaseError(f"{what}: no usable profiler window in "
-                     f"{PROFILE_ATTEMPTS} (none saw device time, or every "
-                     f"one read under a bound)")
+    raise PhaseError(f"{what}: no usable profiler window ({empty} saw no "
+                     f"device time, {faulty} read under a bound)")
 
 
 def timed(torch, fn, iters: int, warmup: int = 3, bound=None) -> float:
@@ -954,6 +989,13 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
 # (B, H, Hkv, Dh, Sq values) checked beside yi-9b's heads: gemma3-4b's
 # head_dim 256, and G = 16 (qwen3-moe-235b) at Sq = 4, 64 packed rows
 WIDE_DECODE_SHAPES = ((4, 8, 4, 256, (1, 4)), (2, 64, 4, 128, (1, 4)))
+#: the attention family's decode shapes at Sq = 1 in bf16, (B, H, Hkv,
+#: Dh, Skv, window): qwen2-vl-7b's G = 7, musicgen-large's MHA (G = 1)
+#: at Dh = 64, and gemma3-4b's heads with its 1024-row window over a
+#: 2048-row cache (slots' positions spread on both sides of the window)
+FAMILY_DECODE_SHAPES = ((8, 28, 4, 128, 2048, None),
+                        (8, 32, 32, 64, 2048, None),
+                        (8, 8, 4, 256, 2048, 1024))
 
 
 def finished_ok(torch, got, want_f32) -> tuple:
@@ -1133,13 +1175,26 @@ def phase_decode(torch, D, ops) -> float:
                         case(q, k, v, pos, window, bound, split_len, n,
                              f"H={h} Hkv={hkv} Dh={dh} {dtype} sq={sq} "
                              f"window={window}")
+    for b, h, hkv, dh, skv, window in FAMILY_DECODE_SHAPES:
+        k = torch.randn(b, skv, hkv, dh, generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn(b, skv, hkv, dh, generator=gen,
+                        device="cuda").bfloat16()
+        pos = torch.linspace(0, skv - 1, b, device="cuda").round().int()
+        q = torch.randn(b, 1, h, dh, generator=gen, device="cuda").bfloat16()
+        for ns in (1, None):
+            bound, split_len, n = D.split_plan(b, hkv, skv, 128, ns, None)
+            case(q, k, v, pos, window, bound, split_len, n,
+                 f"family H={h} Hkv={hkv} Dh={dh} sq=1 window={window}")
     print(f"decode kernel: {cases} cases vs plain version, max abs err "
           f"{worst:.3g} (tol {DECODE_TOL}, partials merged in fp32), "
           f"finished output {worst_fin:.3g} (fp32 within {DECODE_TOL}, "
           f"bf16 within one ulp + {DECODE_TOL}; counters 0 after every "
           f"call, repeats bit-identical), incl. occupancy bounds 512, 384 "
           f"and 301 of a 2048-row cache, Dh=256 and G*Sq=64 packed rows in "
-          f"bf16 and fp32")
+          f"bf16 and fp32, and in bf16 G=7 (H=28 Hkv=4 Dh=128), G=1 "
+          f"(H=Hkv=32 Dh=64) and a 1024-row window over 2048 rows at "
+          f"Dh=256")
     return worst_fin
 
 
@@ -1287,6 +1342,54 @@ def phase_fused_write(torch, D, ops, S_, K) -> None:
 
 # --- phase 5: full-width serving -------------------------------------------
 
+def serve_dense(torch, K, serve, cfg, params, reqs, label: str) -> tuple:
+    """Serve ``reqs`` through a dense 8-slot ``ServeEngine`` (a 2048-row
+    horizon, 8-token chunks, its 16 graphs captured first), launch counts
+    zeroed just before the run and read just after. Fails unless every
+    request got its tokens, in vocab, no dispatch captured a graph, no
+    slot was quarantined, and every decode launch was a ``flash_decode``
+    writing the step's rows (layers x steps) with no paged kernel and no
+    standalone writer. Prints tok/s, prefill s and ms a step. Returns
+    (engine, launches)."""
+    eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048, chunk=8,
+                            device="cuda")
+    capture_graphs(torch, eng, label)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = eng.stats()
+    steps = st["decode_tokens"]
+    n_tok = sum(len(v) for v in res.values())
+    check(sorted(res) == sorted(r.rid for r in reqs)
+          and all(len(res[r.rid]) == r.max_new_tokens for r in reqs),
+          f"{label}: not every request got its tokens")
+    check(all(int(v.min()) >= 0 and int(v.max()) < cfg.vocab_size
+              for v in res.values()), f"{label}: token id out of vocab")
+    check(len(eng.graphs.graphs) == 16,
+          f"{label}: a dispatch captured a graph")
+    check(st["quarantined"] == 0, f"{label}: non-finite logits quarantined")
+    print(f"{label}: {len(res)} requests, {n_tok} tokens in {wall:.2f} s = "
+          f"{n_tok / wall:.1f} tok/s; prefill {st['prefill_s']:.2f} s "
+          f"({st['prefill_dispatches']} dispatches), decode "
+          f"{st['decode_s']:.2f} s ({st['decode_dispatches']} dispatches, "
+          f"{steps} steps, {st['decode_s'] / steps * 1e3:.2f} ms/step)")
+    want = cfg.n_layers * steps
+    print(f"{label}: launches {launches} (expected flash_decode == "
+          f"kv_rows_in_decode == {cfg.n_layers} x {steps} = {want}, "
+          f"kv_row_update 0)")
+    print_step_launches(label, launches, steps)
+    check(launches["flash_decode"] == launches["kv_rows_in_decode"] == want
+          > 0 and launches["kv_row_update"] == 0
+          and launches["flash_decode_paged"] == 0,
+          f"{label}: launches {launches}, expected flash_decode and "
+          f"kv_rows_in_decode {want} each, no paged kernel and no "
+          f"standalone writer")
+    return eng, launches
+
+
 def phase_engine(torch, np, cfg_mod, M, K, serve):
     cfg = cfg_mod.get_config("yi-9b")
     t0 = time.perf_counter()
@@ -1302,39 +1405,7 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
     reqs = [serve.Request(f"r{i}", tuple(int(t) for t in
                                          rng.integers(0, cfg.vocab_size, n)), 64)
             for i, n in enumerate(lens)]
-    eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048, chunk=8,
-                            device="cuda")
-    capture_graphs(torch, eng, "engine")
-    K.reset_launches()
-    t0 = time.perf_counter()
-    res = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    st = eng.stats()
-    n_tok = sum(len(v) for v in res.values())
-    check(sorted(res) == sorted(r.rid for r in reqs)
-          and all(len(v) == 64 for v in res.values()),
-          "engine: not every request got its 64 tokens")
-    check(all(int(v.min()) >= 0 and int(v.max()) < cfg.vocab_size
-              for v in res.values()), "engine: token id out of vocab")
-    steps = st["decode_tokens"]
-    check(len(eng.graphs.graphs) == 16, "engine: a dispatch captured a graph")
-    print(f"engine: {len(res)} requests, {n_tok} tokens in {wall:.2f} s = "
-          f"{n_tok / wall:.1f} tok/s; prefill {st['prefill_s']:.2f} s "
-          f"({st['prefill_dispatches']} dispatches), decode "
-          f"{st['decode_s']:.2f} s ({st['decode_dispatches']} dispatches, "
-          f"{steps} steps, {st['decode_s'] / steps * 1e3:.2f} ms/step)")
-    print(f"engine: launches {launches} (expected flash_decode == "
-          f"kv_rows_in_decode == {cfg.n_layers} x {steps} = "
-          f"{cfg.n_layers * steps}, kv_row_update 0)")
-    print_step_launches("engine", launches, steps)
-    check(launches["flash_decode"] == launches["kv_rows_in_decode"]
-          == cfg.n_layers * steps > 0 and launches["kv_row_update"] == 0,
-          f"engine: launches {launches}, expected flash_decode and "
-          f"kv_rows_in_decode {cfg.n_layers * steps} each and no standalone "
-          f"writer")
-    check(st["quarantined"] == 0, "engine: non-finite logits quarantined")
+    eng, launches = serve_dense(torch, K, serve, cfg, params, reqs, "engine")
 
     # one decode step through the kernels against impl="ref", from the
     # served requests' first 8 prompts and from three more prompt sets
@@ -1392,7 +1463,13 @@ def print_step_launches(label: str, launches: dict, steps: int) -> None:
           "rows; the trace phase counts every kernel)")
 
 
-def _one_step_logits(torch, cfg, M, params, prompts) -> tuple:
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _one_step_logits(torch, cfg, M, params, prompts,
+                     label: str = "engine") -> tuple:
     """Prefill ``prompts`` into 8 slots of a 2048-row cache, then one
     decode step through the kernels and one with ``impl="ref"`` on a copy
     of the cache. Returns (max |diff| / max |logit|, argmax agreement)."""
@@ -1411,14 +1488,14 @@ def _one_step_logits(torch, cfg, M, params, prompts) -> tuple:
     pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                        device="cuda")
     kv_len = int(pos.max()) + 1
-    ref_cache = {"scan": {"0": {n: t.clone() for n, t in
-                                fresh["scan"]["0"].items()}}, "tail": {}}
+    ref_cache = _clone(fresh)
     lk, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
                          cache=fresh, pos=pos, impl="auto", kv_len=kv_len)
+    del fresh
     lr, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
                          cache=ref_cache, pos=pos, impl="ref", kv_len=kv_len)
     lk, lr = lk.float(), lr.float()
-    check(bool(torch.isfinite(lk).all()), "engine: non-finite logits")
+    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
     rel = ((lk - lr).abs().max() / lr.abs().max()).item()
     agree = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
     return rel, agree
@@ -1733,10 +1810,49 @@ def phase_paged_decode(torch, D, ops) -> float:
                         f"paged decode {what}"))
                     worst = max(worst, err)
                     cases += 1
+    # the attention family's shapes, pages of 16, against the plain
+    # version and against the dense kernel on the same logical cache
+    for b, h, hkv, dh, skv, window in FAMILY_DECODE_SHAPES:
+        ps = 16
+        kd = torch.randn(b, skv, hkv, dh, generator=gen,
+                         device="cuda").bfloat16()
+        vd = torch.randn(b, skv, hkv, dh, generator=gen,
+                         device="cuda").bfloat16()
+        kp, vp, table = _paged_pools(torch, kd, vd, ps, gen)
+        pos = torch.linspace(0, skv - 1, b, device="cuda").round().int()
+        q = torch.randn(b, 1, h, dh, generator=gen, device="cuda").bfloat16()
+        what = f"family H={h} Hkv={hkv} Dh={dh} sq=1 window={window}"
+        for ns in (1, None):
+            bound, split_len, n = D.paged_split_plan(b, hkv, ps,
+                                                     table.shape[1], ns)
+            kw = dict(window=window, split_len=split_len, n_splits=n,
+                      bound=bound)
+            got = D.combine_splits(*D.decode_paged_partials(
+                q, kp, vp, table, pos, impl="cuda", **kw))
+            want = D.combine_splits(*D.decode_paged_partials(
+                q, kp, vp, table, pos, impl="ref", **kw))
+            err = (got - want).abs().max().item()
+            check(err <= DECODE_TOL, f"paged decode: max err {err:.3g} > "
+                  f"{DECODE_TOL} at {what} n_splits={n}")
+            worst_fin = max(worst_fin, check_finished(
+                torch, D, lambda: D.decode_paged_finished(
+                    q, kp, vp, table, pos, impl="cuda", **kw), want,
+                f"paged decode {what} n_splits={n}"))
+            worst = max(worst, err)
+            cases += 1
+        b_, sl, nd = D.split_plan(b, hkv, skv, 128, None, None)
+        dense = D.combine_splits(*D.decode_partials(
+            q, kd, vd, pos, window=window, split_len=sl, n_splits=nd,
+            bound=b_, impl="cuda"))
+        err = (got - dense).abs().max().item()
+        check(err <= DECODE_TOL, f"paged decode vs dense kernel: {err:.3g} "
+              f"> {DECODE_TOL} at {what}")
+        worst_dense = max(worst_dense, err)
     print(f"paged decode kernel: {cases} cases vs plain version (pages 8, "
           f"16, 256; permuted tables, dead columns on a NaN scratch page; "
           f"Sq 1/4; window none/256; one/default splits; a kv_len cut; "
-          f"Dh=256 and G*Sq=64 in bf16 and fp32), max "
+          f"Dh=256 and G*Sq=64 in bf16 and fp32; in bf16 G=7, G=1 at "
+          f"Dh=64 and a 1024-row window over 2048 rows at Dh=256), max "
           f"abs err {worst:.3g}; vs the dense kernel on the same logical "
           f"cache {worst_dense:.3g} (tol {DECODE_TOL}, partials merged in "
           f"fp32); finished output {worst_fin:.3g} (fp32 within "
@@ -2082,6 +2198,218 @@ def phase_graph_parity(torch, np, serve, cfg, params) -> None:
                   f" ({n_tok} tokens{', a fork' if paged else ''} and a "
                   f"cancel) byte-identical, graphed vs eager, kv_len "
                   f"buckets {buckets}")
+
+
+# --- phases 5e-5g: the attention family at full width ----------------------
+
+#: gemma3-4b's served requests: prompt lengths (past its 1024-row window,
+#: so that its 29 local layers mask at decode) and new tokens a request,
+#: as [low, high) ranges
+GEMMA_PROMPT_LENS = (1100, 1901)
+GEMMA_NEW = (32, 65)
+#: graphed against eager: requests and new tokens each
+GEMMA_PARITY = (4, 16)
+#: phase 5g: the configs held at full width through ``forward``, the
+#: decode steps each takes, its slots and horizon, and its prompt lengths
+FAMILY_FORWARD = ("qwen2-vl-7b", "minitron-8b", "musicgen-large")
+FAMILY_STEPS = 4
+FAMILY_SLOTS, FAMILY_HORIZON = 8, 1024
+FAMILY_PROMPT_LENS = (300, 901)
+
+
+def kv_read_bytes(cfg, pos: int) -> int:
+    """Bytes of K and V one slot's decode step at ``pos`` needs: rows
+    ``0 .. pos`` of a global layer, the last ``sliding_window`` of them
+    in a local one."""
+    row = 2 * cfg.n_kv_heads * cfg.head_dim_eff * 2        # K and V, bf16
+    return row * sum(min(pos + 1, cfg.sliding_window)
+                     if blk.startswith("attn_local:") else pos + 1
+                     for blk in cfg.layer_plan())
+
+
+def phase_gemma_engine(torch, np, cfg_mod, M, K, serve):
+    """5e: gemma3-4b at its published width and depth through the dense
+    ``ServeEngine`` with its graphs captured first; then one decode step
+    through the kernels against ``impl="ref"`` past the window, and
+    graphed against eager streams. Returns (engine, requests)."""
+    cfg = cfg_mod.get_config("gemma3-4b")
+    label = "gemma3-4b engine"
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_rep, unit, n_tail = cfg.scan_split()
+    n_local = sum(b.startswith("attn_local:") for b in cfg.layer_plan())
+    print(f"{label}: {cfg.n_layers} layers ({n_rep} x {unit} + a tail of "
+          f"{n_tail}), d_model {cfg.d_model}, H {cfg.n_heads} Hkv "
+          f"{cfg.n_kv_heads} Dh {cfg.head_dim_eff}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} tied, a {cfg.sliding_window}-row window in "
+          f"{n_local} layers; {n_params / 1e9:.3f} B params bf16, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(22)
+    lens = rng.integers(*GEMMA_PROMPT_LENS, size=16)
+    news = rng.integers(*GEMMA_NEW, size=16)
+    reqs = [serve.Request(f"m{i}", tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)), int(m)) for i, (n, m) in
+        enumerate(zip(lens, news))]
+    eng, _ = serve_dense(torch, K, serve, cfg, params, reqs, label)
+    st = eng.stats()
+    steps = st["decode_tokens"]
+    ms_step = st["decode_s"] / steps * 1e3
+    w_bytes = n_params * 2
+    kv_bytes = sum(kv_read_bytes(cfg, p) for r in reqs for p in range(
+        len(r.prompt), len(r.prompt) + r.max_new_tokens - 1)) / steps
+    bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"{label}: prompts of {lens.min()}-{lens.max()} tokens, "
+          f"{news.min()}-{news.max()} new each; bound {bound_ms:.2f} "
+          f"ms/step ({w_bytes / 1e9:.2f} GB of weights and "
+          f"{kv_bytes / 1e9:.3f} GB of live K and V rows a step, the run's "
+          f"mean, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); the step takes "
+          f"{ms_step / bound_ms:.2f}x its bound")
+    # one decode step through the kernels against impl="ref", every slot
+    # past the window
+    prompts = [r.prompt for r in reqs[:8]]
+    check(min(map(len, prompts)) > cfg.sliding_window,
+          f"{label}: a prompt inside the window")
+    rel, agree = _one_step_logits(torch, cfg, M, params, prompts, label)
+    print(f"{label}: one decode step at positions {min(map(len, prompts))}"
+          f"-{max(map(len, prompts))} (past the {cfg.sliding_window}-row "
+          f"window), kernels vs impl='ref', max |diff| / max |logit| "
+          f"{rel:.4g} (greedy argmax agreement {agree:.3f}); tol "
+          f"{LOGITS_REL_TOL}")
+    check(rel <= LOGITS_REL_TOL, f"{label}: kernel logits vs impl='ref' "
+          f"rel err {rel:.3g} > {LOGITS_REL_TOL}")
+    # the graphed chunk against the eager one
+    n, new = GEMMA_PARITY
+    par = [serve.Request(f"q{i}", r.prompt, new)
+           for i, r in enumerate(reqs[:n])]
+    got = eng.run(par)
+    eager = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048,
+                              chunk=8, device="cuda", cuda_graphs=False)
+    want_ = eager.run(par)
+    del eager
+    torch.cuda.empty_cache()
+    same = got.keys() == want_.keys() and all(
+        np.asarray(got[r], np.int32).tobytes()
+        == np.asarray(want_[r], np.int32).tobytes() for r in got)
+    check(same, f"{label}: graphed streams differ from eager")
+    check(len(eng.graphs.graphs) == 16, f"{label}: a dispatch captured a "
+          f"graph")
+    print(f"{label}: parity: {n} greedy streams of {new} tokens "
+          f"byte-identical, graphed vs eager")
+    return eng, reqs
+
+
+def phase_gemma_paged(torch, M, K, PG, eng, reqs) -> None:
+    """5f: one gemma3-4b decode step through ``flash_decode_paged`` (page
+    16, a shuffled table) against the dense kernel, on 8 of the served
+    prompts, past the window."""
+    cfg = eng.cfg
+    K.reset_launches()
+    rel, agree = _paged_vs_dense_logits(torch, cfg, M, PG, eng.params,
+                                        [r.prompt for r in reqs[:8]])
+    launches = dict(K.LAUNCHES)
+    check(launches["flash_decode_paged"] == launches["flash_decode"]
+          == cfg.n_layers and launches["kv_rows_in_decode"]
+          == 2 * cfg.n_layers,
+          f"gemma3-4b paged: launches {launches}, expected "
+          f"{cfg.n_layers} of each decode kernel")
+    print(f"gemma3-4b paged: one decode step, paged kernel (page 16) vs "
+          f"dense kernel on the same 8 prompts past the window, max |diff| "
+          f"/ max |logit| {rel:.4g} (greedy argmax agreement {agree:.3f}); "
+          f"tol {LOGITS_REL_TOL}; launches flash_decode_paged "
+          f"{launches['flash_decode_paged']}, flash_decode "
+          f"{launches['flash_decode']}")
+    check(rel <= LOGITS_REL_TOL, f"gemma3-4b paged: paged vs dense logits "
+          f"{rel:.3g} > {LOGITS_REL_TOL}")
+
+
+def family_batch(torch, np, cfg, rng, b: int, s: int,
+                 positions: bool = False) -> dict:
+    """A forward's inputs on the card: token ids, or unit-normal
+    embeddings for a model without a token embedding; with
+    ``positions``, an M-RoPE model's distinct (3, B, S) temporal, height
+    and width ids (a 16-wide grid)."""
+    if cfg.embed_inputs:
+        batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                     (b, s)), device="cuda")}
+    else:
+        batch = {"embeds": torch.tensor(rng.standard_normal(
+            (b, s, cfg.d_model)), dtype=torch.float32, device="cuda")}
+    if positions and cfg.rope_kind == "mrope":
+        t = np.arange(s)
+        grid = np.stack([t, t // 16, t % 16])
+        batch["positions"] = torch.tensor(
+            np.broadcast_to(grid[:, None], (3, b, s)).copy(),
+            dtype=torch.int32, device="cuda")
+    return batch
+
+
+def phase_family_forward(torch, np, cfg_mod, M, K) -> None:
+    """5g: qwen2-vl-7b, minitron-8b and musicgen-large at full width and
+    depth: 8 slots prefilled one by one (qwen2-vl with distinct 3-D
+    positions, musicgen from random embeddings), then ``FAMILY_STEPS``
+    decode steps through the kernels (``impl="auto"``) and through their
+    plain versions (``impl="ref"``) on a copy of the cache, on the same
+    inputs; logits held as in phase 5."""
+    from repro_torch.serve.slots import insert
+    for i, arch in enumerate(FAMILY_FORWARD):
+        cfg = cfg_mod.get_config(arch)
+        t0 = time.perf_counter()
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(30 + i), "cuda")
+        n_params = sum(t.numel() for t in _leaves(params))
+        rng = np.random.default_rng(40 + i)
+        lens = rng.integers(*FAMILY_PROMPT_LENS, size=FAMILY_SLOTS)
+        cache = M.init_cache(cfg, FAMILY_SLOTS, FAMILY_HORIZON, "cuda")
+        for slot, n in enumerate(lens):
+            _, _, one = M.forward(cfg, params, family_batch(
+                torch, np, cfg, rng, 1, int(n), positions=True),
+                mode="prefill", cache_len=FAMILY_HORIZON)
+            insert(cache, one, slot)
+        del one
+        ref = _clone(cache)
+        pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        K.reset_launches()
+        worst, agree = 0.0, []
+        for _ in range(FAMILY_STEPS):
+            batch = family_batch(torch, np, cfg, rng, FAMILY_SLOTS, 1)
+            kv_len = int(pos.max()) + 1
+            lk = M.forward(cfg, params, batch, mode="decode", cache=cache,
+                           pos=pos, impl="auto", kv_len=kv_len)[0].float()
+            lr = M.forward(cfg, params, batch, mode="decode", cache=ref,
+                           pos=pos, impl="ref", kv_len=kv_len)[0].float()
+            check(bool(torch.isfinite(lk).all()), f"{arch}: non-finite "
+                  f"logits")
+            worst = max(worst, ((lk - lr).abs().max()
+                                / lr.abs().max()).item())
+            agree.append((lk.argmax(-1) == lr.argmax(-1)).float().mean())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = cfg.n_layers * FAMILY_STEPS
+        check(launches["flash_decode"] == launches["kv_rows_in_decode"]
+              == want, f"{arch}: launches {launches}, expected flash_decode "
+              f"{want}")
+        g = cfg.n_heads // cfg.n_kv_heads
+        inputs = "token ids" if cfg.embed_inputs else "embeddings"
+        print(f"family: {arch} at full width and depth ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, H {cfg.n_heads} Hkv "
+              f"{cfg.n_kv_heads} (G={g}) Dh {cfg.head_dim_eff}, ffn "
+              f"{cfg.ffn_act}, rope {cfg.rope_kind}, qkv_bias "
+              f"{cfg.qkv_bias}, {inputs}"
+              f"; {n_params / 1e9:.3f} B params bf16): {FAMILY_SLOTS} slots "
+              f"prefilled at {lens.min()}-{lens.max()} tokens, "
+              f"{FAMILY_STEPS} decode steps, kernels vs impl='ref' max "
+              f"|diff| / max |logit| {worst:.4g} (greedy argmax agreement "
+              f"{float(sum(agree) / len(agree)):.3f}); tol {LOGITS_REL_TOL}; "
+              f"flash_decode launches {launches['flash_decode']}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(worst <= LOGITS_REL_TOL, f"{arch}: kernel logits vs "
+              f"impl='ref' rel err {worst:.3g} > {LOGITS_REL_TOL}")
+        del params, cache, ref
+        torch.cuda.empty_cache()
 
 
 def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
@@ -2476,6 +2804,14 @@ def main() -> int:
     phase_trace(torch, serve, peng,
                 paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256,
                                256, 64), "paged trace")
+    del eng, peng
+    torch.cuda.empty_cache()
+    geng, greqs = phase_gemma_engine(torch, np, cfg_mod, M, K, serve)
+    phase_gemma_paged(torch, M, K, PG, geng, greqs)
+    phase_trace(torch, serve, geng, greqs, "gemma3-4b trace")
+    del geng
+    torch.cuda.empty_cache()
+    phase_family_forward(torch, np, cfg_mod, M, K)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` returns
 the exact published configuration, ``get_smoke_config`` the reduced
-same-family one. Only the architectures the port serves are listed."""
+same-family one. Only the architectures the port runs are listed."""
 
 from __future__ import annotations
 
@@ -10,6 +10,11 @@ from repro_torch.configs.base import ModelConfig, smoke_config
 
 ARCH_MODULES = {
     "yi-9b": "yi_9b",
+    "gemma3-4b": "gemma3_4b",
+    "minitron-8b": "minitron_8b",
+    "qwen1.5-110b": "qwen15_110b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

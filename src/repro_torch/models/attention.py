@@ -67,20 +67,23 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
     g = h // hkv
     q_chunk = min(q_chunk, s)
     kv_chunk = min(kv_chunk, s)
-    if s % q_chunk or s % kv_chunk:
-        # pad to a chunk multiple; padded keys are in the future of every
-        # real query (masked) and padded query rows are sliced off
-        lcm = q_chunk * kv_chunk // math.gcd(q_chunk, kv_chunk)
-        sp = ((s + lcm - 1) // lcm) * lcm
-        pad = (0, 0, 0, 0, 0, sp - s)
-        out = chunked_causal_attention(
-            F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
-            q_chunk=q_chunk, kv_chunk=kv_chunk, window=window)
-        return out[:, :s]
+    # pad the queries to whole q chunks and the keys to the whole kv
+    # chunks the last q chunk reaches; padded keys are in the future of
+    # every real query (masked) and padded query rows are sliced off.
+    # Each real query sees the chunks that the JAX package's padding to a
+    # multiple of both chunk sizes gives it, without the rows past them
+    # (that multiple is 38400 rows at S = 600 with the default chunks).
+    n_q = -(-s // q_chunk)
+    s_kv = -(-n_q * q_chunk // kv_chunk) * kv_chunk
+    if n_q * q_chunk > s:
+        q = F.pad(q, (0, 0, 0, 0, 0, n_q * q_chunk - s))
+    if s_kv > s:
+        k = F.pad(k, (0, 0, 0, 0, 0, s_kv - s))
+        v = F.pad(v, (0, 0, 0, 0, 0, s_kv - s))
     dev = q.device
     scale = 1.0 / math.sqrt(dh)
     outs = []
-    for i in range(s // q_chunk):
+    for i in range(n_q):
         qi = q[:, i * q_chunk:(i + 1) * q_chunk]
         qi_g = qi.reshape(b, q_chunk, hkv, g, dh) * scale
         qpos = i * q_chunk + torch.arange(q_chunk, device=dev)
@@ -110,7 +113,7 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
         o = acc / l.clamp_min(1e-30)[..., None]               # (B,Hkv,G,qc,Dh)
         o = o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, dh)
         outs.append(o.to(q.dtype))
-    return torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1)[:, :s]
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,

@@ -1,8 +1,10 @@
 """Core neural layers (counterpart of ``repro/models/layers.py``): RMSNorm,
-SwiGLU, dense MLPs and rotary embeddings, as pure functions over explicit
-parameter dicts."""
+SwiGLU, dense MLPs, rotary embeddings (RoPE and M-RoPE) and sinusoidal
+position embeddings, as pure functions over explicit parameter dicts."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +54,31 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+#: M-RoPE's temporal:height:width split of the rotary half dimension
+MROPE_SECTIONS = (2, 3, 3)
+
+
+def mrope_tables(positions_3d: torch.Tensor, head_dim: int, theta: float):
+    """M-RoPE (Qwen2-VL) (cos, sin) of shape (B, S, 1, head_dim//2).
+
+    ``positions_3d`` (3, B, S) holds the temporal, height and width
+    position ids. The half dimension splits into :data:`MROPE_SECTIONS`
+    (in 8ths of it, the last section taking the rest) and each section's
+    frequencies turn by its own stream of positions.
+    """
+    half = head_dim // 2
+    total = sum(MROPE_SECTIONS)
+    sizes = [half * s // total for s in MROPE_SECTIONS]
+    sizes[-1] = half - sum(sizes[:-1])
+    freqs = rope_freqs(head_dim, theta, positions_3d.device)
+    parts, off = [], 0
+    for stream, size in zip(positions_3d, sizes):
+        parts.append(stream[..., None].float() * freqs[off:off + size])
+        off += size
+    angles = torch.cat(parts, dim=-1)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
 def rotate(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
     """Rotate (first half, second half) pairs of ``x`` by the tables."""
@@ -68,3 +95,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x: (..., S, H, Dh); positions: broadcastable to (..., S) integers.
     """
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_embedding(positions: torch.Tensor, dim: int,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """Absolute sinusoidal position embedding ``[cos | sin]``, (..., dim)
+    fp32, for integer ``positions`` (...) (musicgen-family backbone)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.cos(angles), torch.sin(angles)], dim=-1)

@@ -3,16 +3,19 @@ and cache tables, initialization, and the prefill/decode forward pass
 for attention blocks with dense FFNs.
 
 Parameters live in a plain dict with the JAX tree's names and layouts:
-``tok_embed (V,d)``, ``scan/<j>/{ln1, mixer/{wq (d,H,Dh), wk/wv
-(d,Hkv,Dh), wo (H,Dh,d)}, ln2, ffn/{w_gate, w_up (d,F), w_down (F,d)}}``
+``tok_embed (V,d)`` (token-id models only), ``scan/<j>/{ln1, mixer/{wq
+(d,H,Dh), wk/wv (d,Hkv,Dh), wo (H,Dh,d)[, bq (H,Dh), bk/bv (Hkv,Dh)][,
+q_norm/k_norm (Dh,)]}, ln2, ffn/{w_gate, w_up (d,F), w_down (F,d)}}``
 with a leading layer axis on every ``scan`` leaf, ``tail/<i>/...``,
 ``final_norm`` and ``lm_head (d,V)``. The cache mirrors it:
 ``scan/<j>/{k, v}`` of shape (L, B, S, Hkv, Dh). The JAX layer scan
 becomes a loop over the stacked leaves.
 
 Only ``attn``/``attn_local`` mixers with ``dense`` (or no) FFNs are
-ported; other block kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+ported, with every attention switch of the config (QKV bias, q/k
+RMSNorm, RoPE, M-RoPE, sinusoidal or no positions, embedding inputs);
+other block kinds raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class ParamDef:
 
     shape: tuple
     axes: tuple
-    init: str = "normal"     # normal|ones|embed
+    init: str = "normal"     # normal|zeros|ones|embed
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -56,14 +59,6 @@ def _check_ported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: block {blk!r} is not ported; see "
                     f"{_NOT_PORTED[part]}")
-    other = {"qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
-             "rope_kind != 'rope'": cfg.rope_kind != "rope",
-             "embed_inputs=False": not cfg.embed_inputs}
-    for what, on in other.items():
-        if on:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported; see ROADMAP queue 1 "
-                "item 2 (attention-family model)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,12 +67,20 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def _attn_defs(cfg: ModelConfig) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
-    return {
+    p = {
         "wq": ParamDef((d, h, dh), ("embed", "qheads", None)),
         "wk": ParamDef((d, hkv, dh), ("embed", "kvheads", None)),
         "wv": ParamDef((d, hkv, dh), ("embed", "kvheads", None)),
         "wo": ParamDef((h, dh, d), ("qheads", None, "embed")),
     }
+    if cfg.qkv_bias:
+        p["bq"] = ParamDef((h, dh), ("qheads", None), "zeros")
+        p["bk"] = ParamDef((hkv, dh), ("kvheads", None), "zeros")
+        p["bv"] = ParamDef((hkv, dh), ("kvheads", None), "zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = ParamDef((dh,), (None,), "ones")
+        p["k_norm"] = ParamDef((dh,), (None,), "ones")
+    return p
 
 
 def _ffn_defs(cfg: ModelConfig) -> dict:
@@ -105,8 +108,10 @@ def model_defs(cfg: ModelConfig) -> dict:
     _check_ported(cfg)
     plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()
-    defs = {"tok_embed": ParamDef((cfg.vocab_size, cfg.d_model),
-                                  ("vocab", "embed"), "embed")}
+    defs = {}
+    if cfg.embed_inputs:
+        defs["tok_embed"] = ParamDef((cfg.vocab_size, cfg.d_model),
+                                     ("vocab", "embed"), "embed")
     if n_rep > 0:
         defs["scan"] = {str(j): block_defs(cfg, plan[j]) for j in range(unit)}
     defs["tail"] = {str(i): block_defs(cfg, plan[n_rep * unit + i])
@@ -170,18 +175,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Materialize parameters with the JAX package's init rule.
 
     Normal leaves are N(0, std^2) with std from the fan-in (0.02 for the
-    embedding), ``ln`` and norm leaves are ones. Numbers come from
-    ``generator`` (which must live on ``device``), leaf by leaf in sorted
-    tree order and layer by layer, so a seed fixes the weights; they are
-    not the JAX package's numbers (use ``bridge.params_from_jax`` for
-    those).
+    embedding), ``ln`` and norm leaves are ones, biases zeros. Numbers
+    come from ``generator`` (which must live on ``device``), leaf by leaf
+    in sorted tree order and layer by layer, so a seed fixes the weights;
+    they are not the JAX package's numbers (use ``bridge.params_from_jax``
+    for those).
     """
     dtype = DTYPES[cfg.param_dtype]
     out: dict = {"tail": {}}
     for path, d, stack in _stacked(model_defs(cfg), cfg):
         shape = ((stack,) + d.shape) if stack else d.shape
-        if d.init == "ones":
-            leaf = torch.ones(shape, dtype=dtype, device=device)
+        if d.init in ("ones", "zeros"):
+            fill = torch.ones if d.init == "ones" else torch.zeros
+            leaf = fill(shape, dtype=dtype, device=device)
         else:
             std = _init_std(d)
             leaf = torch.empty(shape, dtype=dtype, device=device)
@@ -224,19 +230,29 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _project(x, w):
-    """x: (B,S,d) @ w: (d,H,Dh) -> (B,S,H,Dh)."""
+def _project(x, w, b=None):
+    """x: (B,S,d) @ w: (d,H,Dh) [+ b: (H,Dh)] -> (B,S,H,Dh).
+
+    The bias is a separate add after the product has been rounded to
+    x's dtype, as JAX's einsum then ``+ b`` rounds it (a fused ``addmm``
+    would round once)."""
     d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    y = (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    return y if b is None else y + b
 
 
 def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
                 rope, cache, pos, cache_len, impl: str, kv_len,
                 store_flavor, block_tables):
     b, s, _ = x.shape
-    q = L.rotate(_project(x, p["wq"]), *rope)
-    k = L.rotate(_project(x, p["wk"]), *rope)
-    v = _project(x, p["wv"])
+    q = _project(x, p["wq"], p.get("bq"))
+    k = _project(x, p["wk"], p.get("bk"))
+    v = _project(x, p["wv"], p.get("bv"))
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope is not None:
+        q, k = L.rotate(q, *rope), L.rotate(k, *rope)
     window = cfg.sliding_window if local else None
     new_cache = None
     if mode == "decode":
@@ -308,7 +324,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             block_tables: torch.Tensor | None = None):
     """Run the model; returns ``(logits, aux, cache)``.
 
-    batch: ``{"tokens": (B, S) integer tensor}``.
+    batch: ``{"tokens": (B, S) integer tensor}``, or ``{"embeds": (B, S,
+    d)}`` for a model with ``embed_inputs=False`` (cast to the parameter
+    dtype); optionally ``"positions"``, (B, S) integers, or (3, B, S) for
+    M-RoPE. Without them a prefill runs at ``0 .. S-1`` and a decode step
+    at ``pos``, on every M-RoPE stream alike.
     mode: ``"prefill"`` builds a fresh cache from the prompt, preallocated
           at ``cache_len`` rows when given, and returns only the last
           position's logits (B, 1, V);
@@ -330,19 +350,37 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (expected 'prefill' or "
-                         "'decode')")
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    dev = tokens.device
-    x = params["tok_embed"][tokens].to(DTYPES[cfg.param_dtype])
+                         "'decode'; the training forward is ROADMAP queue 1 "
+                         "item 7)")
+    dtype = DTYPES[cfg.param_dtype]
+    if cfg.embed_inputs:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = params["tok_embed"][tokens].to(dtype)
+    else:
+        x = batch["embeds"].to(dtype)
+        b, s, _ = x.shape
+    dev = x.device
     if mode == "decode":
         if s != 1:
             raise ValueError(f"decode takes one token per slot, got {s}")
         pos = pos_vector(pos, b, dev)
-        positions = pos[:, None]
+    if "positions" in batch:
+        positions = batch["positions"]
     else:
-        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    rope = L.rope_tables(positions, cfg.head_dim_eff, cfg.rope_theta)
+        positions = pos[:, None] if mode == "decode" else \
+            torch.arange(s, device=dev)[None, :].expand(b, s)
+        if cfg.rope_kind == "mrope":
+            positions = positions.expand(3, b, s)
+    rope = None
+    if cfg.rope_kind == "rope":
+        rope = L.rope_tables(positions, cfg.head_dim_eff, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        rope = L.mrope_tables(positions, cfg.head_dim_eff, cfg.rope_theta)
+    elif cfg.rope_kind == "sinusoidal":
+        pe = L.sinusoidal_embedding(
+            positions if positions.ndim == 2 else positions[0], cfg.d_model)
+        x = x + pe.to(x.dtype)
 
     plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()

@@ -80,6 +80,22 @@ def test_timed_fails_when_every_window_reads_under(monkeypatch):
                          bound=("flash_attention", 34.76, "operations"))
 
 
+def test_timed_retakes_empty_windows_apart_from_readings(monkeypatch,
+                                                         capsys):
+    """Windows that saw no device time are the profiler's loss: they are
+    retaken up to EMPTY_WINDOWS of them, beside the PROFILE_ATTEMPTS
+    readings under a bound."""
+    n = chip_smoke.EMPTY_WINDOWS - 1
+    torch = _windows(monkeypatch, [0.0] * n + [313.8, 335.2])
+    ms = chip_smoke.timed(torch, lambda: None, 4, warmup=0,
+                          bound=("init_nt", 320.5, "hbm"))
+    assert ms == pytest.approx(0.3352)
+    assert f"measured in window {n + 2}" in capsys.readouterr().out
+    torch = _windows(monkeypatch, [0.0] * chip_smoke.EMPTY_WINDOWS)
+    with pytest.raises(chip_smoke.PhaseError, match="saw no device time"):
+        chip_smoke.timed(torch, lambda: None, 4, warmup=0)
+
+
 def test_timed_keeps_a_reading_under_a_bound_that_is_no_floor(monkeypatch):
     torch = _windows(monkeypatch, [3.29])
     ms = chip_smoke.timed(torch, lambda: None, 4, warmup=0,
@@ -239,3 +255,18 @@ def test_runtime_calls_read_only_host_api_events():
                      "cudaLaunchKernel": 1}
     assert chip_smoke.host_launches(calls) == {"kernel": 1, "graph": 1,
                                                "copy": 4}
+
+
+def test_kv_read_bytes_windows_local_layers():
+    """gemma3-4b: a K and V row is 4 KiB (4 KV heads x 256 x 2 x bf16);
+    the 5 global layers read rows 0..pos, the 29 local ones at most the
+    1024-row window; yi-9b (no local layers) reads pos + 1 rows a layer."""
+    from repro_torch.configs import get_config
+    gemma = get_config("gemma3-4b")
+    row = 4 * 256 * 2 * 2
+    assert chip_smoke.kv_read_bytes(gemma, 99) == 34 * 100 * row
+    assert chip_smoke.kv_read_bytes(gemma, 1023) == 34 * 1024 * row
+    assert chip_smoke.kv_read_bytes(gemma, 1499) == \
+        (5 * 1500 + 29 * 1024) * row
+    yi = get_config("yi-9b")
+    assert chip_smoke.kv_read_bytes(yi, 1499) == 48 * 1500 * 4 * 128 * 4

@@ -46,6 +46,17 @@ def cuda():
     return torch.device("cuda")
 
 
+#: the attention family's decode shapes, (b, skv, h, hkv, dh, sq, window,
+#: n_splits): qwen2-vl-7b's G=7 (28 query heads over 4), musicgen-large's
+#: MHA (G=1) at Dh=64, and gemma3-4b's heads with its 1024-row window over
+#: a 2048-row cache, slots' positions on both sides of the window
+FAMILY_DECODE_SHAPES = [
+    (8, 1024, 28, 4, 128, 1, None, None),
+    (8, 1024, 32, 32, 64, 1, None, None),
+    (8, 2048, 8, 4, 256, 1, 1024, None),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,skv,h,hkv,dh,sq,window,ns", [
     (2, 77, 4, 2, 32, 1, None, 3),      # smoke shapes, ragged, dead splits
@@ -63,7 +74,8 @@ def cuda():
 ] + [
     # more than 32 packed rows (groups of 32): G=16 at Sq 1-4, G=8 at Sq 8
     (3, 200, 32, 2, 128, sq, None, None) for sq in (1, 2, 3, 4)
-] + [(3, 200, 32, 2, 128, 4, 40, None), (3, 200, 16, 2, 128, 8, None, None)])
+] + [(3, 200, 32, 2, 128, 4, 40, None), (3, 200, 16, 2, 128, 8, None, None)]
+  + FAMILY_DECODE_SHAPES)
 def test_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh, sq,
                                      window, ns):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -210,6 +222,31 @@ def test_engine_on_card_matches_cpu(cuda):
         assert out["cpu"][r.rid].tolist() == out[cuda][r.rid].tolist()
 
 
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-vl-7b"])
+def test_family_engine_on_card_matches_cpu(cuda, arch, paged):
+    """Smoke fp32 engines of the attention family: gemma3-4b at 8 layers
+    (a 6-block unit and a tail of 2; local layers' window of 16 inside
+    the 64-row horizon) and qwen2-vl-7b (QKV bias, M-RoPE): the graphed
+    streams on the card equal the CPU engine's."""
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              n_layers=8 if arch == "gemma3-4b" else 2)
+    params = M.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    rng = np.random.default_rng(5)
+    reqs = [Request(str(i), tuple(int(t) for t in
+                                  rng.integers(0, cfg.vocab_size, n)), m)
+            for i, (n, m) in enumerate([(20, 30), (33, 12), (5, 1),
+                                        (18, 21)])]
+    to = lambda t, d: {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                       for k, v in t.items()}
+    cls, kw = (PagedServeEngine, dict(page_size=8)) if paged \
+        else (ServeEngine, {})
+    out = {d: cls(cfg, to(params, d), max_slots=2, max_len=64, chunk=3,
+                  device=d, **kw).run(reqs) for d in ("cpu", cuda)}
+    for r in reqs:
+        assert out["cpu"][r.rid].tolist() == out[cuda][r.rid].tolist()
+
+
 def _paged_layout(k, v, ps, gen, dead_to):
     """The slot caches k, v (B, S, Hkv, Dh) as page pools under a randomly
     permuted block table, with one extra pool page ``dead_to`` points
@@ -248,7 +285,8 @@ def _paged_layout(k, v, ps, gen, dead_to):
     (4, 300, 2 * g, 2, 256, sq, None, 16, 6) for g, sq in ((1, 1), (2, 2),
                                                            (4, 1), (8, 2))
 ] + [(3, 200, 32, 2, 128, sq, None, 16, None) for sq in (1, 4)]
-  + [(3, 200, 16, 2, 128, 8, 40, 16, None)])
+  + [(3, 200, 16, 2, 128, 8, 40, 16, None)]
+  + [shape[:7] + (16,) + shape[7:] for shape in FAMILY_DECODE_SHAPES])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, b, skv, h, hkv, dh,
                                            sq, window, ps, ns):
     g = torch.Generator(device=cuda).manual_seed(5)
