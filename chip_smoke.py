@@ -150,6 +150,37 @@ Phases, each printed on its own line:
    and depth: 8 slots prefilled, then 4 decode steps through the
    kernels against their plain versions on a copy of the cache, logits
    held as in phase 5 and the decode launches counted.
+5h. xlstm-125m at its published width and depth (12 layers, 6 mLSTM and
+   6 sLSTM, d_model 768; random weights from seed 23) through the dense
+   ``ServeEngine``: 8 slots, a 2048-row horizon, 8-token chunks, one
+   graph captured first (it reads no KV rows, so no ``kv_len`` bucket);
+   16 greedy requests of 128-512-token prompts, 64 new tokens each.
+   Prints tok/s, prefill s, ms a step beside its bound (the weights and
+   the recurrent state read and written, over the HBM rate); holds the
+   logits of greedy decode step 8 against a prefill of the prompt and
+   the 8 tokens decoded (4 slots), and 4 graphed against eager streams
+   byte-identical; then a trace phase as phase 6's;
+5i. one xlstm-125m ``PagedServeEngine`` round: 7 requests, the first
+   forked after its first chunk, its recurrent rows copied into the
+   clone's slot on the card (held equal) and the clone's greedy stream
+   equal to its parent's;
+5j. one jamba period at full width (8 layers: 7 Mamba and 1 attention,
+   4 MoE FFNs of 16 experts top-2 and 4 dense; 26.6 GB of bf16; the
+   published 32 layers do not fit one card): 16 greedy requests of
+   256-1024-token prompts, 32 new each, through the dense engine (16
+   graphs captured first; ``flash_decode`` launches = steps); ms a step
+   beside its bound; one decode step's kernel logits against
+   ``impl="ref"``; graphed against eager; a paged round with a fork and
+   a cancel, and one paged decode step against dense; a trace phase.
+   MoE logits are held over the slots whose route (experts and drops,
+   recorded in every MoE layer of both runs, :class:`RouteLog`) is the
+   same in both runs; slots a router near tie sends apart are counted
+   and printed, and half of them or more fail;
+5k. grok-1 (G=6) and qwen3-moe (G=16, q/k norm) at full width, one
+   layer each, through ``forward`` as phase 5g: 4 decode steps, kernels
+   against their plain versions, over the slots routed alike. The
+   ``kernels`` line's ``flash_decode`` and ``flash_decode_paged`` rows
+   sum their launches over the main paths (``launches_by_path``).
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -329,7 +360,8 @@ def profiled(torch, run, what: str, setup=None, counts=None,
     said so. So is a window for which ``faults(by_name, counts)``, when
     given, returns a non-empty list of what is wrong with it (a reading
     under its bound; see :func:`timed`), each named, up to
-    ``PROFILE_ATTEMPTS`` of them. Past either count the phase fails:
+    ``PROFILE_ATTEMPTS`` of them (see :func:`timed`). Past either count
+    the phase fails:
     there is no fallback to another clock.
     """
     from torch.profiler import ProfilerActivity, profile
@@ -363,7 +395,8 @@ def profiled(torch, run, what: str, setup=None, counts=None,
             print(f"{what}: measured in window {attempt}")
         return by_name
     raise PhaseError(f"{what}: no usable profiler window ({empty} saw no "
-                     f"device time, {faulty} read under a bound)")
+                     f"device time, {faulty} read under a bound or lost "
+                     f"most of a kernel's events)")
 
 
 def timed(torch, fn, iters: int, warmup: int = 3, bound=None) -> float:
@@ -377,12 +410,14 @@ def timed(torch, fn, iters: int, warmup: int = 3, bound=None) -> float:
     summing to one copy's time), so each name counts its mean event time
     times its events a call (its count over ``iters``, rounded, at least
     1), not its sum over ``iters``. A name that misses more than a tenth
-    of its events is said so.
+    of its events is said so. A window in which the name with the most
+    device time misses half its events or more (seen once: 20 of 480
+    decode launches) is taken again, as an empty one is.
 
     ``bound``, when given, is ``(name, µs, kind)`` for the work of one
     call (see :func:`under_bound`): a window that reads the call under a
-    bound that is a true floor is taken again, as an empty one is, and
-    named with its reading; if every window reads under, the phase fails.
+    bound that is a true floor is taken again too, and named with its
+    reading; if every window is taken again, the phase fails.
     """
     for _ in range(warmup):
         fn()
@@ -403,15 +438,21 @@ def timed(torch, fn, iters: int, warmup: int = 3, bound=None) -> float:
         return us
 
     def faults(by_name, counts):
-        name, bound_us, kind = bound
-        return [f"{n} read {r:.2f} us, under its {kind} bound {b:.2f} us"
-                for n, r, b in under_bound(
-                    {name: per_call_us(by_name, counts)},
-                    {name: (bound_us, kind)})]
+        top = max(by_name, key=by_name.get)
+        want = max(1, round(counts[top] / iters)) * iters
+        wrong = [] if 2 * counts[top] > want else [
+            f"the profiler recorded {counts[top]} of {want} events of "
+            f"{top[:60]}"]
+        if bound is not None:
+            name, bound_us, kind = bound
+            wrong += [f"{n} read {r:.2f} us, under its {kind} bound "
+                      f"{b:.2f} us" for n, r, b in under_bound(
+                          {name: per_call_us(by_name, counts)},
+                          {name: (bound_us, kind)})]
+        return wrong
 
     counts = {}
-    by_name = profiled(torch, run, "timing", counts=counts,
-                       faults=None if bound is None else faults)
+    by_name = profiled(torch, run, "timing", counts=counts, faults=faults)
     return per_call_us(by_name, counts, say=True) / 1e3
 
 
@@ -989,13 +1030,18 @@ def phase_stream(torch, K, SO, SR, SK, errs) -> list:
 # (B, H, Hkv, Dh, Sq values) checked beside yi-9b's heads: gemma3-4b's
 # head_dim 256, and G = 16 (qwen3-moe-235b) at Sq = 4, 64 packed rows
 WIDE_DECODE_SHAPES = ((4, 8, 4, 256, (1, 4)), (2, 64, 4, 128, (1, 4)))
-#: the attention family's decode shapes at Sq = 1 in bf16, (B, H, Hkv,
-#: Dh, Skv, window): qwen2-vl-7b's G = 7, musicgen-large's MHA (G = 1)
-#: at Dh = 64, and gemma3-4b's heads with its 1024-row window over a
-#: 2048-row cache (slots' positions spread on both sides of the window)
+#: the model families' decode shapes at Sq = 1 in bf16, (B, H, Hkv, Dh,
+#: Skv, window): qwen2-vl-7b's G = 7, musicgen-large's MHA (G = 1) at
+#: Dh = 64, gemma3-4b's heads with its 1024-row window over a 2048-row
+#: cache (slots' positions spread on both sides of the window), jamba's
+#: attention layer (H 32, Hkv 8, no RoPE), grok-1's G = 6 and
+#: qwen3-moe's G = 16
 FAMILY_DECODE_SHAPES = ((8, 28, 4, 128, 2048, None),
                         (8, 32, 32, 64, 2048, None),
-                        (8, 8, 4, 256, 2048, 1024))
+                        (8, 8, 4, 256, 2048, 1024),
+                        (8, 32, 8, 128, 2048, None),
+                        (8, 48, 8, 128, 2048, None),
+                        (8, 64, 4, 128, 2048, None))
 
 
 def finished_ok(torch, got, want_f32) -> tuple:
@@ -1193,8 +1239,9 @@ def phase_decode(torch, D, ops) -> float:
           f"call, repeats bit-identical), incl. occupancy bounds 512, 384 "
           f"and 301 of a 2048-row cache, Dh=256 and G*Sq=64 packed rows in "
           f"bf16 and fp32, and in bf16 G=7 (H=28 Hkv=4 Dh=128), G=1 "
-          f"(H=Hkv=32 Dh=64) and a 1024-row window over 2048 rows at "
-          f"Dh=256")
+          f"(H=Hkv=32 Dh=64), a 1024-row window over 2048 rows at "
+          f"Dh=256, G=4 (H=32 Hkv=8, jamba), G=6 (H=48 Hkv=8, grok-1) and "
+          f"G=16 (H=64 Hkv=4, qwen3-moe) at Dh=128")
     return worst_fin
 
 
@@ -1342,15 +1389,24 @@ def phase_fused_write(torch, D, ops, S_, K) -> None:
 
 # --- phase 5: full-width serving -------------------------------------------
 
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` whose mixer attends: one decode launch each a
+    step (0 for xlstm-125m, 1 a jamba period)."""
+    return sum(b.split(":")[0] in ("attn", "attn_local")
+               for b in cfg.layer_plan())
+
+
 def serve_dense(torch, K, serve, cfg, params, reqs, label: str) -> tuple:
     """Serve ``reqs`` through a dense 8-slot ``ServeEngine`` (a 2048-row
-    horizon, 8-token chunks, its 16 graphs captured first), launch counts
-    zeroed just before the run and read just after. Fails unless every
-    request got its tokens, in vocab, no dispatch captured a graph, no
-    slot was quarantined, and every decode launch was a ``flash_decode``
-    writing the step's rows (layers x steps) with no paged kernel and no
-    standalone writer. Prints tok/s, prefill s and ms a step. Returns
+    horizon, 8-token chunks, its graphs captured first: one a ``kv_len``
+    bucket, one for a model without attention), launch counts zeroed
+    just before the run and read just after. Fails unless every request
+    got its tokens, in vocab, no dispatch captured a graph, no slot was
+    quarantined, and every decode launch was a ``flash_decode`` writing
+    the step's rows (attention layers x steps) with no paged kernel and
+    no standalone writer. Prints tok/s, prefill s and ms a step. Returns
     (engine, launches)."""
+    from repro_torch.serve.engine import kv_buckets
     eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048, chunk=8,
                             device="cuda")
     capture_graphs(torch, eng, label)
@@ -1368,7 +1424,7 @@ def serve_dense(torch, K, serve, cfg, params, reqs, label: str) -> tuple:
           f"{label}: not every request got its tokens")
     check(all(int(v.min()) >= 0 and int(v.max()) < cfg.vocab_size
               for v in res.values()), f"{label}: token id out of vocab")
-    check(len(eng.graphs.graphs) == 16,
+    check(len(eng.graphs.graphs) == len(kv_buckets(cfg, eng.max_len)),
           f"{label}: a dispatch captured a graph")
     check(st["quarantined"] == 0, f"{label}: non-finite logits quarantined")
     print(f"{label}: {len(res)} requests, {n_tok} tokens in {wall:.2f} s = "
@@ -1376,13 +1432,14 @@ def serve_dense(torch, K, serve, cfg, params, reqs, label: str) -> tuple:
           f"({st['prefill_dispatches']} dispatches), decode "
           f"{st['decode_s']:.2f} s ({st['decode_dispatches']} dispatches, "
           f"{steps} steps, {st['decode_s'] / steps * 1e3:.2f} ms/step)")
-    want = cfg.n_layers * steps
+    attn = attention_layers(cfg)
+    want = attn * steps
     print(f"{label}: launches {launches} (expected flash_decode == "
-          f"kv_rows_in_decode == {cfg.n_layers} x {steps} = {want}, "
+          f"kv_rows_in_decode == {attn} attention layers x {steps} = {want}, "
           f"kv_row_update 0)")
     print_step_launches(label, launches, steps)
     check(launches["flash_decode"] == launches["kv_rows_in_decode"] == want
-          > 0 and launches["kv_row_update"] == 0
+          and (want > 0 or attn == 0) and launches["kv_row_update"] == 0
           and launches["flash_decode_paged"] == 0,
           f"{label}: launches {launches}, expected flash_decode and "
           f"kv_rows_in_decode {want} each, no paged kernel and no "
@@ -1417,9 +1474,9 @@ def phase_engine(torch, np, cfg_mod, M, K, serve):
     readings = [_one_step_logits(torch, cfg, M, params, p) for p in sets]
     print("engine: one decode step, kernels vs impl='ref', max |diff| / "
           "max |logit| (greedy argmax agreement) per prompt set: "
-          + ", ".join(f"{rel:.4g} ({agree:.3f})" for rel, agree in readings)
+          + ", ".join(f"{rel:.4g} ({agree:.3f})" for rel, agree, _ in readings)
           + f"; tol {LOGITS_REL_TOL}")
-    worst = max(rel for rel, _ in readings)
+    worst = max(rel for rel, _, _ in readings)
     check(worst <= LOGITS_REL_TOL, f"engine: kernel logits vs impl='ref' "
           f"rel err {worst:.3g} > {LOGITS_REL_TOL}")
     _small_engine_check(torch, np, cfg_mod, M, serve)
@@ -1445,8 +1502,10 @@ def capture_graphs(torch, eng, label: str) -> None:
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     pool = graph_pool_bytes(torch, eng.graphs.pool)
-    print(f"{label}: {n} CUDA graphs captured in {sec:.2f} s (one a "
-          f"{KV_BUCKET}-row kv_len bucket to {eng.max_len} rows, "
+    each = (f"one a {KV_BUCKET}-row kv_len bucket to {eng.max_len} rows"
+            if attention_layers(eng.cfg) else
+            "one for every chunk: the model reads no KV rows")
+    print(f"{label}: {n} CUDA graphs captured in {sec:.2f} s ({each}, "
           f"{len(eng.graphs.graphs)} held; warm-up and capture "
           f"{eng.graphs.capture_s:.2f} s in all); graph pool "
           + ("not in the allocator's snapshot" if pool is None
@@ -1468,11 +1527,64 @@ def _clone(tree):
             for k, v in tree.items()}
 
 
+class RouteLog:
+    """The MoE routes a block of code makes: ``(top_e, keep)`` of every
+    ``moe.route`` call, recorded by wrapping that function for the
+    ``with`` block (``moe_ffn`` looks it up at each call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self._route = route = self.moe.route
+
+        def recording(*args, **kw):
+            out = route(*args, **kw)
+            self.calls.append((out[2], out[3]))
+            return out
+
+        self.moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+
+
+def routed_alike(torch, a: RouteLog, b: RouteLog, slots: int):
+    """(slots,) bool: the slots of two decode steps' logs sent to the same
+    experts, and kept or dropped alike, in every MoE layer (all True
+    without MoE layers)."""
+    check(len(a.calls) == len(b.calls), "MoE route logs of unequal length")
+    same = torch.ones(slots, dtype=torch.bool, device="cuda")
+    for (ea, ka), (eb, kb) in zip(a.calls, b.calls):
+        k = ea.shape[-1]
+        same &= (ea.reshape(slots, k) == eb.reshape(slots, k)).all(-1)
+        same &= (ka.reshape(slots, k) == kb.reshape(slots, k)).all(-1)
+    return same
+
+
+def logits_rel(torch, lk, lr, same, label: str) -> tuple:
+    """``(max |diff| / max |logit|, argmax agreement, slots routed apart)``
+    of two decode steps' logits (B, 1, V), over the slots routed alike.
+    A slot whose MoE route differs (a near tie of the router, flipped by
+    the bf16 rounding of another path, or a drop it moved) is left out
+    and counted; fails if it is half the slots or more."""
+    lk, lr = lk[:, 0].float(), lr[:, 0].float()
+    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
+    apart = int((~same).sum())
+    check(2 * apart < same.numel(), f"{label}: {apart} of {same.numel()} "
+          f"slots routed apart")
+    rel = ((lk - lr)[same].abs().max() / lr.abs().max()).item()
+    agree = (lk.argmax(-1) == lr.argmax(-1))[same].float().mean().item()
+    return rel, agree, apart
+
+
 def _one_step_logits(torch, cfg, M, params, prompts,
                      label: str = "engine") -> tuple:
     """Prefill ``prompts`` into 8 slots of a 2048-row cache, then one
     decode step through the kernels and one with ``impl="ref"`` on a copy
-    of the cache. Returns (max |diff| / max |logit|, argmax agreement)."""
+    of the cache. Returns :func:`logits_rel`'s reading."""
     from repro_torch.serve.slots import insert
     from repro_torch.train.serve import make_prefill_step
     fresh = M.init_cache(cfg, 8, 2048, "cuda")
@@ -1489,16 +1601,16 @@ def _one_step_logits(torch, cfg, M, params, prompts,
                        device="cuda")
     kv_len = int(pos.max()) + 1
     ref_cache = _clone(fresh)
-    lk, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
-                         cache=fresh, pos=pos, impl="auto", kv_len=kv_len)
+    with RouteLog() as rk:
+        lk, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=fresh, pos=pos, impl="auto",
+                             kv_len=kv_len)
     del fresh
-    lr, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
-                         cache=ref_cache, pos=pos, impl="ref", kv_len=kv_len)
-    lk, lr = lk.float(), lr.float()
-    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
-    rel = ((lk - lr).abs().max() / lr.abs().max()).item()
-    agree = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
-    return rel, agree
+    with RouteLog() as rr:
+        lr, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=ref_cache, pos=pos, impl="ref",
+                             kv_len=kv_len)
+    return logits_rel(torch, lk, lr, routed_alike(torch, rk, rr, 8), label)
 
 
 def _small_engine_check(torch, np, cfg_mod, M, serve) -> None:
@@ -2071,7 +2183,7 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
           f"== kv_rows_in_decode == {cfg.n_layers} x {steps} = "
           f"{cfg.n_layers * steps})")
     print_step_launches("paged engine", launches, steps)
-    rel, agree = _paged_vs_dense_logits(torch, cfg, M, PG, params,
+    rel, agree, _ = _paged_vs_dense_logits(torch, cfg, M, PG, params,
                                         [r.prompt for r in reqs[:8]])
     print(f"paged engine: one decode step, paged kernel vs dense kernel on "
           f"the same prompts, max |diff| / max |logit| {rel:.4g} (greedy "
@@ -2084,15 +2196,15 @@ def phase_paged_engine(torch, np, cfg_mod, M, K, serve, PG, params,
 
 def _paged_vs_dense_logits(torch, cfg, M, PG, params, prompts) -> tuple:
     """The prompts prefilled into a dense 8 x 2048 cache and into page
-    pools under a shuffled table, then one decode step through each
-    layout's kernels. Returns (max |diff| / max |logit|, argmax
-    agreement)."""
+    pools under a shuffled table (recurrent leaves in their slot rows),
+    then one decode step through each layout's kernels. Returns
+    :func:`logits_rel`'s reading."""
     from repro_torch.serve.slots import insert
     from repro_torch.train.serve import make_prefill_step
     ps = 16
     nb = 2048 // ps
     dense = M.init_cache(cfg, 8, 2048, "cuda")
-    pools = PG.init_paged_cache(cfg, 8 * nb + 1, ps, "cuda")
+    pools = PG.init_paged_cache(cfg, 8, 8 * nb + 1, ps, "cuda")
     perm = torch.randperm(8 * nb, generator=torch.Generator().manual_seed(12))
     bt = perm.reshape(8, nb).int().cuda()
     pre_dense = make_prefill_step(cfg, cache_len=2048)
@@ -2104,7 +2216,7 @@ def _paged_vs_dense_logits(torch, cfg, M, PG, params, prompts) -> tuple:
         insert(dense, one, i)
         _, one = pre_exact(params, {"tokens": t})
         npg = -(-len(p) // ps)
-        PG.paged_insert(pools, one, bt[i, :npg].long(),
+        PG.paged_insert(cfg, pools, one, i, bt[i, :npg].long(),
                         torch.arange(npg, device="cuda"))
         toks.append(int(lg[0, -1].argmax()))
     del one
@@ -2112,16 +2224,15 @@ def _paged_vs_dense_logits(torch, cfg, M, PG, params, prompts) -> tuple:
     pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                        device="cuda")
     kv_len = int(pos.max()) + 1
-    ld, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
-                         cache=dense, pos=pos, kv_len=kv_len)
-    lp, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
-                         cache=pools, pos=pos, kv_len=kv_len,
-                         block_tables=bt)
-    ld, lp = ld.float(), lp.float()
-    check(bool(torch.isfinite(lp).all()), "paged engine: non-finite logits")
-    rel = ((lp - ld).abs().max() / ld.abs().max()).item()
-    agree = (lp.argmax(-1) == ld.argmax(-1)).float().mean().item()
-    return rel, agree
+    with RouteLog() as rd:
+        ld, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=dense, pos=pos, kv_len=kv_len)
+    with RouteLog() as rp:
+        lp, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=pools, pos=pos, kv_len=kv_len,
+                             block_tables=bt)
+    return logits_rel(torch, lp, ld, routed_alike(torch, rp, rd, 8),
+                      f"{cfg.name} paged")
 
 
 def _small_paged_check(torch, np, cfg_mod, M, serve) -> None:
@@ -2253,7 +2364,7 @@ def phase_gemma_engine(torch, np, cfg_mod, M, K, serve):
     reqs = [serve.Request(f"m{i}", tuple(int(t) for t in rng.integers(
         0, cfg.vocab_size, n)), int(m)) for i, (n, m) in
         enumerate(zip(lens, news))]
-    eng, _ = serve_dense(torch, K, serve, cfg, params, reqs, label)
+    eng, launches = serve_dense(torch, K, serve, cfg, params, reqs, label)
     st = eng.stats()
     steps = st["decode_tokens"]
     ms_step = st["decode_s"] / steps * 1e3
@@ -2272,7 +2383,7 @@ def phase_gemma_engine(torch, np, cfg_mod, M, K, serve):
     prompts = [r.prompt for r in reqs[:8]]
     check(min(map(len, prompts)) > cfg.sliding_window,
           f"{label}: a prompt inside the window")
-    rel, agree = _one_step_logits(torch, cfg, M, params, prompts, label)
+    rel, agree, _ = _one_step_logits(torch, cfg, M, params, prompts, label)
     print(f"{label}: one decode step at positions {min(map(len, prompts))}"
           f"-{max(map(len, prompts))} (past the {cfg.sliding_window}-row "
           f"window), kernels vs impl='ref', max |diff| / max |logit| "
@@ -2298,7 +2409,7 @@ def phase_gemma_engine(torch, np, cfg_mod, M, K, serve):
           f"graph")
     print(f"{label}: parity: {n} greedy streams of {new} tokens "
           f"byte-identical, graphed vs eager")
-    return eng, reqs
+    return eng, reqs, launches["flash_decode"]
 
 
 def phase_gemma_paged(torch, M, K, PG, eng, reqs) -> None:
@@ -2307,7 +2418,7 @@ def phase_gemma_paged(torch, M, K, PG, eng, reqs) -> None:
     prompts, past the window."""
     cfg = eng.cfg
     K.reset_launches()
-    rel, agree = _paged_vs_dense_logits(torch, cfg, M, PG, eng.params,
+    rel, agree, _ = _paged_vs_dense_logits(torch, cfg, M, PG, eng.params,
                                         [r.prompt for r in reqs[:8]])
     launches = dict(K.LAUNCHES)
     check(launches["flash_decode_paged"] == launches["flash_decode"]
@@ -2352,8 +2463,10 @@ def phase_family_forward(torch, np, cfg_mod, M, K) -> None:
     positions, musicgen from random embeddings), then ``FAMILY_STEPS``
     decode steps through the kernels (``impl="auto"``) and through their
     plain versions (``impl="ref"``) on a copy of the cache, on the same
-    inputs; logits held as in phase 5."""
+    inputs; logits held as in phase 5. Returns the decode launches by
+    config."""
     from repro_torch.serve.slots import insert
+    out = {}
     for i, arch in enumerate(FAMILY_FORWARD):
         cfg = cfg_mod.get_config(arch)
         t0 = time.perf_counter()
@@ -2408,8 +2521,372 @@ def phase_family_forward(torch, np, cfg_mod, M, K) -> None:
               f"{time.perf_counter() - t0:.1f} s")
         check(worst <= LOGITS_REL_TOL, f"{arch}: kernel logits vs "
               f"impl='ref' rel err {worst:.3g} > {LOGITS_REL_TOL}")
+        out[arch] = launches["flash_decode"]
         del params, cache, ref
         torch.cuda.empty_cache()
+    return out
+
+
+# --- phases 5h-5k: the recurrent and MoE families ---------------------------
+
+#: seed of the weights and requests of phases 5h-5k
+FAMILY2_SEED = 23
+#: xlstm-125m's served requests: prompt lengths as [low, high) and new
+#: tokens a request; the decode step held against a prefill (1, as
+#: ``tests/test_recurrent.py::test_mamba_decode_matches_prefill_tail``)
+#: and the one printed beside it; the prompt of the sensitivity probe
+XLSTM_PROMPT_LENS, XLSTM_NEW = (128, 513), 64
+XLSTM_HELD_STEP, XLSTM_SHOWN_STEP = 1, 8
+XLSTM_PROBE_LEN = 64
+#: prompt tokens of the xlstm-125m trace phase: its step reads a state of
+#: fixed size, whatever the position
+XLSTM_TRACE_PROMPT = 128
+#: jamba: one period of its block pattern (7 Mamba, 1 attention, 4 MoE)
+JAMBA_LAYERS = 8
+JAMBA_PROMPT_LENS, JAMBA_NEW = (256, 1025), 32
+#: phase 5k: the MoE configs held at one layer through ``forward``
+MOE_FORWARD = ("grok-1-314b", "qwen3-moe-235b-a22b")
+MOE_LAYERS = 1
+
+
+def path_launches(row: dict, paths: dict) -> None:
+    """Set a kernel row's ``launches`` to the sum over the main paths that
+    launch it, each counted from 0 just before its run and read just
+    after, and keep them by path."""
+    row["launches_by_path"] = paths
+    row["launches"] = sum(paths.values())
+
+
+def recurrent_bytes(M, cache) -> int:
+    """Bytes of a cache's recurrent leaves (all but K and V): what a
+    decode step reads and writes again."""
+    return sum(t.numel() * t.element_size() for path, t in M._walk(cache)
+               if path[-1] not in ("k", "v"))
+
+
+def family2_requests(np, serve, cfg, lens_range, new, tag) -> list:
+    rng = np.random.default_rng(FAMILY2_SEED)
+    lens = rng.integers(*lens_range, size=16)
+    return [serve.Request(f"{tag}{i}", tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)), new) for i, n in enumerate(lens)]
+
+
+def family2_params(torch, M, cfg, label: str):
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(FAMILY2_SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"{label}: {cfg.n_layers} layers {'/'.join(sorted(set(cfg.layer_plan())))}, "
+          f"d_model {cfg.d_model}, H {cfg.n_heads} Hkv {cfg.n_kv_heads}, "
+          f"vocab {cfg.vocab_size}; {n / 1e9:.3f} B params "
+          f"({w_bytes / 1e9:.2f} GB), init {time.perf_counter() - t0:.1f} s")
+    return params, w_bytes
+
+
+def step_bound(label: str, eng, reqs, w_bytes: int, M, ms_step: float,
+               kv_row_bytes: int = 0) -> float:
+    """Print and return a decode step's bound: the weights read once, the
+    recurrent state read and written, and the live K and V rows (the
+    run's mean), over the HBM rate."""
+    steps = eng.stats()["decode_tokens"]
+    state = 2 * recurrent_bytes(M, eng.cache)
+    kv = kv_row_bytes * sum(p + 1 for r in reqs for p in range(
+        len(r.prompt), len(r.prompt) + r.max_new_tokens - 1)) / steps
+    bound_ms = (w_bytes + state + kv) / HBM_BYTES_PER_S * 1e3
+    print(f"{label}: bound {bound_ms:.3f} ms/step ({w_bytes / 1e9:.3f} GB "
+          f"of weights, {state / 1e6:.1f} MB of recurrent state read and "
+          f"written, {kv / 1e6:.1f} MB of live K and V rows a step, the "
+          f"run's mean, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); the step "
+          f"takes {ms_step:.3f} ms, {ms_step / bound_ms:.2f}x its bound")
+    return bound_ms
+
+
+def graphs_vs_eager(torch, np, serve, eng, reqs, label: str, n: int = 4,
+                    new: int = 16) -> None:
+    """``n`` requests of ``new`` tokens through the graphed engine and
+    through an eager one on the same weights: byte-identical streams."""
+    par = [serve.Request(f"q{i}", r.prompt, new)
+           for i, r in enumerate(reqs[:n])]
+    got = eng.run(par)
+    eager = serve.ServeEngine(eng.cfg, eng.params, max_slots=eng.max_slots,
+                              max_len=eng.max_len, chunk=eng.chunk,
+                              device="cuda", cuda_graphs=False)
+    want = eager.run(par)
+    del eager
+    torch.cuda.empty_cache()
+    same = got.keys() == want.keys() and all(
+        np.asarray(got[r], np.int32).tobytes()
+        == np.asarray(want[r], np.int32).tobytes() for r in got)
+    check(same, f"{label}: graphed streams differ from eager")
+    print(f"{label}: parity: {n} greedy streams of {new} tokens "
+          f"byte-identical, graphed vs eager")
+
+
+def decode_vs_prefill(torch, cfg, M, params, prompts, k: int,
+                      label: str) -> float:
+    """The logits of greedy decode step ``k`` (through the engine's
+    forward, prompts prefilled into slots of a 2048-row cache) against a
+    prefill of each prompt and the ``k`` tokens decoded: the recurrent
+    state carried step by step against the chunkwise prefill. Returns
+    max |diff| / max |logit|."""
+    from repro_torch.serve.slots import insert
+    from repro_torch.train.serve import make_prefill_step
+    prefill = make_prefill_step(cfg, cache_len=2048)
+    cache = M.init_cache(cfg, len(prompts), 2048, "cuda")
+    first = []
+    for i, p in enumerate(prompts):
+        lg, one = prefill(params, {"tokens": torch.tensor(
+            [p], dtype=torch.int64, device="cuda")})
+        insert(cache, one, i)
+        first.append(int(lg[0, -1].argmax()))
+    del one
+    tok = torch.tensor(first, dtype=torch.int64, device="cuda")[:, None]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    fed = [tok]
+    for step in range(k):
+        lk, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=cache, pos=pos, kv_len=2048)
+        if step < k - 1:
+            tok = lk[:, 0].argmax(-1)[:, None]
+            fed.append(tok)
+            pos = pos + 1
+    fed = torch.cat(fed, dim=1).tolist()
+    want = torch.cat([prefill(params, {"tokens": torch.tensor(
+        [tuple(p) + tuple(f)], dtype=torch.int64, device="cuda")})[0]
+        for p, f in zip(prompts, fed)]).float()
+    lk = lk.float()
+    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
+    return ((lk - want).abs().max() / want.abs().max()).item()
+
+
+def embedding_sensitivity(torch, cfg, M, params, prompt) -> float:
+    """max |change| / max |logit| of a prompt's last logits when one
+    element of its first token's embedding moves by one bf16 ulp."""
+    tok = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+    base = M.forward(cfg, params, {"tokens": tok})[0].float()
+    emb = params["tok_embed"].clone()
+    emb.view(torch.int16)[prompt[0], 0] += 1
+    moved = M.forward(cfg, dict(params, tok_embed=emb),
+                      {"tokens": tok})[0].float()
+    return ((moved - base).abs().max() / base.abs().max()).item()
+
+
+def phase_xlstm_engine(torch, np, cfg_mod, M, K, serve):
+    """5h: xlstm-125m at its published width and depth through the dense
+    engine (one graph: it reads no KV rows); decode against prefill;
+    graphed against eager. Returns (engine, requests)."""
+    cfg = cfg_mod.get_config("xlstm-125m")
+    label = "xlstm-125m engine"
+    params, w_bytes = family2_params(torch, M, cfg, label)
+    reqs = family2_requests(np, serve, cfg, XLSTM_PROMPT_LENS, XLSTM_NEW, "x")
+    eng, _ = serve_dense(torch, K, serve, cfg, params, reqs, label)
+    st = eng.stats()
+    step_bound(label, eng, reqs, w_bytes, M,
+               st["decode_s"] / st["decode_tokens"] * 1e3)
+    t0 = time.perf_counter()
+    prompts = [r.prompt for r in reqs[:4]]
+    rel = decode_vs_prefill(torch, cfg, M, params, prompts, XLSTM_HELD_STEP,
+                            label)
+    shown = decode_vs_prefill(torch, cfg, M, params, prompts[:2],
+                              XLSTM_SHOWN_STEP, label)
+    probe = embedding_sensitivity(torch, cfg, M, params, reqs[0].prompt[
+        :XLSTM_PROBE_LEN])
+    print(f"{label}: logits of decode step {XLSTM_HELD_STEP} (4 slots) vs "
+          f"a prefill of the prompt and the token decoded, max |diff| / max "
+          f"|logit| {rel:.4g}; tol {LOGITS_REL_TOL}. Not held: at decode step "
+          f"{XLSTM_SHOWN_STEP} (2 slots) {shown:.4g}; one bf16 ulp of one "
+          f"element of its first token's embedding moves a "
+          f"{XLSTM_PROBE_LEN}-token prompt's logits by {probe:.4g} of their "
+          f"largest (the sLSTM "
+          f"recurrence at this init, r of std 1/sqrt(H) over Dh = "
+          f"{cfg.d_model // cfg.n_heads}, amplifies a rounding difference "
+          f"step by step) ({time.perf_counter() - t0:.1f} s)")
+    check(rel <= LOGITS_REL_TOL, f"{label}: decode vs prefill logits "
+          f"{rel:.3g} > {LOGITS_REL_TOL}")
+    graphs_vs_eager(torch, np, serve, eng, reqs, label)
+    return eng, reqs
+
+
+def phase_xlstm_paged(torch, M, serve, eng, reqs) -> None:
+    """5i: one xlstm-125m ``PagedServeEngine`` round: 7 requests, the
+    first forked after its first chunk (its recurrent rows copied into
+    the clone's slot on the card), the clone's greedy stream equal to its
+    parent's."""
+    from repro_torch.serve.slots import SLOT_AXIS
+    cfg, label = eng.cfg, "xlstm-125m paged"
+    peng = serve.PagedServeEngine(cfg, eng.params, page_size=16, max_slots=8,
+                                  max_len=2048, chunk=8, device="cuda")
+    capture_graphs(torch, peng, label)
+    par = [serve.Request(f"f{i}", r.prompt, 24) for i, r in
+           enumerate(reqs[:7])]
+    for r in par:
+        peng.admit(r)
+    out = dict(peng.step())
+    src = next(i for i, s in enumerate(peng.slots)
+               if s is not None and s.rid == "f0")
+    dst = peng.fork("f0", "f0-fork")
+    rows = [(t.select(SLOT_AXIS[path[0]], src),
+             t.select(SLOT_AXIS[path[0]], dst))
+            for path, t in M._walk(peng.cache)]
+    check(all(torch.equal(a, b) for a, b in rows), f"{label}: the clone's "
+          f"recurrent rows differ from its parent's")
+    t0 = time.perf_counter()
+    while any(s is not None for s in peng.slots):
+        out.update(peng.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(out["f0"].tolist() == out["f0-fork"].tolist(),
+          f"{label}: the greedy fork diverged from its parent")
+    check(all(len(out[r.rid]) == 24 for r in par), f"{label}: not every "
+          f"request got its tokens")
+    check(len(peng.graphs.graphs) == 1, f"{label}: more than one graph")
+    print(f"{label}: 7 requests of 24 new tokens, one forked after its "
+          f"first chunk: {len(rows)} recurrent leaves copied into the "
+          f"clone's slot on the card (rows equal), the clone's stream equal "
+          f"to its parent's; {peng.stats()['decode_tokens']} steps, the "
+          f"rest decoded in {wall:.2f} s")
+    del peng
+    torch.cuda.empty_cache()
+
+
+def phase_jamba(torch, np, cfg_mod, M, K, serve, PG):
+    """5j: one jamba period at full width through the dense engine (its
+    graphs captured first), its step against its bound, one step's
+    kernel logits against ``impl="ref"``, graphed against eager; then a
+    paged round with a fork and one paged decode step against dense.
+    Returns (dense engine, requests, launches)."""
+    cfg = dataclasses.replace(cfg_mod.get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    label = "jamba engine"
+    params, w_bytes = family2_params(torch, M, cfg, label)
+    reqs = family2_requests(np, serve, cfg, JAMBA_PROMPT_LENS, JAMBA_NEW,
+                            "j")
+    eng, launches = serve_dense(torch, K, serve, cfg, params, reqs, label)
+    st = eng.stats()
+    row = 2 * cfg.n_kv_heads * cfg.head_dim_eff * 2 * attention_layers(cfg)
+    step_bound(label, eng, reqs, w_bytes, M,
+               st["decode_s"] / st["decode_tokens"] * 1e3, row)
+    rel, agree, apart = _one_step_logits(
+        torch, cfg, M, params, [r.prompt for r in reqs[:8]], label)
+    print(f"{label}: one decode step, kernels vs impl='ref', max |diff| / "
+          f"max |logit| {rel:.4g} over the slots routed alike (greedy argmax "
+          f"agreement {agree:.3f}; {apart} of 8 slots routed apart by a "
+          f"router near tie); tol {LOGITS_REL_TOL}")
+    check(rel <= LOGITS_REL_TOL, f"{label}: kernel logits vs impl='ref' "
+          f"rel err {rel:.3g} > {LOGITS_REL_TOL}")
+    graphs_vs_eager(torch, np, serve, eng, reqs, label)
+
+    plabel = "jamba paged"
+    peng = serve.PagedServeEngine(cfg, params, page_size=16, max_slots=8,
+                                  max_len=2048, chunk=8, device="cuda")
+    capture_graphs(torch, peng, plabel)
+    K.reset_launches()
+    res = serve_schedule(peng, [serve.Request(f"p{i}", r.prompt, JAMBA_NEW)
+                                for i, r in enumerate(reqs[:8])],
+                         fork=True, cancel_after=1,
+                         on_round=lambda e: e.check_pool())
+    plaunches = dict(K.LAUNCHES)
+    steps = peng.stats()["decode_tokens"]
+    check(plaunches["flash_decode_paged"] == plaunches["kv_rows_in_decode"]
+          == attention_layers(cfg) * steps > 0
+          and plaunches["flash_decode"] == 0,
+          f"{plabel}: launches {plaunches}, expected flash_decode_paged "
+          f"{attention_layers(cfg)} x {steps}")
+    # no clone == parent check here: MoE capacity couples the two rows
+    # (of two rows sent to a full expert, the later one is dropped)
+    check(all(0 <= min(t) and max(t) < cfg.vocab_size for t in res.values()),
+          f"{plabel}: token id out of vocab")
+    print(f"{plabel}: 8 requests of {JAMBA_NEW} new tokens, page 16, one "
+          f"forked "
+          f"after its first chunk, one cancelled: {len(res)} streams, "
+          f"{steps} steps, launches flash_decode_paged "
+          f"{plaunches['flash_decode_paged']}; pool "
+          f"{dict(peng.pool.stats)}")
+    del peng
+    torch.cuda.empty_cache()
+    rel, agree, apart = _paged_vs_dense_logits(
+        torch, cfg, M, PG, params, [r.prompt for r in reqs[:8]])
+    print(f"{plabel}: one decode step, paged kernel (page 16) vs dense "
+          f"kernel on the same prompts, max |diff| / max |logit| {rel:.4g} "
+          f"over the slots routed alike (greedy argmax agreement "
+          f"{agree:.3f}; {apart} of 8 routed apart); tol {LOGITS_REL_TOL}")
+    check(rel <= LOGITS_REL_TOL, f"{plabel}: paged vs dense logits "
+          f"{rel:.3g} > {LOGITS_REL_TOL}")
+    return eng, reqs, {"dense": launches["flash_decode"],
+                       "paged": plaunches["flash_decode_paged"]}
+
+
+def phase_moe_forward(torch, np, cfg_mod, M, K) -> dict:
+    """5k: grok-1 and qwen3-moe at full width, one layer each: 8 slots
+    prefilled, then ``FAMILY_STEPS`` decode steps through the kernels and
+    through their plain versions on a copy of the cache, logits held as
+    in phase 5 over the slots routed alike. Returns the decode launches
+    by config."""
+    from repro_torch.serve.slots import insert
+    out = {}
+    for i, arch in enumerate(MOE_FORWARD):
+        cfg = dataclasses.replace(cfg_mod.get_config(arch),
+                                  n_layers=MOE_LAYERS)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            FAMILY2_SEED + i), "cuda")
+        n_params = sum(t.numel() for t in _leaves(params))
+        rng = np.random.default_rng(FAMILY2_SEED + i)
+        lens = rng.integers(*FAMILY_PROMPT_LENS, size=FAMILY_SLOTS)
+        cache = M.init_cache(cfg, FAMILY_SLOTS, FAMILY_HORIZON, "cuda")
+        for slot, n in enumerate(lens):
+            _, _, one = M.forward(cfg, params, family_batch(
+                torch, np, cfg, rng, 1, int(n)), mode="prefill",
+                cache_len=FAMILY_HORIZON)
+            insert(cache, one, slot)
+        del one
+        ref = _clone(cache)
+        pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        K.reset_launches()
+        worst, agree, apart = 0.0, [], 0
+        for _ in range(FAMILY_STEPS):
+            batch = family_batch(torch, np, cfg, rng, FAMILY_SLOTS, 1)
+            kv_len = int(pos.max()) + 1
+            with RouteLog() as rk:
+                lk = M.forward(cfg, params, batch, mode="decode", cache=cache,
+                               pos=pos, impl="auto", kv_len=kv_len)[0]
+            with RouteLog() as rr:
+                lr = M.forward(cfg, params, batch, mode="decode", cache=ref,
+                               pos=pos, impl="ref", kv_len=kv_len)[0]
+            rel, ag, ap = logits_rel(torch, lk, lr, routed_alike(
+                torch, rk, rr, FAMILY_SLOTS), arch)
+            worst, apart = max(worst, rel), apart + ap
+            agree.append(ag)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = attention_layers(cfg) * FAMILY_STEPS
+        check(launches["flash_decode"] == launches["kv_rows_in_decode"]
+              == want, f"{arch}: launches {launches}, expected flash_decode "
+              f"{want}")
+        print(f"moe: {arch} at full width, {cfg.n_layers} layer (d_model "
+              f"{cfg.d_model}, H {cfg.n_heads} Hkv {cfg.n_kv_heads} "
+              f"(G={cfg.n_heads // cfg.n_kv_heads}) Dh {cfg.head_dim_eff}, "
+              f"{cfg.n_experts} experts top-{cfg.experts_per_token} of "
+              f"d_ff {cfg.d_ff_expert}, qk_norm {cfg.qk_norm}; "
+              f"{n_params / 1e9:.3f} B params bf16): {FAMILY_SLOTS} slots "
+              f"prefilled at {lens.min()}-{lens.max()} tokens, "
+              f"{FAMILY_STEPS} decode steps, kernels vs impl='ref' max "
+              f"|diff| / max |logit| {worst:.4g} over the slots routed alike "
+              f"(greedy argmax agreement {float(sum(agree) / len(agree)):.3f};"
+              f" {apart} of {FAMILY_SLOTS * FAMILY_STEPS} slot steps routed "
+              f"apart); tol {LOGITS_REL_TOL}; flash_decode launches "
+              f"{launches['flash_decode']}; {time.perf_counter() - t0:.1f} s")
+        check(worst <= LOGITS_REL_TOL, f"{arch}: kernel logits vs "
+              f"impl='ref' rel err {worst:.3g} > {LOGITS_REL_TOL}")
+        out[arch] = launches["flash_decode"]
+        del params, cache, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
@@ -2702,7 +3179,7 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     # profile, and so are the host calls that launched them
     decode = sum(n for name, n in counts.items()
                  if DECODE_KERNEL.search(name))
-    want = eng.cfg.n_layers * steps
+    want = attention_layers(eng.cfg) * steps
     print(f"{label}: decode kernels in the window: {decode} profiler "
           f"events, {counted[-1]} counted by LAUNCHES ({want} expected)")
     check(counted[-1] == want, f"{label}: LAUNCHES counted {counted[-1]} "
@@ -2806,12 +3283,38 @@ def main() -> int:
                                256, 64), "paged trace")
     del eng, peng
     torch.cuda.empty_cache()
-    geng, greqs = phase_gemma_engine(torch, np, cfg_mod, M, K, serve)
+    geng, greqs, gemma_launches = phase_gemma_engine(torch, np, cfg_mod, M,
+                                                     K, serve)
     phase_gemma_paged(torch, M, K, PG, geng, greqs)
     phase_trace(torch, serve, geng, greqs, "gemma3-4b trace")
     del geng
     torch.cuda.empty_cache()
-    phase_family_forward(torch, np, cfg_mod, M, K)
+    family_launches = phase_family_forward(torch, np, cfg_mod, M, K)
+    t_new = time.perf_counter()
+    xeng, xreqs = phase_xlstm_engine(torch, np, cfg_mod, M, K, serve)
+    phase_xlstm_paged(torch, M, serve, xeng, xreqs)
+    phase_trace(torch, serve, xeng, [
+        serve.Request(r.rid, r.prompt[:XLSTM_TRACE_PROMPT], r.max_new_tokens)
+        for r in xreqs], "xlstm-125m trace")
+    del xeng
+    torch.cuda.empty_cache()
+    jeng, jreqs, jamba_launches = phase_jamba(torch, np, cfg_mod, M, K,
+                                              serve, PG)
+    phase_trace(torch, serve, jeng, jreqs, "jamba trace")
+    del jeng
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe_forward(torch, np, cfg_mod, M, K)
+    print(f"phases 5h-5k: {time.perf_counter() - t_new:.1f} s")
+    by_name = {r["name"]: r for r in rows}
+    path_launches(by_name["flash_decode"], dict(
+        {"yi-9b dense engine": by_name["flash_decode"]["launches"],
+         "gemma3-4b dense engine": gemma_launches,
+         "jamba dense engine": jamba_launches["dense"]},
+        **{f"{a} forward": n for a, n in family_launches.items()},
+        **{f"{a} forward": n for a, n in moe_launches.items()}))
+    path_launches(by_name["flash_decode_paged"], {
+        "yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
+        "jamba paged engine": jamba_launches["paged"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

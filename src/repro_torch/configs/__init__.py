@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` returns
 the exact published configuration, ``get_smoke_config`` the reduced
-same-family one. Only the architectures the port runs are listed."""
+same-family one. Every architecture of the JAX package is listed."""
 
 from __future__ import annotations
 
@@ -14,7 +14,11 @@ ARCH_MODULES = {
     "minitron-8b": "minitron_8b",
     "qwen1.5-110b": "qwen15_110b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "grok-1-314b": "grok1_314b",
     "musicgen-large": "musicgen_large",
+    "xlstm-125m": "xlstm_125m",
+    "jamba-v0.1-52b": "jamba_52b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.serve import pages
+from repro_torch.serve.slots import SLOT_AXIS
 
 
 def to_tensor(a: np.ndarray, device="cuda") -> torch.Tensor:
@@ -53,9 +55,22 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
 def cache_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """A JAX decode cache tree (as numpy) as the port's cache dict.
 
-    The batch and horizon are read from the tree's first KV leaf.
+    Dense slot caches and paged caches alike: the KV leaves' batch (or
+    page count) and horizon (or page size) are read from the tree's
+    first KV leaf, the slots of the recurrent leaves from its first
+    recurrent leaf (a model without attention has no KV leaf, one without
+    recurrent blocks no recurrent leaf). Recurrent leaves are fp32, as
+    the cache contract has them.
     """
-    leaf = tree["scan"]["0"]["k"] if tree.get("scan") \
-        else tree["tail"]["0"]["k"]
-    batch, seq = leaf.shape[-4], leaf.shape[-3]
-    return _convert(tree, M.cache_shapes(cfg, batch, seq), device, "")
+    found: dict = {}
+    for (path, d), (_, leaf) in zip(M._walk(M.cache_defs(cfg, 1, 1)),
+                                    M._walk(tree)):
+        axis = SLOT_AXIS[path[0]]
+        if M.is_kv(d):
+            found.setdefault("kv", leaf.shape[axis:axis + 2])
+        else:
+            found.setdefault("slots", leaf.shape[axis])
+    kv_batch, seq = found.get("kv", (found.get("slots", 1), 1))
+    expected = pages.paged_cache_shapes(cfg, found.get("slots", kv_batch),
+                                        kv_batch, seq)
+    return _convert(tree, expected, device, "")

@@ -1,21 +1,18 @@
 """Model assembly (counterpart of ``repro/models/model.py``): parameter
-and cache tables, initialization, and the prefill/decode forward pass
-for attention blocks with dense FFNs.
+and cache tables, initialization, and the prefill/decode forward pass.
 
 Parameters live in a plain dict with the JAX tree's names and layouts:
-``tok_embed (V,d)`` (token-id models only), ``scan/<j>/{ln1, mixer/{wq
-(d,H,Dh), wk/wv (d,Hkv,Dh), wo (H,Dh,d)[, bq (H,Dh), bk/bv (Hkv,Dh)][,
-q_norm/k_norm (Dh,)]}, ln2, ffn/{w_gate, w_up (d,F), w_down (F,d)}}``
-with a leading layer axis on every ``scan`` leaf, ``tail/<i>/...``,
-``final_norm`` and ``lm_head (d,V)``. The cache mirrors it:
-``scan/<j>/{k, v}`` of shape (L, B, S, Hkv, Dh). The JAX layer scan
-becomes a loop over the stacked leaves.
-
-Only ``attn``/``attn_local`` mixers with ``dense`` (or no) FFNs are
-ported, with every attention switch of the config (QKV bias, q/k
-RMSNorm, RoPE, M-RoPE, sinusoidal or no positions, embedding inputs);
-other block kinds raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``tok_embed (V,d)`` (token-id models only), ``scan/<j>/{ln1, mixer/...,
+ln2, ffn/...}`` with a leading layer axis on every ``scan`` leaf,
+``tail/<i>/...``, ``final_norm`` and ``lm_head (d,V)``. A mixer is
+attention (``wq (d,H,Dh)``, ``wk``/``wv (d,Hkv,Dh)``, ``wo (H,Dh,d)``
+[, biases][, q/k norms]), Mamba (``models/ssm.py``), mLSTM or sLSTM
+(``models/xlstm.py``); an FFN is dense (``w_gate``, ``w_up (d,F)``,
+``w_down (F,d)``) or MoE (``router (d,E)`` and stacked experts,
+``models/moe.py``). The cache mirrors the blocks: attention ``{k, v}``
+of shape (L, B, S, Hkv, Dh) in the parameter dtype, recurrent state
+(Mamba ``{h, conv}``, mLSTM ``{c, n, m}``, sLSTM ``{c, n, h, m}``) in
+fp32. The JAX layer scan becomes a loop over the stacked leaves.
 """
 
 from __future__ import annotations
@@ -24,21 +21,20 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import pos_vector
 from repro_torch.kernels import stores as stores_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-_NOT_PORTED = {
-    "mamba": "ROADMAP queue 1 item 4 (models/ssm.py)",
-    "mlstm": "ROADMAP queue 1 item 4 (models/xlstm.py)",
-    "slstm": "ROADMAP queue 1 item 4 (models/xlstm.py)",
-    "moe": "ROADMAP queue 1 item 4 (models/moe.py)",
-}
+#: init kinds whose leaves are fp32 whatever the parameter dtype
+FP32_INITS = ("alog", "dtbias")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,18 +43,7 @@ class ParamDef:
 
     shape: tuple
     axes: tuple
-    init: str = "normal"     # normal|zeros|ones|embed
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    for blk in cfg.layer_plan():
-        mixer, ffn = blk.split(":")
-        for part in (mixer, ffn):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: block {blk!r} is not ported; see "
-                    f"{_NOT_PORTED[part]}")
+    init: str = "normal"     # normal|zeros|ones|embed|alog|dtbias
 
 
 # ---------------------------------------------------------------------------
@@ -92,20 +77,80 @@ def _ffn_defs(cfg: ModelConfig) -> dict:
     return p
 
 
+def _moe_defs(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    p = {
+        "router": ParamDef((d, e), ("embed", None)),
+        "w_up": ParamDef((e, d, f), ("expert", "embed", "emlp")),
+        "w_down": ParamDef((e, f, d), ("expert", "emlp", "embed")),
+    }
+    if cfg.ffn_act == "swiglu":
+        p["w_gate"] = ParamDef((e, d, f), ("expert", "embed", "emlp"))
+    return p
+
+
+def _mamba_defs(cfg: ModelConfig) -> dict:
+    d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_d_state,
+                      cfg.dt_rank, cfg.ssm_conv_dim)
+    return {
+        "in_x": ParamDef((d, di), ("embed", "ssm_inner")),
+        "in_z": ParamDef((d, di), ("embed", "ssm_inner")),
+        "conv_w": ParamDef((k, di), (None, "ssm_inner")),
+        "conv_b": ParamDef((di,), ("ssm_inner",), "zeros"),
+        "x_dbc": ParamDef((di, r + 2 * n), ("ssm_inner", None)),
+        "dt_w": ParamDef((r, di), (None, "ssm_inner")),
+        "dt_b": ParamDef((di,), ("ssm_inner",), "dtbias"),
+        "a_log": ParamDef((di, n), ("ssm_inner", None), "alog"),
+        "d_skip": ParamDef((di,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _mlstm_defs(cfg: ModelConfig) -> dict:
+    d, di, h = cfg.d_model, cfg.xlstm_d_inner, cfg.n_heads
+    return {
+        "up_x": ParamDef((d, di), ("embed", "ssm_inner")),
+        "up_z": ParamDef((d, di), ("embed", "ssm_inner")),
+        "wq": ParamDef((di, di), ("ssm_inner", None)),
+        "wk": ParamDef((di, di), ("ssm_inner", None)),
+        "wv": ParamDef((di, di), ("ssm_inner", None)),
+        "w_if": ParamDef((di, 2, h), ("ssm_inner", None, None)),
+        "b_if": ParamDef((2, h), (None, None), "zeros"),
+        "out": ParamDef((di, di), ("ssm_inner", None)),
+        "down": ParamDef((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _slstm_defs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    dh = d // h
+    return {
+        "w": ParamDef((d, 4, d), ("embed", None, "slstm_h")),
+        "b": ParamDef((4, d), (None, "slstm_h"), "zeros"),
+        "r": ParamDef((h, dh, 4, dh), (None, None, None, None)),
+        "out": ParamDef((d, d), ("slstm_h", "embed")),
+    }
+
+
+_MIXER_DEFS = {
+    "attn": _attn_defs, "attn_local": _attn_defs,
+    "mamba": _mamba_defs, "mlstm": _mlstm_defs, "slstm": _slstm_defs,
+}
+
+
 def block_defs(cfg: ModelConfig, blk: str) -> dict:
     """ParamDef tree of one layer block (``mixer:ffn`` plan entry)."""
-    _, ffn = blk.split(":")
+    mixer, ffn = blk.split(":")
     p = {"ln1": ParamDef((cfg.d_model,), (None,), "ones"),
-         "mixer": _attn_defs(cfg)}
+         "mixer": _MIXER_DEFS[mixer](cfg)}
     if ffn != "none":
         p["ln2"] = ParamDef((cfg.d_model,), (None,), "ones")
-        p["ffn"] = _ffn_defs(cfg)
+        p["ffn"] = _ffn_defs(cfg) if ffn == "dense" else _moe_defs(cfg)
     return p
 
 
 def model_defs(cfg: ModelConfig) -> dict:
     """Whole-model ParamDef tree (embeddings, scan stack, tail, head)."""
-    _check_ported(cfg)
     plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()
     defs = {}
@@ -152,7 +197,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
     dtype = DTYPES[cfg.param_dtype]
     out: dict = {}
     for path, d, stack in _stacked(model_defs(cfg), cfg):
-        _set(out, path, (((stack,) + d.shape) if stack else d.shape, dtype))
+        _set(out, path, (((stack,) + d.shape) if stack else d.shape,
+                         torch.float32 if d.init in FP32_INITS else dtype))
     out.setdefault("tail", {})
     return out
 
@@ -175,7 +221,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Materialize parameters with the JAX package's init rule.
 
     Normal leaves are N(0, std^2) with std from the fan-in (0.02 for the
-    embedding), ``ln`` and norm leaves are ones, biases zeros. Numbers
+    embedding), ``ln`` and norm leaves are ones, biases zeros; Mamba's
+    ``a_log`` is log(1 .. N) in every row (S4D-real) and ``dt_b`` is
+    softplus^-1(0.01), both fp32. Numbers
     come from ``generator`` (which must live on ``device``), leaf by leaf
     in sorted tree order and layer by layer, so a seed fixes the weights;
     they are not the JAX package's numbers (use ``bridge.params_from_jax``
@@ -188,6 +236,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if d.init in ("ones", "zeros"):
             fill = torch.ones if d.init == "ones" else torch.zeros
             leaf = fill(shape, dtype=dtype, device=device)
+        elif d.init == "alog":
+            base = torch.log(torch.arange(1, d.shape[-1] + 1,
+                                          dtype=torch.float32, device=device))
+            leaf = base.expand(shape).contiguous()
+        elif d.init == "dtbias":
+            leaf = torch.full(shape, math.log(math.expm1(0.01)),
+                              dtype=torch.float32, device=device)
         else:
             std = _init_std(d)
             leaf = torch.empty(shape, dtype=dtype, device=device)
@@ -202,18 +257,77 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # Cache tables
 # ---------------------------------------------------------------------------
 
-def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """``(shape, dtype)`` for every leaf of the decode cache."""
-    _check_ported(cfg)
+def _cache_defs(cfg: ModelConfig, blk: str, batch: int, seq: int) -> dict:
+    """The decode state of one block. A KV leaf's second axis is
+    ``kv_seq``; that is how the KV leaves are told from recurrent ones."""
+    mixer = blk.split(":")[0]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
+    if mixer in ("attn", "attn_local"):
+        # full-length cache for local layers too (the window masks at use)
+        kv = ParamDef((batch, seq, hkv, dh),
+                      ("batch", "kv_seq", "kvheads", None), "zeros")
+        return {"k": kv, "v": kv}
+    if mixer == "mamba":
+        di, n, k = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_conv_dim
+        return {"h": ParamDef((batch, di, n), ("batch", "ssm_inner", None),
+                              "zeros"),
+                "conv": ParamDef((batch, k - 1, di),
+                                 ("batch", None, "ssm_inner"), "zeros")}
+    if mixer == "mlstm":
+        dh_i = cfg.xlstm_d_inner // h
+        return {"c": ParamDef((batch, h, dh_i, dh_i),
+                              ("batch", "qheads", None, None), "zeros"),
+                "n": ParamDef((batch, h, dh_i), ("batch", "qheads", None),
+                              "zeros"),
+                "m": ParamDef((batch, h), ("batch", "qheads"), "zeros")}
+    if mixer == "slstm":
+        d = cfg.d_model
+        vec = ParamDef((batch, d), ("batch", "slstm_h"), "zeros")
+        return {"c": vec, "n": vec, "h": vec,
+                "m": ParamDef((batch, h), ("batch", None), "zeros")}
+    raise ValueError(mixer)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Decode-cache ParamDef tree (KV, SSM or xLSTM state per block)."""
+    plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()
-    kv = (batch, seq, cfg.n_kv_heads, cfg.head_dim_eff)
-    dtype = DTYPES[cfg.param_dtype]
-    out: dict = {"tail": {str(i): {"k": (kv, dtype), "v": (kv, dtype)}
+    out: dict = {"tail": {str(i): _cache_defs(cfg, plan[n_rep * unit + i],
+                                              batch, seq)
                           for i in range(n_tail)}}
     if n_rep > 0:
-        stacked = ((n_rep,) + kv, dtype)
-        out["scan"] = {str(j): {"k": stacked, "v": stacked}
+        out["scan"] = {str(j): _cache_defs(cfg, plan[j], batch, seq)
                        for j in range(unit)}
+    return out
+
+
+def is_kv(d: ParamDef) -> bool:
+    """True for an attention KV cache leaf (paged in a page pool)."""
+    return d.axes[1] == "kv_seq"
+
+
+def has_attention(cfg: ModelConfig) -> bool:
+    """Whether any block attends (and so reads a KV cache at decode)."""
+    return any(b.split(":")[0] in ("attn", "attn_local")
+               for b in cfg.layer_plan())
+
+
+def state_leaves(cfg: ModelConfig, cache: dict) -> list:
+    """The recurrent leaves of a cache (dense or paged): every leaf but
+    the attention KV, in the cache's sorted order."""
+    return [t for (_, d), (_, t) in zip(_walk(cache_defs(cfg, 1, 1)),
+                                        _walk(cache)) if not is_kv(d)]
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """``(shape, dtype)`` for every leaf of the decode cache: KV leaves in
+    the parameter dtype, recurrent state in fp32."""
+    n_rep = cfg.scan_split()[0]
+    out: dict = {"tail": {}}
+    for path, d in _walk(cache_defs(cfg, batch, seq)):
+        shape = ((n_rep,) + d.shape) if path[0] == "scan" else d.shape
+        _set(out, path, (shape, DTYPES[cfg.param_dtype] if is_kv(d)
+                         else torch.float32))
     return out
 
 
@@ -286,23 +400,66 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
     return out, new_cache
 
 
+def _write_state(cache: dict, new: dict) -> dict:
+    """Copy a decode step's new recurrent state into the cache tensors, in
+    place (cast to their fp32, the counterpart of the reference's pin of
+    the decode carry to the cache contract); returns ``cache``."""
+    for name, val in new.items():
+        cache[name].copy_(val)
+    return cache
+
+
+def _mixer(cfg: ModelConfig, mixer: str, p: dict, x, *, mode: str, cache,
+           **attn_kw):
+    """One block's mixer: ``(y, new_cache)``. At decode the new cache is
+    ``cache`` itself, updated in place."""
+    if mixer in ("attn", "attn_local"):
+        return _attn_mixer(cfg, p, x, local=(mixer == "attn_local"),
+                           mode=mode, cache=cache, **attn_kw)
+    state = cache if mode == "decode" else None
+    if mixer == "mamba":
+        y, st = ssm_lib.mamba_mixer(
+            p, x, d_state=cfg.ssm_d_state, conv_dim=cfg.ssm_conv_dim,
+            chunk=cfg.ssm_chunk, state=state, want_state=True,
+            fuse=cfg.ssm_fuse)
+    elif mixer == "mlstm":
+        z = x @ p["up_z"]
+        y, st = xlstm_lib.mlstm_mixer(
+            p, x @ p["up_x"], n_heads=cfg.n_heads,
+            chunk=max(16, cfg.ssm_chunk // 2), state=state, want_state=True)
+        y = (y * F.silu(z)) @ p["down"]
+    elif mixer == "slstm":
+        y, st = xlstm_lib.slstm_mixer(p, x, n_heads=cfg.n_heads,
+                                      state=state, want_state=True)
+    else:
+        raise ValueError(mixer)
+    return y, (_write_state(cache, st) if mode == "decode" else st)
+
+
 def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 rope, cache, pos, cache_len=None, impl: str = "auto",
                 kv_len=None, store_flavor=None, block_tables=None):
-    """One ``attn:dense`` block; returns (x_out, new_cache)."""
+    """One ``mixer:ffn`` block; returns (x_out, aux_loss, new_cache)."""
     mixer, ffn = blk.split(":")
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, new_cache = _attn_mixer(cfg, p["mixer"], hx,
-                               local=(mixer == "attn_local"), mode=mode,
-                               rope=rope, cache=cache, pos=pos,
-                               cache_len=cache_len, impl=impl, kv_len=kv_len,
-                               store_flavor=store_flavor,
-                               block_tables=block_tables)
+    y, new_cache = _mixer(cfg, mixer, p["mixer"], hx, mode=mode, cache=cache,
+                          rope=rope, pos=pos, cache_len=cache_len, impl=impl,
+                          kv_len=kv_len, store_flavor=store_flavor,
+                          block_tables=block_tables)
     x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        x = x + L.dense_ffn(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                            cfg.ffn_act)
-    return x, new_cache
+        hx = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if ffn == "dense":
+            y = L.dense_ffn(p["ffn"], hx, cfg.ffn_act)
+        else:
+            y, aux = moe_lib.moe_ffn(
+                p["ffn"], hx, n_experts=cfg.n_experts,
+                top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor,
+                group_size=cfg.moe_group_size, act=cfg.ffn_act)
+        x = x + y
+    return x, aux, new_cache
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -346,7 +503,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     of slot ``b`` lives in page ``block_tables[b, pos // page]``, the KV
     rows are written there and attention runs the paged decode kernel,
     with ``kv_len`` bounding the table columns read.
-    ``aux`` is a zero scalar (no MoE blocks).
+    Recurrent state (Mamba, mLSTM, sLSTM) is fp32 in the cache: a decode
+    step copies its new state into the cache tensors in place, a prefill
+    returns it as its mixer made it (Mamba's ``conv`` in the compute
+    dtype). ``aux`` is the MoE load-balance loss summed over the layers
+    (0-d fp32; zero without MoE blocks).
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (expected 'prefill' or "
@@ -388,6 +549,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
               kv_len=kv_len, store_flavor=store_flavor,
               block_tables=block_tables)
     new_cache: dict = {"tail": {}}
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     if n_rep > 0:
         layer_params = _unstack(params["scan"], n_rep)
         layer_caches = _unstack(cache["scan"], n_rep) \
@@ -397,24 +559,26 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             slices = {}
             for j in range(unit):
                 cj = layer_caches[r][str(j)] if mode == "decode" else None
-                x, slices[str(j)] = apply_block(
+                x, aux, slices[str(j)] = apply_block(
                     cfg, plan[j], layer_params[r][str(j)], x, cache=cj, **kw)
+                aux_total = aux_total + aux
             made.append(slices)
         if mode == "decode":
             new_cache["scan"] = cache["scan"]
         else:
             new_cache["scan"] = {
                 str(j): {n: torch.stack([m[str(j)][n] for m in made])
-                         for n in ("k", "v")} for j in range(unit)}
+                         for n in made[0][str(j)]} for j in range(unit)}
     for i in range(n_tail):
         ci = cache["tail"][str(i)] if mode == "decode" else None
-        x, new_cache["tail"][str(i)] = apply_block(
+        x, aux, new_cache["tail"][str(i)] = apply_block(
             cfg, plan[n_rep * unit + i], params["tail"][str(i)], x,
             cache=ci, **kw)
+        aux_total = aux_total + aux
 
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the last position's logits
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
-    return logits, torch.zeros((), device=dev), new_cache
+    return logits, aux_total, new_cache

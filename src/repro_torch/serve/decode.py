@@ -10,6 +10,13 @@ chunk. Sampling noise is drawn before the chunk (:func:`draw_noise`),
 so the loop holds no RNG. Tokens, positions and guard flags stay device
 tensors throughout, so a chunk makes no host sync: the caller reads the
 tokens back once, after the chunk.
+
+Every step updates the cache's own tensors in place: the decode kernels
+write the KV rows, and each recurrent mixer's new state (Mamba, xLSTM)
+is copied into its fp32 cache tensors (``models.model``), the
+counterpart of the JAX step's pin of its scan carry to the cache
+contract's dtypes. So a captured graph reads and writes the same
+storage at every replay.
 """
 
 from __future__ import annotations
@@ -152,7 +159,7 @@ class ChunkGraphs:
     """A chunk body captured as one CUDA graph per ``kv_len``, replayed.
 
     The counterpart of the JAX step's one compilation per static
-    ``kv_len``. ``body`` (from :func:`make_chunk_body` on ``cfg``) runs
+    ``kv_len`` (``None`` for a model that reads no KV rows: one graph). ``body`` (from :func:`make_chunk_body` on ``cfg``) runs
     over fixed ``params`` and ``cache`` and over static device buffers:
     ``tok`` (B, 1), ``pos`` (B,), ``tables`` (B, ``table_cols``) for a
     paged cache and ``noise`` (n_tokens, B, V) when ``sampled``.
@@ -173,7 +180,8 @@ class ChunkGraphs:
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {dev}")
-        self.body, self.params, self.cache = body, params, cache
+        self.body, self.cfg = body, cfg
+        self.params, self.cache = params, cache
         self.device = dev
         self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -204,29 +212,37 @@ class ChunkGraphs:
             n, _, vocab = self.noise.shape
             draw_noise(generators, n, vocab, self.device, out=self.noise)
 
-    def _body(self, kv_len: int):
+    def _body(self, kv_len: int | None):
         return self.body(self.params, self.cache, self.tok, self.pos,
                          self.noise, kv_len, self.tables)
 
-    def capture(self, kv_len: int) -> None:
+    def capture(self, kv_len: int | None) -> None:
         """Capture the graph of ``kv_len`` over the buffers' contents.
 
         Before the first capture the body runs once eagerly on the
         capture's side stream (PyTorch's warm-up: cuBLAS workspaces and
         kernel modules made outside the graph's pool; which kernels run
         does not depend on ``kv_len``, so one warm-up serves every
-        bucket). The warm-up and each capture write the KV rows a chunk
-        on the loaded inputs writes, which the chunk then writes again.
+        bucket). The warm-up writes the KV rows a chunk on the loaded
+        inputs writes, which the chunk then writes again; it also steps
+        the recurrent state (Mamba, xLSTM) a chunk ahead, so that state
+        is copied before it and put back after it. A capture records the
+        chunk and runs nothing.
         """
         if kv_len in self.graphs:
             raise RuntimeError(f"kv_len {kv_len} is captured already")
         t0 = time.perf_counter()
         side = self.stream
         if not self.graphs:
+            state = M.state_leaves(self.cfg, self.cache)
+            saved = [t.clone() for t in state]
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 self._body(kv_len)
             torch.cuda.current_stream(self.device).wait_stream(side)
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            del saved
         counts = dict(LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=side):
@@ -237,7 +253,7 @@ class ChunkGraphs:
         self.graphs[kv_len] = (graph, out, launches)
         self.capture_s += time.perf_counter() - t0
 
-    def run(self, kv_len: int, tokens, pos, block_tables=None,
+    def run(self, kv_len: int | None, tokens, pos, block_tables=None,
             generators=None) -> tuple:
         """One chunk: :meth:`load`, then one replay of ``kv_len``'s graph
         on the current stream. Returns its ``(toks, pos, ok)``: static

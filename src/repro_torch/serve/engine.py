@@ -34,6 +34,19 @@ per request, seeded from the engine seed and the request id, so a
 request's stream does not depend on its slot, its admission order or its
 batchmates. They cannot match ``jax.random``'s streams.
 
+Slots are independent streams for every per-row mixer (attention,
+Mamba, xLSTM). MoE blocks with finite capacity couple them, as in the
+JAX engine: every slot's token, a free slot's included, goes through the
+router and takes expert capacity, so one slot's stream depends on its
+batchmates' tokens (serve MoE configs with a generous
+``capacity_factor`` where bit-exact per-request streams matter; prefix
+sharing, which reuses KV made in another prefill batch, assumes dense
+FFNs for the same reason). A free slot feeds the token and position its
+last request left, as the JAX engine's host rows do.
+
+A model without attention (xlstm-125m) reads no KV rows: its chunks
+run with no occupancy bound, one graph for every chunk.
+
 Pipelined dispatch (dense and paged), prompt staging, the chunk
 planner, meshes, snapshots and fault injection of the JAX engine are not
 ported yet (ROADMAP).
@@ -68,6 +81,15 @@ def kv_bucket(rows: int, max_len: int) -> int:
     only rows at or below each slot's position, so a wider bound reads
     no more rows; it only moves split boundaries."""
     return min(max_len, -(-rows // KV_BUCKET) * KV_BUCKET)
+
+
+def kv_buckets(cfg: ModelConfig, max_len: int) -> list:
+    """Every occupancy bound a chunk of ``cfg`` can run at: the buckets to
+    ``max_len``, or ``[None]`` for a model that reads no KV rows."""
+    if not M.has_attention(cfg):
+        return [None]
+    return sorted({kv_bucket(r, max_len) for r in
+                   range(KV_BUCKET, max_len + KV_BUCKET, KV_BUCKET)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +145,7 @@ class ServeEngine:
         self.chunk = max(1, int(chunk))
         self.temperature = float(temperature)
         self.seed = int(seed)
+        self._attends = M.has_attention(cfg)
         self._build_state()
         # the chunk's device work, run eagerly or captured by the graphs
         self._body = make_chunk_body(cfg, self.chunk, self.temperature)
@@ -296,7 +319,7 @@ class ServeEngine:
         self._pre_dispatch()
         # rows any kept token can reach this chunk: pos + chunk at most
         kv_len = kv_bucket(int(self._pos[active].max()) + self.chunk,
-                           self.max_len)
+                           self.max_len) if self._attends else None
         gens = None
         if self.temperature > 0:
             gens = [st.generator if st is not None else self._idle_gen
@@ -338,22 +361,24 @@ class ServeEngine:
 
     def capture_graphs(self) -> int:
         """Capture the chunk's graph of every ``kv_len`` bucket up to the
-        horizon not captured yet, so that no later dispatch captures one;
+        horizon not captured yet (:func:`kv_buckets`: one graph for a
+        model without attention), so that no later dispatch captures one;
         returns how many were captured.
 
-        The captures run on the chunk inputs the next dispatch would
-        load, bar its noise: each writes the KV rows a chunk from the
-        slots' current positions writes, rows the next chunk writes again
-        before any token reads them (a free slot's rows are replaced at
-        admission; a free paged slot writes the scratch page).
+        The captures are made on the chunk inputs the next dispatch
+        would load, bar its noise. The eager warm-up before the first one
+        writes the KV rows a chunk from the slots' current positions
+        writes, rows the next chunk writes again before any token reads
+        them (a free slot's rows are replaced at admission; a free paged
+        slot writes the scratch page), and leaves the recurrent state as
+        it found it (``ChunkGraphs.capture``).
         """
         if self.graphs is None:
             raise RuntimeError("this engine runs no CUDA graphs")
         self.graphs.load(**{k: torch.from_numpy(v)
                             for k, v in self._step_inputs().items()})
-        buckets = {kv_bucket(r, self.max_len) for r in
-                   range(KV_BUCKET, self.max_len + KV_BUCKET, KV_BUCKET)}
-        todo = sorted(buckets - set(self.graphs.graphs))
+        todo = [kv for kv in kv_buckets(self.cfg, self.max_len)
+                if kv not in self.graphs.graphs]
         for kv in todo:
             self.graphs.capture(kv)
         return len(todo)
@@ -427,8 +452,9 @@ class PagedServeEngine(ServeEngine):
         ps = self.page_size
         self.pool = pages_lib.PagePool(self.n_pages, ps)
         self._scratch = self.n_pages          # physical index of scratch
-        self.cache = pages_lib.init_paged_cache(self.cfg, self.n_pages + 1,
-                                                ps, self.device)
+        self.cache = pages_lib.init_paged_cache(self.cfg, self.max_slots,
+                                                self.n_pages + 1, ps,
+                                                self.device)
         self.block_tables = np.full((self.max_slots, self.pages_per_slot),
                                     -1, np.int32)
         # prefill at exactly the prompt length: no horizon zero-fill;
@@ -450,8 +476,10 @@ class PagedServeEngine(ServeEngine):
             self.pool.register_prefix(prompt, held[:s // ps])
         self.block_tables[slot, :] = -1
         self.block_tables[slot, :npg] = held
+        # also when every page is shared: the recurrent leaves need the
+        # slot row
         pages_lib.paged_insert(
-            self.cache, one,
+            self.cfg, self.cache, one, slot,
             torch.tensor(fresh, dtype=torch.int64, device=self.device),
             torch.arange(len(shared), npg, device=self.device))
 
@@ -485,7 +513,7 @@ class PagedServeEngine(ServeEngine):
                     continue
                 page, copied = self.pool.prepare_write(phys)
                 if copied:
-                    pages_lib.page_copy(self.cache, phys, page)
+                    pages_lib.page_copy(self.cfg, self.cache, phys, page)
                 self.block_tables[i, lg] = page
         live = self.block_tables[[i for i, st in enumerate(self.slots)
                                   if st is not None]]
@@ -502,8 +530,10 @@ class PagedServeEngine(ServeEngine):
         """Clone an active stream into a free slot, copy-on-write.
 
         The clone maps the same physical pages (refcounted); divergent
-        writes copy per page at the next ``_pre_dispatch``. Sampled
-        clones draw from their own generator. Returns the clone's slot.
+        writes copy per page at the next ``_pre_dispatch``. Its recurrent
+        state (Mamba, xLSTM) is copied into its slot row on the device.
+        Sampled clones draw from their own generator. Returns the clone's
+        slot.
         """
         src = next((i for i, st in enumerate(self.slots)
                     if st is not None and st.rid == rid), None)
@@ -515,9 +545,7 @@ class PagedServeEngine(ServeEngine):
         dst = free[0]
         self.pool.fork([int(p) for p in self.block_tables[src] if p >= 0])
         self.block_tables[dst] = self.block_tables[src]
-        # recurrent (mamba/xLSTM) slot rows would be copied here, as the
-        # reference's make_slot_copy_step does; the port's models have
-        # none yet (ROADMAP queue 1 item 4)
+        pages_lib.slot_copy(self.cfg, self.cache, src, dst)
         st = self.slots[src]
         self.slots[dst] = _Slot(
             new_rid,

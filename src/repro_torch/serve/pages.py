@@ -8,7 +8,8 @@ the live requests are. Here each attention layer's K/V leaf becomes a
 physical pool ``(P, page, Hkv, Dh)`` shared by all slots (scan-stacked
 ``(R, P, page, Hkv, Dh)``), and a per-slot **block table** maps logical
 page ``i`` (cache rows ``i*page .. (i+1)*page-1``) to whichever
-physical page holds it:
+physical page holds it. Recurrent state (Mamba, xLSTM) has no rows to
+page: it stays slot-batched, one row a slot, as in the dense cache.
 
 * memory scales with live tokens: a slot holds ``ceil(occupancy /
   page)`` pages, not a horizon;
@@ -24,18 +25,18 @@ physical page holds it:
 :class:`PagePool` is host-side bookkeeping in plain Python (refcounts,
 free list, prefix index), the JAX package's class line for line, so
 both pools hand out the same pages in the same order. The device steps
-(:func:`paged_insert`, :func:`page_copy`) update the pools in place.
+(:func:`paged_insert`, :func:`page_copy`, :func:`slot_copy`) update the
+cache in place.
 
 Not ported yet: ``paged_cache_pspecs`` (sharding, ROADMAP queue 1
-item 7) and ``make_slot_copy_step``, which copies recurrent
-(mamba/xLSTM) slot rows that the port's models do not have yet (queue 1
-item 4).
+item 7).
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -48,43 +49,62 @@ def pages_per_slot(max_len: int, page_size: int) -> int:
     return math.ceil(max_len / page_size)
 
 
-def paged_cache_shapes(cfg: ModelConfig, n_pages: int,
+def kv_leaf_flags(cfg: ModelConfig) -> dict:
+    """Cache-structured tree of bools: True on the paged (KV) leaves,
+    False on the slot-batched recurrent ones."""
+    out: dict = {"tail": {}}
+    for path, d in M._walk(M.cache_defs(cfg, 1, 1)):
+        M._set(out, path, M.is_kv(d))
+    return out
+
+
+def paged_cache_shapes(cfg: ModelConfig, max_slots: int, n_pages: int,
                        page_size: int) -> dict:
     """``(shape, dtype)`` tree of the paged decode cache.
 
-    Every leaf of the port's cache is attention KV, so every leaf becomes
-    a physical pool ``(n_pages, page, Hkv, Dh)`` (scan-stacked ``(R,
-    n_pages, page, Hkv, Dh)``): its size is set by the pool, not by
-    ``slots x horizon``. (The reference also takes ``max_slots``, which
-    sizes slot-batched recurrent leaves the port's models do not have.)
+    KV leaves become physical pools ``(n_pages, page, Hkv, Dh)``
+    (scan-stacked ``(R, n_pages, page, Hkv, Dh)``): their size is set by
+    the pool, not by ``slots x horizon``. Recurrent leaves keep the dense
+    slot-batched shapes of ``max_slots`` slots.
     """
-    return M.cache_shapes(cfg, n_pages, page_size)
+    out: dict = {"tail": {}}
+    for (path, flag), (_, kv), (_, slot) in zip(
+            M._walk(kv_leaf_flags(cfg)),
+            M._walk(M.cache_shapes(cfg, n_pages, page_size)),
+            M._walk(M.cache_shapes(cfg, max_slots, 1))):
+        M._set(out, path, kv if flag else slot)
+    return out
 
 
-def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     device="cuda") -> dict:
+def init_paged_cache(cfg: ModelConfig, max_slots: int, n_pages: int,
+                     page_size: int, device="cuda") -> dict:
     """Zero-filled paged cache matching :func:`paged_cache_shapes`.
 
     This is the pool's one-time zero store; recycled pages are never
     re-zeroed (:class:`PagePool` hands them out stale, admission
     overwrites them in place).
     """
-    return M.init_cache(cfg, n_pages, page_size, device)
+    out: dict = {"tail": {}}
+    for path, (shape, dtype) in M._walk(paged_cache_shapes(
+            cfg, max_slots, n_pages, page_size)):
+        M._set(out, path, torch.zeros(shape, dtype=dtype, device=device))
+    return out
 
 
-def _kv_bytes(shapes: dict) -> int:
+def _kv_bytes(cfg: ModelConfig, shapes: dict) -> int:
     return sum(math.prod(shape) * dtype.itemsize
-               for _, (shape, dtype) in M._walk(shapes))
+               for (_, (shape, dtype)), (_, flag)
+               in zip(M._walk(shapes), M._walk(kv_leaf_flags(cfg))) if flag)
 
 
 def paged_kv_bytes(cfg: ModelConfig, n_pages: int, page_size: int) -> int:
     """Total bytes of the KV page pools."""
-    return _kv_bytes(paged_cache_shapes(cfg, n_pages, page_size))
+    return _kv_bytes(cfg, M.cache_shapes(cfg, n_pages, page_size))
 
 
 def dense_kv_bytes(cfg: ModelConfig, max_slots: int, max_len: int) -> int:
     """KV bytes of the dense slot cache at the same shapes (baseline)."""
-    return _kv_bytes(M.cache_shapes(cfg, max_slots, max_len))
+    return _kv_bytes(cfg, M.cache_shapes(cfg, max_slots, max_len))
 
 
 class PoolExhausted(RuntimeError):
@@ -290,46 +310,59 @@ class PagePool:
 # Device steps, in place
 # ---------------------------------------------------------------------------
 
-def _leaf_pairs(big, small):
-    if isinstance(big, dict):
-        for key in big:
-            yield from _leaf_pairs(big[key], small[key])
-    else:
-        yield big, small
+def _leaves(cache: dict, other: dict, flags: dict):
+    """(axis, leaf, the same leaf of ``other``, is KV) over the cache."""
+    for part, axis in SLOT_AXIS.items():
+        if part in cache:
+            for (_, big), (_, small), (_, kv) in zip(
+                    M._walk(cache[part]), M._walk(other[part]),
+                    M._walk(flags[part])):
+                yield axis, big, small, kv
 
 
-def paged_insert(cache: dict, one: dict, phys, logical) -> None:
-    """Scatter a prefilled request's pages into the pools, in place.
+def paged_insert(cfg: ModelConfig, cache: dict, one: dict, slot: int, phys,
+                 logical) -> None:
+    """Land a prefilled request in the paged cache, in place.
 
     ``one`` is a batch-1 prefill cache built at exactly the prompt length
     (``make_prefill_step(cfg, cache_len=None)``, no horizon zero-fill).
     Its KV rows are cut into pages (the last one padded) and logical page
-    ``logical[i]`` lands in physical page ``phys[i]`` of every leaf.
+    ``logical[i]`` lands in physical page ``phys[i]`` of every KV leaf.
     Shared prefix pages are left out of both lists: shared content is
-    never copied. ``phys`` and ``logical`` are int64 tensors on the
-    cache's device.
+    never copied. Its recurrent leaves land in slot row ``slot`` (cast to
+    the cache's fp32), also when every page is shared and no KV row is
+    copied. ``phys`` and ``logical`` are int64 tensors on the cache's
+    device.
     """
-    if phys.numel() == 0:
-        return
-    for part, axis in SLOT_AXIS.items():
-        if part not in cache:
+    for axis, big, small, kv in _leaves(cache, one, kv_leaf_flags(cfg)):
+        if not kv:
+            big.narrow(axis, slot, 1).copy_(small)
             continue
-        for big, small in _leaf_pairs(cache[part], one[part]):
-            ps = big.shape[axis + 1]
-            s = small.shape[axis + 1]
-            npg = -(-s // ps)
-            rows = F.pad(small, (0, 0, 0, 0, 0, npg * ps - s))
-            rows = rows.reshape(small.shape[:axis] + (npg, ps)
-                                + small.shape[axis + 2:])
-            big.index_copy_(axis, phys,
-                            rows.index_select(axis, logical).to(big.dtype))
+        if phys.numel() == 0:
+            continue
+        ps = big.shape[axis + 1]
+        s = small.shape[axis + 1]
+        npg = -(-s // ps)
+        rows = F.pad(small, (0, 0, 0, 0, 0, npg * ps - s))
+        rows = rows.reshape(small.shape[:axis] + (npg, ps)
+                            + small.shape[axis + 2:])
+        big.index_copy_(axis, phys,
+                        rows.index_select(axis, logical).to(big.dtype))
 
 
-def page_copy(cache: dict, src: int, dst: int) -> None:
+def page_copy(cfg: ModelConfig, cache: dict, src: int, dst: int) -> None:
     """Copy physical page ``src`` to ``dst`` in every KV leaf (all
-    attention layers, K and V), in place: the copy on write."""
-    for part, axis in SLOT_AXIS.items():
-        if part not in cache:
-            continue
-        for big, _ in _leaf_pairs(cache[part], cache[part]):
+    attention layers, K and V), in place: the copy on write. Recurrent
+    leaves are left alone."""
+    for axis, big, _, kv in _leaves(cache, cache, kv_leaf_flags(cfg)):
+        if kv:
+            big.select(axis, dst).copy_(big.select(axis, src))
+
+
+def slot_copy(cfg: ModelConfig, cache: dict, src: int, dst: int) -> None:
+    """Copy slot row ``src`` to ``dst`` in every recurrent leaf, in place:
+    a fork shares the KV pages through its block table, but its recurrent
+    state (Mamba, xLSTM) is its own row. KV pools are left alone."""
+    for axis, big, _, kv in _leaves(cache, cache, kv_leaf_flags(cfg)):
+        if not kv:
             big.select(axis, dst).copy_(big.select(axis, src))

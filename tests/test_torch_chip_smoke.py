@@ -46,17 +46,20 @@ def test_only_true_floors_are_checked():
     assert chip_smoke.under_bound({"k": 1.0}, {"k": (2.0, "bytes")}) == []
 
 
-def _windows(monkeypatch, readings):
+def _windows(monkeypatch, readings, events=None):
     """``chip_smoke.device_us`` reads ``readings`` (µs a call, 4 calls a
-    window), one a profiler window; the card's synchronize is a no-op."""
+    window), one a profiler window, with ``events`` of the kernel's 4
+    recorded in each (all of them by default); the card's synchronize is
+    a no-op."""
     import torch
     seq = iter(readings)
+    seen = iter(events or [4] * len(readings))
 
     def device_us(prof, counts=None):
-        us = next(seq)
+        us, n = next(seq), next(seen)
         if counts is not None:
-            counts["kernel"] = 4
-        return {"kernel": us * 4}
+            counts["kernel"] = n
+        return {"kernel": us * n}
 
     monkeypatch.setattr(chip_smoke, "device_us", device_us)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -93,6 +96,21 @@ def test_timed_retakes_empty_windows_apart_from_readings(monkeypatch,
     assert f"measured in window {n + 2}" in capsys.readouterr().out
     torch = _windows(monkeypatch, [0.0] * chip_smoke.EMPTY_WINDOWS)
     with pytest.raises(chip_smoke.PhaseError, match="saw no device time"):
+        chip_smoke.timed(torch, lambda: None, 4, warmup=0)
+
+
+def test_timed_retakes_a_window_that_lost_most_events(monkeypatch, capsys):
+    """A window that recorded 1 of the kernel's 4 launches is taken again,
+    bound or no bound; 3 of 4 is kept (mean event time x 1 a call)."""
+    torch = _windows(monkeypatch, [2.0, 9.5], events=[1, 3])
+    ms = chip_smoke.timed(torch, lambda: None, 4, warmup=0)
+    assert ms == pytest.approx(0.0095)
+    out = capsys.readouterr().out
+    assert "window 1 taken again: the profiler recorded 1 of 4" in out
+    assert "measured in window 2" in out
+    torch = _windows(monkeypatch, [9.5] * chip_smoke.PROFILE_ATTEMPTS,
+                     events=[2] * chip_smoke.PROFILE_ATTEMPTS)
+    with pytest.raises(chip_smoke.PhaseError, match="most of a kernel's"):
         chip_smoke.timed(torch, lambda: None, 4, warmup=0)
 
 

@@ -16,6 +16,23 @@ Prefill and decode logits and caches are held against
 decode through ``impl="auto"`` and ``"ref"``. gemma3's prompts are
 longer than its smoke window of 16, so local layers mask. fp32 greedy
 streams of the port's dense and paged engines equal JAX's engines'.
+
+The recurrent and MoE families at smoke size: xlstm-125m (mLSTM and
+sLSTM), jamba (Mamba, MoE and one attention layer), grok-1 and
+qwen3-moe (attention with MoE FFNs). Their prefill and decode logits are
+held in fp32 within 1e-4 of the largest logit, with every cache leaf
+(recurrent states within 1e-4) and the MoE aux loss, and in bf16 within
+5e-2 of the largest logit, logits only: a one-ulp difference of the
+activations may flip a near tie of the router, which routes a token to
+another expert or drops another one. jamba is held in fp32 only: over
+its 8 layers (7 Mamba, 4 MoE) the two frameworks' bf16 roundings part
+past 5e-2 of the largest logit, and at decode (capacity 2) a flipped
+route moves a row's logits by O(1). Its mixers are held in bf16 one by one
+(``test_torch_recurrent.py``, ``test_torch_moe.py``). fp32 greedy
+streams of xlstm-125m's and jamba's dense and paged engines equal JAX's,
+under the same schedule (a free slot feeds what its last request left,
+as in JAX: with MoE its token takes expert capacity too), and a paged
+fork decodes as its parent does.
 """
 
 import dataclasses
@@ -54,7 +71,14 @@ CASES = {
     "qwen1.5-110b-qknorm": ("qwen1.5-110b", {"qk_norm": True}),
     "qwen2-vl-7b": ("qwen2-vl-7b", {}),
     "musicgen-large": ("musicgen-large", {}),
+    "xlstm-125m": ("xlstm-125m", {}),
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
+    "grok-1-314b": ("grok-1-314b", {}),
+    "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}),
 }
+#: the recurrent and MoE families, held by their own forward test
+RECURRENT_MOE = ("xlstm-125m", "jamba-v0.1-52b", "grok-1-314b",
+                 "qwen3-moe-235b-a22b")
 #: leaves JAX initializes to constants: randomized here
 _RANDOMIZED = {"bq": 0.5, "bk": 0.5, "bv": 0.5, "q_norm": 0.2,
                "k_norm": 0.2}
@@ -128,7 +152,7 @@ def _check_cache(got: dict, want: dict, tol: dict) -> None:
 #: part by a few ulps a layer (XLA fuses elementwise chains and rounds
 #: once where PyTorch rounds each op), and over 8 layers one cache
 #: element of 9216 reaches 0.07, past the 0.06 the 2-layer models hold.
-FORWARD_CASES = [(c, d) for c in sorted(CASES)
+FORWARD_CASES = [(c, d) for c in sorted(CASES) if c not in RECURRENT_MOE
                  for d in ("float32", "bfloat16")
                  if (c, d) != ("gemma3-4b-tail", "bfloat16")]
 
@@ -166,6 +190,61 @@ def test_forward_matches_jax(case, dtype):
         np.testing.assert_allclose(f32(lt), f32(lj), err_msg=impl,
                                    **TOL[dtype])
         _check_cache(new_t, new_j, TOL[dtype])
+
+
+#: the recurrent and MoE families' (case, dtype) pairs: jamba in fp32 only
+RECURRENT_MOE_CASES = [(c, d) for c in RECURRENT_MOE
+                       for d in ("float32", "bfloat16")
+                       if (c, d) != ("jamba-v0.1-52b", "bfloat16")]
+
+
+def _rel(got, want) -> float:
+    w = f32(want)
+    return float(np.abs(f32(got) - w).max() / np.abs(w).max())
+
+
+@pytest.mark.parametrize("case,dtype", RECURRENT_MOE_CASES)
+def test_recurrent_and_moe_forward_matches_jax(case, dtype):
+    """Prefill, then one decode step at per-slot positions from JAX's
+    prefill cache pinned to the cache contract (recurrent leaves fp32, as
+    the engines hold them), both impls; the decode updates the cache in
+    place."""
+    cj, ct = _cfgs(case, dtype)
+    pj, pt = _params(cj, ct)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    bj, bt = _inputs(cj, B, S, 1)
+    lj, aj, cache_j = JM.forward(cj, pj, bj, mode="prefill",
+                                 cache_len=HORIZON)
+    lt, at, cache_t = M.forward(ct, pt, bt, mode="prefill",
+                                cache_len=HORIZON)
+    assert lt.shape == (B, 1, ct.vocab_size)
+    assert _rel(lt, lj) <= tol
+    moe = any(blk.endswith(":moe") for blk in ct.layer_plan())
+    assert (float(at) > 0) == moe
+    if dtype == "float32":
+        np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+        _check_cache(cache_t, cache_j, dict(rtol=1e-4, atol=1e-4))
+
+    host = jax.tree.map(lambda x, s: np.asarray(x.astype(s.dtype)), cache_j,
+                        JM.cache_shapes(cj, B, HORIZON))
+    sj, st = _inputs(cj, B, 1, 2)
+    pos = np.array([S, 23, HORIZON - 1], np.int32)
+    lj, aj, new_j = JM.forward(cj, pj, sj, mode="decode",
+                               cache=jax.tree.map(jnp.asarray, host),
+                               pos=jnp.asarray(pos))
+    for impl in ("auto", "ref"):
+        cache_t = bridge.cache_from_jax(host, ct, device="cpu")
+        ptrs = [t.data_ptr() for _, t in M._walk(cache_t)]
+        lt, at, new_t = M.forward(ct, pt, st, mode="decode", cache=cache_t,
+                                  pos=torch.tensor(pos), impl=impl,
+                                  kv_len=HORIZON)
+        assert [t.data_ptr() for _, t in M._walk(new_t)] == ptrs
+        assert all(t.dtype == torch.float32 for p, t in M._walk(new_t)
+                   if p[-1] not in ("k", "v"))
+        assert _rel(lt, lj) <= tol, impl
+        if dtype == "float32":
+            np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+            _check_cache(new_t, new_j, dict(rtol=1e-4, atol=1e-4))
 
 
 def test_decode_positions_default_like_jax():
@@ -234,7 +313,8 @@ def test_full_size_tables_match_jax(case):
 # (prompt length, max_new_tokens) on 2 slots and a 48-row horizon:
 # prompts past the smoke window, admissions mid-flight, a 1-token budget
 SPECS = [(20, 14), (30, 9), (20, 6), (30, 1), (20, 12), (30, 9)]
-ENGINE_CASES = ("gemma3-4b", "gemma3-4b-tail", "qwen2-vl-7b", "minitron-8b")
+ENGINE_CASES = ("gemma3-4b", "gemma3-4b-tail", "qwen2-vl-7b", "minitron-8b",
+                "xlstm-125m", "jamba-v0.1-52b")
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -262,3 +342,31 @@ def test_engine_streams_match_jax(case, paged):
         assert got[rid].tolist() == want[rid].tolist(), rid
     if paged:
         eng.check_pool()
+
+
+@pytest.mark.parametrize("case", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_paged_fork_decodes_as_its_parent(case):
+    """fp32: a request forked after its first chunk (its recurrent rows
+    copied into the clone's slot, its pages shared) emits the parent's
+    greedy tokens from there on, in the port and in JAX alike; 2 slots,
+    so the two rows' MoE routes fit jamba's decode capacity."""
+    cj, ct = _cfgs(case, "float32")
+    pj, pt = _params(cj, ct)
+    prompt = tuple(int(t) for t in np.random.default_rng(4).integers(
+        0, ct.vocab_size, 22))
+    kw = dict(max_slots=2, max_len=HORIZON, chunk=3)
+    streams = []
+    for eng, req in ((PagedServeEngine(ct, pt, page_size=4, device="cpu",
+                                       **kw), Request),
+                     (JPagedServeEngine(cj, pj, page_size=4, **kw),
+                      JRequest)):
+        eng.admit(req("p", prompt, 13))
+        eng.step()
+        eng.fork("p", "c")
+        done = {}
+        while any(st is not None for st in eng.slots):
+            done.update(dict(eng.step()))
+        streams.append({r: np.asarray(v).tolist() for r, v in done.items()})
+    got, want = streams
+    assert got["c"] == got["p"][-len(got["c"]):]
+    assert got == want

@@ -23,6 +23,7 @@ from repro_torch.kernels.stream import kernels as SK
 from repro_torch.kernels.stream import ops as SO
 from repro_torch.kernels.stream import ref as SR
 from repro_torch.models import model as M
+from repro_torch.models import moe as MoE
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 from repro_torch.serve import decode as SD
 from repro_torch.train import serve as TS
@@ -49,11 +50,16 @@ def cuda():
 #: the attention family's decode shapes, (b, skv, h, hkv, dh, sq, window,
 #: n_splits): qwen2-vl-7b's G=7 (28 query heads over 4), musicgen-large's
 #: MHA (G=1) at Dh=64, and gemma3-4b's heads with its 1024-row window over
-#: a 2048-row cache, slots' positions on both sides of the window
+#: a 2048-row cache, slots' positions on both sides of the window; then
+#: jamba's attention layer (H 32, Hkv 8), grok-1's G=6 (48 over 8) and
+#: qwen3-moe's G=16 (64 over 4)
 FAMILY_DECODE_SHAPES = [
     (8, 1024, 28, 4, 128, 1, None, None),
     (8, 1024, 32, 32, 64, 1, None, None),
     (8, 2048, 8, 4, 256, 1, 1024, None),
+    (8, 1024, 32, 8, 128, 1, None, None),
+    (8, 1024, 48, 8, 128, 1, None, None),
+    (8, 1024, 64, 4, 128, 1, None, None),
 ]
 
 
@@ -542,6 +548,118 @@ def test_paged_engine_on_card_matches_dense_and_cpu(cuda):
     dense = _paged_schedule(ServeEngine(cfg, to(params, cuda), device=cuda,
                                         **kw), prompts, False)
     assert paged(cuda, False) == dense
+
+
+# --- the recurrent and MoE families on the card ------------------------------
+
+def _smoke_params(arch, seed):
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    return cfg, M.init_params(cfg, torch.Generator().manual_seed(seed),
+                              "cpu")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_recurrent_engines_on_card_match_cpu_and_eager(cuda, arch, paged):
+    """Smoke fp32 xlstm-125m and jamba engines: the graphed chunk on the
+    card gives the CPU engine's greedy streams and the eager chunk's on
+    the card (a fork and a cancel on the paged schedule: the clone's
+    recurrent rows copied on the card); xlstm-125m, which reads no KV
+    rows, holds one graph for every chunk."""
+    cfg, params = _smoke_params(arch, 3)
+    rng = np.random.default_rng(14)
+    system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    prompts = [system + tuple(int(t) for t in
+                              rng.integers(0, cfg.vocab_size, n))
+               for n in (12, 1, 30, 5)]
+    cls, kw = (PagedServeEngine, dict(page_size=4)) if paged \
+        else (ServeEngine, {})
+    out = {}
+    for dev, graphs in (("cpu", False), (cuda, False), (cuda, True)):
+        eng = cls(cfg, _to(params, dev), max_slots=2, max_len=60, chunk=3,
+                  device=dev, cuda_graphs=graphs, **kw)
+        out[(str(dev), graphs)] = _paged_schedule(eng, prompts, fork=paged)
+        if paged:
+            eng.check_pool()
+    assert out[("cpu", False)] == out[("cuda", False)] == out[("cuda", True)]
+    if paged:
+        assert out[("cpu", False)]["fork"] == out[("cpu", False)]["0"]
+    # a 60-row horizon is one bucket
+    assert list(eng.graphs.graphs) == ([None] if arch == "xlstm-125m"
+                                       else [60])
+
+
+def test_recurrent_chunk_graph_writes_the_state_in_place(cuda):
+    """jamba's chunk as one replay: the capture's eager warm-up leaves the
+    recurrent leaves (fp32) as it found them, and each replay leaves them
+    and the KV rows of the same cache tensors bit for bit as the eager
+    chunk leaves a copy of them, replay after replay."""
+    cfg, params = _smoke_params("jamba-v0.1-52b", 4)
+    params = _to(params, cuda)
+    b, n = 3, 4
+    g = torch.Generator(device=cuda).manual_seed(17)
+    cache = M.init_cache(cfg, b, 64, cuda)
+    for _, leaf in M._walk(cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda) * 0.1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                           device=cuda)
+    pos = torch.tensor([20, 7, 33], dtype=torch.int32, device=cuda)
+    body = SD.make_chunk_body(cfg, n)
+    graphs = SD.ChunkGraphs(body, cfg, params, cache, batch=b, n_tokens=n,
+                            sampled=False, device=cuda)
+    ref = _clone_cache(cache)
+    graphs.load(tokens, pos)
+    graphs.capture(64)
+    torch.cuda.synchronize()
+    state = M.state_leaves(cfg, cache)
+    assert len(state) == 14
+    assert all(torch.equal(t, r) for t, r in zip(
+        state, M.state_leaves(cfg, ref)))
+    ptrs = [t.data_ptr() for _, t in M._walk(cache)]
+    for _ in range(2):
+        want = body(params, ref, tokens, pos, None, 64)
+        got = graphs.run(64, tokens, pos)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        for (path, t), (_, r) in zip(M._walk(cache), M._walk(ref)):
+            assert torch.equal(t, r), path
+    assert [t.data_ptr() for _, t in M._walk(cache)] == ptrs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_on_card_matches_cpu(cuda, dtype):
+    """``moe_ffn`` at 16 experts top-2 with drops (capacity 2 over 8
+    tokens): on the card the routing of the CPU run (fp32), and its
+    output within 1e-5 (fp32) or 5e-2 of its largest (bf16)."""
+    g = torch.Generator().manual_seed(5)
+    d, e, f = 64, 16, 48
+    p = {"router": torch.randn(d, e, generator=g) * d ** -0.5,
+         "w_gate": torch.randn(e, d, f, generator=g) * d ** -0.5,
+         "w_up": torch.randn(e, d, f, generator=g) * d ** -0.5,
+         "w_down": torch.randn(e, f, d, generator=g) * f ** -0.5}
+    p = {k: v.to(dtype) for k, v in p.items()}
+    x = torch.randn(8, 1, d, generator=g).to(dtype)
+    kw = dict(n_experts=e, top_k=2)
+    want, aux_c = MoE.moe_ffn(p, x, **kw)
+    got, aux_g = MoE.moe_ffn(_to(p, cuda), x.to(cuda), **kw)
+    w = want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        route = [MoE.route(xg.reshape(1, 8, d), r, n_experts=e, top_k=2,
+                           cap=2) for xg, r in ((x, p["router"]),
+                                                 (x.to(cuda),
+                                                  p["router"].to(cuda)))]
+        assert not bool(route[0][3].all())
+        for a, b in zip(route[0][2:], route[1][2:]):
+            assert torch.equal(a, b.cpu())
+    else:
+        assert (got.cpu().float() - w).abs().max() <= 5e-2 * w.abs().max()
+    torch.testing.assert_close(aux_g.cpu(), aux_c, rtol=1e-5, atol=1e-6)
 
 
 # --- the decode chunk as CUDA-graph replays ---------------------------------

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ModelConfig as JModelConfig
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import attention as JA
@@ -42,7 +43,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma3-4b", "minitron-8b",
                                   "qwen1.5-110b", "qwen2-vl-7b",
-                                  "musicgen-large"])
+                                  "qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "musicgen-large", "xlstm-125m",
+                                  "jamba-v0.1-52b"])
 def test_config_fields_match_jax(arch, smoke):
     want = jax_smoke(arch) if smoke else jax_config(arch)
     got = get_smoke_config(arch) if smoke else get_config(arch)
@@ -185,17 +188,54 @@ def test_init_params_layout_and_scale():
 
 @pytest.mark.parametrize("pattern", [("attn", "mamba"), ("attn:moe",),
                                      ("mlstm",), ("slstm",)])
-def test_unported_blocks_raise(pattern):
-    """Mamba, MoE and xLSTM blocks wait for ROADMAP queue 1 item 4; the
-    training forward is not ported."""
-    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=2, d_model=64,
-                      n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=64,
-                      n_experts=4, experts_per_token=2, d_ff_expert=32,
-                      block_pattern=pattern)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        M.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        M.cache_shapes(cfg, 1, 8)
+def test_block_patterns_match_jax(pattern):
+    """Mamba, MoE, mLSTM and sLSTM blocks (each pattern cycled over 3
+    layers, so a tail follows the scan) against JAX in fp32: a 12-token
+    prefill and one decode step at per-slot positions, logits and every
+    cache leaf, the MoE aux loss summed over the layers. Logits within
+    1e-5 as above; the states within 1e-4 (mLSTM's C sums 12 outer
+    products in another order than XLA's einsum)."""
+    kw = dict(name="hybrid", family="hybrid", n_layers=3, d_model=64,
+              n_heads=4, n_kv_heads=2, d_ff=96, vocab_size=64, n_experts=4,
+              experts_per_token=2, d_ff_expert=32, moe_group_size=8,
+              ssm_d_state=4, ssm_dt_rank=4, ssm_chunk=8, q_chunk=8,
+              kv_chunk=8, block_pattern=pattern, param_dtype="float32")
+    cj = JModelConfig(**kw)
+    ct = ModelConfig(**kw)
+    pj, pt = bridged_params(cj, ct)
+    toks = _prompts(ct, 2, 12)
+    lj, aj, cache_j = JM.forward(cj, pj, {"tokens": jnp.asarray(toks)},
+                                 mode="prefill", cache_len=16)
+    lt, at, cache_t = M.forward(ct, pt, {"tokens": torch.tensor(toks)},
+                                mode="prefill", cache_len=16)
+    np.testing.assert_allclose(f32(lt), f32(lj), **TOL["float32"])
+    np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+    assert ("moe" in pattern[0]) == (float(at) > 0)
+    host = jax.tree.map(np.asarray, cache_j)
+    for (path, g), (_, w) in zip(M._walk(cache_t), M._walk(host)):
+        np.testing.assert_allclose(f32(g), f32(w), err_msg=str(path),
+                                   rtol=1e-4, atol=1e-4)
+    tok = _prompts(ct, 2, 1, seed=2)
+    pos = np.array([12, 9], np.int32)
+    lj, aj, new_j = JM.forward(cj, pj, {"tokens": jnp.asarray(tok)},
+                               mode="decode", cache=cache_j,
+                               pos=jnp.asarray(pos))
+    cache_t = bridge.cache_from_jax(host, ct, device="cpu")
+    ptrs = [t.data_ptr() for _, t in M._walk(cache_t)]
+    lt, at, new_t = M.forward(ct, pt, {"tokens": torch.tensor(tok)},
+                              mode="decode", cache=cache_t,
+                              pos=torch.tensor(pos), kv_len=16)
+    assert [t.data_ptr() for _, t in M._walk(new_t)] == ptrs
+    np.testing.assert_allclose(f32(lt), f32(lj), **TOL["float32"])
+    np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+    for (path, g), (_, w) in zip(M._walk(new_t),
+                                 M._walk(jax.tree.map(np.asarray, new_j))):
+        np.testing.assert_allclose(f32(g), f32(w), err_msg=str(path),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_train_mode_raises():
+    """The training forward is not ported (ROADMAP queue 1 item 7)."""
     with pytest.raises(ValueError, match="unknown mode"):
         M.forward(get_smoke_config("yi-9b"), {}, {"tokens": torch.zeros(
             (1, 1), dtype=torch.int64)}, mode="train")
@@ -216,4 +256,4 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18
+    assert int(out.stdout.strip()) >= 25

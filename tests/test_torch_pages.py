@@ -11,6 +11,11 @@ package's.
 * **Device steps.** ``paged_insert`` and ``page_copy`` on bridged bf16
   pools must leave the very bytes JAX's jitted steps leave, and the pool
   sizes must match ``paged_kv_bytes`` / ``dense_kv_bytes``.
+* **Recurrent leaves** (jamba's Mamba state beside its one attention
+  layer): the paged layout keeps them slot-batched at ``max_slots``;
+  ``paged_insert`` writes the slot row also when every page is shared,
+  ``page_copy`` leaves them alone and ``slot_copy`` copies a slot row,
+  byte for byte as JAX's steps.
 """
 
 import jax
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import model as JM
 from repro.serve import pages as JPG
 from repro.train import serve as jserve
 from repro_torch.models import bridge
@@ -256,7 +262,7 @@ def test_paged_cache_layout_matches_jax():
     cj, ct = cfg_pair("bfloat16")
     want = [tuple(s.shape) for s in
             jax.tree.leaves(JPG.paged_cache_shapes(cj, 2, 9, PS))]
-    got = PG.init_paged_cache(ct, 9, PS, device="cpu")
+    got = PG.init_paged_cache(ct, 2, 9, PS, device="cpu")
     assert [tuple(x.shape) for _, x in sorted(_flat(got).items())] == want
     assert all(bool((x == 0).all()) for x in _flat(got).values())
 
@@ -284,7 +290,8 @@ def test_paged_insert_matches_jax(prompt_len, phys, logical):
         pools_j, one_j, jnp.int32(0), jnp.asarray(phys, jnp.int32),
         jnp.asarray(logical, jnp.int32))
     ptrs = [x.data_ptr() for x in _flat(pools_t).values()]
-    PG.paged_insert(pools_t, one_t, torch.tensor(phys, dtype=torch.int64),
+    PG.paged_insert(ct, pools_t, one_t, 0,
+                    torch.tensor(phys, dtype=torch.int64),
                     torch.tensor(logical, dtype=torch.int64))
     assert [x.data_ptr() for x in _flat(pools_t).values()] == ptrs
     for g, w in zip(_torch_bits(pools_t), _bits(want)):
@@ -298,6 +305,84 @@ def test_page_copy_matches_jax():
                                     device="cpu")
     want = jax.jit(JPG.make_page_copy_step(cj))(pools_j, jnp.int32(4),
                                                 jnp.int32(1))
-    PG.page_copy(pools_t, 4, 1)
+    PG.page_copy(ct, pools_t, 4, 1)
+    for g, w in zip(_torch_bits(pools_t), _bits(want)):
+        np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent leaves beside the pools
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+
+
+def test_recurrent_paged_layout_matches_jax():
+    """KV leaves are pools, recurrent leaves keep ``max_slots`` rows (in
+    fp32), as in JAX's ``paged_cache_shapes``; only pools count as KV."""
+    cj, ct = cfg_pair("bfloat16", JAMBA)
+    want = {path: (tuple(s.shape), str(s.dtype)) for path, s in
+            _flat(JPG.paged_cache_shapes(cj, 3, 9, PS)).items()}
+    got = {path: (tuple(shape), str(dtype).replace("torch.", "")) for
+           path, (shape, dtype) in
+           _flat(PG.paged_cache_shapes(ct, 3, 9, PS)).items()}
+    assert got == want
+    assert _flat(PG.kv_leaf_flags(ct)) == _flat(jax.tree.map(
+        bool, JPG.kv_leaf_flags(cj)))
+    cache = PG.init_paged_cache(ct, 3, 9, PS, device="cpu")
+    assert {p: tuple(x.shape) for p, x in _flat(cache).items()} \
+        == {p: shape for p, (shape, _) in want.items()}
+    assert all(bool((x == 0).all()) for x in _flat(cache).values())
+    assert PG.paged_kv_bytes(ct, 9, PS) == JPG.paged_kv_bytes(cj, 9, PS)
+    assert PG.dense_kv_bytes(ct, 3, 48) == JPG.dense_kv_bytes(cj, 3, 48)
+
+
+def _jamba_pools(cj, ct, seed):
+    shapes = JPG.paged_cache_shapes(cj, 3, 9, PS)
+    rng = np.random.default_rng(seed)
+    pools_j = jax.tree.map(
+        lambda s: jnp.asarray(rng.standard_normal(s.shape), s.dtype), shapes)
+    return pools_j, bridge.cache_from_jax(jax.tree.map(np.asarray, pools_j),
+                                          ct, device="cpu")
+
+
+@pytest.mark.parametrize("phys,logical", [([5, 2], [1, 2]), ([], [])])
+def test_recurrent_paged_insert_matches_jax(phys, logical):
+    """A 9-token prompt into slot 1: its pages (none when all are shared)
+    and its Mamba rows, conv cast from bf16 to the slot's fp32."""
+    cj, ct = cfg_pair("bfloat16", JAMBA)
+    pj, _ = bridged_params(cj, ct)
+    pools_j, pools_t = _jamba_pools(cj, ct, seed=len(phys))
+    toks = np.random.default_rng(1).integers(0, ct.vocab_size, (1, 9))
+    _, one_j = jserve.make_prefill_step(cj, cache_len=None)(
+        pj, {"tokens": jnp.asarray(toks)})
+    # the prefill's conv state is bf16; it crosses as the fp32 it becomes
+    # in the slot (exactly)
+    one_host = jax.tree.map(lambda x, s: np.asarray(x.astype(s.dtype)),
+                            one_j, JM.cache_shapes(cj, 1, 9))
+    one_t = bridge.cache_from_jax(one_host, ct, device="cpu")
+    want = jax.jit(JPG.make_paged_insert_step(cj, PS))(
+        pools_j, one_j, jnp.int32(1), jnp.asarray(phys, jnp.int32),
+        jnp.asarray(logical, jnp.int32))
+    PG.paged_insert(ct, pools_t, one_t, 1,
+                    torch.tensor(phys, dtype=torch.int64),
+                    torch.tensor(logical, dtype=torch.int64))
+    for g, w in zip(_torch_bits(pools_t), _bits(want)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_recurrent_page_and_slot_copies_match_jax():
+    """``page_copy`` copies page 4 to 1 in the pools only; ``slot_copy``
+    copies slot row 2 to 0 in the recurrent leaves only."""
+    cj, ct = cfg_pair("bfloat16", JAMBA)
+    pools_j, pools_t = _jamba_pools(cj, ct, seed=7)
+    want = jax.jit(JPG.make_page_copy_step(cj))(pools_j, jnp.int32(4),
+                                                jnp.int32(1))
+    PG.page_copy(ct, pools_t, 4, 1)
+    for g, w in zip(_torch_bits(pools_t), _bits(want)):
+        np.testing.assert_array_equal(g, w)
+    want = jax.jit(JPG.make_slot_copy_step(cj))(want, jnp.int32(2),
+                                                jnp.int32(0))
+    PG.slot_copy(ct, pools_t, 2, 0)
     for g, w in zip(_torch_bits(pools_t), _bits(want)):
         np.testing.assert_array_equal(g, w)
