@@ -127,6 +127,20 @@ Phases, each printed on its own line:
    kernel events, bar the profiler's known drops); the
    ``kernels`` JSON line (all 20 kernels, phase 2a's among them) comes
    last but one.
+6a. planning and pricing on the ``h100`` machine file (PR 24): after
+   each served config's trace phase (yi-9b dense and paged, gemma3-4b,
+   xlstm-125m, the jamba period) a ``plan`` JSON line
+   (:func:`phase_plan`): the decode step's ATen trace priced by
+   ``serve.planner.plan_chunk_size`` under ``tp_bound`` and
+   ``mca_sched``, full horizon and re-priced at the trace phase's
+   occupancy, beside that phase's measured ms a step, with the trace's
+   op count and unknown ops and the engine's planned chunk and store
+   flavor; a decode split sweep (:func:`phase_split_sweep`:
+   ``split_sweep`` lines, the tile tuner's modeled µs beside the
+   measured, and the guard that keeps ``default_splits`` on the path);
+   one planned ``ServeEngine(chunk=None, machine="h100")`` beside a
+   chunk-8 engine (:func:`phase_planned_engine`). The phases' seconds
+   are summed and printed.
 5e. (after phase 6's trace phases, the yi-9b engines freed) gemma3-4b
    at its published width and depth (34 layers, 5 x 6 + a tail of 4,
    a 1024-row window in 29 of them, Dh=256, a tied 262144-row head;
@@ -210,9 +224,22 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
+
+def _h100_spec():
+    """The card's published figures: the port's ``h100`` machine file's
+    ``GpuSpec`` (``repro_torch/utils/hw.py``: NVIDIA's H100 SXM data
+    sheet, whitepaper and CUDA programming guide)."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.core.machine import get_machine
+    return get_machine("h100").chip
+
+
+_H100 = _h100_spec()
+#: HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense bf16 FLOP/s
+#: on them
+HBM_BYTES_PER_S, FP32_FLOPS, BF16_FLOPS = (_H100.hbm_bw, _H100.fp32_flops,
+                                           _H100.bf16_flops)
 
 # yi-9b head shapes of the serving path
 B, H, HKV, DH = 8, 32, 4, 128
@@ -504,8 +531,8 @@ PI_OPS_PER_POINT = 6                 # +0.5, /n, x*x, 1+, 4/, the sum
 #: Hopper's rates behind pi_integration's reckoned floors: MUFU.RCP
 #: results an SM a clock (16 SFU lanes), and thread instructions an SM
 #: issues a clock (4 schedulers, a warp instruction each)
-SFU_RCP_PER_SM_CLOCK = 16
-ISSUE_PER_SM_CLOCK = 128
+SFU_RCP_PER_SM_CLOCK = _H100.sfu_per_sm
+ISSUE_PER_SM_CLOCK = _H100.issue_per_sm
 STREAM_KPY = "src/repro/kernels/stream/kernels.py"
 # name: (line of its pallas_call or function in STREAM_KPY, CUDA source)
 STREAM_KERNELS = {
@@ -3116,7 +3143,7 @@ def phase_wide_timings(torch, D, ops, R, reqs) -> None:
                       tiles.items()) + " (device time by profiler)")
 
 
-def phase_trace(torch, serve, eng, reqs, label: str) -> None:
+def phase_trace(torch, serve, eng, reqs, label: str) -> float:
     """Where a full-width decode step's device time goes, and the
     device's idle share over the same steps.
 
@@ -3124,7 +3151,8 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     take the wall time of two chunked dispatches, once under the
     profiler to take the device's busy time in the same two dispatches.
     Greedy decoding repeats the same tokens, positions and occupancy
-    bounds, so both passes do the same work. Prints the device kernels a
+    bounds, so both passes do the same work. Returns the unprofiled
+    pass's wall ms a step. Prints the device kernels a
     step beside the copies and fills, as the profiler counts them, and
     the host API calls a step that put that work on the card (kernel
     launches, graph launches, copies). An engine with CUDA graphs has
@@ -3230,6 +3258,274 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     for name, us in top:
         print(f"{label}: {us / 1e3 / steps:8.3f} ms/step  {name[:100]}")
+    return wall_ms
+
+
+# --- planning and pricing on the card's machine file -----------------------
+
+#: the scheduling backends each plan line prices the step with
+PLAN_BACKENDS = ("tp_bound", "mca_sched")
+#: split counts the decode sweep times besides ``default_splits``' and
+#: the tuner's
+SWEEP_SPLITS = (1, 2, 4, 8)
+#: the sweep's calls a timing window
+SWEEP_ITERS = 240
+#: the guard: the path would take the tuner's split count only if it read
+#: at most this much slower than ``default_splits``' at yi-9b's dense
+#: shape. The path keeps ``default_splits`` (ROADMAP queue 3); a reading
+#: within the guard prints a notice that the fault is to be revisited.
+SWEEP_GUARD = 1.03
+#: the least share of the planned engine's greedy tokens that must match
+#: the chunk-8 engine's, each stream up to its first parting token. The
+#: two engines run the same per-token step, but at the steps where a
+#: chunk crosses a 128-row boundary their ``kv_len`` buckets differ, so
+#: the split partition of the KV rows and the bf16 rounding of the
+#: combine differ, and a near tie of the greedy argmax can part a
+#: stream from there on. A wrong planned path (a wrong position or cache
+#: row) parts every stream at its first decode token.
+PLANNED_STREAM_MIN = 0.5
+
+
+def tuner_plan(q, hkv: int, bound: int):
+    """The tile tuner's plan on the ``h100`` machine file for a decode
+    call on ``q`` (B, Sq, H, Dh) over ``bound`` rows of ``hkv`` KV heads,
+    as the JAX router asks it (``dtype`` the dtype's name)."""
+    from repro_torch.kernels import tuning
+    b, _, h, dh = q.shape
+    return tuning.decode_tiles("h100", skv=bound, dh=dh, h=h, hkv=hkv,
+                               batch=b, dtype=str(q.dtype)[len("torch."):])
+
+
+def trace_rows(reqs, chunk: int) -> int:
+    """Mean cache rows a slot holds over :func:`phase_trace`'s two
+    measured chunks (its requests' prompts, the prefill's token and the
+    warm chunk before them): the occupancy its wall time was read at."""
+    lens = [len(r.prompt) for r in reqs[:8]]
+    return round(sum(lens) / len(lens) + 1 + 2 * chunk)
+
+
+def phase_plan(torch, label: str, eng, measured_ms: float,
+               occupancy: int | None) -> float:
+    """One ``plan`` line: the served config's decode step planned for the
+    ``h100`` machine file, beside the card's reading.
+
+    The step's ATen trace (``planner.decode_step_trace``, the dense step
+    at the engine's slots and horizon, lowered on meta tensors) is priced
+    under both backends: ``dense_ms`` the full-horizon step, ``kernel_ms``
+    the step with its KV read re-priced at ``occupancy`` rows a slot
+    through the tuner's tiles (``_kernel_adjusted``; ``page_size`` for a
+    paged engine). That bound rounds to the tuner's KV block on ``h100``
+    (64 rows at yi-9b's measured occupancy), not to the 128-row block the
+    dense path runs while it keeps ``default_splits`` (ROADMAP queue 3). ``measured_ms`` is :func:`phase_trace`'s wall ms a
+    step; the ratio is measured over ``kernel_ms``. ``chunk`` and
+    ``store_flavor`` are the engine's own plan (occupancy = its horizon),
+    what ``ServeEngine(chunk=None, machine="h100")`` takes. Returns the
+    seconds the phase took."""
+    from repro_torch.serve import planner
+    t0 = time.perf_counter()
+    cfg, b, horizon = eng.cfg, eng.max_slots, eng.max_len
+    page = eng.page_size if eng.paged else None
+    tr = planner.decode_step_trace(cfg, b, horizon)
+    t_lower = time.perf_counter() - t0
+
+    def walk(region):
+        for op in region.ops:
+            yield op
+            if op.region is not None:
+                yield from walk(op.region)
+    unknown = sorted({op.opcode for op in walk(tr.entry) if op.unknown})
+    pred = {}
+    for backend in PLAN_BACKENDS:
+        adj = planner.plan_chunk_size(cfg, b, horizon, machine="h100",
+                                      backend=backend, page_size=page,
+                                      occupancy=occupancy)
+        dense = (adj.per_machine_dense or adj.per_machine)["h100"]
+        pred[backend] = {"dense_ms": dense * 1e3,
+                         "kernel_ms": adj.t_step_seconds * 1e3}
+    own = planner.plan_chunk_size(cfg, b, horizon, machine="h100",
+                                  occupancy=horizon, page_size=page)
+    line = {
+        "plan": label, "arch": cfg.name, "layers": cfg.n_layers,
+        "slots": b, "horizon": horizon, "page_size": page,
+        "machine": "h100", "trace_ops": tr.n_ops(),
+        "unknown_ops": unknown, "occupancy": occupancy,
+        "predicted_ms": pred, "measured_ms": measured_ms,
+        "measured_over_predicted": {
+            k: measured_ms / v["kernel_ms"] for k, v in pred.items()},
+        "chunk": own.chunk, "store_flavor": own.store_flavor,
+        "lower_s": t_lower, "plan_s": time.perf_counter() - t0}
+    print(json.dumps(line))
+    for k, v in pred.items():
+        check(all(math.isfinite(x) and x > 0 for x in v.values()),
+              f"{label}: {k} predicted {v}")
+    check(pred["mca_sched"]["kernel_ms"] >= pred["tp_bound"]["kernel_ms"]
+          * (1 - 1e-9), f"{label}: mca_sched under tp_bound: {pred}")
+    check(own.store_flavor == "standard",
+          f"{label}: h100 store flavor {own.store_flavor}")
+    return time.perf_counter() - t0
+
+
+def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
+    """The decode kernels at the split counts the tuner chooses among.
+
+    ``flash_decode`` at yi-9b's decode shape (the engine's own 48-layer
+    cache, cycled) and at gemma3-4b's (H=8, Hkv=4, Dh=256, 16 random
+    layers), ``flash_decode_paged`` at yi-9b's (the same cache as page
+    pools of 16 rows under a permuted table): B=8, the dense timing's
+    positions, the bound their 128-row bucket. Each at n_splits 1, 2,
+    4, 8 (the tuner's block), ``default_splits``' count (the path's: the
+    fewest splits whose B x Hkv x n_splits blocks cover the machine
+    file's SMs; 128-row blocks) and the tile tuner's (:func:`tuner_plan`),
+    each a ``split_sweep`` line with the tuner's modeled
+    ``TilePlan.seconds`` beside the measured µs (``timed``). Prints the
+    guard's reading at yi-9b's dense shape and the tuner's tiles of every
+    yi-9b bucket. Returns the seconds the phase took."""
+    t0 = time.perf_counter()
+    pos = torch.tensor([len(r.prompt) + 32 for r in reqs[:B]],
+                       dtype=torch.int32, device="cuda")
+    cache = eng.cache["scan"]["0"]
+    kc, vc = cache["k"], cache["v"]
+    skv = kc.shape[2]
+    bound = min(-(-(int(pos.max()) + 1) // 128) * 128, skv)
+    live = int((pos + 1).clamp(max=bound).sum())
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    gk = torch.randn(16, B, skv, 4, 256, generator=gen,
+                     device="cuda").bfloat16()
+    gv = torch.randn_like(gk)
+    ps = 16
+    kp = kc.view(kc.shape[0], B * skv // ps, ps, HKV, DH)
+    vp = vc.view(vc.shape[0], B * skv // ps, ps, HKV, DH)
+    nb = bound // ps
+    bt = torch.randperm(kp.shape[1], generator=torch.Generator().manual_seed(
+        22))[:B * nb].reshape(B, nb).int().cuda()
+    shapes = (("flash_decode yi-9b", H, HKV, DH, kc, vc, None),
+              ("flash_decode gemma3-4b", 8, 4, 256, gk, gv, None),
+              ("flash_decode_paged yi-9b", H, HKV, DH, kp, vp, bt))
+    guard = None
+    for label, h, hkv, dh, kk, vv, table in shapes:
+        q = torch.randn(B, 1, h, dh, generator=gen, device="cuda").bfloat16()
+        plan = tuner_plan(q, hkv, bound)
+        blocks = -(-bound // 128) if table is None else nb
+        default = D.default_splits(B, hkv, blocks)
+        layer = [0]
+        variants = [("", plan.bk, n) for n in SWEEP_SPLITS] + [
+            ("default_splits", 128, default),
+            ("tuner", plan.bk, plan.n_splits)]
+        times = {}
+        for which, bk, ns in variants:
+            if table is None:
+                bnd, sl, n = D.split_plan(B, hkv, skv, bk, ns, bound)
+            else:
+                bnd, sl, n = D.paged_split_plan(B, hkv, ps, nb, ns)
+            kw = dict(window=None, split_len=sl, n_splits=n, bound=bnd,
+                      impl="cuda")
+
+            def call(kw=kw):
+                i = layer[0] = (layer[0] + 1) % kk.shape[0]
+                if table is None:
+                    D.decode_finished(q, kk[i], vv[i], pos, **kw)
+                else:
+                    D.decode_paged_finished(q, kk[i], vv[i], table, pos,
+                                            **kw)
+            ms = timed(torch, call, SWEEP_ITERS)
+            times[which or f"n{n}"] = ms
+            print(json.dumps({
+                "split_sweep": label, "which": which or "fixed",
+                "n_splits": n, "bk": bk if table is None else ps,
+                "blocks": B * hkv * n, "bound": bnd, "live_rows": live,
+                "us": ms * 1e3, "tuner_bk": plan.bk,
+                "tuner_splits": plan.n_splits,
+                "tuner_model_us": plan.seconds * 1e6}))
+        ratio = times["tuner"] / times["default_splits"]
+        print(f"split sweep: {label}: the tuner's (bk {plan.bk}, "
+              f"{plan.n_splits} splits) {times['tuner'] * 1e3:.2f} us, "
+              f"default_splits' {default} "
+              f"{times['default_splits'] * 1e3:.2f} us ({ratio:.3f}x), "
+              f"model {plan.seconds * 1e6:.2f} us")
+        if label == "flash_decode yi-9b":
+            guard = ratio
+    del gk, gv
+    print(f"split sweep: guard at yi-9b's dense shape: the tuner's pick "
+          f"reads {guard:.3f}x default_splits' time (the path would take "
+          f"it at <= {SWEEP_GUARD})")
+    if guard <= SWEEP_GUARD:
+        print(f"split sweep: NOTICE: the tuner's pick is within the guard "
+              f"({guard:.3f}x <= {SWEEP_GUARD}), but the path still runs "
+              f"default_splits: revisit ROADMAP queue 3's split fault")
+    q = torch.empty(B, 1, H, DH, dtype=torch.bfloat16, device="meta")
+    tiles = {kv: (tuner_plan(q, HKV, kv),
+                  D.default_splits(B, HKV, -(-kv // 128)))
+             for kv in range(128, skv + 1, 128)}
+    print("split sweep: by yi-9b dense kv_len bucket, the tuner's (bk, "
+          "n_splits) on h100 beside default_splits' count at 128-row "
+          "blocks: " + ", ".join(f"{kv}: ({p.bk}, {p.n_splits}) / {d}"
+                                 for kv, (p, d) in tiles.items()))
+    return time.perf_counter() - t0
+
+
+def phase_planned_engine(torch, np, serve, cfg, params) -> float:
+    """One planned engine: ``ServeEngine(chunk=None, machine="h100")``
+    serves 8 requests of 128-256-token prompts, 48 new tokens each, at
+    the 2048-row horizon, beside a chunk-8 engine on the same requests.
+    Each engine serves one warm-up set (capturing the graphs of the
+    buckets it reaches) and is then timed on a second set of the same
+    lengths; both engines get the same two sets. Fails unless
+    ``engine.chunk == engine.plan.chunk``, every request gets its
+    tokens, every stream's first token agrees between the engines, and
+    at least ``PLANNED_STREAM_MIN`` of the planned engine's tokens match
+    the chunk-8 engine's up to each stream's first parting token.
+    Returns the seconds the phase took."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    lens = rng.integers(128, 257, size=8)
+
+    def requests(tag):
+        return [serve.Request(f"{tag}{i}", tuple(
+            int(t) for t in rng.integers(0, cfg.vocab_size, n)), 48)
+            for i, n in enumerate(lens)]
+    warm, timed_reqs = requests("w"), requests("t")
+    out = {}
+    for chunk in (None, 8):
+        eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048,
+                                chunk=chunk, machine="h100", device="cuda")
+        if chunk is None:
+            check(eng.plan is not None and eng.chunk == eng.plan.chunk,
+                  f"planned engine: chunk {eng.chunk}, plan {eng.plan}")
+        eng.run(warm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.run(timed_reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        check(all(len(res[r.rid]) == r.max_new_tokens for r in timed_reqs),
+              f"planned engine (chunk={chunk}): not every request got its "
+              f"tokens")
+        out["planned" if chunk is None else "chunk 8"] = (
+            eng.chunk, sum(len(v) for v in res.values()) / wall, res)
+        del eng
+        torch.cuda.empty_cache()
+    (pc, ptok, pres), (_, ctok, cres) = out["planned"], out["chunk 8"]
+    parted = []
+    for r in timed_reqs:
+        a, b = list(pres[r.rid]), list(cres[r.rid])
+        parted.append(next((i for i, (x, y) in enumerate(zip(a, b))
+                            if x != y), len(a)))
+    share = sum(parted) / sum(r.max_new_tokens for r in timed_reqs)
+    print(f"planned engine: ServeEngine(chunk=None, machine='h100') on "
+          f"yi-9b took chunk {pc} (engine.chunk == engine.plan.chunk): "
+          f"{ptok:.1f} tok/s, beside {ctok:.1f} tok/s at chunk 8 on the "
+          f"same requests (8 slots, 128-256-token prompts, 48 new tokens); "
+          f"greedy streams identical to chunk 8's: "
+          f"{sum(p == r.max_new_tokens for p, r in zip(parted, timed_reqs))}"
+          f" of {len(timed_reqs)}, first parting token by stream {parted}, "
+          f"tokens before it {share:.3f} (min {PLANNED_STREAM_MIN})")
+    check(all(p > 0 for p in parted),
+          f"planned engine: a stream's first token differs from chunk 8's "
+          f"({parted})")
+    check(share >= PLANNED_STREAM_MIN,
+          f"planned engine: {share:.3f} of the tokens match chunk 8's "
+          f"streams, under {PLANNED_STREAM_MIN}")
+    return time.perf_counter() - t0
 
 
 def main() -> int:
@@ -3277,30 +3573,44 @@ def main() -> int:
                               paged_err, flash_launches, flash_err)
     rows += stream_rows
     phase_wide_timings(torch, D, ops, R, reqs)
-    phase_trace(torch, serve, eng, reqs, "trace")
-    phase_trace(torch, serve, peng,
-                paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256,
-                               256, 64), "paged trace")
+    ms = phase_trace(torch, serve, eng, reqs, "trace")
+    plan_s = phase_plan(torch, "yi-9b dense", eng, ms,
+                        trace_rows(reqs, eng.chunk))
+    preqs = paged_requests(np, serve, eng.cfg.vocab_size, 8, 5, 256, 256, 64)
+    ms = phase_trace(torch, serve, peng, preqs, "paged trace")
+    plan_s += phase_plan(torch, "yi-9b paged", peng, ms,
+                         trace_rows(preqs, peng.chunk))
+    plan_s += phase_split_sweep(torch, D, ops, eng, reqs)
+    params = eng.params
     del eng, peng
+    torch.cuda.empty_cache()
+    plan_s += phase_planned_engine(torch, np, serve, cfg_mod.get_config(
+        "yi-9b"), params)
+    del params
     torch.cuda.empty_cache()
     geng, greqs, gemma_launches = phase_gemma_engine(torch, np, cfg_mod, M,
                                                      K, serve)
     phase_gemma_paged(torch, M, K, PG, geng, greqs)
-    phase_trace(torch, serve, geng, greqs, "gemma3-4b trace")
+    ms = phase_trace(torch, serve, geng, greqs, "gemma3-4b trace")
+    plan_s += phase_plan(torch, "gemma3-4b dense", geng, ms,
+                         trace_rows(greqs, geng.chunk))
     del geng
     torch.cuda.empty_cache()
     family_launches = phase_family_forward(torch, np, cfg_mod, M, K)
     t_new = time.perf_counter()
     xeng, xreqs = phase_xlstm_engine(torch, np, cfg_mod, M, K, serve)
     phase_xlstm_paged(torch, M, serve, xeng, xreqs)
-    phase_trace(torch, serve, xeng, [
-        serve.Request(r.rid, r.prompt[:XLSTM_TRACE_PROMPT], r.max_new_tokens)
-        for r in xreqs], "xlstm-125m trace")
+    xtrace = [serve.Request(r.rid, r.prompt[:XLSTM_TRACE_PROMPT],
+                            r.max_new_tokens) for r in xreqs]
+    ms = phase_trace(torch, serve, xeng, xtrace, "xlstm-125m trace")
+    plan_s += phase_plan(torch, "xlstm-125m dense", xeng, ms, None)
     del xeng
     torch.cuda.empty_cache()
     jeng, jreqs, jamba_launches = phase_jamba(torch, np, cfg_mod, M, K,
                                               serve, PG)
-    phase_trace(torch, serve, jeng, jreqs, "jamba trace")
+    ms = phase_trace(torch, serve, jeng, jreqs, "jamba trace")
+    plan_s += phase_plan(torch, "jamba period dense", jeng, ms,
+                         trace_rows(jreqs, jeng.chunk))
     del jeng
     torch.cuda.empty_cache()
     moe_launches = phase_moe_forward(torch, np, cfg_mod, M, K)
@@ -3315,6 +3625,8 @@ def main() -> int:
     path_launches(by_name["flash_decode_paged"], {
         "yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
         "jamba paged engine": jamba_launches["paged"]})
+    print(f"planning phases (plan lines, split sweep, planned engine): "
+          f"{plan_s:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -50,14 +50,16 @@ import math
 
 import torch
 
+from repro_torch.core.machine import get_machine
 from repro_torch.kernels import LAUNCHES, build, pos_vector, use_kernel
 from repro_torch.kernels import stores
 
 NEG_INF = -1e30
 
-#: streaming multiprocessors of an H100 SXM; the default split count
-#: makes ``B * Hkv * n_splits`` thread blocks cover them
-H100_SMS = 132
+#: streaming multiprocessors of an H100 SXM, from the card's machine file
+#: (``core/machine.py``, ``h100``); the default split count makes
+#: ``B * Hkv * n_splits`` thread blocks cover them
+H100_SMS = get_machine("h100").cores
 
 #: head dims the kernel is built for
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
@@ -88,7 +90,12 @@ _RETIRED: list = []
 
 
 def default_splits(b: int, hkv: int, n_blocks: int) -> int:
-    """Fewest splits whose ``b * hkv * n_splits`` blocks cover the SMs."""
+    """Fewest splits whose ``b * hkv * n_splits`` blocks cover the SMs.
+
+    The serving path's split count. The tile tuner's
+    (``kernels.tuning.decode_tiles`` on ``h100``) was measured against it
+    on the card and not taken: at yi-9b's decode shape it picks 8
+    splits, 1.126x this count's time (``PERF.md`` §6, PR 24)."""
     return max(1, min(n_blocks, math.ceil(H100_SMS / max(1, b * hkv))))
 
 
@@ -325,7 +332,7 @@ def _decode_kernel(q, k, v, pos, *, window, split_len: int, n_splits: int,
     k_new, v_new = _new_rows(k, q, k_new, v_new)
     if k_new is not None and sq > k.shape[1]:
         raise ValueError(f"{sq} new rows do not fit a {k.shape[1]}-row cache")
-    nt = stores.resolve_flavor(store_flavor) == "nt"
+    nt = stores.executed_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
     ws, out, ptrs = _launch_buffers(q, k.shape[2], n_splits, finished)
     rc = lib.flash_decode(
@@ -518,7 +525,7 @@ def _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos, *, window,
         raise ValueError("block_tables must be a (B, NB) int32 tensor on "
                          f"{q.device} with contiguous rows")
     k_new, v_new = _new_rows(k_pages, q, k_new, v_new)
-    nt = stores.resolve_flavor(store_flavor) == "nt"
+    nt = stores.executed_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
     ws, out, ptrs = _launch_buffers(q, k_pages.shape[2], n_splits,
                                     finished)

@@ -3,8 +3,13 @@
 The counterpart of ``repro/kernels/attention/ops.py``. Tiles are explicit
 arguments with documented defaults (``bk=128``, ``n_splits`` from
 ``decode.default_splits``; the paged kernel's block is the page; flash
-attention's ``bq``/``bk`` from ``flash``); the MemTier autotuner that
-picks them in the JAX package is not ported yet. ``impl`` follows
+attention's ``bq``/``bk`` from ``flash``). The JAX package's MemTier
+tile tuner, which picks them there, is ported (``kernels/tuning.py``)
+and prices these kernels for the planner, but the path keeps the
+defaults: on the card the tuner's split count read up to 1.33x slower
+than ``default_splits``' (``PERF.md`` §6, PR 24; ROADMAP queue 3).
+Each decode router is one kernel launch, and a ``core.trace`` lowering
+records it as one (``core.trace.kernel``). ``impl`` follows
 ``repro_torch.kernels``: ``"ref"`` runs the kernel's plain PyTorch
 version, ``"cuda"`` the kernel, ``"auto"`` the kernel on a CUDA tensor
 and the plain version on a CPU tensor. The dense oracle
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+from repro_torch.core.trace import kernel
 from repro_torch.kernels.attention import decode as D
 from repro_torch.kernels.attention import flash as F
 
@@ -49,6 +55,7 @@ def validate_tp_heads(h: int, hkv: int, dh: int, tp: int, *,
     return hkv_shard
 
 
+@kernel
 def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
                  bk: int = 128, n_splits: int | None = None,
                  kv_len: int | None = None, k_new=None, v_new=None,
@@ -83,6 +90,7 @@ def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
                           k_new=k_new, v_new=v_new, store_flavor=store_flavor)
 
 
+@kernel
 def flash_decode_paged(q, k_pages, v_pages, block_tables, pos, *,
                        window=None, impl: str = "auto",
                        n_splits: int | None = None,

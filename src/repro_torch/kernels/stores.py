@@ -18,15 +18,19 @@ Store flavors:
 * ``"standard"`` — plain stores.
 * ``"nt"`` — streaming (evict-first) stores, ``st.global.cs``. The
   bytes written are identical to ``"standard"``.
-* ``"auto"`` — resolves to ``"standard"``. The JAX package selects a
-  flavor per machine from its MemTier model and executes ``"standard"``
-  off the TPU (``stores.executed_flavor``); until an H100 machine model
-  exists, the port does the same.
+* ``"auto"`` — the cheaper flavor the machine file's memory ladder
+  models (:func:`resolve_flavor`, :func:`plan_stores`; the JAX
+  package's selector, copied). On ``h100`` that is ``"standard"``: the
+  card claims lines on store (``auto_claim``, residue 0), so streaming
+  stores buy nothing, as its INIT streams show. The kernels run
+  :func:`executed_flavor`'s flavor, which takes ``"auto"`` as
+  ``"standard"`` without pricing it at every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -43,28 +47,123 @@ _SIGNATURES = {
 }
 
 
-def resolve_flavor(flavor: str | None) -> str:
-    """Validate a flavor string and resolve ``"auto"`` (and ``None``).
+#: selection tolerance: "nt" must beat "standard" by more than this
+#: ratio margin (ties and noise go to the standard path)
+_SELECT_EPS = 1e-9
 
-    ``"auto"`` and ``None`` resolve to ``"standard"``: no H100 machine
-    model exists yet to select a flavor from.
+
+def _check(flavor: str | None) -> None:
+    if flavor is not None and flavor not in STORE_FLAVORS:
+        raise ValueError(f"unknown store flavor {flavor!r} "
+                         f"(expected one of {STORE_FLAVORS})")
+
+
+@dataclasses.dataclass(frozen=True)
+class StorePlan:
+    """One store-path decision and the modeled ratios behind it."""
+
+    machine: str              # registered machine name
+    flavor: str               # chosen flavor: "standard" | "nt"
+    wa_mode: str              # the machine's Fig. 4 behavioural mode
+    ratio_standard: float     # modeled traffic ratio, standard stores
+    ratio_nt: float           # modeled traffic ratio, NT stores
+    saturation: float         # modeled interface saturation used, 0..1
+    ws_bytes: float | None    # working set the ratios were gated on
+
+    @property
+    def ratio(self) -> float:
+        """Modeled traffic ratio of the *chosen* flavor."""
+        return self.ratio_nt if self.flavor == "nt" \
+            else self.ratio_standard
+
+
+def flavor_ratios(machine, *, ws_bytes: float | None = None,
+                  cores_active: int | None = None,
+                  bw_utilization: float | None = None,
+                  tile_full_frac: float = 1.0) -> tuple:
+    """(standard, nt) modeled traffic ratios on one machine, both from
+    the ladder-residue path (``core.wa.ladder_traffic_ratio``)."""
+    from repro_torch.core import wa
+    kw = dict(ws_bytes=ws_bytes, cores_active=cores_active,
+              bw_utilization=bw_utilization,
+              tile_full_frac=tile_full_frac)
+    return (wa.ladder_traffic_ratio(machine, nt_stores=False, **kw),
+            wa.ladder_traffic_ratio(machine, nt_stores=True, **kw))
+
+
+def plan_stores(machine=None, *, flavor: str = "auto",
+                ws_bytes: float | None = None,
+                cores_active: int | None = None,
+                bw_utilization: float | None = None) -> StorePlan:
+    """Resolve the store path for one machine into a :class:`StorePlan`.
+
+    ``flavor="auto"`` picks the cheaper modeled flavor (ties ->
+    ``standard``); an explicit ``"standard"``/``"nt"`` is honoured but
+    the plan still records both ratios. ``ws_bytes`` gates the SpecI2M
+    saturation model on the real working set (omitted -> the stream is
+    assumed DRAM-bound at full saturation); ``machine`` defaults to the
+    tuner's target (``kernels.tuning.default_machine``).
     """
-    if flavor is None:
-        return "standard"
+    from repro_torch.core import wa
+    from repro_torch.core.machine import get_machine
+    from repro_torch.core.memtier import modeled_saturation
+    if machine is None:
+        from repro_torch.kernels.tuning import default_machine
+        machine = default_machine()
+    m = get_machine(machine) if isinstance(machine, str) else machine
     if flavor not in STORE_FLAVORS:
         raise ValueError(f"unknown store flavor {flavor!r} "
                          f"(expected one of {STORE_FLAVORS})")
-    return "standard" if flavor == "auto" else flavor
+    r_std, r_nt = flavor_ratios(m, ws_bytes=ws_bytes,
+                                cores_active=cores_active,
+                                bw_utilization=bw_utilization)
+    if flavor == "auto":
+        flavor = "nt" if r_nt < r_std - _SELECT_EPS else "standard"
+    sat = bw_utilization
+    if sat is None:
+        sat = (modeled_saturation(m, ws_bytes, cores_active)
+               if ws_bytes is not None else 1.0)
+    return StorePlan(machine=m.name, flavor=flavor,
+                     wa_mode=wa.wa_mode_of(m),
+                     ratio_standard=r_std, ratio_nt=r_nt,
+                     saturation=sat, ws_bytes=ws_bytes)
+
+
+def select_store_flavor(machine=None, *, ws_bytes: float | None = None,
+                        cores_active: int | None = None,
+                        bw_utilization: float | None = None) -> str:
+    """The cheaper modeled store flavor for one machine: ``"nt"`` on Zen
+    4 (``explicit_only``), ``"standard"`` on Grace, the TPUs and the
+    H100 (``auto_claim``), on SPR ``"nt"`` only while the modeled
+    SpecI2M gate is closed."""
+    return plan_stores(machine, flavor="auto", ws_bytes=ws_bytes,
+                       cores_active=cores_active,
+                       bw_utilization=bw_utilization).flavor
+
+
+def resolve_flavor(flavor: str | None, machine=None, *,
+                   ws_bytes: float | None = None,
+                   cores_active: int | None = None) -> str:
+    """Validate a flavor string and resolve ``"auto"`` per machine
+    (``None`` reads as ``"auto"``): the JAX package's selection."""
+    _check(flavor)
+    if flavor not in (None, "auto"):
+        return flavor
+    return select_store_flavor(machine, ws_bytes=ws_bytes,
+                               cores_active=cores_active)
 
 
 def executed_flavor(flavor: str | None) -> str:
-    """The flavor the runtime path executes: the port of
-    ``repro/kernels/stores.py:executed_flavor``. JAX executes a
-    machine-selected ``"auto"`` only on a TPU and ``"standard"``
-    elsewhere; with no H100 machine model to select from (ROADMAP queue 1
-    item 3) this is :func:`resolve_flavor`, until such a model gives the
-    two functions different jobs."""
-    return resolve_flavor(flavor)
+    """The flavor the kernels execute: an explicit ``"standard"`` or
+    ``"nt"`` as given, ``"auto"`` and ``None`` as ``"standard"``.
+
+    The JAX package executes a machine-selected ``"auto"`` only on a TPU
+    and ``"standard"`` elsewhere. The port keeps its rule: the card's
+    machine file selects ``"standard"`` (:func:`resolve_flavor`), which
+    is what ``"auto"`` runs, and a launch prices nothing.
+    """
+    _check(flavor)
+    return "standard" if flavor in (None, "auto") else flavor
 
 
 def ref_kv_row_update(k_cache, v_cache, k_new, v_new, pos) -> None:
@@ -89,7 +188,7 @@ def ref_kv_row_update(k_cache, v_cache, k_new, v_new, pos) -> None:
 def writes_rows(k_new, v_new, flavor: str | None) -> bool:
     """Whether a decode call is given new rows to write: validates the
     flavor, and that ``k_new`` and ``v_new`` come together."""
-    resolve_flavor(flavor)
+    _check(flavor)
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new come together")
     return k_new is not None
@@ -162,7 +261,7 @@ def kv_row_update(k_cache, v_cache, k_new, v_new, pos, *,
     the module docstring), ``impl`` the kernel or its plain version. The
     decode step writes the same rows through the decode call instead.
     """
-    run = resolve_flavor(flavor)
+    run = executed_flavor(flavor)
     pos = pos_vector(pos, k_cache.shape[0], k_cache.device)
     if not use_kernel(impl, k_cache):
         ref_kv_row_update(k_cache, v_cache, k_new, v_new, pos)
@@ -191,7 +290,7 @@ def pad_to_horizon(x, cache_len: int, *, flavor: str | None = "standard"):
     horizon comes back as is. Both flavors produce the same bytes (the
     JAX ``"nt"`` lowering differs only in how XLA writes them).
     """
-    resolve_flavor(flavor)
+    _check(flavor)
     s = x.shape[1]
     if cache_len <= s:
         return x

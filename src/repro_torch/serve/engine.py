@@ -47,9 +47,12 @@ last request left, as the JAX engine's host rows do.
 A model without attention (xlstm-125m) reads no KV rows: its chunks
 run with no occupancy bound, one graph for every chunk.
 
-Pipelined dispatch (dense and paged), prompt staging, the chunk
-planner, meshes, snapshots and fault injection of the JAX engine are not
-ported yet (ROADMAP).
+With ``chunk=None`` the chunk size is planned from the port model's
+per-step cost of the decode step (``serve.planner.plan_chunk_size``, on
+``machine``: ``h100`` on a CUDA host), as the JAX engine plans it.
+
+Pipelined dispatch (dense and paged), prompt staging, meshes, snapshots
+and fault injection of the JAX engine are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import pages as pages_lib
 from repro_torch.serve.decode import (ChunkGraphs, draw_noise,
                                      make_chunk_body, sample)
+from repro_torch.serve.planner import plan_chunk_size
 from repro_torch.serve.slots import assign, insert
 from repro_torch.train import serve as serve_lib
 
@@ -114,15 +118,19 @@ class ServeEngine:
 
     ``chunk`` tokens are decoded per dispatch, each request may reach
     ``max_len`` rows, and the kernels are routed by ``impl="auto"`` (the
-    hand-written kernels on a CUDA device). ``device`` is where the cache
+    hand-written kernels on a CUDA device). With ``chunk=None`` the chunk
+    is planned (``plan``, a ``serve.planner.ChunkPlan``; ``None`` for an
+    explicit chunk) for ``machine``, the decode kernels' split-KV path
+    bounded by ``max_len`` rows. ``device`` is where the cache
     lives and must hold ``params``. ``run(requests)`` drives admit ->
     decode-chunk -> retire rounds until every request has its tokens.
     On a CUDA device each chunk replays a CUDA graph (``graphs``, one per
     ``kv_len`` bucket, captured at its first use or by
     :meth:`capture_graphs`) unless ``cuda_graphs=False``.
 
-    Subclass hooks (:class:`PagedServeEngine` overrides all five):
-    ``_build_state`` allocates the cache and builds the steps,
+    Subclass hooks (:class:`PagedServeEngine` overrides all six):
+    ``_make_plan`` prices the chunk, ``_build_state`` allocates the cache
+    and builds the steps,
     ``_insert_prefilled`` lands one prefilled request in a slot,
     ``_release_slot`` retires a slot, ``_pre_dispatch`` runs host-side
     bookkeeping before each chunk, ``_step_inputs`` gives the chunk's
@@ -132,8 +140,9 @@ class ServeEngine:
     paged = False
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int,
-                 max_len: int, chunk: int, temperature: float = 0.0,
-                 seed: int = 0, device="cuda", cuda_graphs: bool = True):
+                 max_len: int, chunk: int | None = None,
+                 temperature: float = 0.0, seed: int = 0,
+                 machine: str | None = None, device="cuda", cuda_graphs: bool = True):
         if not cfg.embed_inputs:
             raise ValueError("serve engine needs a token-id model")
         self.device = torch.device(device)
@@ -142,9 +151,14 @@ class ServeEngine:
                              f" the engine on {self.device}")
         self.cfg, self.params = cfg, params
         self.max_slots, self.max_len = max_slots, max_len
-        self.chunk = max(1, int(chunk))
         self.temperature = float(temperature)
         self.seed = int(seed)
+        if chunk is None:
+            self.plan = self._make_plan(machine)
+            chunk = self.plan.chunk
+        else:
+            self.plan = None     # explicit chunk: no analytic plan made
+        self.chunk = max(1, int(chunk))
         self._attends = M.has_attention(cfg)
         self._build_state()
         # the chunk's device work, run eagerly or captured by the graphs
@@ -172,6 +186,12 @@ class ServeEngine:
         self.decode_s = 0.0
 
     # -- layout hooks -------------------------------------------------------
+    def _make_plan(self, machine):
+        """Analytic chunk plan for this cache layout: the split-KV decode
+        kernels read at most ``max_len`` rows a slot."""
+        return plan_chunk_size(self.cfg, self.max_slots, self.max_len,
+                               machine=machine, occupancy=self.max_len)
+
     def _build_state(self) -> None:
         """Allocate the cache and build the prefill step."""
         self.cache = M.init_cache(self.cfg, self.max_slots, self.max_len,
@@ -448,6 +468,11 @@ class PagedServeEngine(ServeEngine):
         super().__init__(cfg, params, **kw)
 
     # -- layout hooks -------------------------------------------------------
+    def _make_plan(self, machine):
+        return plan_chunk_size(self.cfg, self.max_slots, self.max_len,
+                               machine=machine, occupancy=self.max_len,
+                               page_size=self.page_size)
+
     def _build_state(self) -> None:
         ps = self.page_size
         self.pool = pages_lib.PagePool(self.n_pages, ps)

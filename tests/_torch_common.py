@@ -36,3 +36,22 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def trace_from_jax(tr):
+    """A JAX ``core.trace.Trace`` walked into the port's dataclasses, field
+    for field (the port lowers ATen, not HLO; this lets both packages'
+    backends price one trace)."""
+    from repro_torch.core import trace as T
+
+    def region(r):
+        return None if r is None else T.TraceRegion(
+            r.name, r.boundary, [op_(o) for o in r.ops])
+
+    def op_(o):
+        kw = {f.name: getattr(o, f.name) for f in dataclasses.fields(o)}
+        kw["region"] = region(o.region)
+        kw["param_map"] = None if o.param_map is None else dict(o.param_map)
+        return T.TraceOp(**kw)
+
+    return T.Trace(tr.module_name, region(tr.entry), tr.n_devices)

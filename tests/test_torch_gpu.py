@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels import stores
+from repro_torch.kernels import stores, tuning
 from repro_torch.kernels.attention import decode as D
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention import ref as R
@@ -176,6 +176,63 @@ def test_decode_kernel_occupancy_bound(cuda, kv_len, rounded):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     dense = D.ref_decode(q.float(), k.float(), v.float(), pos, kv_len=bound)
     torch.testing.assert_close(got, dense.float(), rtol=1e-4, atol=1e-4)
+
+
+#: the served decode shapes at engine kv_len buckets, (b, h, hkv, dh,
+#: kv_len): yi-9b's heads across the buckets whose tuned tiles differ,
+#: gemma3-4b's Dh=256 and jamba's Hkv 8
+TUNED_SHAPES = [(8, 32, 4, 128, kv) for kv in (128, 256, 640, 1024, 2048)] \
+    + [(8, 8, 4, 256, kv) for kv in (128, 1536)] + [(8, 32, 8, 128, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,hkv,dh,kv_len", TUNED_SHAPES)
+def test_decode_kernels_at_the_tuners_tiles(cuda, dtype, b, h, hkv, dh,
+                                            kv_len):
+    """The decode kernels at the tile tuner's ``(bk, n_splits)`` on h100
+    (``kernels.tuning.decode_tiles``, as the JAX router asks it), through
+    ``ops.flash_decode`` and ``ops.flash_decode_paged`` over a 2048-row
+    cache at a bucketed kv_len: one launch each, bit for bit the
+    finished kernel at that split plan, and within the finished
+    tolerance of the plain version at the same tiles."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    skv, ps = 2048, 16
+    q = torch.randn(b, 1, h, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    pos = torch.linspace(0, kv_len - 1, b, device=cuda).round().int()
+    name = str(dtype)[len("torch."):]
+    plan = tuning.decode_tiles("h100", skv=kv_len, dh=dh, h=h, hkv=hkv,
+                               batch=b, dtype=name)
+    assert plan.bk % (64 if dtype == torch.bfloat16 else 32) == 0
+    K.reset_launches()
+    got = ops.flash_decode(q, k, v, pos, kv_len=kv_len, impl="cuda",
+                           bk=plan.bk, n_splits=plan.n_splits)
+    assert K.LAUNCHES["flash_decode"] == 1
+    bound = min(-(-kv_len // plan.bk) * plan.bk, skv)
+    bound, split_len, n = D.split_plan(b, hkv, skv, plan.bk, plan.n_splits,
+                                       bound)
+    kw = dict(window=None, split_len=split_len, n_splits=n, bound=bound)
+    fin = D.decode_finished(q, k, v, pos, impl="cuda", **kw)
+    assert torch.equal(got.view(torch.uint8), fin.view(torch.uint8))
+    _assert_finished(got, D.combine_splits(*D.decode_partials(
+        q, k, v, pos, impl="ref", **kw)))
+    kp, vp = (x.reshape(-1, ps, hkv, dh) for x in (k, v))
+    bt = torch.arange(b * skv // ps, dtype=torch.int32,
+                      device=cuda).reshape(b, -1)
+    nb = kv_len // ps
+    pns = tuning.decode_tiles("h100", skv=nb * ps, dh=dh, h=h, hkv=hkv,
+                              batch=b, dtype=name).n_splits
+    K.reset_launches()
+    pgot = ops.flash_decode_paged(q, kp, vp, bt, pos, kv_len=kv_len,
+                                  impl="cuda", n_splits=pns)
+    assert K.LAUNCHES["flash_decode_paged"] == 1
+    pbound, psl, pn = D.paged_split_plan(b, hkv, ps, nb, pns)
+    pkw = dict(window=None, split_len=psl, n_splits=pn, bound=pbound)
+    pfin = D.decode_paged_finished(q, kp, vp, bt, pos, impl="cuda", **pkw)
+    assert torch.equal(pgot.view(torch.uint8), pfin.view(torch.uint8))
+    _assert_finished(pgot, D.combine_splits(*D.decode_paged_partials(
+        q, kp, vp, bt, pos, impl="ref", **pkw)))
 
 
 @pytest.mark.parametrize("flavor", ["standard", "nt"])

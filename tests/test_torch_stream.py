@@ -471,7 +471,8 @@ def test_executed_flavor_rejects_unknown():
 
 @pytest.mark.parametrize("flavor", [None, "nt", "standard", "auto"])
 def test_executed_flavor_is_resolve_flavor(flavor):
-    """With no H100 machine model the port executes what it resolves."""
+    """The port executes what the machine files resolve: ``"auto"`` is
+    ``"standard"`` on this host's default machine and on ``h100``."""
     assert stores.executed_flavor(flavor) == stores.resolve_flavor(flavor)
 
 
