@@ -137,10 +137,23 @@ Phases, each printed on its own line:
    op count and unknown ops and the engine's planned chunk and store
    flavor; a decode split sweep (:func:`phase_split_sweep`:
    ``split_sweep`` lines, the tile tuner's modeled µs beside the
-   measured, and the guard that keeps ``default_splits`` on the path);
-   one planned ``ServeEngine(chunk=None, machine="h100")`` beside a
-   chunk-8 engine (:func:`phase_planned_engine`). The phases' seconds
-   are summed and printed.
+   measured, and at each shape the guard: the tuner's pick against the
+   sweep's fastest count); one planned ``ServeEngine(chunk=None,
+   machine="h100")`` beside a chunk-8 engine
+   (:func:`phase_planned_engine`). The phases' seconds are summed and
+   printed.
+6b. the analysis half (:func:`phase_analysis`, after the split sweep,
+   the yi-9b engines freed): the card's calibration
+   (``core/ubench.py``: chained-op times by class, the measured L2 and
+   HBM3 tiers, one block's read rate at each block count, registered as
+   ``h100_measured``); Fig. 3's quick grid (``core/rpe.py``: 13 kernels
+   x ``eager``, ``loop`` x sizes S, L at the card's sizes, each block
+   measured once and predicted on ``h100_measured`` and ``h100``),
+   summarised per machine, failing on any NaN record; the ``kernel``
+   variant of each suite kernel held against its plain version and its
+   launch counted; the Fig. 4b gate and its measured triad rows
+   (``repro_torch.bench.fig4b_ntstore``) and Fig. 4's measured INIT row
+   (``bench.fig4_wa``).
 5e. (after phase 6's trace phases, the yi-9b engines freed) gemma3-4b
    at its published width and depth (34 layers, 5 x 6 + a tail of 4,
    a 1024-row window in 29 of them, Dh=256, a tied 262144-row head;
@@ -2976,8 +2989,8 @@ def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
     fused_ms = timed(torch, fused, 480)
     pair_ms = timed(torch, pair, 96)
     plain_ms = timed(torch, plain, 48)
-    # the same rows cut into 128-row splits: B*Hkv*4 = 128 blocks, one an
-    # SM, where the default 5 splits put two blocks on 28 of the 132 SMs
+    # the same rows cut into 4 splits of 128 rows: B*Hkv*4 = 128 blocks,
+    # one an SM (``default_splits``' count since it stopped at one wave)
     b4, sl4, n4 = D.paged_split_plan(B, HKV, ps, n_blocks, 4)
     ms4 = timed(torch, lambda: D.decode_paged_finished(
         q, *next_pool(), bt, pos, window=None, split_len=sl4, n_splits=n4,
@@ -3266,14 +3279,18 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> float:
 #: the scheduling backends each plan line prices the step with
 PLAN_BACKENDS = ("tp_bound", "mca_sched")
 #: split counts the decode sweep times besides ``default_splits``' and
-#: the tuner's
+#: the tuner's, at 64-row blocks (the bf16 kernel's tile: 8 splits fit
+#: the sweep's 512-row bound)
 SWEEP_SPLITS = (1, 2, 4, 8)
+SWEEP_BK = 64
 #: the sweep's calls a timing window
 SWEEP_ITERS = 240
-#: the guard: the path would take the tuner's split count only if it read
-#: at most this much slower than ``default_splits``' at yi-9b's dense
-#: shape. The path keeps ``default_splits`` (ROADMAP queue 3); a reading
-#: within the guard prints a notice that the fault is to be revisited.
+#: the guard: the tile tuner's split count reads at most this much slower
+#: than the sweep's fastest count at each shape (the tuner prices the
+#: decode kernels' grid in whole waves of the SMs and their merge). The
+#: serving path keeps ``default_splits``, the most splits one wave holds,
+#: which is the tuner's count at every shape here; a reading over the
+#: guard prints a notice.
 SWEEP_GUARD = 1.03
 #: the least share of the planned engine's greedy tokens that must match
 #: the chunk-8 engine's, each stream up to its first parting token. The
@@ -3316,7 +3333,7 @@ def phase_plan(torch, label: str, eng, measured_ms: float,
     through the tuner's tiles (``_kernel_adjusted``; ``page_size`` for a
     paged engine). That bound rounds to the tuner's KV block on ``h100``
     (64 rows at yi-9b's measured occupancy), not to the 128-row block the
-    dense path runs while it keeps ``default_splits`` (ROADMAP queue 3). ``measured_ms`` is :func:`phase_trace`'s wall ms a
+    dense path runs. ``measured_ms`` is :func:`phase_trace`'s wall ms a
     step; the ratio is measured over ``kernel_ms``. ``chunk`` and
     ``store_flavor`` are the engine's own plan (occupancy = its horizon),
     what ``ServeEngine(chunk=None, machine="h100")`` takes. Returns the
@@ -3372,14 +3389,17 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
     cache, cycled) and at gemma3-4b's (H=8, Hkv=4, Dh=256, 16 random
     layers), ``flash_decode_paged`` at yi-9b's (the same cache as page
     pools of 16 rows under a permuted table): B=8, the dense timing's
-    positions, the bound their 128-row bucket. Each at n_splits 1, 2,
-    4, 8 (the tuner's block), ``default_splits``' count (the path's: the
-    fewest splits whose B x Hkv x n_splits blocks cover the machine
-    file's SMs; 128-row blocks) and the tile tuner's (:func:`tuner_plan`),
-    each a ``split_sweep`` line with the tuner's modeled
-    ``TilePlan.seconds`` beside the measured µs (``timed``). Prints the
-    guard's reading at yi-9b's dense shape and the tuner's tiles of every
-    yi-9b bucket. Returns the seconds the phase took."""
+    positions, the bound their 128-row bucket; and ``flash_decode`` at
+    gemma3-4b's again at its own served positions (``GEMMA_PROMPT_LENS``
+    plus 32 decoded tokens) and their bucket. Each at n_splits 1, 2,
+    4, 8 (``SWEEP_BK``-row blocks), ``default_splits``' count (the
+    path's: the most splits whose B x Hkv x n_splits blocks fit in one
+    wave of the machine file's SMs; 128-row blocks) and the tile tuner's
+    (:func:`tuner_plan`), each a ``split_sweep`` line with the tuner's
+    modeled ``TilePlan.seconds`` beside the measured µs (``timed``).
+    Prints at each shape the guard (the tuner's pick over the sweep's fastest
+    count) and the tuner's tiles of every yi-9b bucket. Returns the
+    seconds the phase took."""
     t0 = time.perf_counter()
     pos = torch.tensor([len(r.prompt) + 32 for r in reqs[:B]],
                        dtype=torch.int32, device="cuda")
@@ -3387,7 +3407,6 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
     kc, vc = cache["k"], cache["v"]
     skv = kc.shape[2]
     bound = min(-(-(int(pos.max()) + 1) // 128) * 128, skv)
-    live = int((pos + 1).clamp(max=bound).sum())
     gen = torch.Generator(device="cuda").manual_seed(21)
     gk = torch.randn(16, B, skv, 4, 256, generator=gen,
                      device="cuda").bfloat16()
@@ -3398,17 +3417,25 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
     nb = bound // ps
     bt = torch.randperm(kp.shape[1], generator=torch.Generator().manual_seed(
         22))[:B * nb].reshape(B, nb).int().cuda()
-    shapes = (("flash_decode yi-9b", H, HKV, DH, kc, vc, None),
-              ("flash_decode gemma3-4b", 8, 4, 256, gk, gv, None),
-              ("flash_decode_paged yi-9b", H, HKV, DH, kp, vp, bt))
-    guard = None
-    for label, h, hkv, dh, kk, vv, table in shapes:
+    gpos = torch.randint(*GEMMA_PROMPT_LENS, (B,), generator=torch.Generator(
+        ).manual_seed(23), dtype=torch.int32).cuda() + 32
+    gbound = min(-(-(int(gpos.max()) + 1) // 128) * 128, skv)
+    shapes = (("flash_decode yi-9b", H, HKV, DH, kc, vc, None, pos, bound),
+              ("flash_decode gemma3-4b", 8, 4, 256, gk, gv, None, pos,
+               bound),
+              ("flash_decode_paged yi-9b", H, HKV, DH, kp, vp, bt, pos,
+               bound),
+              ("flash_decode gemma3-4b served", 8, 4, 256, gk, gv, None,
+               gpos, gbound))
+    guards = {}
+    for label, h, hkv, dh, kk, vv, table, pos, bound in shapes:
+        live = int((pos + 1).clamp(max=bound).sum())
         q = torch.randn(B, 1, h, dh, generator=gen, device="cuda").bfloat16()
         plan = tuner_plan(q, hkv, bound)
         blocks = -(-bound // 128) if table is None else nb
         default = D.default_splits(B, hkv, blocks)
         layer = [0]
-        variants = [("", plan.bk, n) for n in SWEEP_SPLITS] + [
+        variants = [("", SWEEP_BK, n) for n in SWEEP_SPLITS] + [
             ("default_splits", 128, default),
             ("tuner", plan.bk, plan.n_splits)]
         times = {}
@@ -3428,7 +3455,7 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
                     D.decode_paged_finished(q, kk[i], vv[i], table, pos,
                                             **kw)
             ms = timed(torch, call, SWEEP_ITERS)
-            times[which or f"n{n}"] = ms
+            times[which or f"n{ns}"] = ms
             print(json.dumps({
                 "split_sweep": label, "which": which or "fixed",
                 "n_splits": n, "bk": bk if table is None else ps,
@@ -3437,21 +3464,24 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
                 "tuner_splits": plan.n_splits,
                 "tuner_model_us": plan.seconds * 1e6}))
         ratio = times["tuner"] / times["default_splits"]
+        fastest = min(SWEEP_SPLITS, key=lambda n: times[f"n{n}"])
+        guards[label] = times["tuner"] / times[f"n{fastest}"]
         print(f"split sweep: {label}: the tuner's (bk {plan.bk}, "
               f"{plan.n_splits} splits) {times['tuner'] * 1e3:.2f} us, "
-              f"default_splits' {default} "
+              f"the sweep's fastest {fastest} splits "
+              f"{times[f'n{fastest}'] * 1e3:.2f} us (guard "
+              f"{guards[label]:.3f}x), default_splits' {default} "
               f"{times['default_splits'] * 1e3:.2f} us ({ratio:.3f}x), "
               f"model {plan.seconds * 1e6:.2f} us")
-        if label == "flash_decode yi-9b":
-            guard = ratio
     del gk, gv
-    print(f"split sweep: guard at yi-9b's dense shape: the tuner's pick "
-          f"reads {guard:.3f}x default_splits' time (the path would take "
-          f"it at <= {SWEEP_GUARD})")
-    if guard <= SWEEP_GUARD:
-        print(f"split sweep: NOTICE: the tuner's pick is within the guard "
-              f"({guard:.3f}x <= {SWEEP_GUARD}), but the path still runs "
-              f"default_splits: revisit ROADMAP queue 3's split fault")
+    held = [k for k, g in guards.items() if g <= SWEEP_GUARD]
+    print(f"split sweep: guard (the tuner's pick over the sweep's fastest "
+          f"count, <= {SWEEP_GUARD}) held at {len(held)} of {len(guards)} "
+          f"shapes: " + ", ".join(f"{k} {g:.3f}x" for k, g in
+                                  guards.items()))
+    if len(held) < len(guards):
+        print("split sweep: NOTICE: the tuner's pick reads over the guard: "
+              "ROADMAP queue 3's split fault stays open")
     q = torch.empty(B, 1, H, DH, dtype=torch.bfloat16, device="meta")
     tiles = {kv: (tuner_plan(q, HKV, kv),
                   D.default_splits(B, HKV, -(-kv // 128)))
@@ -3460,6 +3490,94 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
           "n_splits) on h100 beside default_splits' count at 128-row "
           "blocks: " + ", ".join(f"{kv}: ({p.bk}, {p.n_splits}) / {d}"
                                  for kv, (p, d) in tiles.items()))
+    return time.perf_counter() - t0
+
+
+#: Fig. 3's quick grid on the card: variants and sizes (``core/rpe.py``'s
+#: card sizes: S 2^24, L 2^28 f32 an array)
+ANALYSIS_VARIANTS = ("eager", "loop")
+ANALYSIS_SIZES = ("S", "L")
+#: each block's timing there: best of 3 single calls (the full grid,
+#: ``repro_torch.bench.run --only fig3 --full``, takes rpe's 5 x 3)
+ANALYSIS_REPS, ANALYSIS_INNER = 3, 1
+#: elements of the ``kernel`` variant's check against the plain version
+ANALYSIS_CHECK_N = 1 << 20
+
+
+def phase_analysis(torch, K) -> float:
+    """Phase 6b: the analysis half on the card (module docstring).
+    Returns the seconds it took."""
+    from repro_torch.bench import fig4_wa, fig4b_ntstore
+    from repro_torch.core import rpe, ubench
+    from repro_torch.kernels.stream.ref import KERNELS_13
+    t0 = time.perf_counter()
+    model = ubench.calibrated_host_model(device="cuda")
+    raw = ubench.calibration("cuda")
+    print(json.dumps({"calibration": model.name, "chain_us": {
+        k[:-2]: raw[k] * 1e6 for k in ("add_s", "fma_s", "div_s", "exp_s",
+                                       "gather_s", "move_s", "matmul_s")},
+        "rates": raw["rates"], "bf16_matmul_tflops":
+        raw["flops_matmul"] / 1e12, "stream_gbs": raw["stream_bw"] / 1e9,
+        "l2_chain_gbs": raw["l2_chain_bw"] / 1e9,
+        "tiers": [{"name": t.name, "per_sm_gbs": t.load_bw / 1e9,
+                   "shared_gbs": t.shared_bw / 1e9}
+                  for t in model.mem_tiers],
+        "block_read_gbs": {tier: {str(c): r / 1e9 for c, r in sweep}
+                           for tier, sweep in raw["cta_sweep"].items()},
+        "per_sm_share_gbs": model.chip.hbm_bw / model.cores / 1e9}))
+    t_cal = time.perf_counter() - t0
+    machines = (model.name, "h100")
+    recs = {m: [] for m in machines}
+    for k in KERNELS_13:
+        for v in ANALYSIS_VARIANTS:
+            for size in ANALYSIS_SIZES:
+                for m, r in zip(machines, rpe.run_block_machines(
+                        k, v, size, machines, "cuda", reps=ANALYSIS_REPS,
+                        inner=ANALYSIS_INNER)):
+                    recs[m].append(r)
+    t_grid = time.perf_counter() - t0 - t_cal
+    for m, rs in recs.items():
+        bad = rpe.nan_records(rs)
+        print(json.dumps({"fig3_quick": m, "blocks": len(rs),
+                          "nan_records": len(bad),
+                          "summary": rpe.summarize(rs),
+                          "hist": {w: rpe.histogram(rs, w)
+                                   for w in ("port", "mca", "naive")}}))
+        check(not bad, f"fig3 quick grid on {m}: NaN records "
+              f"{[(r.kernel, r.variant, r.size) for r in bad]}")
+    print("fig3 quick: blocks (kernel, variant, size: measured us, "
+          "h100_measured port/mca/naive us, h100 port us): " + "; ".join(
+              f"{a.kernel}/{a.variant}/{a.size}: {a.t_meas * 1e6:.1f}, "
+              f"{a.t_port * 1e6:.1f}/{a.t_mca * 1e6:.1f}/"
+              f"{a.t_naive * 1e6:.1f}, {b.t_port * 1e6:.1f}"
+              for a, b in zip(*recs.values())))
+    for k in KERNELS_13:
+        args = rpe.make_inputs(k, ANALYSIS_CHECK_N, device="cuda")
+        K.reset_launches()
+        fn, a = rpe.build_variant(k, "kernel", ANALYSIS_CHECK_N, "cuda", args)
+        got = fn(*a)
+        launched = sorted(n for n, c in K.LAUNCHES.items() if c)
+        pfn, pa = rpe.build_variant(k, "eager", ANALYSIS_CHECK_N, "cuda",
+                                    args)
+        want = pfn(*pa).reshape(got.shape)
+        err = float((got.float() - want.float()).abs().max())
+        # a sum's rounding scales with the sum of its terms' magnitudes
+        scale = float(args[0].abs().sum() if k == "sum_reduction"
+                      else want.float().abs().max())
+        print(f"rpe kernel variant: {k}: launched {launched or 'none'}, "
+              f"max |kernel - plain| {err:.3e} (max |plain| {scale:.3e})")
+        check(launched == ([] if k in rpe.PLAIN_KERNELS else
+                           ["init_store" if k == "init" else k]),
+              f"rpe kernel variant {k}: launched {launched}")
+        check(err <= 1e-6 * max(scale, 1.0),
+              f"rpe kernel variant {k}: off its plain version by {err}")
+    for line in fig4b_ntstore.main(quick=True, device="cuda"):
+        print(line)
+    for line in fig4_wa.main(quick=True, device="cuda"):
+        if "_store" in line:
+            print(line)
+    print(f"analysis phase: {time.perf_counter() - t0:.1f} s (calibration "
+          f"{t_cal:.1f} s, Fig. 3 quick grid {t_grid:.1f} s)")
     return time.perf_counter() - t0
 
 
@@ -3583,6 +3701,8 @@ def main() -> int:
     plan_s += phase_split_sweep(torch, D, ops, eng, reqs)
     params = eng.params
     del eng, peng
+    torch.cuda.empty_cache()
+    phase_analysis(torch, K)
     torch.cuda.empty_cache()
     plan_s += phase_planned_engine(torch, np, serve, cfg_mod.get_config(
         "yi-9b"), params)

@@ -1,0 +1,63 @@
+"""Benchmark harness — one module per paper table/figure, on the port.
+
+The counterpart of ``benchmarks/run.py``, with its CSV: prints
+``name,us_per_call,derived`` lines, and each module ends with a
+``_meta,<module>,<us>,ok|FAILED`` line. ``--only <tag>`` runs the modules
+whose name holds the tag; ``--full`` runs the complete (slow) variants,
+e.g. the 416-block Fig. 3 suite. The measured rows measure the CUDA card
+when there is one (``--device`` names another), else the CPU:
+
+    python -m repro_torch.bench.run --only fig3 [--full]
+    python -m repro_torch.bench.run --only fig4b --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import sys
+import time
+import traceback
+
+MODULES = ("table1_machines", "table2_ports", "table3_instructions",
+           "fig3_rpe", "fig4_wa", "fig4b_ntstore")
+
+
+def default_device() -> str:
+    """``cuda`` where a card is present, else ``cpu``."""
+    import torch
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.bench.run")
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="device the measured rows run on (default: cuda "
+                         "when present, else cpu)")
+    args = ap.parse_args(argv)
+    device = args.device or default_device()
+
+    print("name,us_per_call,derived")
+    failures = 0
+    for mod_name in MODULES:
+        if args.only and args.only not in mod_name:
+            continue
+        t0 = time.time()
+        try:
+            mod = importlib.import_module(f"repro_torch.bench.{mod_name}")
+            for ln in mod.main(quick=not args.full, device=device):
+                print(ln, flush=True)
+            print(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},ok",
+                  flush=True)
+        except Exception:
+            failures += 1
+            traceback.print_exc()
+            print(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},FAILED",
+                  flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,8 +24,9 @@ CPUs (`zen4`, `golden_cove`, `neoverse_v2` — Table II ports, Table III
 latencies mapped onto the µ-op classes), copied from the JAX package's
 ``repro/core/machine.py`` so that they fingerprint as its do, and the
 port's card, `h100` (NVIDIA H100 SXM5, :func:`_gpu_model`). A
-`host_cpu` model (:func:`host_cpu_model`) is registered only by a
-caller that calibrates one; the port has no calibration yet. Each
+`host_cpu` model (:func:`host_cpu_model`) and the card's measured
+model ``h100_measured`` (:func:`measured_gpu_model`) are registered
+only by a caller that calibrates one (``core/ubench.py``). Each
 machine is tagged with its write-allocate mode so ``core/wa.py``
 selects the Fig. 4 behavioural mode per machine.
 """
@@ -334,7 +335,7 @@ NEOVERSE_V2 = _cpu_model(CPU_CHIPS["neoverse_v2"])
 
 # --- the port's card ---------------------------------------------------------
 
-def _gpu_model(g: GpuSpec) -> MachineModel:
+def _gpu_model(g: GpuSpec, name: str = "h100") -> MachineModel:
     """Map a Hopper GPU onto the µ-op classes.
 
     The units stay the JAX package's, so one trace prices across
@@ -384,7 +385,7 @@ def _gpu_model(g: GpuSpec) -> MachineModel:
         "ici": OpEntry(("ICI",), clk / (g.nvlink_bw / 2.0), 2000.0),
     }
     return MachineModel(
-        name="h100", clock_hz=clk,
+        name=name, clock_hz=clk,
         ports=("TC", "FP32", "SFU", "LSU", "SC", "DMA0", "ICI"),
         table=table, chip=g, simd_width_bytes=BLOCK_BYTES,
         vendor=g.vendor, isa_name=g.isa,
@@ -395,6 +396,37 @@ def _gpu_model(g: GpuSpec) -> MachineModel:
 
 
 H100 = _gpu_model(GPU_CHIPS["h100_sxm"])
+
+#: the name the card's calibration registers its model under
+GPU_MEASURED_NAME = "h100_measured"
+
+
+def measured_gpu_model(*, mxu_flops: float, hbm_bw: float,
+                       tiers) -> MachineModel:
+    """The card's model from what chained torch ops isolate on it
+    (``core/ubench.py``): the tensor cores' rate (``mxu_flops``, bf16
+    FLOP/s), the HBM stream (``hbm_bw``, the ``dma`` class) and the
+    ``tiers`` L2 and HBM3 as ``ubench`` builds them (their shared
+    ceilings and HBM3's per-SM read rate measured; L2's per-SM rate and
+    the store rates the published ones). Every other class, and the
+    SMs' own storage (REG, SMEM/L1), keeps the ``h100`` file's published
+    figure. Registered as ``h100_measured``; ``h100`` stays
+    spec-derived."""
+    g = GPU_CHIPS["h100_sxm"]
+    by_name = {t.name: t for t in tiers}
+    ladder = tuple(by_name.get(t.name, t) for t in g.mem_tiers)
+    l2 = by_name.get("L2")
+    spec = dataclasses.replace(
+        g, name=g.name + "_measured", bf16_flops=float(mxu_flops),
+        hbm_bw=float(hbm_bw), mem_tiers=ladder,
+        l2_bytes_per_clk=(l2.shared_bw / g.clock_hz if l2 is not None
+                          else g.l2_bytes_per_clk))
+    model = _gpu_model(spec, GPU_MEASURED_NAME)
+    return dataclasses.replace(
+        model, notes=model.notes + "; measured: tensor cores, HBM stream, "
+                                   "L2 and HBM3 shared ceilings, HBM3 "
+                                   "per-SM read (core/ubench.py); L2 "
+                                   "per-SM and stores published")
 
 # the JAX package's order, then the port's card
 for _m in (TPU_V5E, TPU_V5P, TPU_V4, ZEN4, GOLDEN_COVE, NEOVERSE_V2, H100):
@@ -408,9 +440,8 @@ def host_cpu_model(calib: dict | None = None,
 
     Units are normalized to a nominal 1 GHz clock so `cycles` == ns; the
     calibration dict maps class -> units/second measured on this host.
-    ``mem_tiers`` is the measured cache ladder. The JAX package's
-    ``core/ubench.py`` builds both and registers the result as
-    `host_cpu`; its port waits for ROADMAP queue 1 item 5.
+    ``mem_tiers`` is the measured cache ladder. ``core/ubench.py``
+    builds both and registers the result as `host_cpu`.
     """
     clock = 1e9
     default_rates = {           # units/s, conservative one-core defaults

@@ -24,11 +24,11 @@ This module provides:
                           leave ~10% residue
      - explicit_only     (Zen 4): standard stores always allocate;
                           NT stores evade fully
- * module-level scan: WA-adjusted store traffic for a parsed HLO module
-   (``analyze_module_stores``, ``machine_store_traffic``) — not ported:
-   it reads HLO, and no caller of the port needs its counterpart over an
-   ATen trace yet (ROADMAP queue 1 item 5). :func:`apply_wa_mode` takes
-   such a scan's dict and is kept.
+ * the store scan: WA-adjusted store traffic of a lowered ATen trace
+   (:func:`analyze_trace_stores`, :func:`machine_store_traffic`), the
+   counterparts of the JAX package's HLO module scan
+   (``analyze_module_stores``, ``machine_store_traffic``), read from the
+   trace's store records (``core/trace.py``: ``Trace.stores``).
 
 The counterpart of ``repro/core/wa.py``, copied but for the scan.
 """
@@ -312,3 +312,57 @@ def apply_wa_mode(scan: dict, machine, *, nt_stores: bool = False,
     # every machine regardless of WA mode
     out["traffic_bytes"] = stored * ratio + 2.0 * scan.get("copy_bytes", 0.0)
     return out
+
+
+def machine_store_traffic(trace, machine, *, nt_stores: bool = False,
+                          bw_utilization: float | None = None,
+                          ws_bytes: float | None = None,
+                          cores_active: int | None = None) -> dict:
+    """WA-adjusted store traffic of one lowered trace on one machine.
+
+    Combines the trace's store scan (:func:`analyze_trace_stores`: which
+    stores exist, and what fraction overwrites full tiles) with the
+    machine's behavioural mode (:func:`apply_wa_mode`). Pass
+    ``ws_bytes`` to let the memory ladder model the SpecI2M saturation
+    gate instead of assuming full saturation. When comparing many
+    machines on one trace, scan once and call :func:`apply_wa_mode` per
+    machine instead.
+    """
+    return apply_wa_mode(analyze_trace_stores(trace), machine,
+                         nt_stores=nt_stores, bw_utilization=bw_utilization,
+                         ws_bytes=ws_bytes, cores_active=cores_active)
+
+
+def analyze_trace_stores(trace) -> dict:
+    """Scan a lowered ATen trace's stores (``Trace.stores``; lower it
+    with ``core.trace.lower_call(..., stores=True)``).
+
+    A fresh op output is a full, aligned store: the allocator hands out
+    whole, aligned buffers, as XLA lays fusion outputs on tile
+    boundaries. A write into an existing tensor (a copy into a slice,
+    ``index_put_``, ``scatter_``, an in-place op) whose update spans the
+    buffer's two minor dims only slides along leading dims and is
+    aligned too; any other such write is partial at an unknown offset,
+    and its RMW reads come from :func:`store_profile`. Returns the JAX
+    scan's dict: stored, RMW-read and copy bytes and the tile-level WA
+    ratio.
+    """
+    if trace.stores is None:
+        raise ValueError("the trace was lowered without its stores: lower "
+                         "it with core.trace.lower_call(..., stores=True)")
+    stored = rmw = copy = 0.0
+    for st in trace.stores:
+        dims, buf = st.dims, st.buffer_dims
+        minor_full = st.kind == "fresh" or (
+            len(dims) >= 2 and len(buf) >= 2 and dims[-1] == buf[-1]
+            and dims[-2] == buf[-2]) or tuple(dims) == tuple(buf)
+        if minor_full:
+            stored += store_profile(dims, st.dtype).stored_bytes
+        else:
+            prof = store_profile(dims, st.dtype, offset_aligned=False,
+                                 donated=True, full_overwrite=False)
+            stored += prof.stored_bytes
+            rmw += prof.rmw_read_bytes
+    return {"stored_bytes": stored, "rmw_read_bytes": rmw,
+            "copy_bytes": copy,
+            "wa_ratio": (stored + rmw + 2 * copy) / max(stored, 1.0)}

@@ -57,8 +57,8 @@ from repro_torch.kernels import stores
 NEG_INF = -1e30
 
 #: streaming multiprocessors of an H100 SXM, from the card's machine file
-#: (``core/machine.py``, ``h100``); the default split count makes
-#: ``B * Hkv * n_splits`` thread blocks cover them
+#: (``core/machine.py``, ``h100``); the default split count fills one
+#: wave of them with ``B * Hkv * n_splits`` thread blocks
 H100_SMS = get_machine("h100").cores
 
 #: head dims the kernel is built for
@@ -89,14 +89,27 @@ _COUNTERS: dict = {}
 _RETIRED: list = []
 
 
-def default_splits(b: int, hkv: int, n_blocks: int) -> int:
-    """Fewest splits whose ``b * hkv * n_splits`` blocks cover the SMs.
+def launch_ctas(b: int, sq: int, h: int, hkv: int, n_splits: int) -> int:
+    """Thread blocks one launch of either decode kernel runs: the grid
+    ``(Hkv * groups, n_splits, B)`` of ``csrc/decode.cu``, ``groups`` the
+    row groups of ``KERNEL_MAX_ROWS`` packed rows (``G * Sq``) a KV head.
+    The tile tuner prices the same count (``kernels.tuning``)."""
+    return counters_needed(b, sq, h, hkv) * max(1, n_splits)
 
-    The serving path's split count. The tile tuner's
-    (``kernels.tuning.decode_tiles`` on ``h100``) was measured against it
-    on the card and not taken: at yi-9b's decode shape it picks 8
-    splits, 1.126x this count's time (``PERF.md`` §6, PR 24)."""
-    return max(1, min(n_blocks, math.ceil(H100_SMS / max(1, b * hkv))))
+
+def default_splits(b: int, hkv: int, n_blocks: int) -> int:
+    """Most splits whose thread blocks (:func:`launch_ctas`, one packed
+    row group a KV head) fit in one wave of the SMs; at least one, at
+    most ``n_blocks``.
+
+    The serving path's split count, dense and paged: one more split
+    would start a second wave (5 splits at B=8, Hkv=4 run 160 blocks on
+    132 SMs). The tile tuner (``kernels.tuning.decode_tiles`` on
+    ``h100``) prices the same grid in whole waves and picks the same
+    count at yi-9b's and gemma3-4b's decode shapes at every ``kv_len``
+    bucket from 512 rows up (``tests/test_torch_planner.py``)."""
+    per_split = launch_ctas(b, 1, hkv, hkv, 1)
+    return max(1, min(n_blocks, H100_SMS // max(1, per_split)))
 
 
 def split_plan(b: int, hkv: int, skv: int, bk: int, n_splits: int | None,

@@ -5,9 +5,12 @@ arguments with documented defaults (``bk=128``, ``n_splits`` from
 ``decode.default_splits``; the paged kernel's block is the page; flash
 attention's ``bq``/``bk`` from ``flash``). The JAX package's MemTier
 tile tuner, which picks them there, is ported (``kernels/tuning.py``)
-and prices these kernels for the planner, but the path keeps the
-defaults: on the card the tuner's split count read up to 1.33x slower
-than ``default_splits``' (``PERF.md`` §6, PR 24; ROADMAP queue 3).
+and prices these kernels for the planner; on ``h100`` it prices the
+decode kernels' own grid (``decode.launch_ctas``) in whole waves of the
+SMs and picks ``default_splits``' count (the most splits one wave
+holds) at yi-9b's and gemma3-4b's shapes. The path keeps the defaults,
+which depend on the ``kv_len`` bucket alone, so a decode step's trace
+is the same on the card and off it.
 Each decode router is one kernel launch, and a ``core.trace`` lowering
 records it as one (``core.trace.kernel``). ``impl`` follows
 ``repro_torch.kernels``: ``"ref"`` runs the kernel's plain PyTorch

@@ -244,18 +244,25 @@ def sum_counter(device) -> torch.Tensor:
     return _scratch("sum_counter", device, 1, torch.int32)
 
 
-def sum_reduction(x):
+def sum_reduction(x, blocks: int | None = None):
     """The fp32 sum of ``x`` in one launch: each block's fp32 partial,
     then the last block to finish (found by a device counter) sums the
     partials in a fixed order and writes the result, so repeats are
     bit-identical. (The JAX package sums its partials outside Pallas; the
-    port fuses that step.) Returns a 0-d float32 tensor."""
+    port fuses that step.) Returns a 0-d float32 tensor.
+
+    ``blocks`` fixes the grid (any count from 1; the blocks stride over
+    the input), for the card's calibration (``core/ubench.py`` reads one
+    block's streaming rate); None takes :func:`sum_plan`'s."""
     _check_inputs("sum_reduction", (x,))
     if x.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks, _ = sum_plan(x.numel(), x.element_size(), torch.cuda
-                         .get_device_properties(x.device)
-                         .multi_processor_count)
+    if blocks is None:
+        blocks, _ = sum_plan(x.numel(), x.element_size(), torch.cuda
+                             .get_device_properties(x.device)
+                             .multi_processor_count)
+    elif blocks < 1:
+        raise ValueError(f"sum_reduction takes blocks >= 1, got {blocks}")
     parts = torch.empty(blocks, dtype=torch.float32, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     lib = build.load("stream", _STREAM_SIGNATURES)

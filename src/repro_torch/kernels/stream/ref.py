@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.loops import repeat
+
 
 def init(shape, scalar=3.0, dtype=torch.float32, device="cpu"):
     """a[:] = s — the paper's store-only write-allocate benchmark."""
@@ -112,18 +114,22 @@ def gauss_seidel_2d5pt(u, sweeps: int = 1):
     """Row-wavefront Gauss-Seidel: row i uses the already-updated row i-1,
     the old row i+1 and the old left and right neighbours of row i.
 
-    Sequential over rows (a Python loop in place of JAX's ``lax.scan``):
+    Sequential over rows (``utils.loops.repeat``, a Python loop that a
+    lowering records as one loop region, in place of JAX's ``lax.scan``):
     the paper's latency-bound, loop-carried-dependency case. The
     boundary rows and columns are copied unchanged; ``u`` is not
     modified.
     """
     u = u.clone()
+
+    def row(i):
+        # the right side is evaluated in full before the write, so the
+        # left neighbours it reads are row i's old values
+        i += 1
+        u[i, 1:-1] = 0.25 * (u[i - 1, 1:-1] + u[i + 1, 1:-1] +
+                             u[i, :-2] + u[i, 2:])
     for _ in range(sweeps):
-        for i in range(1, u.shape[0] - 1):
-            # the right side is evaluated in full before the write, so
-            # the left neighbours it reads are row i's old values
-            u[i, 1:-1] = 0.25 * (u[i - 1, 1:-1] + u[i + 1, 1:-1] +
-                                 u[i, :-2] + u[i, 2:])
+        repeat(u.shape[0] - 2, row)
     return u
 
 

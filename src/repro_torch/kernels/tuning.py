@@ -35,11 +35,16 @@ Everything here is pure Python over the registry, so the tuner is
 cheap to call at every launch; plans are memoized per ``(machine
 name, shape)``.
 
-The counterpart of ``repro/kernels/tuning.py``, copied. On the port's
-card (``h100``) the decode plan's ``n_splits`` is the split count the
-decode kernels launch with (``kernels/attention/ops.py``) and its ``bk``
-the dense kernel's block; the flash-attention kernel keeps its own
-shared-memory tiles (``kernels/attention/flash.py``), so
+The counterpart of ``repro/kernels/tuning.py``, copied, with one branch
+of its own: on a GPU machine file (``h100``, ``h100_measured``) the
+decode plan is priced on the grid the port's decode kernels launch, in
+whole waves of the SMs, with the split merge through L2
+(:func:`_decode_tiles_gpu`); the reference's per-core lanes would give
+every extra split a core of its own. The serving path keeps
+``decode.default_splits`` (``kernels/attention/ops.py``, the most
+splits one wave holds), the same count at yi-9b's and gemma3-4b's
+shapes; the flash-attention kernel keeps its
+own shared-memory tiles (``kernels/attention/flash.py``), so
 :func:`flash_tiles` only prices.
 """
 
@@ -50,7 +55,7 @@ import math
 
 from repro_torch.core import memtier
 from repro_torch.core.machine import MACHINES, get_machine, machine_fingerprint
-from repro_torch.utils.hw import dtype_bytes
+from repro_torch.utils.hw import GpuSpec, dtype_bytes
 
 #: manual tile-plan memo. Keyed on the machine's *content* fingerprint,
 #: not its name: an lru_cache keyed on the name would keep serving the
@@ -277,6 +282,9 @@ def _decode_tiles_online(machine: str, *, skv: int, dh: int, h: int,
                          hkv: int, batch: int, dtype: str,
                          backend: str | None) -> TilePlan:
     m = get_machine(machine)
+    if isinstance(m.chip, GpuSpec):
+        return _decode_tiles_gpu(m, skv=skv, dh=dh, h=h, hkv=hkv,
+                                 batch=batch, dtype=dtype, backend=backend)
     tiers = memtier.tiers_of(m)
     backing = tiers[-1]
     eb = dtype_bytes(dtype)
@@ -317,6 +325,67 @@ def _decode_tiles_online(machine: str, *, skv: int, dh: int, h: int,
         best, store_flavor=select_store_flavor(
             m.name, ws_bytes=batch * skv * 2.0 * dh * eb * hkv,
             cores_active=min(batch * best.n_splits, cores)))
+
+
+def _decode_tiles_gpu(m, *, skv: int, dh: int, h: int, hkv: int,
+                      batch: int, dtype: str,
+                      backend: str | None) -> TilePlan:
+    """The decode plan on a GPU machine file, priced on the grid the
+    port's kernel launches (``decode.launch_ctas``: one thread block a
+    KV head, packed row group, split and slot).
+
+    The blocks run in whole waves of the SMs: ``ceil(blocks / SMs)``
+    waves, each as long as one block streaming its split's K and V rows
+    at the per-block rate of the backing tier (one SM's rate, capped by
+    the tier's shared ceiling over the blocks streaming at once). A
+    block that is not alone in its split writes its fp32 partial
+    ``(acc, m, l)`` to L2, and after the slowest split the merge reads
+    every split's partial back through L2 at one SM's rate. Compute and
+    the per-block bookkeeping of the score tile overlap the stream
+    (their home is an SM's own storage)."""
+    from repro_torch.kernels.attention.decode import (KERNEL_MAX_ROWS,
+                                                      launch_ctas)
+    tiers = memtier.tiers_of(m)
+    backing = tiers[-1]
+    l2 = next((t for t in tiers if t.name == "L2"), backing)
+    eb = dtype_bytes(dtype)
+    sms = max(1, m.cores)
+    rows = min(KERNEL_MAX_ROWS, max(1, h // max(1, hkv)))
+    t_cmp = _mxu_seconds(m, 2.0 * batch * h * skv * dh, backend) \
+        + _vpu_seconds(m, batch * h * skv, 3.0, backend)
+    partial = rows * (dh + 2) * 4.0
+    best = None
+    for bk in DECODE_BK_CANDIDATES:
+        cbk = min(bk, max(1, skv))
+        nb = math.ceil(skv / cbk)
+        ws = _resident_ws(rows, cbk, dh, eb)
+        home = memtier.resolve_home(tiers, ws)
+        for n_splits in DECODE_SPLIT_CANDIDATES:
+            if n_splits > nb:
+                continue
+            ctas = launch_ctas(batch, 1, h, hkv, n_splits)
+            waves = math.ceil(ctas / sms)
+            active = min(ctas, sms)
+            split_rows = math.ceil(nb / n_splits) * cbk
+            per_cta = memtier.effective_bw(backing, active)[0] / active
+            t_stream = split_rows * 2.0 * dh * eb / per_cta
+            t_res = (split_rows / cbk) * 2.0 * ws / _tier_bw(home)
+            merge = 0.0
+            if n_splits > 1:
+                # each block writes its partial; the last one reads them all
+                merge = (1 + n_splits) * partial / _tier_bw(l2)
+            total = max(waves * max(t_stream, t_res), t_cmp) + merge
+            cand = TilePlan(machine=m.name, bq=1, bk=cbk,
+                            n_splits=n_splits, seconds=total,
+                            home_tier=home.name, ws_bytes=ws)
+            if best is None or total < best.seconds * (1.0 - 1e-9):
+                best = cand
+    from repro_torch.kernels.stores import select_store_flavor
+    return dataclasses.replace(
+        best, store_flavor=select_store_flavor(
+            m.name, ws_bytes=batch * skv * 2.0 * dh * eb * hkv,
+            cores_active=min(launch_ctas(batch, 1, h, hkv, best.n_splits),
+                             sms)))
 
 
 def fit_block(block: int, s: int) -> int:

@@ -168,6 +168,25 @@ def model_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count (the JAX package's ``count_params``, used
+    for 6ND). active_only: MoE experts counted as top-k."""
+    total = 0
+    for blk in cfg.layer_plan():
+        for _, d in _walk(block_defs(cfg, blk)):
+            n = math.prod(d.shape)
+            if active_only and d.shape and d.shape[0] == cfg.n_experts \
+                    and len(d.shape) == 3 and cfg.n_experts > 0:
+                n = n * cfg.experts_per_token // cfg.n_experts
+            total += n
+    total += cfg.d_model  # final norm
+    if cfg.embed_inputs:
+        total += cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * cfg.d_model
+    return total
+
+
 def _walk(tree, prefix=()):
     """(path, leaf) pairs of a nested dict, keys in sorted order."""
     for key in sorted(tree):

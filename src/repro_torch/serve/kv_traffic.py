@@ -128,9 +128,10 @@ def bounded_decode_plan(cfg: ModelConfig, batch: int, max_len: int,
     (``serve.planner._kernel_adjusted``) both price through here so
     they can never describe a different plan than the kernel executes.
     In the port the dense decode path keeps ``bk=128`` and
-    ``decode.default_splits`` (the tuner's split count read slower on the
-    card, ROADMAP queue 3), so on ``h100`` this bound and plan price the
-    tuner's tiles, not the path's.
+    ``decode.default_splits``; on ``h100`` the tuner's plan at yi-9b's
+    and gemma3-4b's decode shapes has the same split count at every
+    bucket from 512 rows up, but this bound rounds to the tuner's block,
+    which at some occupancies is 64 rows.
     """
     from repro_torch.kernels import tuning
 

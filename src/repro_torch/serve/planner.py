@@ -214,7 +214,7 @@ def _kernel_adjusted(cfg: ModelConfig, batch: int, max_len: int,
     adjusted cost from going below the priced KV stream itself when
     the port model and the ladder disagree about the dense share.
     The dense bound rounds to the tuner's KV block, which on ``h100`` is
-    not the 128-row block the port's dense path runs (see
+    not always the 128-row block the port's dense path runs (see
     ``bounded_decode_plan``).
     """
     from repro_torch.serve.kv_traffic import bounded_decode_plan

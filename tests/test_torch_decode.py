@@ -184,12 +184,15 @@ def test_validate_tp_heads_matches_jax(h, hkv, tp):
 
 
 def test_default_splits_cover_the_sms():
-    # yi-9b serving: 8 slots x 4 KV heads = 32 blocks a split
-    assert D.default_splits(8, 4, 100) == 5
-    assert 8 * 4 * D.default_splits(8, 4, 100) >= D.H100_SMS
+    # yi-9b serving: 8 slots x 4 KV heads = 32 blocks a split; 4 splits
+    # fill one wave of the SMs, a fifth would start a second
+    assert D.default_splits(8, 4, 100) == 4
+    assert 8 * 4 * 4 <= D.H100_SMS < 8 * 4 * 5
     assert D.default_splits(8, 4, 3) == 3          # no more than blocks
+    assert D.default_splits(1, 8, 100) == 16       # 128 blocks, not 136
+    assert D.default_splits(8, 32, 100) == 1       # 256 blocks a split
     bound, split_len, n = D.split_plan(8, 4, 2048, 128, None, 600)
-    assert (bound, n) == (600, 5) and split_len * n >= bound
+    assert (bound, n) == (600, 4) and split_len * n >= bound
 
 
 # The fused merge's buffers, sized in pure Python by the wrapper: one fp32

@@ -1232,3 +1232,63 @@ def test_stream_kernels_refuse_what_they_do_not_take(cuda):
         SO.jacobi_2d5pt(x.double())
     with pytest.raises(ValueError, match="2-D grid"):
         SO.gauss_seidel_2d5pt(torch.zeros(3, 4, 5, device=cuda))
+
+
+# --- the analysis half on the card (core/ubench.py, core/rpe.py) ------------
+
+def test_card_calibration_registers_measured_model(cuda):
+    """The card's calibration: every class rate positive, the block sweep
+    rising with blocks to the chip's rate, the measured L2 faster than
+    HBM3, and ``h100_measured`` registered with the measured tensor-core
+    rate; ``h100`` unchanged."""
+    from repro_torch.core import machine as TM
+    from repro_torch.core import ubench
+    h100 = TM.get_machine("h100")
+    try:
+        m = ubench.calibrated_host_model(device="cuda", refresh=True)
+        raw = ubench.calibration("cuda")
+        assert m.name == "h100_measured" and TM.get_machine(m.name) is m
+        assert all(v > 0 for v in raw["rates"].values())
+        for tier, sweep in raw["cta_sweep"].items():
+            rates = dict(sweep)
+            assert rates[1] > 0 and max(rates.values()) > 4 * rates[1], tier
+        l2, hbm = m.mem_tiers[2], m.mem_tiers[3]
+        assert (l2.name, hbm.name) == ("L2", "HBM3")
+        assert l2.shared_bw > hbm.shared_bw > 1e12
+        # measured: the ceilings and HBM3's per-SM read; published: L2's
+        # per-SM rate and the stores
+        pub = h100.mem_tiers
+        assert (l2.load_bw, l2.store_bw) == (pub[2].load_bw,
+                                             pub[2].store_bw)
+        assert hbm.store_bw == pub[3].store_bw
+        assert hbm.load_bw == dict(raw["cta_sweep"]["HBM3"])[1]
+        assert m.chip.bf16_flops == raw["flops_matmul"] > 1e14
+        assert TM.get_machine("h100") == h100
+    finally:
+        ubench.forget("cuda")
+
+
+@pytest.mark.parametrize("kernel", SR.KERNELS_13)
+def test_rpe_kernel_variant_matches_plain(cuda, kernel):
+    """The Fig. 3 ``kernel`` variant on the card (the hand-written kernel)
+    against the ``eager`` variant (the plain version) on the same inputs;
+    the stencils without a kernel run plain in both."""
+    from repro_torch.core import rpe
+    n = 1 << 16
+    args = rpe.make_inputs(kernel, n, device="cuda")
+    before = dict(K.LAUNCHES)
+    fn, a = rpe.build_variant(kernel, "kernel", n, device="cuda", args=args)
+    got = fn(*a)
+    launched = {k for k, v in K.LAUNCHES.items() if v != before[k]}
+    assert launched == (set() if kernel in rpe.PLAIN_KERNELS else
+                        {"init_store" if kernel == "init" else kernel})
+    pfn, pa = rpe.build_variant(kernel, "eager", n, device="cuda",
+                                args=args)
+    want = pfn(*pa)
+    if kernel == "init":
+        want = want.reshape(got.shape)
+    # a sum's rounding scales with the sum of its terms' magnitudes
+    scale = float(args[0].abs().sum() if kernel == "sum_reduction"
+                  else want.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-6,
+                               atol=1e-6 * scale)

@@ -128,7 +128,7 @@ def test_ref_decode_paged_matches_jax(b, skv, h, hkv, dh, sq, window, ps, ns,
 def test_split_boundaries_follow_the_table():
     """bps = ceil(NB / n_splits) pages a split, n_splits <= NB; a split
     past every slot's position is dead (m = -1e30, l = 0, o = 0)."""
-    assert D.paged_split_plan(8, 4, 16, 30, None) == (480, 96, 5)
+    assert D.paged_split_plan(8, 4, 16, 30, None) == (480, 128, 4)
     assert D.paged_split_plan(2, 2, 8, 3, 5) == (24, 8, 3)
     assert D.paged_split_plan(2, 2, 8, 7, 2) == (56, 32, 2)
     q, k, v = _case(2, 64, 4, 2, 32, 1, seed=4)

@@ -90,6 +90,57 @@ def test_h100_decode_tiles_take_the_kernels_tiles():
             assert p.store_flavor == "standard" and p.seconds > 0
 
 
+#: the decode split sweep's shapes in chip_smoke (``PERF.md`` §6): B=8,
+#: one query row, a 512-row bound; yi-9b's heads price its dense and its
+#: paged kernel, gemma3-4b's Dh=256 heads the dense kernel
+SWEEP_SHAPES = {"yi-9b": (128, 32, 4), "gemma3-4b": (256, 8, 4)}
+
+
+@pytest.mark.parametrize("arch", sorted(SWEEP_SHAPES))
+def test_h100_tuner_picks_four_splits_on_the_kernels_grid(arch,
+                                                          monkeypatch):
+    """On ``h100`` the tuner prices the grid the decode kernels launch
+    (``decode.launch_ctas``, the count ``csrc/decode.cu`` launches:
+    ``(Hkv * groups, n_splits, B)`` blocks) in whole waves of the SMs:
+    at the sweep's shapes 4 splits (128 blocks, one wave) win over 8
+    (256, two waves), which the card also reads fastest."""
+    from repro_torch.kernels.attention import decode as D
+    dh, h, hkv = SWEEP_SHAPES[arch]
+    seen = []
+    real = D.launch_ctas
+
+    def spy(b, sq, h_, hkv_, n_splits):
+        seen.append((b, sq, h_, hkv_, n_splits))
+        return real(b, sq, h_, hkv_, n_splits)
+    monkeypatch.setattr(D, "launch_ctas", spy)
+    TTU.clear_cache()
+    plan = TTU.decode_tiles("h100", skv=512, dh=dh, h=h, hkv=hkv, batch=8,
+                            dtype="bfloat16")
+    TTU.clear_cache()
+    assert plan.n_splits == 4 and plan.bk == 128
+    assert (8, 1, h, hkv, 4) in seen
+    groups = -(-(h // hkv) // D.KERNEL_MAX_ROWS)
+    assert real(8, 1, h, hkv, 4) == hkv * groups * 4 * 8 == 128
+    assert real(8, 4, 64, 4, 2) == 4 * 2 * 2 * 8      # 64 packed rows
+    assert D.default_splits(8, hkv, 512 // 128) == plan.n_splits
+
+
+@pytest.mark.parametrize("arch", sorted(SWEEP_SHAPES))
+def test_default_splits_equal_the_h100_tuner_at_every_bucket(arch):
+    """The serving path's split count (``decode.default_splits``, the
+    most splits one wave of the SMs holds) is the ``h100`` tuner's at
+    every 128-row ``kv_len`` bucket from 512 rows to 8192, on the dense
+    path's 128-row blocks and the paged path's 16-row pages."""
+    from repro_torch.kernels.attention import decode as D
+    dh, h, hkv = SWEEP_SHAPES[arch]
+    for kv in range(512, 8193, 128):
+        plan = TTU.decode_tiles("h100", skv=kv, dh=dh, h=h, hkv=hkv,
+                                batch=8, dtype="bfloat16")
+        assert plan.n_splits == 4, (kv, plan)
+        assert D.default_splits(8, hkv, -(-kv // 128)) == plan.n_splits
+        assert D.paged_split_plan(8, hkv, 16, kv // 16, None)[2] == 4
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_kv_traffic_matches_jax(arch):
     cj, ct = jax_config(arch), get_config(arch)
