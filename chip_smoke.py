@@ -205,9 +205,34 @@ Phases, each printed on its own line:
    and printed, and half of them or more fail;
 5k. grok-1 (G=6) and qwen3-moe (G=16, q/k norm) at full width, one
    layer each, through ``forward`` as phase 5g: 4 decode steps, kernels
-   against their plain versions, over the slots routed alike. The
-   ``kernels`` line's ``flash_decode`` and ``flash_decode_paged`` rows
-   sum their launches over the main paths (``launches_by_path``).
+   against their plain versions, over the slots routed alike.
+7. the serving benchmarks at full width (``repro_torch.bench``), after
+   every other phase's engines are freed, each path's launch counts
+   zeroed before and read after:
+   7a. fig7 at yi-9b (B=8, a 4096-row horizon, occupancy 1/8, 1/4, 1/2,
+       1): ``flash_decode`` over the full horizon against bounded by the
+       occupancy, each chunk a CUDA-graph replay, the decode kernel's µs
+       a step (profiler) and the chunk's ms a step; gated: the bounded
+       kernel grows with occupancy and beats the full horizon at <= 1/4;
+   7b. fig8 at yi-9b in fp32 (8 slots, 2048 rows, pages of 16): priced
+       and measured peak KV bytes, dense and paged streams byte-identical
+       over a shared prefix with a fork, shared-prefix admission, the
+       gather counter, a diverging fork's copy on write;
+   7c. fig9 at gemma3-4b: 2 replicas of 8 slots over one copy of the
+       weights, a 16-request Poisson and a bursty trace under both
+       policies; p50/p95/p99, tokens a chip, token conservation; each
+       engine's graphs and graph pool;
+   7d. fig10 at xlstm-125m in fp32, 2 replicas planned on ``h100``,
+       the reference's baseline and chaos runs: a stuck replica ejected
+       and rescued, a NaN poison of the graph-replayed recurrent state
+       quarantined and rescued, an admission error, a pool exhaustion
+       whose priced decision replans the chunk through ``set_chunk``
+       (its graph captured); gated: no request lost, rescued streams
+       identical to the baseline, p99 within the planned budget, every
+       fault and rescue path run, a replan landed.
+   The ``kernels`` line's ``flash_decode`` and ``flash_decode_paged``
+   rows sum their launches over the main paths (``launches_by_path``),
+   phase 7's among them.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -3646,6 +3671,218 @@ def phase_planned_engine(torch, np, serve, cfg, params) -> float:
     return time.perf_counter() - t0
 
 
+# --- phase 7: the serving benchmarks at full width --------------------------
+
+#: phase 7: the seeds of the weights of 7a-7d
+FIG_SEEDS = {"fig7": 71, "fig8": 72, "fig9": 73, "fig10": 74}
+#: phase 7a: chunk replays a profiler window (and a wall window) per path
+#: and occupancy
+FIG7_ITERS = 3
+#: phase 7c: requests a trace
+FIG9_REQUESTS = 16
+#: phase 7d: requests a trace
+FIG10_REQUESTS = 16
+
+
+def fig_model(torch, arch: str, seed: int, label: str,
+              dtype: str | None = None):
+    """``(cfg, params)`` of ``arch`` at its published width and depth on
+    the card, weights from ``seed`` (``bench._common.model``); prints
+    their size."""
+    from repro_torch.bench._common import model
+    t0 = time.perf_counter()
+    cfg, params = model(arch, "cuda", seed=seed, dtype=dtype)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"{label}: {cfg.name} at its published width and depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}), {n / 1e9:.3f} B "
+          f"params {cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def print_engine_graphs(torch, engines, label: str) -> None:
+    """Each engine's captured graphs (over every chunk length), graph pool
+    bytes, decode ms a step and prefill seconds."""
+    for i, eng in enumerate(engines):
+        st = eng.stats()
+        pool = graph_pool_bytes(torch, eng.graphs.pool)
+        ms = st["decode_s"] / max(1, st["decode_tokens"]) * 1e3
+        print(f"{label}: engine {i}: chunk lengths {eng.chunk_lengths}, "
+              f"{eng.captured_graphs()} CUDA graphs captured, graph pool "
+              + ("not in the allocator's snapshot" if pool is None
+                 else f"{pool / 2 ** 20:.1f} MiB")
+              + f"; {st['decode_dispatches']} decode dispatches, "
+              f"{st['decode_tokens']} steps, {ms:.3f} ms/step, prefill "
+              f"{st['prefill_s']:.2f} s ({st['prefill_dispatches']} "
+              f"dispatches), quarantined {st['quarantined']}")
+
+
+def phase_fig7(torch, K) -> int:
+    """7a: fig7 at yi-9b's published width and depth (B=8, a 4096-row
+    horizon, occupancy 1/8, 1/4, 1/2, 1): the decode kernel's device µs a
+    step over the full horizon (``kv_len=None``) against bounded by the
+    occupancy, each chunk a CUDA-graph replay, and the chunk's ms a step;
+    the reference's gates on the kernel's time. Returns the path's
+    ``flash_decode`` launches."""
+    from repro_torch.bench import fig7_decode as F7
+    label = "fig7 (7a)"
+    t0 = time.perf_counter()
+    cfg, params = fig_model(torch, "yi-9b", FIG_SEEDS["fig7"], label)
+    occ = tuple(F7.CARD_MAX_LEN * f // 16 for f in F7.CARD_FRACS)
+    K.reset_launches()
+    rec = F7.decode_record(cfg, params, F7.CARD_BATCH, F7.CARD_MAX_LEN, occ,
+                           FIG7_ITERS, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for ln in F7.record_lines(rec, "cuda"):
+        print(ln)
+    print(F7.gate(rec))
+    check(launches["flash_decode"] > 0 and launches["flash_decode_paged"] == 0
+          and launches["kv_row_update"] == 0,
+          f"{label}: launches {launches}, expected flash_decode only")
+    lo = rec["cells"][0]
+    print(f"{label}: at occupancy {lo['occ']} of {F7.CARD_MAX_LEN} rows the "
+          f"bounded decode reads {lo['k_split'] * 1e6:.1f} us a step against "
+          f"{lo['k_dense'] * 1e6:.1f} over the full horizon "
+          f"({lo['k_dense'] / lo['k_split']:.2f}x); flash_decode launches "
+          f"{launches['flash_decode']}; {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return launches["flash_decode"]
+
+
+def phase_fig8(torch, K) -> tuple:
+    """7b: fig8 at yi-9b's published width and depth in fp32 (8 slots, a
+    2048-row horizon, pages of 16): priced and measured peak KV bytes,
+    dense against paged streams byte-identical with a shared prefix and a
+    fork, shared-prefix admission, the gather counter and a diverging
+    fork's copy on write. Returns the path's (``flash_decode``,
+    ``flash_decode_paged``) launches."""
+    from repro_torch.bench import fig8_paged as F8
+    label = "fig8 (7b)"
+    t0 = time.perf_counter()
+    K.reset_launches()
+    lines = F8.main(device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for ln in lines:
+        print(ln)
+    check(any("fork_identical=OK" in ln for ln in lines),
+          f"{label}: no forked stream was held")
+    check(launches["flash_decode"] > 0 and launches["flash_decode_paged"] > 0
+          and launches["kv_row_update"] == 0,
+          f"{label}: launches {launches}, expected both decode kernels")
+    print(f"{label}: flash_decode launches {launches['flash_decode']}, "
+          f"flash_decode_paged {launches['flash_decode_paged']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches["flash_decode"], launches["flash_decode_paged"]
+
+
+def phase_fig9(torch, K) -> int:
+    """7c: fig9 at gemma3-4b's published width and depth: 2 replicas of 8
+    slots over one copy of the weights, a 16-request Poisson and a bursty
+    trace under both policies; latency percentiles, tokens a chip and the
+    conservation gate; each engine's graphs. Returns the path's
+    ``flash_decode`` launches."""
+    from repro_torch.bench import fig9_load as F9
+    label = "fig9 (7c)"
+    t0 = time.perf_counter()
+    cfg, params = fig_model(torch, "gemma3-4b", FIG_SEEDS["fig9"],
+                            label)
+    engines = F9.build_engines(cfg, params, slots=F9.CARD_SLOTS,
+                               device="cuda")
+    K.reset_launches()
+    lines = F9.load_lines(cfg, engines, n_req=FIG9_REQUESTS, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for ln in lines + F9._sharding_gates(cfg):
+        print(ln)
+    check(len(lines) == 4 and all("conserved=OK" in ln for ln in lines),
+          f"{label}: a trace was not conserved")
+    check(launches["flash_decode"] > 0 and launches["flash_decode_paged"] == 0,
+          f"{label}: launches {launches}, expected flash_decode only")
+    print_engine_graphs(torch, engines, label)
+    print(f"{label}: flash_decode launches {launches['flash_decode']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del engines, params
+    torch.cuda.empty_cache()
+    return launches["flash_decode"]
+
+
+def phase_fig10(torch, K) -> None:
+    """7d: fig10 at xlstm-125m's published width and depth in fp32: 2
+    planned replicas of 8 slots (chunk planned on ``h100``), the
+    reference's fault-free baseline and chaos run of a Poisson and a
+    bursty trace (``fig10_chaos.chaos_record``): a stuck replica ejected
+    and its streams rescued, a NaN poison in the graph-replayed recurrent
+    state quarantined and rescued, an admission error, and a pool
+    exhaustion whose priced decision replans the chunk through
+    ``set_chunk`` (the new chunk's graph captured). The reference's
+    gates, and: each fault fired, each rescue path ran, a replan
+    landed."""
+    from repro_torch.bench import fig10_chaos as F10
+    label = "fig10 (7d)"
+    t0 = time.perf_counter()
+    cfg, params = fig_model(torch, "xlstm-125m", FIG_SEEDS["fig10"], label,
+                            dtype="float32")
+    engines = F10.build_engines(cfg, params, slots=F10.CARD_SLOTS,
+                                machine="h100", device="cuda")
+    reasons, replans, tokens = set(), 0, 0
+    fired: dict = {}
+    for kind in ("poisson", "bursty"):
+        t1 = time.perf_counter()
+        out = F10.chaos_record(engines, kind, FIG10_REQUESTS,
+                               cfg.vocab_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        for ln in F10.gate_lines(kind, FIG10_REQUESTS, out):
+            print(ln)
+        rt, rec = out["router"], out["rec"]
+        reasons |= {e["reason"] for e in rec["events"]
+                    if e["kind"] == "rescue"}
+        replans += sum(d["choice"] == "replan" for d in rt.degrade_log)
+        for eng in rt.replicas:
+            for k, n in eng.injected.items():
+                fired[k] = fired.get(k, 0) + n
+        check(any(s == "ejected" for _, _, s in rt.health[0].transitions),
+              f"{label}: the stuck replica was not ejected ({kind})")
+        tokens += sum(len(v) for v in out["base"]["results"].values()) \
+            + sum(len(v) for v in rec["results"].values())
+        print(f"{label}: {kind}: baseline and chaos runs in {wall:.2f} s")
+    check({"eject", "nonfinite"} <= reasons,
+          f"{label}: rescue paths run {sorted(reasons)}, expected eject and "
+          f"nonfinite")
+    check(all(fired.get(k, 0) > 0 for k in ("stuck", "nonfinite",
+                                            "admit_error", "pool_exhausted")),
+          f"{label}: faults fired {fired}")
+    check(replans >= 1, f"{label}: no replan decision landed")
+    check(any(len(e.chunk_lengths) >= 2 and e.captured_graphs() >= 2
+              for e in engines),
+          f"{label}: no engine captured a replanned chunk's graph")
+    print_engine_graphs(torch, engines, label)
+    print(f"{label}: faults fired {fired}; rescue paths {sorted(reasons)}; "
+          f"{replans} replans through set_chunk; {tokens} tokens over the "
+          f"baseline and chaos runs; {time.perf_counter() - t0:.1f} s")
+    del engines, params
+    torch.cuda.empty_cache()
+
+
+def phase_serving_benchmarks(torch, K) -> dict:
+    """Phase 7 (7a-7d), after every other phase's engines are freed.
+    Returns the new paths' decode launches by kernel and path."""
+    t0 = time.perf_counter()
+    n7 = phase_fig7(torch, K)
+    n8, n8p = phase_fig8(torch, K)
+    n9 = phase_fig9(torch, K)
+    phase_fig10(torch, K)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return {"flash_decode": {"fig7 decode sweep": n7,
+                             "fig8 dense engine": n8,
+                             "fig9 replicas": n9},
+            "flash_decode_paged": {"fig8 paged engines": n8p}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3735,16 +3972,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = phase_moe_forward(torch, np, cfg_mod, M, K)
     print(f"phases 5h-5k: {time.perf_counter() - t_new:.1f} s")
+    torch.cuda.empty_cache()
+    fig_launches = phase_serving_benchmarks(torch, K)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],
          "gemma3-4b dense engine": gemma_launches,
          "jamba dense engine": jamba_launches["dense"]},
         **{f"{a} forward": n for a, n in family_launches.items()},
-        **{f"{a} forward": n for a, n in moe_launches.items()}))
-    path_launches(by_name["flash_decode_paged"], {
-        "yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
-        "jamba paged engine": jamba_launches["paged"]})
+        **{f"{a} forward": n for a, n in moe_launches.items()},
+        **fig_launches["flash_decode"]))
+    path_launches(by_name["flash_decode_paged"], dict(
+        {"yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
+         "jamba paged engine": jamba_launches["paged"]},
+        **fig_launches["flash_decode_paged"]))
     print(f"planning phases (plan lines, split sweep, planned engine): "
           f"{plan_s:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,10 +4,11 @@ The counterpart of ``benchmarks/run.py``, with its CSV: prints
 ``name,us_per_call,derived`` lines, and each module ends with a
 ``_meta,<module>,<us>,ok|FAILED`` line. ``--only <tag>`` runs the modules
 whose name holds the tag; ``--full`` runs the complete (slow) variants,
-e.g. the 416-block Fig. 3 suite. The measured rows measure the CUDA card
-when there is one (``--device`` names another), else the CPU:
+e.g. the 416-block Fig. 3 suite. The measured rows measure the CUDA card;
+without one the runner refuses, unless ``--device cpu`` asks for the
+host:
 
-    python -m repro_torch.bench.run --only fig3 [--full]
+    python -m repro_torch.bench.run --only fig9 [--full]
     python -m repro_torch.bench.run --only fig4b --device cpu
 """
 
@@ -20,24 +21,25 @@ import time
 import traceback
 
 MODULES = ("table1_machines", "table2_ports", "table3_instructions",
-           "fig3_rpe", "fig4_wa", "fig4b_ntstore")
-
-
-def default_device() -> str:
-    """``cuda`` where a card is present, else ``cpu``."""
-    import torch
-    return "cuda" if torch.cuda.is_available() else "cpu"
+           "fig2_unitmix", "fig3_rpe", "fig4_wa", "fig4b_ntstore",
+           "fig5_memladder", "fig6_serve", "fig7_decode", "fig8_paged",
+           "fig9_load", "fig10_chaos")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench.run")
     ap.add_argument("--only", default=None)
     ap.add_argument("--full", action="store_true")
-    ap.add_argument("--device", default=None,
-                    help="device the measured rows run on (default: cuda "
-                         "when present, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="device the measured rows run on (default: cuda; "
+                         "the host only when asked with --device cpu)")
     args = ap.parse_args(argv)
-    device = args.device or default_device()
+    import torch
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        print("repro_torch.bench.run: no CUDA device; pass --device cpu to "
+              "measure the host", file=sys.stderr)
+        return 2
 
     print("name,us_per_call,derived")
     failures = 0
@@ -47,7 +49,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         try:
             mod = importlib.import_module(f"repro_torch.bench.{mod_name}")
-            for ln in mod.main(quick=not args.full, device=device):
+            for ln in mod.main(quick=not args.full, device=args.device):
                 print(ln, flush=True)
             print(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},ok",
                   flush=True)

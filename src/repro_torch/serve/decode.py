@@ -167,7 +167,10 @@ class ChunkGraphs:
     ``noise``, and replays the graph of its ``kv_len``, capturing it
     first at its first use (:meth:`capture`). Every graph draws on one
     memory pool: they replay one at a time on one stream, so their
-    intermediates may share it.
+    intermediates may share it; ``share``, another ``ChunkGraphs`` whose
+    graphs replay on the same stream one at a time (another chunk length
+    of one engine), lends its pool and capture stream, so the two sets
+    reuse each other's intermediates.
 
     ``LAUNCHES`` counts a replay as the eager body counts its calls: the
     counts a capture records (which launch nothing) are taken back and
@@ -176,7 +179,7 @@ class ChunkGraphs:
 
     def __init__(self, body, cfg: ModelConfig, params: dict, cache: dict,
                  *, batch: int, n_tokens: int, sampled: bool, device,
-                 table_cols: int | None = None):
+                 table_cols: int | None = None, share=None):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {dev}")
@@ -197,8 +200,11 @@ class ChunkGraphs:
         split_counters(dev, counters_needed(batch, 1, cfg.n_heads,
                                             cfg.n_kv_heads))
         self.graphs: dict = {}     # kv_len -> (graph, outputs, launches)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(dev)
+        if share is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(dev)
+        else:
+            self.pool, self.stream = share.pool, share.stream
         self.capture_s = 0.0       # host seconds in the warm-up and captures
 
     def load(self, tokens, pos, block_tables=None, generators=None) -> None:

@@ -51,8 +51,12 @@ With ``chunk=None`` the chunk size is planned from the port model's
 per-step cost of the decode step (``serve.planner.plan_chunk_size``, on
 ``machine``: ``h100`` on a CUDA host), as the JAX engine plans it.
 
-Pipelined dispatch (dense and paged), prompt staging, meshes, snapshots
-and fault injection of the JAX engine are not ported yet (ROADMAP).
+Two hooks serve the fault-tolerant router (``serve.health``):
+:meth:`ServeEngine.drain_quarantined` hands over the streams the chunk's
+non-finite guard pulled out of the batch, and :meth:`ServeEngine.set_chunk`
+re-plans the chunk mid-flight. Pipelined dispatch (dense and paged),
+prompt staging, meshes and snapshots of the JAX engine are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -98,11 +102,19 @@ def kv_buckets(cfg: ModelConfig, max_len: int) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class Request:
-    """One generation request: prompt token ids and a token budget."""
+    """One generation request: prompt token ids and a token budget.
+
+    ``deadline_s`` is an optional completion budget in seconds relative
+    to submission (virtual-clock seconds under the load harness). The
+    engines ignore it; the fault-tolerant router (``serve.health``) sheds
+    queued requests and cancels active ones once it is spent. ``None``
+    means no deadline.
+    """
 
     rid: str
     prompt: tuple                 # prompt token ids
     max_new_tokens: int
+    deadline_s: float | None = None
 
 
 @dataclasses.dataclass
@@ -158,18 +170,14 @@ class ServeEngine:
             chunk = self.plan.chunk
         else:
             self.plan = None     # explicit chunk: no analytic plan made
-        self.chunk = max(1, int(chunk))
         self._attends = M.has_attention(cfg)
         self._build_state()
-        # the chunk's device work, run eagerly or captured by the graphs
-        self._body = make_chunk_body(cfg, self.chunk, self.temperature)
-        self.graphs = None
-        if self.device.type == "cuda" and cuda_graphs:
-            self.graphs = ChunkGraphs(
-                self._body, cfg, params, self.cache, batch=max_slots,
-                n_tokens=self.chunk, sampled=self.temperature > 0,
-                device=self.device,
-                table_cols=self.pages_per_slot if self.paged else None)
+        self._cuda_graphs = self.device.type == "cuda" and cuda_graphs
+        # chunk length -> (body, graphs): the chunk's device work, run
+        # eagerly or captured by its graphs; kept across set_chunk so a
+        # length seen before replays without a new capture
+        self._chunks: dict = {}
+        self.set_chunk(chunk)
         # feeds the rows of free slots when sampling (their tokens are
         # discarded)
         self._idle_gen = self._generator(f"\0idle:{self.seed}")
@@ -214,6 +222,55 @@ class ServeEngine:
         """A chunk's per-dispatch inputs as host arrays, by the step's
         argument names."""
         return {"tokens": self._tok, "pos": self._pos}
+
+    def set_chunk(self, chunk: int) -> None:
+        """Re-plan the decode chunk mid-flight (degraded mode).
+
+        The cache, the slots and every in-flight stream stay as they are;
+        the next :meth:`step` decodes ``chunk`` tokens a dispatch. A chunk
+        length's body and graphs are built at its first use and kept: a
+        length seen before takes them back, the counterpart of the JAX
+        engine's hits in jit's compilation cache. Every length's graphs
+        capture the same cache tensors and draw on one memory pool
+        through one capture stream (they replay one at a time on one
+        stream). Used by the fault-tolerant router's priced degradation
+        (``serve.health``): a smaller chunk shortens each round at the
+        cost of more dispatches a token.
+        """
+        chunk = max(1, int(chunk))
+        if chunk not in self._chunks:
+            body = make_chunk_body(self.cfg, chunk, self.temperature)
+            graphs = None
+            if self._cuda_graphs:
+                graphs = ChunkGraphs(
+                    body, self.cfg, self.params, self.cache,
+                    batch=self.max_slots, n_tokens=chunk,
+                    sampled=self.temperature > 0, device=self.device,
+                    table_cols=self.pages_per_slot if self.paged else None,
+                    share=next((g for _, g in self._chunks.values()), None))
+            self._chunks[chunk] = (body, graphs)
+        self.chunk = chunk
+        self._body, self.graphs = self._chunks[chunk]
+
+    @property
+    def chunk_lengths(self) -> list:
+        """The chunk lengths set so far, each with its body and graphs."""
+        return sorted(self._chunks)
+
+    def captured_graphs(self) -> int:
+        """CUDA graphs captured so far, over every chunk length."""
+        return sum(len(g.graphs) for _, g in self._chunks.values()
+                   if g is not None)
+
+    def drain_quarantined(self) -> list:
+        """Return and clear the (rid, tokens-so-far) quarantine list.
+
+        :meth:`step` fills it when the chunk's non-finite guard trips; the
+        router drains it every round to rescue the streams on a healthy
+        replica by replaying prompt + prefix.
+        """
+        out, self.quarantined = self.quarantined, []
+        return out
 
     # -- helpers ------------------------------------------------------------
     def _generator(self, rid: str) -> torch.Generator:

@@ -370,10 +370,9 @@ def planned_round_seconds(plan: ChunkPlan, chunk: int | None = None,
     """Modeled wall seconds of one decode round at ``chunk`` tokens.
 
     ``chunk`` in-graph steps at the plan's tier-resolved per-step cost
-    plus one dispatch overhead — in the JAX package the health
-    tracker's latency budget and the fault injector's virtual-clock unit
-    both come from here (their ports wait for ROADMAP queue 1 item 6),
-    so "slow" is always
+    plus one dispatch overhead — the health tracker's latency budget
+    (``serve.health``) and the fault injector's virtual-clock unit
+    (``serve.faults``) both come from here, so "slow" is always
     *slow relative to what the port model predicts for this machine*,
     not an absolute wall-clock constant. ``machine`` prices the round
     on another registered machine's column of the plan (default: the

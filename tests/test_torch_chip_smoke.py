@@ -288,3 +288,41 @@ def test_kv_read_bytes_windows_local_layers():
         (5 * 1500 + 29 * 1024) * row
     yi = get_config("yi-9b")
     assert chip_smoke.kv_read_bytes(yi, 1499) == 48 * 1500 * 4 * 128 * 4
+
+
+def test_phase_seven_is_listed_and_driven_last():
+    """Phase 7 (the serving benchmarks, 7a-7d) is in the script's phase
+    list, and ``main`` drives it after the other phases and before the
+    ``kernels`` line, adding its decode launches by path."""
+    import inspect
+    doc = chip_smoke.__doc__
+    for part in ("\n7. the serving benchmarks", "7a. fig7", "7b. fig8",
+                 "7c. fig9", "7d. fig10"):
+        assert part in doc
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_moe_forward(") \
+        < src.index("phase_serving_benchmarks(") \
+        < src.index('json.dumps({"kernels": rows})')
+    assert 'fig_launches["flash_decode"]' in src
+    assert 'fig_launches["flash_decode_paged"]' in src
+    fig = inspect.getsource(chip_smoke.phase_serving_benchmarks)
+    for phase in ("phase_fig7(", "phase_fig8(", "phase_fig9(",
+                  "phase_fig10("):
+        assert phase in fig
+
+
+def test_last_line_contract_is_unchanged(monkeypatch, capsys):
+    """The last line is exactly ``{"ok": true, "device": {"platform":
+    "gpu", "kind": ..., "count": ...}}``; without a card the script exits
+    non-zero and prints no result."""
+    import inspect
+    import torch
+    src = inspect.getsource(chip_smoke.main).rstrip().splitlines()
+    assert src[-4:] == [
+        '    print(json.dumps({"ok": True, "device": {',
+        '        "platform": "gpu", "kind": name,',
+        '        "count": torch.cuda.device_count()}}))',
+        "    return 0"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""

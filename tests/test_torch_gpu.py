@@ -1292,3 +1292,125 @@ def test_rpe_kernel_variant_matches_plain(cuda, kernel):
                   else want.abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-6,
                                atol=1e-6 * scale)
+
+
+# --- the router's engine hooks and the serving benchmarks on the card ------
+
+def _hook_requests(cfg, lens, news, seed):
+    rng = np.random.default_rng(seed)
+    return [Request(f"h{i}", tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)), m) for i, (n, m) in enumerate(zip(lens,
+                                                                  news))]
+
+
+def _chunk_schedule(eng, reqs, chunks):
+    """Admit ``reqs``, then step with ``chunks[r]`` set before round r
+    (the last one after), to the end; returns {rid: tokens}."""
+    for r in reqs:
+        eng.admit(r)
+    out, rnd = {}, 0
+    while any(s is not None for s in eng.slots):
+        eng.set_chunk(chunks[min(rnd, len(chunks) - 1)])
+        out.update({rid: t.tolist() for rid, t in eng.step()})
+        rnd += 1
+    return out
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "xlstm-125m"])
+def test_set_chunk_replays_a_seen_chunk_without_capture(cuda, arch):
+    """Chunks 4, 2, 4, 2, ...: each length's graphs are captured at its
+    first use and replayed after, capturing nothing more, on the same
+    cache tensors; the streams are the eager engine's under the same
+    schedule."""
+    cfg, params = _smoke_params(arch, 5)
+    params = _to(params, cuda)
+    reqs = _hook_requests(cfg, (7, 12, 5), (15, 11, 13), 21)
+    out = {}
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, params, max_slots=3, max_len=64, chunk=4,
+                          device=cuda, cuda_graphs=graphs)
+        ptrs = [t.data_ptr() for t in M.state_leaves(cfg, eng.cache)] + [
+            t.data_ptr() for part in eng.cache["scan"].values()
+            for t in part.values()]
+        if graphs:
+            _chunk_schedule(eng, reqs[:1], [4, 2])
+            captured = eng.captured_graphs()
+            assert captured == 2 and eng.chunk_lengths == [2, 4]
+            pool = eng.graphs.pool
+        out[graphs] = _chunk_schedule(eng, reqs, [4, 2, 4, 2, 4, 2])
+        assert [t.data_ptr() for t in M.state_leaves(cfg, eng.cache)] + [
+            t.data_ptr() for part in eng.cache["scan"].values()
+            for t in part.values()] == ptrs
+    assert eng.captured_graphs() == captured      # nothing recaptured
+    assert all(g.pool == pool and g.stream == eng.graphs.stream
+               for _, g in eng._chunks.values())
+    assert out[True] == out[False]
+
+
+def test_poison_under_graph_replay_is_quarantined(cuda):
+    """The NaN poison written in place into the recurrent state that a
+    captured graph replays over (xlstm-125m) reaches the graph: the
+    victim is quarantined with its tokens so far, the scrub leaves the
+    bystander's state bit for bit, and the bystander streams as in a run
+    without the poison; no cache tensor moved, no graph recaptured."""
+    from repro_torch.serve.faults import poison_slot, scrub_nonfinite
+    cfg, params = _smoke_params("xlstm-125m", 6)
+    params = _to(params, cuda)
+    reqs = _hook_requests(cfg, (6, 9), (12, 12), 22)
+
+    def run(poison):
+        eng = ServeEngine(cfg, params, max_slots=2, max_len=48, chunk=3,
+                          device=cuda)
+        for r in reqs:
+            eng.admit(r)
+        out = dict(eng.step())
+        captured = eng.captured_graphs()
+        ptrs = [t.data_ptr() for t in M.state_leaves(cfg, eng.cache)]
+        if poison:
+            poison_slot(eng, 0)
+            assert eng.step() == []
+            q = eng.drain_quarantined()
+            assert [r for r, _ in q] == ["h0"] and len(q[0][1]) == 4
+            state = M.state_leaves(cfg, eng.cache)
+            kept = [t[:, 1].clone() for t in state]
+            scrub_nonfinite(eng)
+            assert all(bool(torch.isfinite(t).all()) for t in state)
+            assert all(torch.equal(t[:, 1], k) for t, k in zip(state, kept))
+        while any(s is not None for s in eng.slots):
+            out.update(dict(eng.step()))
+        assert [t.data_ptr() for t in M.state_leaves(cfg, eng.cache)] == ptrs
+        assert eng.captured_graphs() == captured == 1
+        return {r: t.tolist() for r, t in out.items()}
+
+    clean, poisoned = run(False), run(True)
+    assert "h0" not in poisoned and poisoned["h1"] == clean["h1"]
+
+
+def test_fig7_bounded_kernel_beats_the_full_horizon(cuda):
+    """fig7's paths at yi-9b's heads (two layers of its published width):
+    at 1/8 occupancy of a 4096-row horizon the bounded decode kernel's
+    device time a step is under the full horizon's, and at full occupancy
+    the bounded time is over its 1/8 time."""
+    from repro_torch.bench import fig7_decode as F7
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(7),
+                           device=cuda)
+    rec = F7.decode_record(cfg, params, 8, 4096, (512, 4096), 3, cuda)
+    lo, hi = rec["cells"]
+    assert lo["k_split"] < lo["k_dense"]
+    assert lo["k_split"] < hi["k_split"]
+
+
+@pytest.mark.parametrize("module", ["fig2_unitmix", "fig5_memladder",
+                                    "fig6_serve", "fig7_decode",
+                                    "fig8_paged", "fig9_load",
+                                    "fig10_chaos"])
+def test_bench_module_runs_on_the_card(cuda, module, capsys):
+    """``python -m repro_torch.bench.run --only <module>`` on the card
+    (its default device) runs the module to its ``ok`` line."""
+    from repro_torch.bench import run as bench_run
+    assert bench_run.main(["--only", module]) == 0
+    out = capsys.readouterr().out
+    assert f"_meta,{module}," in out and out.rstrip().endswith(",ok")
+    torch.cuda.empty_cache()
