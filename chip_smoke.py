@@ -230,9 +230,38 @@ Phases, each printed on its own line:
        (its graph captured); gated: no request lost, rescued streams
        identical to the baseline, p99 within the planned budget, every
        fault and rescue path run, a replan landed.
+8. the runtime around the engine (:func:`phase_runtime`, after phase
+   7's engines are freed):
+   8a. yi-9b at its published width (48 layers, bf16, seed 81), a dense
+       and a paged (page 16) engine of 8 slots, a 2048-row horizon and
+       8-token chunks, greedy and at T=0.8, their graphs captured first;
+       phase 5's 16 requests served once unmeasured, then serially, then
+       with ``pipeline=2`` (set between the runs, nothing in flight):
+       streams and dispatch counts byte-identical, decode launches
+       attention layers x steps in each mode, tok/s and
+       ``mean_dispatch_gap_s`` printed; for the greedy engines two traced
+       rounds in each mode from nothing in flight (:func:`trace_rounds`:
+       idle share on the wall clock and inside the device's span, its
+       largest gap, and the host-blocking calls between the two
+       enqueues, which must be none pipelined);
+   8b. the 16 requests through the router's ``submit`` to the pipelined
+       dense engine: staging hits (misses at most the first batch),
+       streams as 8a's; one prompt's prefill logits staged and unstaged
+       bit for bit;
+   8c. xlstm-125m at its published width (bf16, seed 82), pipelined,
+       served without snapshots and then with one offered every round
+       (``skip_if_busy``): each round's wall time with a write in flight
+       and without, the last snapshot restored bit for bit, and in a
+       profiled round the params' device-to-host copies on a stream
+       other than the kernels';
+   8d. ``python -m repro_torch.bench.run --only fig11`` in process, its
+       gates on the card;
+   8e. ``repro_torch.launch.serve.main`` on xlstm-125m at its published
+       width with ``--pipeline 2`` and a ``--plan-db`` swept here for
+       ``h100``: DB hits and no online plan.
    The ``kernels`` line's ``flash_decode`` and ``flash_decode_paged``
    rows sum their launches over the main paths (``launches_by_path``),
-   phase 7's among them.
+   phases 7's and 8's among them.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -3200,6 +3229,8 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> float:
     holds as many decode kernel events, bar the profiler's known drops
     (:data:`PROFILER_DROPS`): so a replay whose kernels the profile does
     not see fails, and so do replays whose counts are bookkeeping alone.
+    A window whose profile lost more decode kernel events than that is
+    taken again (:func:`profiled`), up to ``PROFILE_ATTEMPTS`` windows.
     """
     from repro_torch.kernels import LAUNCHES, reset_launches
     check(not any(eng.slots), f"{label}: engine not idle")
@@ -3235,17 +3266,27 @@ def phase_trace(torch, serve, eng, reqs, label: str) -> float:
         counted.append(LAUNCHES["flash_decode"]
                        + LAUNCHES["flash_decode_paged"])
 
+    want = attention_layers(eng.cfg) * steps
+
+    def lost_decode_events(by_name, counts):
+        # CUPTI on the card sometimes drops a few percent of a window's
+        # ~40k kernel events: such a window is taken again, named
+        decode = sum(n for name, n in counts.items()
+                     if DECODE_KERNEL.search(name))
+        return [] if decode >= want - profiler_drops(want) else [
+            f"the profiler recorded {decode} of the {want} decode kernels"]
+
     # a window taken again serves the requests once more, from idle
     counts, host = {}, {}
     by_name = profiled(torch, run, label, setup=lambda: admit_and_warm(
-        f"trace{len(passes)}"), counts=counts, host=host)
+        f"trace{len(passes)}"), counts=counts, host=host,
+        faults=lost_decode_events)
     check(not any(eng.slots), f"{label}: requests did not retire")
     prof_wall_ms = passes[-1]
     # before any reading is printed: the replays' kernels are in the
     # profile, and so are the host calls that launched them
     decode = sum(n for name, n in counts.items()
                  if DECODE_KERNEL.search(name))
-    want = attention_layers(eng.cfg) * steps
     print(f"{label}: decode kernels in the window: {decode} profiler "
           f"events, {counted[-1]} counted by LAUNCHES ({want} expected)")
     check(counted[-1] == want, f"{label}: LAUNCHES counted {counted[-1]} "
@@ -3883,6 +3924,493 @@ def phase_serving_benchmarks(torch, K) -> dict:
             "flash_decode_paged": {"fig8 paged engines": n8p}}
 
 
+# --- phase 8: the runtime around the engine ---------------------------------
+
+#: phase 8: the seeds of 8a's weights (yi-9b) and of 8c's and 8e's
+#: (xlstm-125m), and of their requests
+RUNTIME_SEEDS = {"yi-9b": 81, "xlstm-125m": 82, "requests": 5}
+#: phase 8: the pipelined engines' in-flight bound
+PIPELINE = 2
+#: phase 8a: host calls that block the host on the card's work
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize", "cudaMemcpy")
+#: phase 8c: xlstm-125m requests (prompt tokens, new tokens) and their
+#: count: 16 rounds of 8 tokens a serve
+SNAPSHOT_REQUESTS = (64, 129, 8)
+#: phase 8e: the launcher's batch, prompt and new tokens
+LAUNCH_CELL = (8, 64, 64)
+
+
+def runtime_requests(np, serve, vocab: int) -> list:
+    """Phase 5's 16 requests: 128-512-token prompts, 64 new tokens each."""
+    rng = np.random.default_rng(RUNTIME_SEEDS["requests"])
+    lens = rng.integers(128, 513, size=16)
+    return [serve.Request(f"r{i}", tuple(int(t) for t in
+                                         rng.integers(0, vocab, n)), 64)
+            for i, n in enumerate(lens)]
+
+
+def blocking_between_enqueues(prof) -> tuple:
+    """Host calls of :data:`BLOCKING_CALLS` that start between the first
+    and the last decode enqueue (graph launch) of a profile, by name, and
+    the number of enqueues."""
+    from torch.autograd import DeviceType
+    host = [(ev.start_ns(), ev.name())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() != DeviceType.CUDA]
+    enq = sorted(t for t, n in host
+                 if n.startswith(HOST_CALLS["graph"]))
+    out: dict = {}
+    if len(enq) >= 2:
+        for t, n in host:
+            if enq[0] < t < enq[-1] and any(
+                    n == b or n.startswith(b + "_v") for b in BLOCKING_CALLS):
+                out[n] = out.get(n, 0) + 1
+    return out, len(enq)
+
+
+def device_gaps(prof) -> tuple:
+    """``(span µs, busy µs, largest gap µs)`` of a profile's device
+    timeline: from its first kernel's start (the copies a round ships
+    before its graph launch are left out: the host's time to launch the
+    first graph is not a gap between rounds) to its last event's end, the
+    union of its events (kernels, copies, fills) in that span, and the
+    longest stretch inside it with no event on the card."""
+    from torch.autograd import DeviceType
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA]
+    starts = [ev.start_ns() for ev in events
+              if not ev.name().startswith(("Memcpy", "Memset"))]
+    if not starts:
+        return 0.0, 0.0, 0.0
+    first = min(starts)
+    spans = sorted((max(ev.start_ns(), first), ev.end_ns()) for ev in events
+                   if ev.end_ns() > first)
+    busy, gap = 0, 0
+    lo, hi = spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            gap = max(gap, a - hi)
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return (spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, gap / 1e3
+
+
+def trace_rounds(torch, serve, eng, reqs, depth: int, label: str) -> dict:
+    """Two decode rounds of ``eng`` at in-flight bound ``depth`` (0:
+    serial), from nothing in flight, then a sync: once on the wall clock,
+    once under the profiler. Returns the device idle share over the
+    unprofiled window, the idle share inside the device's own span (from
+    its first event to its last: the gaps between kernels and between
+    the rounds), its largest gap, and the blocking calls between the two
+    enqueues."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.pipeline = depth
+    steps = 2 * eng.chunk
+
+    def admit_and_warm(tag):
+        for r in reqs[:eng.max_slots]:
+            eng.admit(serve.Request(f"{tag}-{r.rid}", r.prompt,
+                                    1 + 4 * eng.chunk))
+        eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+
+    def two_rounds():
+        eng.step()
+        eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+
+    def drain():
+        while any(eng.slots):
+            eng.step()
+        eng.sync()
+
+    admit_and_warm("wall")
+    t0 = time.perf_counter()
+    two_rounds()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    drain()
+    admit_and_warm("prof")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        two_rounds()
+    drain()
+    by_name = device_us(prof)
+    check(sum(by_name.values()) > 0,
+          f"{label}: the profiler saw no device time")
+    blocking, enqueues = blocking_between_enqueues(prof)
+    check(enqueues == 2, f"{label}: {enqueues} graph launches in the "
+          f"window, expected 2")
+    dev_ms = sum(by_name.values()) / 1e3 / steps
+    idle = 1 - dev_ms / wall_ms
+    span, busy, gap = device_gaps(prof)
+    print(f"{label}: two rounds of {eng.chunk} steps from nothing in "
+          f"flight: device busy {dev_ms:.3f} ms/step of {wall_ms:.3f} "
+          f"ms/step wall, idle share {idle:.4f}; inside the device's span "
+          f"({span / 1e3:.3f} ms) idle share {1 - busy / span:.4f}, largest "
+          f"gap {gap:.1f} us; host-blocking calls between the two "
+          f"enqueues: {blocking or 'none'}")
+    return {"idle": idle, "blocking": blocking, "wall_ms": wall_ms,
+            "dev_ms": dev_ms, "span_idle": 1 - busy / span, "gap_us": gap}
+
+
+def pipelined_pair(torch, K, serve, cfg, params, reqs, *, paged: bool,
+                   temperature: float, launch_paths: dict) -> dict:
+    """One 8a engine (dense or paged, greedy or sampled; its graphs
+    captured first) serving ``reqs`` serially, then pipelined (the in-flight
+    bound set between the runs, nothing in flight): streams and dispatch
+    counts byte-identical, decode launches attention layers x steps in
+    each mode. Greedy engines also trace two rounds in each mode
+    (:func:`trace_rounds`)."""
+    kind = "paged" if paged else "dense"
+    label = f"8a {kind} T={temperature}"
+    common = dict(max_slots=8, max_len=2048, chunk=8, device="cuda",
+                  temperature=temperature, seed=3, pipeline=PIPELINE)
+    eng = serve.PagedServeEngine(cfg, params, page_size=16, **common) \
+        if paged else serve.ServeEngine(cfg, params, **common)
+    capture_graphs(torch, eng, label)
+    kernel = "flash_decode_paged" if paged else "flash_decode"
+    want_layers = attention_layers(cfg)
+    runs = {}
+    # a first, unmeasured serial run: the engine's first prefills at each
+    # prompt length are slower than the rest (seen at every engine's first
+    # run on an H100)
+    for mode, depth in (("warm", 0), ("serial", 0),
+                        ("pipelined", PIPELINE)):
+        eng.pipeline = depth
+        eng.dispatch_gap_s, eng.gap_rounds, eng._t_enqueued = 0.0, 0, None
+        d0, s0 = eng.decode_dispatches, eng.decode_tokens
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(list(reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        steps = eng.decode_tokens - s0
+        st = eng.stats()
+        n_tok = sum(len(v) for v in res.values())
+        check(st["in_flight"] == 0 and st["quarantined"] == 0,
+              f"{label} {mode}: {st['in_flight']} rounds left in flight, "
+              f"{st['quarantined']} quarantined")
+        check(launches[kernel] == want_layers * steps
+              and launches["kv_rows_in_decode"] == want_layers * steps,
+              f"{label} {mode}: {launches[kernel]} {kernel} launches, "
+              f"expected {want_layers} layers x {steps} steps")
+        if paged:
+            eng.check_pool()
+        if mode == "warm":
+            runs[mode] = ({r: v.tolist() for r, v in res.items()},
+                          eng.decode_dispatches - d0)
+            continue
+        launch_paths[kernel][f"yi-9b {kind} {mode} T={temperature} (8a)"] \
+            = launches[kernel]
+        runs[mode] = ({r: v.tolist() for r, v in res.items()},
+                      eng.decode_dispatches - d0)
+        print(f"{label} {mode}: {len(res)} requests, {n_tok} tokens in "
+              f"{wall:.2f} s = {n_tok / wall:.1f} tok/s; "
+              f"{runs[mode][1]} decode dispatches ({steps} steps), "
+              f"mean_dispatch_gap_s {st['mean_dispatch_gap_s']:.6f} over "
+              f"{st['gap_rounds']} gaps; {kernel} launches "
+              f"{launches[kernel]}; staging {st['staging']}")
+    check(runs["warm"] == runs["serial"] == runs["pipelined"],
+          f"{label}: pipelined streams or dispatch counts differ from "
+          f"serial")
+    print(f"{label}: streams and dispatch counts byte-identical "
+          f"({runs['serial'][1]} dispatches)")
+    out = {"eng": eng, "streams": runs["serial"][0]}
+    if temperature == 0.0:
+        for mode, depth in (("serial", 0), ("pipelined", PIPELINE)):
+            out[mode] = trace_rounds(torch, serve, eng, reqs, depth,
+                                     f"{label} {mode} trace")
+        check(not out["pipelined"]["blocking"],
+              f"{label}: pipelined rounds made host-blocking calls between "
+              f"enqueues: {out['pipelined']['blocking']}")
+        check(out["serial"]["blocking"].get("cudaStreamSynchronize", 0) > 0,
+              f"{label}: the serial rounds' readback sync is not in the "
+              f"profile ({out['serial']['blocking']})")
+        eng.pipeline = PIPELINE
+    return out
+
+
+def phase_staging(torch, K, serve, cfg, eng, reqs, want: dict,
+                  launch_paths: dict) -> None:
+    """8b: the 16 requests through the router's ``submit`` to the
+    pipelined dense engine: every admission after the first batch a staging
+    hit, streams as 8a's; and one prompt's prefill logits staged and
+    unstaged bit for bit."""
+    from repro_torch.serve.staging import PromptStager
+    from repro_torch.train import serve as TS
+    label = "8b staging"
+    before = dict(eng.stats()["staging"])
+    router = serve.ReplicaRouter([eng], max_queue=8)
+    K.reset_launches()
+    res = router.run(list(reqs))
+    torch.cuda.synchronize()
+    launch_paths["flash_decode"]["yi-9b router pipelined (8b)"] = \
+        K.LAUNCHES["flash_decode"]
+    st = eng.stats()["staging"]
+    hits = st["hits"] - before["hits"]
+    misses = st["misses"] - before["misses"]
+    check(hits + misses == len(reqs) and misses <= eng.max_slots,
+          f"{label}: {hits} hits and {misses} misses over {len(reqs)} "
+          f"admissions (first batch {eng.max_slots})")
+    check({r: v.tolist() for r, v in res.items()} == want,
+          f"{label}: the router's streams differ from 8a's")
+    stager = PromptStager(device="cuda")
+    prompt = reqs[0].prompt
+    stager.stage("x", prompt)
+    staged = stager.take("x", prompt)
+    inline = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+    prefill = TS.make_prefill_step(cfg, cache_len=None)
+    a, _ = prefill(eng.params, {"tokens": staged})
+    b, _ = prefill(eng.params, {"tokens": inline})
+    check(torch.equal(a.view(torch.int16), b.view(torch.int16))
+          if a.dtype == torch.bfloat16 else torch.equal(a, b),
+          f"{label}: staged and unstaged prefill logits differ")
+    print(f"{label}: {len(reqs)} requests through the router's submit: "
+          f"{hits} staging hits, {misses} misses (first batch "
+          f"{eng.max_slots}); streams as 8a's; a {len(prompt)}-token "
+          f"prompt's prefill logits staged and unstaged bit for bit; "
+          f"flash_decode launches {K.LAUNCHES['flash_decode']}")
+
+
+def phase_snapshots(torch, np, serve) -> None:
+    """8c: xlstm-125m at its published width, pipelined (8 slots): its
+    requests served once with no snapshot, then again with a snapshot
+    offered every round (``skip_if_busy``); each round's wall time with no
+    snapshot, with a write in flight and without one. The last snapshot
+    restored bit for bit, and in a profiled round with a snapshot the
+    params' device-to-host copies on a stream other than the decode
+    kernels'."""
+    import shutil
+    import tempfile
+    from collections import deque
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import Checkpointer
+    label = "8c snapshots"
+    cfg, params = fig_model(torch, "xlstm-125m", RUNTIME_SEEDS["xlstm-125m"],
+                            label)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompt, new, n = SNAPSHOT_REQUESTS
+    rng = np.random.default_rng(RUNTIME_SEEDS["requests"])
+    reqs = [serve.Request(f"x{i}", tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, prompt)), new) for i in range(n)]
+    eng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048, chunk=8,
+                            device="cuda", pipeline=PIPELINE)
+    capture_graphs(torch, eng, label)
+
+    def serve_rounds(ckpt, tag):
+        """(write in flight, round wall s, host s in save() or None) for
+        every round of one serve of ``reqs``; a snapshot offered after
+        each round when ``ckpt`` is given."""
+        pending, rounds = deque(reqs), []
+        while pending or any(eng.slots):
+            for slot in eng.free_slots():
+                if pending:
+                    r = pending.popleft()
+                    eng.admit(serve.Request(f"{tag}-{r.rid}", r.prompt,
+                                            r.max_new_tokens), slot)
+            busy = ckpt is not None and ckpt.busy()
+            t0 = time.perf_counter()
+            eng.step()
+            wall = time.perf_counter() - t0
+            save_s = None
+            if ckpt is not None:
+                t0 = time.perf_counter()
+                if eng.snapshot(ckpt, step=len(rounds)):
+                    save_s = time.perf_counter() - t0
+            rounds.append((busy, wall, save_s))
+        eng.sync()
+        torch.cuda.synchronize()
+        return rounds
+
+    def ms(walls):
+        return (f"{[round(w * 1e3, 2) for w in walls]} (median "
+                + (f"{1e3 * float(np.median(walls)):.3f})" if walls
+                   else "none)"))
+
+    os.makedirs(os.path.join(HERE, "_chipcheck"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase8_ckpt_",
+                            dir=os.path.join(HERE, "_chipcheck"))
+    try:
+        ckpt = Checkpointer(root, keep=2)
+        serve_rounds(None, "warm")
+        base = serve_rounds(None, "base")
+        snap = serve_rounds(ckpt, "snap")
+        ckpt.wait()
+        saves = [s for _, _, s in snap if s is not None]
+        print(f"{label}: {cfg.name} params {n_bytes / 1e9:.3f} GB; "
+              f"{len(snap)} pipelined rounds, a snapshot offered after "
+              f"each, {len(saves)} written, {len(snap) - len(saves)} "
+              f"skipped busy; round wall ms with no snapshot "
+              f"{ms([w for _, w, _ in base[1:]])}; with a write in flight "
+              f"{ms([w for b, w, _ in snap[1:] if b])}; with none in "
+              f"flight {ms([w for b, w, _ in snap[1:] if not b])}; host ms "
+              f"in save() {[round(s * 1e3, 2) for s in saves]}")
+        check(saves, f"{label}: no snapshot was written")
+        step, back = ckpt.restore_latest({"params": params})
+        check(step is not None, f"{label}: no snapshot committed")
+        got, want = list(_leaves(back["params"])), list(_leaves(params))
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(
+                a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+            for a, b in zip(got, want)),
+            f"{label}: step {step} did not restore bit for bit")
+        print(f"{label}: step {step} restored bit for bit ({len(got)} "
+              f"leaves)")
+        # one profiled round with a snapshot: which streams its copies use
+        for r in reqs[:2]:
+            eng.admit(serve.Request(f"p-{r.rid}", r.prompt,
+                                    1 + 4 * eng.chunk))
+        eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            check(eng.snapshot(ckpt, step=10 ** 6),
+                  f"{label}: the checkpointer was busy")
+            eng.step()
+            eng.sync()
+            ckpt.wait()
+            torch.cuda.synchronize()
+        while any(eng.slots):
+            eng.step()
+        eng.sync()
+        kernels, dtoh = set(), {}
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != DeviceType.CUDA:
+                continue
+            stream = ev.device_resource_id()
+            if ev.name().startswith("Memcpy DtoH"):
+                dtoh[stream] = dtoh.get(stream, 0) + 1
+            elif not ev.name().startswith(("Memcpy", "Memset")):
+                kernels.add(stream)
+        side = {s: c for s, c in dtoh.items() if s not in kernels}
+        print(f"{label}: profiled round with a snapshot: kernels on "
+              f"stream(s) {sorted(kernels)}; device-to-host copies by "
+              f"stream {dtoh} ({len(want)} param leaves)")
+        check(sum(side.values()) >= len(want) - profiler_drops(len(want)),
+              f"{label}: the params' device-to-host copies are not on a "
+              f"stream of their own")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def phase_fig11(torch, K, launch_paths: dict) -> None:
+    """8d: ``python -m repro_torch.bench.run --only fig11`` in process: its
+    three sections and their gates on the card."""
+    from repro_torch.bench import run as bench_run
+    label = "8d fig11"
+    t0 = time.perf_counter()
+    K.reset_launches()
+    rc = bench_run.main(["--only", "fig11"])
+    torch.cuda.synchronize()
+    check(rc == 0, f"{label}: bench.run --only fig11 exited {rc}")
+    for kernel in ("flash_decode", "flash_decode_paged"):
+        check(K.LAUNCHES[kernel] > 0, f"{label}: no {kernel} launch")
+        launch_paths[kernel]["fig11 overlap (8d)"] = K.LAUNCHES[kernel]
+    print(f"{label}: gates held; flash_decode launches "
+          f"{K.LAUNCHES['flash_decode']}, flash_decode_paged "
+          f"{K.LAUNCHES['flash_decode_paged']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_launch_serve(torch) -> None:
+    """8e: ``repro_torch.launch.serve.main`` on xlstm-125m at its
+    published width with ``--pipeline 2`` and a ``--plan-db`` swept here
+    for ``h100`` alone: the plan a database hit, no online plan."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.serve import plandb
+    from repro_torch.serve.planner import plan_stats
+    label = "8e launch.serve"
+    batch, prompt, new = LAUNCH_CELL
+    t0 = time.perf_counter()
+    db = plandb.sweep(get_config("xlstm-125m"), batches=(batch,),
+                      max_lens=(prompt + new,), machines=("h100",),
+                      tps=(1,))
+    sweep_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(HERE, "_chipcheck"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase8_plandb_",
+                            dir=os.path.join(HERE, "_chipcheck"))
+    try:
+        path = os.path.join(root, "plans.json")
+        db.save(path)
+        rc = LS.main(["--arch", "xlstm-125m", "--batch", str(batch),
+                      "--prompt-len", str(prompt), "--gen", str(new),
+                      "--pipeline", str(PIPELINE), "--plan-db", path,
+                      "--seed", str(RUNTIME_SEEDS["xlstm-125m"])])
+        stats = plan_stats()
+    finally:
+        plandb.install(None)
+        shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0, f"{label}: main exited {rc}")
+    check(stats["db_hits"] > 0 and stats["online_plans"] == 0,
+          f"{label}: plan stats {stats}, expected DB hits and no online "
+          f"plan")
+    print(f"{label}: plan db of {len(db)} entries swept for h100 in "
+          f"{sweep_s:.1f} s; plan stats {stats}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_runtime(torch, np, K, serve) -> dict:
+    """Phase 8 (8a-8e), after every earlier engine is freed. Returns the
+    new paths' decode launches by kernel and path."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    paths = {"flash_decode": {}, "flash_decode_paged": {}}
+    cfg, params = fig_model(torch, "yi-9b", RUNTIME_SEEDS["yi-9b"], "8a")
+    reqs = runtime_requests(np, serve, cfg.vocab_size)
+    traces = {}
+    keep = None
+    for paged in (False, True):
+        for temperature in (0.0, 0.8):
+            out = pipelined_pair(torch, K, serve, cfg, params, reqs,
+                                 paged=paged, temperature=temperature,
+                                 launch_paths=paths)
+            if temperature == 0.0:
+                traces["paged" if paged else "dense"] = out
+                if not paged:
+                    keep = out
+                    continue
+            del out["eng"]
+            torch.cuda.empty_cache()
+    for kind, out in traces.items():
+        s_, p_ = out["serial"], out["pipelined"]
+        print(f"8a {kind}: idle share serial {s_['idle']:.4f} -> pipelined "
+              f"{p_['idle']:.4f}; inside the device's span "
+              f"{s_['span_idle']:.4f} -> {p_['span_idle']:.4f}, largest gap "
+              f"{s_['gap_us']:.1f} -> {p_['gap_us']:.1f} us; blocking calls "
+              f"between enqueues serial {s_['blocking']} -> pipelined "
+              f"{p_['blocking'] or 'none'}")
+    phase_staging(torch, K, serve, get_config("yi-9b"), keep["eng"], reqs,
+                  keep["streams"], paths)
+    del keep, traces, params
+    torch.cuda.empty_cache()
+    phase_snapshots(torch, np, serve)
+    phase_fig11(torch, K, paths)
+    phase_launch_serve(torch)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3974,6 +4502,8 @@ def main() -> int:
     print(f"phases 5h-5k: {time.perf_counter() - t_new:.1f} s")
     torch.cuda.empty_cache()
     fig_launches = phase_serving_benchmarks(torch, K)
+    torch.cuda.empty_cache()
+    runtime_launches = phase_runtime(torch, np, K, serve)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],
@@ -3981,11 +4511,13 @@ def main() -> int:
          "jamba dense engine": jamba_launches["dense"]},
         **{f"{a} forward": n for a, n in family_launches.items()},
         **{f"{a} forward": n for a, n in moe_launches.items()},
-        **fig_launches["flash_decode"]))
+        **fig_launches["flash_decode"],
+        **runtime_launches["flash_decode"]))
     path_launches(by_name["flash_decode_paged"], dict(
         {"yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
          "jamba paged engine": jamba_launches["paged"]},
-        **fig_launches["flash_decode_paged"]))
+        **fig_launches["flash_decode_paged"],
+        **runtime_launches["flash_decode_paged"]))
     print(f"planning phases (plan lines, split sweep, planned engine): "
           f"{plan_s:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

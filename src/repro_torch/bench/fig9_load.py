@@ -18,8 +18,10 @@ card, one chip. They share one copy of the weights and each owns its
 cache. The router steps them in turn on one CUDA stream, so the decode
 kernels' per-device split counters (``kernels/attention/decode.py``,
 ``split_counters``) and the stream suite's scratch are never used by two
-dispatches at once; two replicas in flight on two streams are the
-pipelined-dispatch slice's problem (ROADMAP queue 1 item 6).
+dispatches at once. Pipelined replicas (``pipeline=2``) keep that: their
+rounds are enqueued on the same stream, and the only other stream of the
+serve path (prompt staging, ``serve.staging``) runs copies alone, no
+kernel.
 
 Reported per trace and policy: p50/p95/p99 latency, measured tokens/s a
 chip, and the planner's predicted tokens/s a chip on the plan machine.

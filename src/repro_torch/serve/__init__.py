@@ -1,6 +1,8 @@
 """Continuous-batching serving of the port: slot cache, paged cache,
-chunked decode, the dense and paged engines, and the replica router with
-its fault injector and health layer (``router``, ``faults``, ``health``)."""
+chunked decode, the dense and paged engines (serial or pipelined
+dispatch), prompt staging (``staging``), the plan database (``plandb``),
+and the replica router with its fault injector and health layer
+(``router``, ``faults``, ``health``)."""
 
 from repro_torch.serve.engine import PagedServeEngine, Request, ServeEngine
 from repro_torch.serve.faults import (FaultSpec, FaultyEngine,
@@ -10,6 +12,7 @@ from repro_torch.serve.health import (FaultTolerantRouter, HealthConfig,
                                       NoHealthyReplica, ReplicaHealth,
                                       deadline_for, priced_degradation)
 from repro_torch.serve.router import QueueFull, ReplicaRouter
+from repro_torch.serve.staging import PromptStager
 
 __all__ = [
     "FaultSpec",
@@ -18,6 +21,7 @@ __all__ = [
     "HealthConfig",
     "NoHealthyReplica",
     "PagedServeEngine",
+    "PromptStager",
     "QueueFull",
     "ReplicaHealth",
     "ReplicaRouter",

@@ -207,13 +207,17 @@ class ChunkGraphs:
             self.pool, self.stream = share.pool, share.stream
         self.capture_s = 0.0       # host seconds in the warm-up and captures
 
-    def load(self, tokens, pos, block_tables=None, generators=None) -> None:
+    def load(self, tokens, pos, block_tables=None, generators=None,
+             non_blocking: bool = False) -> None:
         """Copy a chunk's inputs into the static buffers; draw its noise
-        from ``generators`` (a sampled chunk's) into ``noise``."""
-        self.tok.copy_(tokens)
-        self.pos.copy_(pos)
+        from ``generators`` (a sampled chunk's) into ``noise``. With
+        ``non_blocking`` the copies from pinned host tensors are
+        asynchronous: the caller keeps those tensors unchanged until the
+        stream has run the copies."""
+        self.tok.copy_(tokens, non_blocking=non_blocking)
+        self.pos.copy_(pos, non_blocking=non_blocking)
         if self.tables is not None:
-            self.tables.copy_(block_tables)
+            self.tables.copy_(block_tables, non_blocking=non_blocking)
         if generators is not None and self.noise is not None:
             n, _, vocab = self.noise.shape
             draw_noise(generators, n, vocab, self.device, out=self.noise)
@@ -260,11 +264,12 @@ class ChunkGraphs:
         self.capture_s += time.perf_counter() - t0
 
     def run(self, kv_len: int | None, tokens, pos, block_tables=None,
-            generators=None) -> tuple:
+            generators=None, non_blocking: bool = False) -> tuple:
         """One chunk: :meth:`load`, then one replay of ``kv_len``'s graph
         on the current stream. Returns its ``(toks, pos, ok)``: static
-        buffers, valid until the next replay."""
-        self.load(tokens, pos, block_tables, generators)
+        buffers, valid until the next replay of any graph of this
+        ``kv_len``."""
+        self.load(tokens, pos, block_tables, generators, non_blocking)
         if kv_len not in self.graphs:
             self.capture(kv_len)
         graph, out, launches = self.graphs[kv_len]

@@ -54,9 +54,46 @@ per-step cost of the decode step (``serve.planner.plan_chunk_size``, on
 Two hooks serve the fault-tolerant router (``serve.health``):
 :meth:`ServeEngine.drain_quarantined` hands over the streams the chunk's
 non-finite guard pulled out of the batch, and :meth:`ServeEngine.set_chunk`
-re-plans the chunk mid-flight. Pipelined dispatch (dense and paged),
-prompt staging, meshes and snapshots of the JAX engine are not ported yet
-(ROADMAP).
+re-plans the chunk mid-flight.
+
+Pipelined dispatch (``pipeline=2``, dense and paged) enqueues round N+1
+while round N is still on the device, as the JAX engine's pipelined mode
+does; the host blocks only when a stream retires, at the in-flight
+bound, and in :meth:`~ServeEngine.cancel`, :meth:`PagedServeEngine.fork`
+and :meth:`~ServeEngine.sync`. Token streams and dispatch counts are the
+serial mode's (for MoE configs with finite capacity, the JAX engine's
+pipelined streams: a free slot's fed token differs between the modes).
+The rules that keep it so on the card:
+
+- each in-flight round ships its positions, block tables and (after a
+  sync) its host token feed from pinned host buffers of its own, with
+  ``non_blocking=True`` (the counterpart of the JAX engine's
+  ``_host_dev`` snapshot copies): the host advances ``_pos`` right after
+  the enqueue, while the copy may still read the old buffer, and reuses a
+  round's buffers only after consuming it;
+- a graph's outputs are static buffers, so each round copies its tokens
+  and guard flags into its pinned buffers (``non_blocking=True``) and
+  records an event before the next round is enqueued; consuming a round
+  waits on that event alone;
+- a chained round feeds the previous round's last token column by a copy
+  on the device (``_tok_dev``, one tensor of the engine's, so a
+  :meth:`~ServeEngine.set_chunk` between rounds needs no move), and an
+  admission patches its slot's row there;
+- the ``kv_len`` bucket comes from the host's eagerly advanced ``_pos``,
+  so it needs no readback.
+
+The JAX engine's pipelined mode gives up cache donation (a donated
+still-pending input would block the enqueue) and pays a copy-first cache
+update. The port writes the cache in place in both modes, so it has no
+counterpart of that trade, nor of the reference's
+``test_serial_keeps_donation_pipelined_does_not``.
+
+Prompts are staged ahead of admission (``serve.staging.PromptStager``:
+:meth:`~ServeEngine.stage`, the router's ``submit``, :meth:`run`'s
+look-ahead), and :meth:`~ServeEngine.snapshot` hands the params to a
+``checkpoint.Checkpointer`` whose device-to-host copy runs on a side
+stream, behind nothing the decode rounds enqueue. Meshes wait for ROADMAP
+queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -76,6 +113,7 @@ from repro_torch.serve.decode import (ChunkGraphs, draw_noise,
                                      make_chunk_body, sample)
 from repro_torch.serve.planner import plan_chunk_size
 from repro_torch.serve.slots import assign, insert
+from repro_torch.serve.staging import PromptStager
 from repro_torch.train import serve as serve_lib
 
 #: rows of a ``kv_len`` bucket: the dense kernel's block, 16 buckets (16
@@ -125,6 +163,36 @@ class _Slot:
     generator: torch.Generator | None
 
 
+@dataclasses.dataclass
+class _RoundBuffers:
+    """The host side of one pipelined round, pinned on a CUDA engine: the
+    inputs it ships (positions, the host token feed, block tables) and
+    the outputs it copies back (tokens, guard flags), with the event
+    recorded after its copies out."""
+
+    pos: torch.Tensor             # (B,) int32
+    tok: torch.Tensor             # (B, 1) int64
+    tables: torch.Tensor | None   # (B, pages a slot) int32, paged only
+    toks: torch.Tensor            # (B, chunk) int64
+    ok: torch.Tensor              # (B,) bool
+    done: object                  # torch.cuda.Event, None on the CPU
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched round not yet consumed (pipelined mode).
+
+    ``entries`` snapshots which slot objects the round decoded and how
+    many of its tokens each keeps (``take``): the identity of the
+    ``_Slot`` is what lets a later consume skip the rounds of a stream
+    quarantined in an earlier round.
+    """
+
+    bufs: _RoundBuffers
+    entries: list                 # [(slot index, _Slot, take)]
+    chunk: int                    # chunk length the round decoded
+
+
 class ServeEngine:
     """Continuous-batching engine over ``max_slots`` preallocated KV slots.
 
@@ -138,7 +206,10 @@ class ServeEngine:
     decode-chunk -> retire rounds until every request has its tokens.
     On a CUDA device each chunk replays a CUDA graph (``graphs``, one per
     ``kv_len`` bucket, captured at its first use or by
-    :meth:`capture_graphs`) unless ``cuda_graphs=False``.
+    :meth:`capture_graphs`) unless ``cuda_graphs=False``. ``pipeline``
+    bounds the decode rounds in flight (``True`` is 2; 0 dispatches
+    serially, the default), ``stage_depth`` the prompts staged ahead of
+    admission.
 
     Subclass hooks (:class:`PagedServeEngine` overrides all six):
     ``_make_plan`` prices the chunk, ``_build_state`` allocates the cache
@@ -154,7 +225,9 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int,
                  max_len: int, chunk: int | None = None,
                  temperature: float = 0.0, seed: int = 0,
-                 machine: str | None = None, device="cuda", cuda_graphs: bool = True):
+                 machine: str | None = None, device="cuda",
+                 cuda_graphs: bool = True, pipeline: bool | int = 0,
+                 stage_depth: int = 8):
         if not cfg.embed_inputs:
             raise ValueError("serve engine needs a token-id model")
         self.device = torch.device(device)
@@ -185,6 +258,29 @@ class ServeEngine:
         self._tok = np.zeros((max_slots, 1), np.int64)
         self._pos = np.zeros((max_slots,), np.int32)
         self.quarantined: list = []   # (rid, tokens-so-far) pairs
+        # pipelined dispatch: True -> 2 rounds in flight, an int sets the
+        # bound, 0 keeps the serial step
+        self.pipeline = 2 if pipeline is True else max(0, int(pipeline))
+        self._inflight: deque = deque()   # _InFlight records, oldest first
+        self._spare: dict = {}            # chunk -> free _RoundBuffers
+        # the chained token feed: the last round's last token column, on
+        # the device; valid while rounds chain (not after a sync)
+        self._tok_dev = torch.zeros((max_slots, 1), dtype=torch.int64,
+                                    device=self.device)
+        self._feed_on_device = False
+        # host seconds between consecutive decode enqueues: serial rounds
+        # wait for the token readback inside that window, pipelined ones
+        # only do bookkeeping there (fig11 measures the difference)
+        self.dispatch_gap_s = 0.0
+        self.gap_rounds = 0
+        self._t_enqueued: float | None = None
+        self.stager = PromptStager(depth=stage_depth, device=self.device)
+        # the params are written before this point and never after, so a
+        # snapshot's copies wait for this event and nothing later
+        self._params_ready = None
+        if self.device.type == "cuda":
+            self._params_ready = torch.cuda.Event()
+            self._params_ready.record()
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.decode_tokens = 0        # decode forward passes (per slot)
@@ -307,8 +403,24 @@ class ServeEngine:
         return sample(logits, self.temperature, gens).cpu().numpy()
 
     # -- admission ----------------------------------------------------------
+    def stage(self, req: Request) -> bool:
+        """Prefetch one pending request's prompt to the device.
+
+        Called ahead of admission (``run``'s look-ahead, the router's
+        ``submit``, a rescue replay), so that :meth:`admit` finds the
+        prompt on the device. The prefill reads the same bits either way.
+        Returns True iff a new copy was issued.
+        """
+        return self.stager.stage(req.rid, tuple(int(t) for t in req.prompt))
+
     def admit(self, req: Request, slot: int | None = None) -> int:
-        """Prefill one request and copy it into a free slot, in place."""
+        """Prefill one request and copy it into a free slot, in place.
+
+        With rounds in flight the prefill and the insert run behind them
+        on the stream, so their writes to this slot's retired rows or
+        pages land first and the insert wins; the chained token feed is
+        patched on the device.
+        """
         if slot is None:
             free = self.free_slots()
             if not free:
@@ -319,17 +431,19 @@ class ServeEngine:
         s = len(req.prompt)
         self._check_request(req, s)
         t0 = time.perf_counter()
-        tokens = torch.tensor([req.prompt], dtype=torch.int64,
-                              device=self.device)
+        prompt = tuple(int(t) for t in req.prompt)
+        tokens = self.stager.take(req.rid, prompt)
         logits, one = self._prefill(self.params, {"tokens": tokens})
         self.prefill_dispatches += 1
         gen = self._generator(req.rid) if self.temperature > 0 else None
         tok0 = int(self._first_tokens(logits[:, -1], [gen])[0])
-        self._insert_prefilled(slot, one, tuple(int(t) for t in req.prompt))
+        self._insert_prefilled(slot, one, prompt)
         self.prefill_s += time.perf_counter() - t0
         self.slots[slot] = _Slot(req.rid, req.max_new_tokens - 1, [tok0],
                                  gen)
         self._tok[slot, 0] = tok0
+        if self._feed_on_device:
+            self._tok_dev[slot, 0].fill_(tok0)
         self._pos[slot] = s
         return slot
 
@@ -371,7 +485,12 @@ class ServeEngine:
 
         On the paged engine the request's pages go straight back to the
         pool, with no zero-fill, and the next admission may recycle them.
+        Rounds in flight are consumed first, so the tokens returned are
+        the serial step's.
         """
+        if self._inflight:
+            self.sync()
+        self.stager.discard(rid)
         for i, st in enumerate(self.slots):
             if st is not None and st.rid == rid:
                 self._release_slot(i)
@@ -383,7 +502,36 @@ class ServeEngine:
         """One decode round: a single chunked dispatch over all slots.
 
         Returns the requests retired this round as (rid, tokens) pairs.
+        With ``pipeline`` set the round is enqueued while earlier rounds
+        are still on the device, and the host reads tokens back only when
+        a stream retires or the in-flight bound is passed; retirement and
+        admission timing, and so the streams, are the serial step's.
         """
+        if self.pipeline:
+            return self._step_pipelined()
+        return self._step_serial()
+
+    def _round_args(self, active: list) -> tuple:
+        """The coming chunk's ``(kv_len, generators)``: the occupancy
+        bucket from the host's positions (rows any kept token can reach:
+        pos + chunk at most), and one generator a slot when sampling (a
+        free slot's feeds rows whose tokens are discarded)."""
+        kv_len = kv_bucket(int(self._pos[active].max()) + self.chunk,
+                           self.max_len) if self._attends else None
+        gens = None
+        if self.temperature > 0:
+            gens = [st.generator if st is not None else self._idle_gen
+                    for st in self.slots]
+        return kv_len, gens
+
+    def _mark_gap(self) -> None:
+        """Add the host gap since the previous dispatch's enqueue."""
+        now = time.perf_counter()
+        if self._t_enqueued is not None:
+            self.dispatch_gap_s += now - self._t_enqueued
+            self.gap_rounds += 1
+
+    def _step_serial(self) -> list:
         retired = []
         for i, st in enumerate(self.slots):
             if st is not None and st.remaining <= 0:   # 1-token budgets:
@@ -394,13 +542,8 @@ class ServeEngine:
         if not active:
             return retired
         self._pre_dispatch()
-        # rows any kept token can reach this chunk: pos + chunk at most
-        kv_len = kv_bucket(int(self._pos[active].max()) + self.chunk,
-                           self.max_len) if self._attends else None
-        gens = None
-        if self.temperature > 0:
-            gens = [st.generator if st is not None else self._idle_gen
-                    for st in self.slots]
+        kv_len, gens = self._round_args(active)
+        self._mark_gap()
         t0 = time.perf_counter()
         inputs = {k: torch.from_numpy(v)
                   for k, v in self._step_inputs().items()}
@@ -412,6 +555,7 @@ class ServeEngine:
             toks, _, ok = self._body(
                 self.params, self.cache, noise=noise, kv_len=kv_len,
                 **{k: v.to(self.device) for k, v in inputs.items()})
+        self._t_enqueued = time.perf_counter()
         self.decode_dispatches += 1
         self.decode_tokens += self.chunk
         toks = toks.cpu().numpy()
@@ -436,6 +580,171 @@ class ServeEngine:
                 self._release_slot(i)
         return retired
 
+    def _step_pipelined(self) -> list:
+        """One pipelined round: enqueue now, read back later.
+
+        What needs no token value runs at once: ``remaining`` and the
+        positions advance at dispatch, so the next round's page
+        allocation and retirement decisions never wait on the device.
+        Two things sync: a stream finishing (its tokens must be on the
+        host to be returned) and the in-flight bound (the oldest round is
+        consumed; by then it has run behind the newer dispatches).
+        Syncing at the retirement round keeps slot-free timing, and so
+        admission order and sampling, as in the serial step.
+        """
+        retired = []
+        for i, st in enumerate(self.slots):
+            if st is not None and st.remaining <= 0:   # 1-token budgets
+                self.sync()
+                st = self.slots[i]      # the sync may have quarantined it
+                if st is not None and st.remaining <= 0:
+                    retired.append((st.rid, np.asarray(st.out, np.int32)))
+                    self._release_slot(i)
+        active = [i for i, st in enumerate(self.slots) if st is not None]
+        if not active:
+            self.sync()
+            return retired
+        self._pre_dispatch()
+        kv_len, gens = self._round_args(active)
+        t0 = time.perf_counter()
+        bufs = self._dispatch_async(kv_len, gens)
+        self.decode_dispatches += 1
+        self.decode_tokens += self.chunk
+        entries, will_retire = [], False
+        for i in active:
+            st = self.slots[i]
+            take = min(self.chunk, st.remaining)
+            entries.append((i, st, take))
+            st.remaining -= take
+            self._pos[i] += self.chunk
+            will_retire = will_retire or st.remaining <= 0
+        self._inflight.append(_InFlight(bufs, entries, self.chunk))
+        self.decode_s += time.perf_counter() - t0
+        if will_retire:
+            self.sync()
+            for i, st in enumerate(self.slots):
+                if st is not None and st.remaining <= 0:
+                    retired.append((st.rid, np.asarray(st.out, np.int32)))
+                    self._release_slot(i)
+        else:
+            while len(self._inflight) > self.pipeline:
+                self._consume_oldest()
+        return retired
+
+    def _round_buffers(self) -> _RoundBuffers:
+        """A free set of host buffers for a round of the current chunk
+        length (pinned on a CUDA engine), made at its first use."""
+        spare = self._spare.setdefault(self.chunk, [])
+        if spare:
+            return spare.pop()
+        pin = self.device.type == "cuda"
+        b = self.max_slots
+
+        def host(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=pin)
+        return _RoundBuffers(
+            pos=host((b,), torch.int32), tok=host((b, 1), torch.int64),
+            tables=host((b, self.pages_per_slot), torch.int32)
+            if self.paged else None,
+            toks=host((b, self.chunk), torch.int64),
+            ok=host((b,), torch.bool),
+            done=torch.cuda.Event() if pin else None)
+
+    def _dispatch_async(self, kv_len, gens) -> _RoundBuffers:
+        """Enqueue one chunk with no host sync; returns its buffers.
+
+        The round's inputs are snapshots in its own buffers, shipped with
+        ``non_blocking=True``; its tokens and guard flags are copied back
+        the same way and an event recorded after them, before any later
+        replay can overwrite a graph's static outputs. The last token
+        column becomes the next round's feed on the device.
+        """
+        self._mark_gap()
+        bufs = self._round_buffers()
+        host = self._step_inputs()
+        bufs.pos.numpy()[:] = host["pos"]
+        inputs = {"pos": bufs.pos}
+        if bufs.tables is not None:
+            bufs.tables.numpy()[:] = host["block_tables"]
+            inputs["block_tables"] = bufs.tables
+        if self._feed_on_device:
+            inputs["tokens"] = self._tok_dev
+        else:
+            bufs.tok.numpy()[:] = self._tok
+            inputs["tokens"] = bufs.tok
+        if self.graphs is not None:
+            toks, _, ok = self.graphs.run(kv_len, generators=gens,
+                                          non_blocking=True, **inputs)
+        else:
+            noise = None if gens is None else draw_noise(
+                gens, self.chunk, self.cfg.vocab_size, self.device)
+            toks, _, ok = self._body(
+                self.params, self.cache, noise=noise, kv_len=kv_len,
+                **{k: v.to(self.device, non_blocking=True)
+                   for k, v in inputs.items()})
+        bufs.toks.copy_(toks, non_blocking=True)
+        bufs.ok.copy_(ok, non_blocking=True)
+        self._tok_dev.copy_(toks[:, self.chunk - 1:self.chunk])
+        if bufs.done is not None:
+            bufs.done.record()
+        self._t_enqueued = time.perf_counter()
+        self._feed_on_device = True
+        return bufs
+
+    def _consume_oldest(self) -> None:
+        """Read back the oldest in-flight round and apply its bookkeeping.
+
+        The one place pipelined mode touches a round's results: it waits
+        on the round's event alone. Tokens land on each stream's ``out``
+        and the host token feed catches up; a guard trip quarantines the
+        stream as the serial step would, and the rounds dispatched after
+        a poisoned one are skipped for that stream (their output fed on
+        token 0 is garbage by construction).
+        """
+        rec = self._inflight.popleft()
+        t0 = time.perf_counter()
+        bufs = rec.bufs
+        if bufs.done is not None:
+            bufs.done.synchronize()
+        toks, oks = bufs.toks.numpy(), bufs.ok.numpy()
+        for i, st, take in rec.entries:
+            if self.slots[i] is not st:
+                continue            # quarantined in an earlier round
+            if not oks[i]:
+                self.quarantined.append((st.rid, np.asarray(st.out,
+                                                            np.int32)))
+                self._release_slot(i)
+                continue
+            st.out.extend(int(t) for t in toks[i, :take])
+            self._tok[i, 0] = toks[i, rec.chunk - 1]
+        self._spare.setdefault(rec.chunk, []).append(bufs)
+        self.decode_s += time.perf_counter() - t0
+
+    def sync(self) -> None:
+        """Consume every in-flight round.
+
+        After a sync the engine is where the serial step would be: every
+        emitted token is on the host, the next dispatch ships its token
+        feed from ``_tok``, and the quarantine list is complete. Cheap
+        when nothing is in flight.
+        """
+        while self._inflight:
+            self._consume_oldest()
+        self._feed_on_device = False
+
+    def snapshot(self, checkpointer, step: int) -> bool:
+        """Snapshot the served params without stalling the stream.
+
+        Hands ``{"params": ...}`` to ``checkpointer.save`` with
+        ``skip_if_busy=True``: while the previous background write runs
+        the snapshot is skipped (returns False). On a CUDA engine the
+        device-to-host copies run on the checkpointer's side stream and
+        wait only for the params' own writes, never for the decode rounds
+        in flight.
+        """
+        return checkpointer.save(step, {"params": self.params},
+                                 skip_if_busy=True, after=self._params_ready)
+
     def capture_graphs(self) -> int:
         """Capture the chunk's graph of every ``kv_len`` bucket up to the
         horizon not captured yet (:func:`kv_buckets`: one graph for a
@@ -452,6 +761,7 @@ class ServeEngine:
         """
         if self.graphs is None:
             raise RuntimeError("this engine runs no CUDA graphs")
+        self.sync()
         self.graphs.load(**{k: torch.from_numpy(v)
                             for k, v in self._step_inputs().items()})
         todo = [kv for kv in kv_buckets(self.cfg, self.max_len)
@@ -461,12 +771,27 @@ class ServeEngine:
         return len(todo)
 
     def stats(self) -> dict:
-        """Dispatch and token counters and wall times."""
+        """Dispatch and token counters, wall times, the pipeline's state
+        and the staging counters.
+
+        ``decode_s`` is the host time in decode dispatches: serial rounds
+        include their token readback, pipelined ones their enqueue and
+        the waits of consuming rounds. ``mean_dispatch_gap_s`` is the mean
+        host time between consecutive decode enqueues.
+        """
+        gap = self.dispatch_gap_s / self.gap_rounds if self.gap_rounds \
+            else 0.0
         return {"decode_dispatches": self.decode_dispatches,
                 "prefill_dispatches": self.prefill_dispatches,
                 "decode_tokens": self.decode_tokens,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
-                "quarantined": len(self.quarantined)}
+                "quarantined": len(self.quarantined),
+                "pipeline": self.pipeline,
+                "in_flight": len(self._inflight),
+                "dispatch_gap_s": self.dispatch_gap_s,
+                "gap_rounds": self.gap_rounds,
+                "mean_dispatch_gap_s": gap,
+                "staging": self.stager.stats()}
 
     def run(self, requests: list) -> dict:
         """Serve a request list to completion: {rid: (n_tokens,) int32}."""
@@ -484,6 +809,10 @@ class ServeEngine:
                             break
                         self.admit(pending.popleft(), slot)
             first = False
+            # look-ahead staging: the next pending prompts start their
+            # copies now, behind nothing the decode rounds enqueue
+            for r in list(pending)[:self.stager.depth]:
+                self.stage(r)
             for rid, toks in self.step():
                 results[rid] = toks
         return results
@@ -614,9 +943,12 @@ class PagedServeEngine(ServeEngine):
         The clone maps the same physical pages (refcounted); divergent
         writes copy per page at the next ``_pre_dispatch``. Its recurrent
         state (Mamba, xLSTM) is copied into its slot row on the device.
-        Sampled clones draw from their own generator. Returns the clone's
-        slot.
+        Sampled clones draw from their own generator. Rounds in flight are
+        consumed first, so the clone starts from the host's state. Returns
+        the clone's slot.
         """
+        if self._inflight:
+            self.sync()
         src = next((i for i, st in enumerate(self.slots)
                     if st is not None and st.rid == rid), None)
         if src is None:

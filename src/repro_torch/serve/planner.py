@@ -53,8 +53,6 @@ _PLAN_CACHE: dict = {}
 #: KV read is re-priced (occupancy, pages, TP) share one fan-out
 _REPORT_CACHE: dict = {}
 #: planner invocation counters — how each plan request was satisfied
-#: (``db_hits`` stays 0: the plan database waits for ROADMAP queue 1
-#: item 6)
 _PLAN_STATS = {"online_plans": 0, "memo_hits": 0, "db_hits": 0}
 
 
@@ -63,8 +61,8 @@ def plan_stats() -> dict:
 
     ``online_plans`` counts full plans (trace lowering + port-model
     compare fan-out), ``memo_hits`` in-process memo returns, and
-    ``db_hits`` plans loaded from a plan database (none in the port
-    yet).
+    ``db_hits`` plans loaded from an installed plan database
+    (``serve.plandb``).
     """
     return dict(_PLAN_STATS)
 
@@ -268,6 +266,12 @@ def plan_chunk_size(cfg: ModelConfig, batch: int, max_len: int, *,
     chunk). Plans (and the lowered trace) are memoized; passing an
     explicit ``trace`` bypasses the plan cache.
 
+    Resolution order, as the JAX planner's: the in-process memo, then an
+    installed plan database (``serve.plandb.install``), then a full
+    online plan. The database key folds content fingerprints of the
+    config and every registered machine, and the package, so a stale or
+    foreign entry misses and the plan is made online, bit-identically.
+
     ``store_flavor`` ("standard" | "nt" | "auto") is resolved per
     machine against the slot cache working set (kernels.stores) and
     recorded on the plan.
@@ -308,6 +312,21 @@ def plan_chunk_size(cfg: ModelConfig, batch: int, max_len: int, *,
         if hit is not None:
             _PLAN_STATS["memo_hits"] += 1
             return hit
+        from repro_torch.serve import plandb
+        db = plandb.installed()
+        if db is not None:
+            dbhit = db.lookup_chunk(
+                cfg, batch, max_len, machine=machine,
+                dispatch_overhead_s=dispatch_overhead_s,
+                overhead_frac=overhead_frac, max_chunk=max_chunk,
+                occupancy=occupancy, backend=backend,
+                store_flavor=store_flavor, page_size=page_size,
+                mesh_sizes=mesh_sizes, rules_fp=rules_fingerprint(rules),
+                tp=tp)
+            if dbhit is not None:
+                _PLAN_STATS["db_hits"] += 1
+                _PLAN_CACHE[cache_key] = dbhit
+                return dbhit
         rkey = (cfg, batch, max_len, backend, registry_fingerprint())
         reports = _REPORT_CACHE.get(rkey)
         if reports is None:

@@ -121,10 +121,9 @@ class ReplicaRouter:
         self._owner[req.rid] = i
         self.submitted[i] += 1
         # prefetch the prompt to the chosen replica's device while the
-        # request waits in queue, where a replica stages prompts (the
-        # port's engines do not yet: ROADMAP queue 1 item 6). Rescue
-        # replays resubmit through here, so rescued prompt+prefix streams
-        # would be staged for free.
+        # request waits in queue (``serve.staging``). Rescue replays
+        # resubmit through here, so rescued prompt+prefix streams are
+        # staged for free.
         stage = getattr(self.replicas[i], "stage", None)
         if stage is not None:
             stage(req)
@@ -306,9 +305,7 @@ class ReplicaRouter:
         ``mean_dispatch_gap_s`` surface each replica's overlapped-
         runtime state: the in-flight round bound (0 = serial) and the
         measured mean host gap between decode-dispatch enqueues, as the
-        JAX router's rows do; the port's engines dispatch serially until
-        pipelined dispatch is ported (ROADMAP queue 1 item 6), so both
-        read 0.
+        JAX router's rows do.
         """
         return [{"replica": i,
                  "queued": len(self.queues[i]),

@@ -1,13 +1,13 @@
 """The port's serving and ladder benchmarks (``repro_torch.bench``: fig2,
-fig5-fig10) against the reference's ``benchmarks/``, and the runner's
+fig5-fig11) against the reference's ``benchmarks/``, and the runner's
 device rule.
 
 What the benchmarks price is held equal to the reference's on the same
 configs: fig5's ladder rows, fig7's KV-read traffic and paper-scale KV
 seconds, fig8's dense and paged KV bytes and page traffic, fig9's
-traces and collective ordering, fig10's fault schedules. What they
-measure is held to run: the runner refuses without a card unless
-``--device cpu`` asks for the host.
+traces and collective ordering, fig10's fault schedules, fig11's priced
+copy cost. What they measure is held to run: the runner refuses without
+a card unless ``--device cpu`` asks for the host.
 """
 
 import os
@@ -21,7 +21,8 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.serve import kv_traffic as JKV
 from repro.serve import pages as JP
 from repro_torch.bench import (fig2_unitmix, fig5_memladder, fig7_decode,
-                               fig8_paged, fig9_load, fig10_chaos)
+                               fig8_paged, fig9_load, fig10_chaos,
+                               fig11_overlap)
 from repro_torch.bench import run as bench_run
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.serve import kv_traffic as KV
@@ -217,5 +218,36 @@ def test_runner_lists_the_reference_modules_in_order():
     ref = ("table1_machines", "table2_ports", "table3_instructions",
            "fig2_unitmix", "fig3_rpe", "fig4_wa", "fig4b_ntstore",
            "fig5_memladder", "fig6_serve", "fig7_decode", "fig8_paged",
-           "fig9_load", "fig10_chaos")
+           "fig9_load", "fig10_chaos", "fig11_overlap")
     assert bench_run.MODULES == ref
+
+
+# --- fig11 ------------------------------------------------------------------
+
+def test_fig11_priced_rows_equal_reference():
+    """The priced copy-cost row carries the reference's per-machine
+    bytes and WA modes, with the port's own note beside them."""
+    from benchmarks import fig11_overlap as ref11
+    got = fig11_overlap.priced_lines(get_smoke_config("yi-9b"))
+    want = ref11._priced_rows(jax_smoke("yi-9b"))
+    assert len(got) == len(want) == 1
+    assert got[0].startswith(want[0] + ";port_pays=0")
+
+
+def test_fig11_on_the_host(capsys):
+    """``bench.run --only fig11 --device cpu``: the overlap rows at the
+    reference's cell (streams and dispatch counts gated; the timing gates
+    are the card's), the priced row and the plan-database row with every
+    registered machine a hit and no online plan."""
+    assert bench_run.main(["--only", "fig11", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    rows = {ln.split(",")[1]: ln for ln in out.splitlines()
+            if ln.startswith("fig11,")}
+    assert set(rows) == {"overlap.dense", "overlap.paged",
+                         "priced_copy_cost", "plandb"}
+    for kind in ("dense", "paged"):
+        assert "streams=IDENTICAL;gates=off;device=host" in \
+            rows[f"overlap.{kind}"]
+    assert "grace_le_spr_le_zen4=OK" in rows["priced_copy_cost"]
+    assert "online_plans=0" in rows["plandb"]
+    assert "_meta,fig11_overlap," in out and out.rstrip().endswith(",ok")

@@ -1414,3 +1414,103 @@ def test_bench_module_runs_on_the_card(cuda, module, capsys):
     out = capsys.readouterr().out
     assert f"_meta,{module}," in out and out.rstrip().endswith(",ok")
     torch.cuda.empty_cache()
+
+
+# --- the runtime around the engine: pipelined dispatch, staging, snapshots --
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("graphs", [False, True])
+def test_pipelined_streams_equal_serial_on_the_card(cuda, paged, temperature,
+                                                    graphs):
+    """Smoke fp32 yi-9b, dense and paged, greedy and sampled, graphed and
+    eager: pipeline=2 streams and dispatch counts equal the serial
+    engine's, with admissions while rounds are in flight."""
+    cfg, params = _smoke_params("yi-9b", 5)
+    params = _to(params, cuda)
+    reqs = _hook_requests(cfg, (7, 12, 5, 9, 6), (15, 11, 13, 9, 1), 23)
+    out = {}
+    for pipeline in (0, 2):
+        kw = dict(max_slots=3, max_len=64, chunk=4, temperature=temperature,
+                  seed=2, device=cuda, cuda_graphs=graphs, pipeline=pipeline)
+        eng = PagedServeEngine(cfg, params, page_size=8, **kw) if paged \
+            else ServeEngine(cfg, params, **kw)
+        out[pipeline] = ({r: t.tolist() for r, t in eng.run(reqs).items()},
+                         eng.decode_dispatches)
+        assert eng.stats()["in_flight"] == 0
+    assert out[0] == out[2]
+
+
+def test_pipelined_rounds_make_no_blocking_call(cuda):
+    """Two graphed rounds from nothing in flight: serial rounds read their
+    tokens back with a stream sync between the enqueues, pipelined rounds
+    make no blocking call there (``chip_smoke.blocking_between_enqueues``
+    over the profile's host calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params = _smoke_params("yi-9b", 6)
+    params = _to(params, cuda)
+    eng = ServeEngine(cfg, params, max_slots=3, max_len=64, chunk=4,
+                      device=cuda, pipeline=2)
+    reqs = _hook_requests(cfg, (7, 12, 5), (17, 17, 17), 24)
+    got = {}
+    for depth in (0, 2):
+        eng.pipeline = depth
+        for r in reqs:
+            eng.admit(Request(f"{depth}{r.rid}", r.prompt, r.max_new_tokens))
+        eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            eng.step()
+            eng.sync()
+            torch.cuda.synchronize()
+        got[depth] = chip_smoke.blocking_between_enqueues(prof)
+        while any(eng.slots):
+            eng.step()
+        eng.sync()
+    assert got[2] == ({}, 2)
+    assert got[0][1] == 2 and got[0][0].get("cudaStreamSynchronize", 0) > 0
+
+
+def test_stager_copies_on_a_side_stream(cuda):
+    """A staged prompt is copied from pinned memory on the stager's own
+    stream with an event; take() hands the same ids the inline path
+    makes, staged or not."""
+    from repro_torch.serve.staging import PromptStager
+    st = PromptStager(depth=2, device=cuda)
+    assert st.stage("a", (1, 2, 3)) is True
+    _, dev, done = st._staged["a"]
+    assert isinstance(done, torch.cuda.Event)
+    assert st._stream != torch.cuda.current_stream(cuda)
+    assert dev.device.type == "cuda"
+    got = st.take("a", (1, 2, 3))
+    assert got.dtype == torch.int64 and got.cpu().tolist() == [[1, 2, 3]]
+    assert st.take("b", (4, 5)).cpu().tolist() == [[4, 5]]
+    assert st.stats() == {"staged": 1, "hits": 1, "misses": 1, "queued": 0}
+
+
+def test_snapshot_copies_into_pinned_buffers_on_a_side_stream(cuda,
+                                                              tmp_path):
+    """CUDA leaves are copied into pinned buffers, reused across saves, on
+    the checkpointer's stream; they restore bit for bit on the card."""
+    from repro_torch.checkpoint import Checkpointer
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"w": torch.randn((64, 33), generator=gen, device=cuda).to(
+        torch.bfloat16), "b": {"n": torch.arange(7, dtype=torch.int32,
+                                                 device=cuda)}}
+    ck = Checkpointer(str(tmp_path))
+    ready = torch.cuda.Event()
+    ready.record()
+    assert ck.save(1, tree, block=True, after=ready)
+    bufs = dict(ck._pinned)
+    assert bufs and all(b.is_pinned() for b in bufs.values())
+    assert ck._stream != torch.cuda.current_stream(cuda)
+    assert ck.save(2, tree, block=True)
+    assert all(ck._pinned[i] is b for i, b in bufs.items())
+    back = ck.restore(2, tree)
+    assert back["w"].device.type == "cuda"
+    assert torch.equal(back["w"].view(torch.int16),
+                       tree["w"].view(torch.int16))
+    assert torch.equal(back["b"]["n"], tree["b"]["n"])

@@ -172,8 +172,8 @@ def models():
 
 
 def _no_gap(rows):
-    """``stats()`` rows without the JAX engine's measured dispatch gap
-    (a host wall time)."""
+    """``stats()`` rows without the measured dispatch gap (a host wall
+    time)."""
     return [{k: v for k, v in r.items() if k != "mean_dispatch_gap_s"}
             for r in rows]
 
@@ -198,5 +198,6 @@ def test_router_over_engines_streams_as_jax(models, policy):
         {r: t.tolist() for r, t in want.items()}
     assert len(got) == len(specs) and tr.shed_rids == jr.shed_rids == []
     assert _no_gap(tr.stats()) == _no_gap(jr.stats())
-    assert all(r["mean_dispatch_gap_s"] == 0.0 and r["pipeline"] == 0
+    # serial replicas: the gap between enqueues is measured, as JAX's is
+    assert all(r["mean_dispatch_gap_s"] > 0.0 and r["pipeline"] == 0
                for r in tr.stats())
