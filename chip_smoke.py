@@ -262,6 +262,35 @@ Phases, each printed on its own line:
    The ``kernels`` line's ``flash_decode`` and ``flash_decode_paged``
    rows sum their launches over the main paths (``launches_by_path``),
    phases 7's and 8's among them.
+9. training on the card (:func:`phase_training`, after phase 8's engines
+   are freed; TF32 off as everywhere). The training path launches none
+   of the port's hand-written kernels (its attention is the plain
+   chunked attention, as the reference's is): the launch counts are
+   zeroed before it and must read 0 after.
+   9a. yi-9b at its published width, 4 of its 48 layers (1.216 B
+       params, bf16, remat ``"full"``), ``make_train_step`` with
+       ``accum_steps=2`` on ``SyntheticLM`` batches of 8 x 2048 tokens:
+       6 steps with fp32 moments, then 3 from a fresh state with int8
+       moments. Every loss and grad norm finite, the mean of the last 3
+       fp32-moment losses under the first; ms a step (median from step
+       2), tokens/s, ``max_memory_allocated``, the model FLOPs a step
+       (6 x matmul params x tokens + causal attention) and their share
+       of the bf16 dense peak; ``adamw_update`` alone (CUDA events)
+       against its byte bound (every param, gradient and moment read
+       once, every param and moment written once, over the HBM rate);
+   9b. ``repro_torch.launch.train.main`` on the card: the smoke yi-9b
+       for 8 steps with a checkpoint every 4, then resumed to 10 (the
+       resume printed, steps 8-9 run); ``--compress`` for 4 steps into a
+       fresh directory (its residual nonzero); xlstm-125m at its
+       published width and depth at ``examples/train_lm.py``'s batch,
+       sequence and lr for 2 steps (the recurrent backward on the card;
+       losses and grad norms printed, not checked: the reference's
+       gradient blows up there too);
+   9c. the card against the host: each of the ten configs' smoke models
+       in fp32 from one state and batch, one ``make_train_step`` step
+       (``accum_steps=2`` for yi-9b and qwen2-vl-7b): loss and grad norm
+       within 1e-5 relative, each gradient leaf of ``make_loss_fn``
+       within 1e-4 of that leaf's largest magnitude.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -4411,6 +4440,322 @@ def phase_runtime(torch, np, K, serve) -> dict:
     return paths
 
 
+# --- phase 9: training on the card ------------------------------------------
+
+#: phase 9: the seeds of 9a's weights and data, 9b's runs and 9c's states
+TRAIN_SEEDS = {"yi-9b": 91, "data": 92, "launch": 93, "parity": 94}
+#: 9a: yi-9b's depth, batch, sequence, accumulation, steps (fp32 and int8
+#: moments) and optimizer. At lr 1e-3 (warmup 2) the loss rose over the 6
+#: steps (11.63 -> 15.09 ... 12.04 on an H100 80GB HBM3 at 700 W): Adam's
+#: first update moves every weight by +-lr/2 alike, against init scales
+#: of 0.016-0.02
+TRAIN_CELL = dict(layers=4, batch=8, seq=2048, accum=2, steps=6,
+                  int8_steps=3, lr=1e-4, warmup=2)
+#: 9b: xlstm-125m at ``examples/train_lm.py``'s batch, sequence and lr
+XLSTM_TRAIN = ["--batch", "4", "--seq", "256", "--lr", "1e-3"]
+#: 9c: batch and sequence of the parity step; its tolerances: loss and
+#: grad norm (relative), each gradient leaf (of its largest magnitude)
+PARITY_SHAPE, PARITY_RTOL, PARITY_GRAD_TOL = (4, 32), 1e-5, 1e-4
+
+
+def train_flops(cfg, M, tokens: int, batch: int, seq: int) -> tuple:
+    """Model FLOPs of one training step: 6 x the matmul params (every 2-D
+    or stacked weight but the embedding table) x tokens, plus causal
+    attention's two products a layer, forward and backward (3 x 4 x
+    B S^2 H Dh / 2). Returns ``(flops, matmul params)``."""
+    n = 0
+    for path, (shape, _) in M._walk(M.param_shapes(cfg)):
+        if path[-1] != "tok_embed" and len(shape) >= 2 + (path[0] == "scan"):
+            n += math.prod(shape)
+    n_attn = sum(b.split(":")[0] in ("attn", "attn_local")
+                 for b in cfg.layer_plan())
+    attn = 3 * 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim_eff / 2
+    return 6 * n * tokens + n_attn * attn, n
+
+
+def phase_train_yi(torch, np) -> None:
+    """9a: yi-9b at full width, 4 layers, trained on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import make_iterator
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptConfig, adamw_update
+    from repro_torch.train import step as TS
+    label = "9a yi-9b train"
+    c = TRAIN_CELL
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=c["layers"])
+    check(cfg.remat == "full", f"{label}: remat {cfg.remat!r}")
+    b, s = c["batch"], c["seq"]
+    shape = ShapeSpec("9a", s, b, "train")
+    flops, n_mm = train_flops(cfg, M, b * s, b, s)
+    torch.cuda.reset_peak_memory_stats()
+    for moments, steps in (("float32", c["steps"]),
+                           ("int8", c["int8_steps"])):
+        oc = OptConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                       total_steps=c["steps"], moments_dtype=moments)
+        torch.cuda.empty_cache()
+        state = TS.init_train_state(cfg, torch.Generator(
+            device="cuda").manual_seed(TRAIN_SEEDS["yi-9b"]), oc,
+            device="cuda")
+        n_params = sum(t.numel() for _, t in M._walk(state["params"]))
+        step = TS.make_train_step(cfg, oc, accum_steps=c["accum"])
+        it = make_iterator(cfg, shape, seed=TRAIN_SEEDS["data"],
+                           device="cuda")
+        losses, gnorms, walls = [], [], []
+        for _ in range(steps):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"{label} ({moments} moments): losses {losses}, grad norms "
+              f"{gnorms}")
+        ms = 1e3 * float(np.median(walls[2:]))
+        print(f"{label} ({moments} moments, {n_params / 1e9:.3f} B params, "
+              f"accum {c['accum']}, {b} x {s} tokens a step): losses "
+              f"{[round(x, 4) for x in losses]}; grad norms "
+              f"{[round(x, 3) for x in gnorms]}; ms a step "
+              f"{[round(1e3 * w, 1) for w in walls]} (median from step 2 "
+              f"{ms:.1f}); {b * s / ms * 1e3:.0f} tokens/s")
+        if moments == "float32":
+            check(float(np.mean(losses[-3:])) < losses[0],
+                  f"{label}: the last 3 losses' mean "
+                  f"{np.mean(losses[-3:]):.4f} is not under the first "
+                  f"{losses[0]:.4f}")
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{label}: model FLOPs a step {flops:.4g} (6 x "
+                  f"{n_mm / 1e6:.1f} M matmul params x {b * s} tokens + "
+                  f"causal attention), {flops / (ms * 1e-3) / 1e12:.1f} "
+                  f"TFLOP/s, {flops / (ms * 1e-3) / BF16_FLOPS:.3f}"
+                  f" of the {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 "
+                  f"dense peak ({flops / BF16_FLOPS * 1e3:.1f} ms "
+                  f"at the peak); max_memory_allocated "
+                  f"{peak / 1e9:.2f} GB")
+            state = profile_train_step(torch, step, state, next(it), label)
+            # the optimizer alone, on the step's own gradient dtype (fp32
+            # under accumulation)
+            grads = _tree_map(lambda p: torch.randn(
+                p.shape, dtype=torch.float32, device="cuda") * 1e-3,
+                state["params"])
+            # params and moments read and written, gradients read
+            moved = sum(t.numel() * t.element_size() * n
+                        for tree, n in ((state["params"], 2), (grads, 1),
+                                        (state["opt"], 2))
+                        for t in _leaves(tree))
+            times = []
+            for _ in range(4):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = adamw_update(oc, state["params"], grads, state["opt"],
+                                   state["step"])
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+                del out
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            print(f"{label}: adamw_update (fp32 moments, fp32 gradients) "
+                  f"{[round(t, 2) for t in times]} ms (median of the last "
+                  f"3 {float(np.median(times[1:])):.2f}) against its byte "
+                  f"bound {bound:.2f} ms ({moved / 1e9:.2f} GB over "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+            del grads
+        state = step = it = None
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(torch, step, state, batch, label: str):
+    """One more step under the profiler: device busy ms against the
+    step's wall ms (an unprofiled pass of the same step time is 9a's
+    median), device time by group (matmuls, the rest) and the five
+    costliest other kernels. Returns the new state."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts: dict = {}
+    by_name = device_us(prof, counts)
+    matmul = {n: us for n, us in by_name.items()
+              if any(t in n.lower() for t in ("gemm", "gemv", "cutlass",
+                                              "sm90_", "nvjet", "matmul",
+                                              "splitk"))}
+    total, mm = sum(by_name.values()), sum(matmul.values())
+    tags: dict = {}
+    for n, us in by_name.items():
+        if n not in matmul:
+            t = tags.setdefault(kernel_tag(n), [0.0, 0])
+            t[0] += us
+            t[1] += counts[n]
+    other = sorted(((us, n, k) for n, (us, k) in tags.items()),
+                   reverse=True)[:8]
+    print(f"{label}: one profiled step: device busy {total / 1e3:.1f} ms of "
+          f"{wall * 1e3:.1f} ms wall (idle share {1 - total / 1e6 / wall:.3f})"
+          f", {sum(counts.values())} device events; matmuls "
+          f"{mm / 1e3:.1f} ms ({mm / total:.3f}), the rest "
+          f"{(total - mm) / 1e3:.1f} ms; the rest's costliest kernels by "
+          f"operation: " + "; ".join(f"{n} {us / 1e3:.1f} ms x{k}"
+                                     for us, n, k in other))
+    return state
+
+
+#: kernel-name words that say nothing of the operation
+GENERIC_TAGS = {"Binary", "AUnary", "BUnary", "Unary", "gpu", "func_wrapper",
+                "CUDA", "Reduce", "elementwise", "Load", "Cast"}
+
+
+def kernel_tag(name: str) -> str:
+    """A short name of the operation an ATen kernel runs, from its
+    demangled name: the functor (``MulFunctor`` -> ``Mul``,
+    ``CUDAFunctorOnSelf_add`` -> ``add``) or the kernel function
+    (``exp_kernel_cuda`` -> ``exp``, ``direct_copy_kernel_cuda``), else
+    the name up to its template arguments."""
+    tags = re.findall(r"Functor(?:OnSelf|OnOther)?_(\w+?)[<>,( ]", name)
+    tags += [t for t in re.findall(
+        r"(\w+?)(?:Functor|_functor|_kernel_cuda|_kernel_impl)\b", name)
+        if t not in GENERIC_TAGS]
+    if tags:
+        return tags[-1]
+    return re.sub(r"^void ", "", re.sub(r"[<(].*", "", name))[-48:]
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def phase_train_launch(torch) -> None:
+    """9b: ``repro_torch.launch.train.main`` on the card."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.train import step as TS
+    label = "9b launch.train"
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            losses = LT.main(argv + ["--seed", str(TRAIN_SEEDS["launch"])])
+        out = buf.getvalue()
+        print("\n".join(f"{label}: {line}" for line in out.splitlines()))
+        return losses, out, time.perf_counter() - t0
+
+    os.makedirs(os.path.join(HERE, "_chipcheck"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase9_", dir=os.path.join(HERE,
+                                                               "_chipcheck"))
+    try:
+        d = os.path.join(root, "resume")
+        smoke = ["--arch", "yi-9b", "--smoke", "--batch", "8", "--seq",
+                 "128", "--ckpt-dir", d, "--ckpt-every", "4"]
+        losses, _, t_a = run(smoke + ["--steps", "8"])
+        check(len(losses) == 8, f"{label}: {len(losses)} steps, not 8")
+        losses, out, t_b = run(smoke + ["--steps", "10"])
+        check("[restore] resumed from step 8" in out and len(losses) == 2
+              and "step     8 loss" in out and "step     9 loss" in out,
+              f"{label}: the resume did not run steps 8-9")
+        d = os.path.join(root, "compress")
+        losses, _, t_c = run(["--arch", "yi-9b", "--smoke", "--batch", "8",
+                              "--seq", "128", "--steps", "4", "--compress",
+                              "--ckpt-dir", d])
+        like = TS.init_train_state(get_smoke_config("yi-9b"),
+                                   torch.Generator(device="cuda"),
+                                   device="cuda")
+        like["resid"] = like["params"]
+        got, st = Checkpointer(d).restore_latest(like)
+        resid = sum(float(r.abs().sum()) for _, r in M._walk(st["resid"]))
+        check(got == 4 and resid > 0,
+              f"{label}: compress checkpoint at {got}, |resid| {resid}")
+        print(f"{label}: smoke runs {t_a:.1f} + {t_b:.1f} s; --compress "
+              f"{t_c:.1f} s, sum |resid| after 4 steps {resid:.6g}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses, out, t_x = run(["--arch", "xlstm-125m", "--steps", "2"]
+                           + XLSTM_TRAIN)
+    check(len(losses) == 2, f"{label}: xlstm-125m ran {len(losses)} steps")
+    args = " ".join(XLSTM_TRAIN)
+    print(f"{label}: xlstm-125m at full width and depth ({args}): losses "
+          f"{losses} (not held to fall: the reference's gradient blows up "
+          f"at this width too); {t_x:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(torch, np) -> None:
+    """9c: one training step of each smoke config on the card and on the
+    host from the same state and batch (fp32)."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM, host_batch, to_device
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as TS
+    label = "9c train parity"
+    b, s = PARITY_SHAPE
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  param_dtype="float32")
+        accum = 2 if arch in ("yi-9b", "qwen2-vl-7b") else 1
+        oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        host = TS.init_train_state(cfg, torch.Generator().manual_seed(
+            TRAIN_SEEDS["parity"]), oc, device="cpu")
+        card = _tree_map(lambda t: t.to("cuda"), host)
+        nb = host_batch(cfg, ShapeSpec("9c", s, b, "train"), SyntheticLM(
+            cfg.vocab_size, s, TRAIN_SEEDS["parity"]), 0)
+        out = {}
+        for dev, st in (("cpu", host), ("cuda", card)):
+            batch = to_device(cfg, nb, dev)
+            _, grads = TS.value_and_grad(TS.make_loss_fn(cfg))(
+                st["params"], batch)
+            _, m = TS.make_train_step(cfg, oc, accum)(st, batch)
+            out[dev] = (grads, float(m["loss"]), float(m["grad_norm"]))
+        (gh, lh, nh), (gc, lc, nc) = out["cpu"], out["cuda"]
+        rel = max(abs(lc / lh - 1), abs(nc / nh - 1))
+        check(rel <= PARITY_RTOL, f"{label} {arch}: loss {lc} / {lh}, grad "
+              f"norm {nc} / {nh} (tolerance {PARITY_RTOL} relative)")
+        leaf = 0.0
+        for (path, a), (_, w) in zip(M._walk(gc), M._walk(gh)):
+            scale = float(w.abs().max())
+            err = float((a.cpu() - w).abs().max()) / max(scale, 1e-30)
+            check(err <= PARITY_GRAD_TOL, f"{label} {arch}: gradient "
+                  f"{'/'.join(path)} {err:.3g} of its largest magnitude "
+                  f"(tolerance {PARITY_GRAD_TOL})")
+            leaf = max(leaf, err)
+        worst[arch] = (rel, leaf)
+        print(f"{label} {arch} (accum {accum}): loss {lc:.7f} card / "
+              f"{lh:.7f} host, grad norm {nc:.6f} / {nh:.6f}, relative "
+              f"{rel:.3g}; worst gradient leaf {leaf:.3g} of its largest "
+              f"magnitude")
+    torch.cuda.empty_cache()
+
+
+def phase_training(torch, np, K) -> None:
+    """Phase 9: 9a-9c, the launch counts zeroed before and read after."""
+    t0 = time.perf_counter()
+    K.reset_launches()
+    phase_train_yi(torch, np)
+    phase_train_launch(torch)
+    phase_train_parity(torch, np)
+    launched = {n: c for n, c in K.LAUNCHES.items() if c}
+    check(not launched, f"phase 9: the training path launched {launched}")
+    print("phase 9: the training path launched no hand-written kernel "
+          "(launch counts all 0)")
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4504,6 +4849,8 @@ def main() -> int:
     fig_launches = phase_serving_benchmarks(torch, K)
     torch.cuda.empty_cache()
     runtime_launches = phase_runtime(torch, np, K, serve)
+    torch.cuda.empty_cache()
+    phase_training(torch, np, K)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],

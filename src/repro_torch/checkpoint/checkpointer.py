@@ -96,8 +96,9 @@ def _encode(t: torch.Tensor) -> tuple:
 
 
 def _decode(arr: np.ndarray, name: str | None) -> torch.Tensor:
-    """A loaded leaf as a CPU tensor of its recorded dtype."""
-    arr = np.ascontiguousarray(arr)
+    """A loaded leaf as a CPU tensor of its recorded dtype (a 0-d leaf,
+    such as a train state's step, stays 0-d)."""
+    arr = np.asarray(arr, order="C")
     if name in _BY_NAME:
         dt = _BY_NAME[name]
         return torch.from_numpy(arr.view(_VIEW[dt][3])).view(dt)

@@ -1,1 +1,2 @@
-"""Launch entry points of the port (``serve``)."""
+"""Launch entry points of the port (``serve``, ``train``) and the fault
+helpers (``faults``)."""

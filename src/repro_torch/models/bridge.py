@@ -74,3 +74,35 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     expected = pages.paged_cache_shapes(cfg, found.get("slots", kv_batch),
                                         kv_batch, seq)
     return _convert(tree, expected, device, "")
+
+
+def _moment_shapes(ps: dict, int8: bool) -> dict:
+    """``(shape, dtype)`` of one moment (or residual) tree shaped as the
+    params ``ps``: fp32, or int8 ``{"q", "s"}`` pairs whose fp32 row
+    scales keep the leaf's shape with its last axis 1."""
+    out = {}
+    for key, e in ps.items():
+        if isinstance(e, dict):
+            out[key] = _moment_shapes(e, int8)
+            continue
+        shape = tuple(e[0])
+        out[key] = {"q": (shape, torch.int8),
+                    "s": (shape[:-1] + (1,) if shape else (1,),
+                          torch.float32)} if int8 else (shape, torch.float32)
+    return out
+
+
+def train_state_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """A JAX train state (``repro.train.step.init_train_state``, as
+    numpy) as the port's: params, fp32 or int8 moments, the int32 step
+    and an optional ``resid``; bf16 leaves cross as uint16 views."""
+    m = tree["opt"]["m"]
+    first = next(iter(M._walk(m)))[1] if m else None
+    int8 = first is not None and np.asarray(first).dtype == np.int8
+    ps = M.param_shapes(cfg)
+    mo = _moment_shapes(ps, int8)
+    expected = {"params": ps, "opt": {"m": mo, "v": mo},
+                "step": ((), torch.int32)}
+    if "resid" in tree:
+        expected["resid"] = _moment_shapes(ps, False)
+    return _convert(tree, expected, device, "")

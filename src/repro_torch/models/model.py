@@ -1,5 +1,6 @@
 """Model assembly (counterpart of ``repro/models/model.py``): parameter
-and cache tables, initialization, and the prefill/decode forward pass.
+and cache tables, initialization, and the train/prefill/decode forward
+pass.
 
 Parameters live in a plain dict with the JAX tree's names and layouts:
 ``tok_embed (V,d)`` (token-id models only), ``scan/<j>/{ln1, mixer/...,
@@ -18,10 +19,12 @@ fp32. The JAX layer scan becomes a loop over the stacked leaves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import pos_vector
@@ -408,12 +411,15 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
         y = attn_lib.chunked_causal_attention(
             q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             window=window)
-        dtype = DTYPES[cfg.param_dtype]
-        kd, vd = k.to(dtype), v.to(dtype)
-        if cache_len is not None and cache_len > s:
-            kd = stores_lib.pad_to_horizon(kd, cache_len, flavor=store_flavor)
-            vd = stores_lib.pad_to_horizon(vd, cache_len, flavor=store_flavor)
-        new_cache = {"k": kd, "v": vd}
+        if mode == "prefill":
+            dtype = DTYPES[cfg.param_dtype]
+            kd, vd = k.to(dtype), v.to(dtype)
+            if cache_len is not None and cache_len > s:
+                kd = stores_lib.pad_to_horizon(kd, cache_len,
+                                               flavor=store_flavor)
+                vd = stores_lib.pad_to_horizon(vd, cache_len,
+                                               flavor=store_flavor)
+            new_cache = {"k": kd, "v": vd}
     h, dh, d = p["wo"].shape
     out = y.reshape(b, s, h * dh) @ p["wo"].reshape(h * dh, d)
     return out, new_cache
@@ -431,25 +437,28 @@ def _write_state(cache: dict, new: dict) -> dict:
 def _mixer(cfg: ModelConfig, mixer: str, p: dict, x, *, mode: str, cache,
            **attn_kw):
     """One block's mixer: ``(y, new_cache)``. At decode the new cache is
-    ``cache`` itself, updated in place."""
+    ``cache`` itself, updated in place; in training it is None (no state
+    is kept)."""
     if mixer in ("attn", "attn_local"):
         return _attn_mixer(cfg, p, x, local=(mixer == "attn_local"),
                            mode=mode, cache=cache, **attn_kw)
     state = cache if mode == "decode" else None
+    want_state = mode != "train"
     if mixer == "mamba":
         y, st = ssm_lib.mamba_mixer(
             p, x, d_state=cfg.ssm_d_state, conv_dim=cfg.ssm_conv_dim,
-            chunk=cfg.ssm_chunk, state=state, want_state=True,
+            chunk=cfg.ssm_chunk, state=state, want_state=want_state,
             fuse=cfg.ssm_fuse)
     elif mixer == "mlstm":
         z = x @ p["up_z"]
         y, st = xlstm_lib.mlstm_mixer(
             p, x @ p["up_x"], n_heads=cfg.n_heads,
-            chunk=max(16, cfg.ssm_chunk // 2), state=state, want_state=True)
+            chunk=max(16, cfg.ssm_chunk // 2), state=state,
+            want_state=want_state)
         y = (y * F.silu(z)) @ p["down"]
     elif mixer == "slstm":
         y, st = xlstm_lib.slstm_mixer(p, x, n_heads=cfg.n_heads,
-                                      state=state, want_state=True)
+                                      state=state, want_state=want_state)
     else:
         raise ValueError(mixer)
     return y, (_write_state(cache, st) if mode == "decode" else st)
@@ -492,20 +501,49 @@ def _unstack(tree: dict, n: int) -> list:
     return out
 
 
-@torch.no_grad()
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``, as the reference's ``_remat_wrap``
+    wraps a scan unit: ``"full"`` saves nothing and recomputes the unit
+    in the backward pass; ``"dots"`` saves the weight products' outputs
+    (``aten.mm`` / ``aten.addmm``, what ``checkpoint_dots_with_no_batch_dims``
+    keeps) and recomputes the rest, the batched attention and expert
+    products included; ``"none"`` keeps every activation."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+        def policy(ctx, op, *args, **kwargs):
+            return ckpt.CheckpointPolicy.MUST_SAVE if op in saved \
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    policy)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "prefill", cache: dict | None = None, pos=None,
             cache_len: int | None = None, impl: str = "auto",
             kv_len: int | None = None, store_flavor: str | None = None,
             block_tables: torch.Tensor | None = None):
-    """Run the model; returns ``(logits, aux, cache)``.
+    """Run the model; returns ``(logits, aux, cache)``, or ``(logits,
+    aux)`` in training.
 
     batch: ``{"tokens": (B, S) integer tensor}``, or ``{"embeds": (B, S,
     d)}`` for a model with ``embed_inputs=False`` (cast to the parameter
     dtype); optionally ``"positions"``, (B, S) integers, or (3, B, S) for
-    M-RoPE. Without them a prefill runs at ``0 .. S-1`` and a decode step
-    at ``pos``, on every M-RoPE stream alike.
-    mode: ``"prefill"`` builds a fresh cache from the prompt, preallocated
+    M-RoPE. Without them a prefill or training pass runs at ``0 .. S-1``
+    and a decode step at ``pos``, on every M-RoPE stream alike.
+    mode: ``"train"`` returns logits at every position (B, S, V) and
+          builds no cache; it is the one mode that records autograd (the
+          others run under ``torch.no_grad``), and it runs each scan unit
+          (one layer repetition of the block pattern) under ``cfg.remat``
+          (:func:`_remat_wrap`), as the reference does;
+          ``"prefill"`` builds a fresh cache from the prompt, preallocated
           at ``cache_len`` rows when given, and returns only the last
           position's logits (B, 1, V);
           ``"decode"`` takes S == 1 tokens at per-slot positions ``pos``
@@ -528,10 +566,22 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     dtype). ``aux`` is the MoE load-balance loss summed over the layers
     (0-d fp32; zero without MoE blocks).
     """
+    kw = dict(cache=cache, pos=pos, cache_len=cache_len, impl=impl,
+              kv_len=kv_len, store_flavor=store_flavor,
+              block_tables=block_tables)
+    if mode == "train":
+        logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
+        return logits, aux
     if mode not in ("prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r} (expected 'prefill' or "
-                         "'decode'; the training forward is ROADMAP queue 1 "
-                         "item 7)")
+        raise ValueError(f"unknown mode {mode!r} (expected 'train', "
+                         "'prefill' or 'decode')")
+    with torch.no_grad():
+        return _forward(cfg, params, batch, mode=mode, **kw)
+
+
+def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
+             cache, pos, cache_len, impl, kv_len, store_flavor,
+             block_tables):
     dtype = DTYPES[cfg.param_dtype]
     if cfg.embed_inputs:
         tokens = batch["tokens"]
@@ -567,9 +617,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     kw = dict(mode=mode, rope=rope, pos=pos, cache_len=cache_len, impl=impl,
               kv_len=kv_len, store_flavor=store_flavor,
               block_tables=block_tables)
-    new_cache: dict = {"tail": {}}
+    new_cache = None if mode == "train" else {"tail": {}}
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    if n_rep > 0:
+    if n_rep > 0 and mode == "train":
+        def unit_body(x, aux, p_r):
+            for j in range(unit):
+                x, a, _ = apply_block(cfg, plan[j], p_r[str(j)], x,
+                                      cache=None, **kw)
+                aux = aux + a
+            return x, aux
+        body = _remat_wrap(cfg, unit_body)
+        for p_r in _unstack(params["scan"], n_rep):
+            x, aux_total = body(x, aux_total, p_r)
+    elif n_rep > 0:
         layer_params = _unstack(params["scan"], n_rep)
         layer_caches = _unstack(cache["scan"], n_rep) \
             if mode == "decode" else [None] * n_rep
@@ -590,10 +650,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
                          for n in made[0][str(j)]} for j in range(unit)}
     for i in range(n_tail):
         ci = cache["tail"][str(i)] if mode == "decode" else None
-        x, aux, new_cache["tail"][str(i)] = apply_block(
-            cfg, plan[n_rep * unit + i], params["tail"][str(i)], x,
-            cache=ci, **kw)
+        x, aux, nc = apply_block(cfg, plan[n_rep * unit + i],
+                                 params["tail"][str(i)], x, cache=ci, **kw)
         aux_total = aux_total + aux
+        if new_cache is not None:
+            new_cache["tail"][str(i)] = nc
 
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the last position's logits

@@ -1,1 +1,2 @@
-"""Serving steps of the port (counterpart of ``repro.train.serve``)."""
+"""Training and serving steps of the port (counterpart of
+``repro.train``)."""

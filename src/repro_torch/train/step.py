@@ -1,0 +1,147 @@
+"""Train-step builder: loss, gradients (with microbatch accumulation),
+AdamW (counterpart of ``repro/train/step.py``).
+
+The state is a plain dict: ``{"params", "opt": {"m", "v"}, "step"}``
+(a 0-d int32 tensor), plus ``"resid"`` under gradient compression
+(``launch/train.py``). Gradients come from ``torch.autograd.grad`` over
+:func:`repro_torch.models.model.forward` in ``mode="train"``, which runs
+each scan unit under ``cfg.remat``. The step's matmuls are
+``torch.matmul``, as the reference leaves them to XLA; nothing on this
+path is a hand-written kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import OptConfig, adamw_update, init_opt_state
+from repro_torch.train.losses import cross_entropy
+
+AUX_COEF = 0.01
+
+
+def model_inputs(cfg: ModelConfig, batch: dict) -> dict:
+    keys = ("tokens", "embeds", "positions")
+    return {k: batch[k] for k in keys if k in batch}
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss_fn(params, batch) -> (loss, {"ce", "aux"})``: token CE plus
+    ``AUX_COEF`` times the MoE load-balance loss."""
+    def loss_fn(params, batch):
+        logits, aux = M.forward(cfg, params, model_inputs(cfg, batch),
+                                mode="train")
+        ce = cross_entropy(logits, batch["targets"])
+        loss = ce + AUX_COEF * aux
+        return loss, {"ce": ce, "aux": aux}
+    return loss_fn
+
+
+def value_and_grad(loss_fn):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``'s counterpart:
+    ``grad_fn(params, batch) -> ((loss, parts), grads)``, the gradients a
+    tree shaped as ``params`` in each leaf's dtype (zeros for a leaf the
+    loss does not reach). ``params`` are not modified."""
+    def grad_fn(params, batch):
+        flat = adamw._leaves(params)
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        (loss, parts) = loss_fn(adamw._unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        return ((loss.detach(), {k: v.detach() for k, v in parts.items()}),
+                adamw._unflatten(params, grads))
+    return grad_fn
+
+
+def split_batch(batch: dict, accum_steps: int) -> list:
+    """The reference's microbatch rule: a leaf of rank >= 2 whose batch
+    divides is split on axis 0, any other leaf is repeated; M-RoPE
+    positions (3, B, S) are split on axis 1."""
+    def split(name, x):
+        if name == "positions" and x.ndim == 3 and x.shape[0] == 3:
+            return list(x.reshape(3, accum_steps, x.shape[1] // accum_steps,
+                                  x.shape[2]).movedim(1, 0))
+        if x.ndim >= 2 and x.shape[0] % accum_steps == 0:
+            return list(x.reshape(accum_steps, x.shape[0] // accum_steps,
+                                  *x.shape[1:]))
+        return [x] * accum_steps
+    parts = {k: split(k, v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(accum_steps)]
+
+
+def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
+    """``step(state, batch) -> (new_state, metrics)`` with metrics
+    ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d tensors).
+
+    With ``accum_steps > 1`` the batch is cut by :func:`split_batch`, the
+    microbatches' gradients are summed in fp32, and the loss, the aux loss
+    and the gradients are divided by the step count; ``ce`` is then the
+    mean loss, as in the reference.
+    """
+    grad_fn = value_and_grad(make_loss_fn(cfg))
+
+    def step(state, batch):
+        params = state["params"]
+        if accum_steps == 1:
+            (loss, parts), grads = grad_fn(params, batch)
+        else:
+            grads = adamw._map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), params)
+            loss = aux = torch.zeros((), dtype=torch.float32,
+                                     device=state["step"].device)
+            for mb in split_batch(batch, accum_steps):
+                (l, parts), g = grad_fn(params, mb)
+                _add32(grads, g)
+                loss = loss + l
+                aux = aux + parts["aux"]
+                del g
+            loss = loss / accum_steps
+            parts = {"ce": loss, "aux": aux / accum_steps}
+            grads = adamw._map(lambda g: g / accum_steps, grads)
+        new_params, new_opt, om = adamw_update(oc, params, grads,
+                                               state["opt"], state["step"])
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, **parts, **om}
+
+    return step
+
+
+def _add32(acc: dict, g: dict) -> dict:
+    """``acc + g`` leaf by leaf, g cast to fp32; ``acc`` updated in place
+    (the reference's scan carry, which it donates)."""
+    for k, a in acc.items():
+        if isinstance(a, dict):
+            _add32(a, g[k])
+        else:
+            a.add_(g[k].float())
+    return acc
+
+
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     oc: OptConfig | None = None, device="cuda") -> dict:
+    """Fresh parameters from ``generator`` (``models.model.init_params``),
+    zero moments and step 0."""
+    params = M.init_params(cfg, generator, device=device)
+    md = oc.moments_dtype if oc is not None else "float32"
+    return {"params": params, "opt": init_opt_state(params, md),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def default_accum_steps(cfg: ModelConfig, shape: ShapeSpec,
+                        mesh_sizes: dict, budget_bytes: float = 2.5e9) -> int:
+    """Pick gradient-accumulation steps so the per-device stored scan
+    carries (residual stream per layer under full remat) fit the budget."""
+    dp = 1
+    for ax in ("pod", "data"):
+        dp *= mesh_sizes.get(ax, 1)
+    b_loc = max(1, shape.global_batch // dp)
+    carry = b_loc * shape.seq_len * cfg.d_model * 2 * cfg.n_layers
+    accum = 1
+    while carry / accum > budget_bytes and accum < b_loc:
+        accum *= 2
+    return accum

@@ -235,10 +235,31 @@ def test_block_patterns_match_jax(pattern):
 
 
 def test_train_mode_raises():
-    """The training forward is not ported (ROADMAP queue 1 item 7)."""
+    """What ``forward`` refuses, now that the training forward is ported:
+    an unknown mode and a decode step of S != 1 raise ``ValueError``;
+    ``mode="train"`` itself returns ``(logits, aux)`` with logits at every
+    position (B, S, V), builds no cache and records autograd (prefill
+    does not). The test keeps the name it had while train mode raised."""
+    ct = get_smoke_config("yi-9b")
+    params = M.init_params(ct, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.zeros((2, 5), dtype=torch.int64)
     with pytest.raises(ValueError, match="unknown mode"):
-        M.forward(get_smoke_config("yi-9b"), {}, {"tokens": torch.zeros(
-            (1, 1), dtype=torch.int64)}, mode="train")
+        M.forward(ct, params, {"tokens": tokens}, mode="training")
+    with pytest.raises(ValueError, match="one token per slot"):
+        M.forward(ct, params, {"tokens": tokens}, mode="decode",
+                  cache=M.init_cache(ct, 2, 8, device="cpu"), pos=0)
+    params["final_norm"].requires_grad_(True)
+    out = M.forward(ct, params, {"tokens": tokens}, mode="train")
+    assert len(out) == 2
+    logits, aux = out
+    assert logits.shape == (2, 5, ct.vocab_size)
+    assert logits.requires_grad and aux.shape == ()
+    pre, _, cache = M.forward(ct, params, {"tokens": tokens}, mode="prefill")
+    assert pre.shape == (2, 1, ct.vocab_size) and not pre.requires_grad
+    torch.testing.assert_close(pre[:, 0], logits[:, -1].detach(), rtol=0,
+                               atol=0)
+    assert cache["scan"]["0"]["k"].shape[2] == 5
 
 
 def test_port_imports_no_jax_and_no_repro():
