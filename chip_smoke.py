@@ -291,6 +291,24 @@ Phases, each printed on its own line:
        (``accum_steps=2`` for yi-9b and qwen2-vl-7b): loss and grad norm
        within 1e-5 relative, each gradient leaf of ``make_loss_fn``
        within 1e-4 of that leaf's largest magnitude.
+10. meshes and tensor-parallel serving (:func:`phase_mesh`, after phase
+    9): yi-9b at its published width, 8 slots, 8 requests of 128-256
+    token prompts and 32 new tokens, chunk 8 (``MESH_CELL``).
+    10a. a world of one NCCL rank, mesh (1,1) (``launch.mesh``), bf16,
+         48 layers, dense and paged, CUDA graphs on: greedy streams
+         identical to the mesh=None engine's on the same weights, ms a
+         step beside mesh=None's, collectives a step as ``CommDebugMode``
+         counts them over one eager chunk; its launches join
+         ``launches_by_path``;
+    10b. TP=2 as two ranks on the one card over gloo (NCCL refuses two
+         ranks on one device; ``scripts/gloo_cuda_probe.py`` records what
+         gloo carries on CUDA tensors), eager, spawned with a time limit
+         (``MESH_TP_TIMEOUT``), each rank making its shard of every
+         weight leaf by leaf: bf16 at 48 layers (first decode step's
+         logits within ``MESH_BF16_REL_TOL`` of the unsharded step's,
+         streams counted) and fp32 at 4 layers, dense and paged (logits
+         within ``MESH_FP32_REL_TOL``, streams identical); the two ranks'
+         streams identical; rank 0's launches join ``launches_by_path``.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -309,6 +327,7 @@ output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4756,6 +4775,371 @@ def phase_training(torch, np, K) -> None:
 
 
 
+# --- phase 10: meshes and tensor-parallel serving ----------------------------
+
+#: phase 10: the seeds of yi-9b's weights, the served requests and the
+#: prompts of the first decode step's logits
+MESH_SEEDS = {"yi-9b": 101, "requests": 102, "prompts": 103}
+#: the served cell: slots, requests, prompt lengths [low, high), new
+#: tokens a request, chunk, the slot horizon and the paged engine's page
+MESH_CELL = dict(slots=8, n=8, prompt=(128, 257), new=32, chunk=8,
+                 max_len=384, page=16)
+#: 10b: the ranks' time limit (their spawn, CUDA start, the weights, both
+#: jobs) and yi-9b's depth in fp32
+MESH_TP_TIMEOUT = 420
+MESH_FP32_LAYERS = 4
+#: 10b: GB a rank may hold on the card between jobs (the mesh, the
+#: kernels' split counters), so that each job's peak is its own
+MESH_HELD_GB = 0.5
+#: 10b's held limits, as max |logit difference| over max |logit| of the
+#: first decode step (8 prompts of 128 tokens, greedy), TP=2 against the
+#: unsharded engine's weights and prompts.
+#: bf16, 48 layers: the unsharded out-projection and down-projection each
+#: accumulate one product in fp32 and round once to bf16; at TP=2 each
+#: rank rounds its half-sum to bf16 and the all-reduce rounds their sum
+#: again, so every one of the 96 row-parallel products a step differs by
+#: up to about one bf16 ulp (2**-8 relative) on most of its elements,
+#: where the kernels-vs-plain comparison of phase 5 (0.0204 and 0.0236 on
+#: an H100, limit 5e-2) differs only where a sum straddles a rounding
+#: boundary. Held at twice that limit; the streams are counted, not held
+#: (a flip at a near tie parts a greedy stream for good).
+MESH_BF16_REL_TOL = 0.1
+#: fp32, 4 layers: the same sums in fp32 (2**-24 relative) in another
+#: order, 8 row-parallel products deep: ~1e-6; streams held identical
+MESH_FP32_REL_TOL = 1e-4
+
+
+def mesh_requests(np, serve, vocab: int) -> list:
+    """Phase 10's 8 requests: 128-256-token prompts, 32 new tokens each."""
+    rng = np.random.default_rng(MESH_SEEDS["requests"])
+    lens = rng.integers(*MESH_CELL["prompt"], size=MESH_CELL["n"])
+    return [serve.Request(f"m{i}", tuple(int(t) for t in rng.integers(
+        0, vocab, n)), MESH_CELL["new"]) for i, n in enumerate(lens)]
+
+
+def mesh_prompts(torch, vocab: int):
+    g = torch.Generator().manual_seed(MESH_SEEDS["prompts"])
+    return torch.randint(0, vocab, (MESH_CELL["slots"], 128), generator=g)
+
+
+def mesh_config(dtype: str, layers: int | None = None):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("yi-9b"), param_dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mesh_params(torch, cfg, mesh=None):
+    """yi-9b's weights from ``MESH_SEEDS``; with a ``mesh`` each rank
+    keeps its shard of every leaf as it is made."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import sharding as shd
+    place = None if mesh is None else shd.placer(mesh, M.param_pspecs(
+        cfg, shd.SERVE_ENGINE_RULES, shd.mesh_axis_sizes(mesh)))
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEEDS["yi-9b"])
+    return M.init_params(cfg, gen, device="cuda", place=place)
+
+
+def first_step_logits(torch, cfg, params, prompts, mesh=None):
+    """The logits (fp32, on the host) of one decode step after a batched
+    prefill of ``prompts``, its token the prefill's greedy pick."""
+    import contextlib
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import kv_bucket
+    from repro_torch.train import serve as serve_lib
+    from repro_torch.utils import sharding as shd
+    b, s = prompts.shape
+    ctx = contextlib.nullcontext() if mesh is None else \
+        shd.use_mesh_rules(mesh, shd.SERVE_ENGINE_RULES)
+    with ctx:
+        logits, cache = serve_lib.make_prefill_step(
+            cfg, cache_len=MESH_CELL["max_len"])(
+                params, {"tokens": prompts.cuda()})
+        tok = logits[:, -1].argmax(-1)[:, None]
+        pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        lg, _, _ = M.forward(cfg, params, {"tokens": tok}, mode="decode",
+                             cache=cache, pos=pos,
+                             kv_len=kv_bucket(s + 1, MESH_CELL["max_len"]))
+    return lg[:, 0].float().cpu()
+
+
+def collectives_per_step(torch, eng) -> tuple:
+    """The collectives of one eager decode step of ``eng`` (a one-token
+    chunk of its body, on its cache after its run: rows it rewrites
+    before any token reads them) as ``CommDebugMode`` counts them; and by
+    op."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.serve.engine import KV_BUCKET
+    chunk = eng.chunk
+    eng.set_chunk(1)
+    inputs = {k: torch.from_numpy(v).cuda()
+              for k, v in eng._step_inputs().items()}
+    with CommDebugMode() as cm:
+        eng._body(eng.params, eng.cache, kv_len=KV_BUCKET, **inputs)
+    torch.cuda.synchronize()
+    eng.set_chunk(chunk)
+    total = cm.get_total_counts()
+    by_op = {k._qualified_op_name: n for k, n in
+             cm.get_comm_counts().items() if n}
+    check(sum(by_op.values()) == total,
+          f"collectives by op {by_op} do not sum to the total {total}")
+    return total, by_op
+
+
+def serve_mesh(torch, K, serve, cfg, params, reqs, *, paged: bool, mesh,
+               label: str, cuda_graphs: bool = True) -> dict:
+    """Serve ``reqs`` through an 8-slot engine (``MESH_CELL``), its graphs
+    captured first, launch counts zeroed just before the run and read
+    just after; fails unless every request got its tokens and every
+    decode launch was the layout's fused kernel (attention layers x
+    steps). Returns streams, launches, ms a step and the engine."""
+    import numpy as np
+    c = MESH_CELL
+    kw = dict(max_slots=c["slots"], max_len=c["max_len"], chunk=c["chunk"],
+              device="cuda", mesh=mesh, cuda_graphs=cuda_graphs)
+    eng = serve.PagedServeEngine(cfg, params, page_size=c["page"], **kw) \
+        if paged else serve.ServeEngine(cfg, params, **kw)
+    if eng.graphs is not None:
+        capture_graphs(torch, eng, label)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = eng.stats()
+    steps = st["decode_tokens"]
+    check(sorted(res) == sorted(r.rid for r in reqs)
+          and all(len(res[r.rid]) == r.max_new_tokens for r in reqs)
+          and st["quarantined"] == 0,
+          f"{label}: not every request got its tokens")
+    kern = "flash_decode_paged" if paged else "flash_decode"
+    want = attention_layers(cfg) * steps
+    check(launches[kern] == want and launches["kv_rows_in_decode"] == want,
+          f"{label}: launches {launches}, expected {kern} {want}")
+    ms = st["decode_s"] / steps * 1e3
+    print(f"{label}: {len(res)} requests in {wall:.2f} s; decode "
+          f"{st['decode_s']:.2f} s over {steps} steps = {ms:.2f} ms/step, "
+          f"prefill {st['prefill_s']:.2f} s; {kern} launches {launches[kern]}"
+          f" (= {attention_layers(cfg)} layers x {steps} steps)")
+    return {"streams": {r: np.asarray(t, np.int32).tolist()
+                        for r, t in res.items()},
+            "launches": launches[kern], "ms": ms, "eng": eng}
+
+
+def phase_mesh_world1(torch, np, K, serve, paths: dict) -> tuple:
+    """10a: a world of one over NCCL, mesh (1,1), yi-9b at its published
+    width (48 layers, bf16), dense and paged, against mesh=None on the
+    same weights and requests (CUDA graphs on). Returns the unsharded
+    streams and first-step logits (10b's reference)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg = mesh_config("bfloat16")
+    t0 = time.perf_counter()
+    params = mesh_params(torch, cfg)
+    torch.cuda.synchronize()
+    print(f"10a: yi-9b at its published width ({cfg.n_layers} layers, "
+          f"bf16), init {time.perf_counter() - t0:.1f} s")
+    reqs = mesh_requests(np, serve, cfg.vocab_size)
+    mesh = make_serve_mesh("data,model=1,1")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "10a: the world is not one NCCL rank")
+    out = {}
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        base = serve_mesh(torch, K, serve, cfg, params, reqs, paged=paged,
+                          mesh=None, label=f"10a {kind} mesh=None")
+        del base["eng"]
+        got = serve_mesh(torch, K, serve, cfg, params, reqs, paged=paged,
+                         mesh=mesh, label=f"10a {kind} mesh (1,1)")
+        n_coll, kinds = collectives_per_step(torch, got["eng"])
+        del got["eng"]
+        torch.cuda.empty_cache()
+        differ = [r for r in base["streams"]
+                  if base["streams"][r] != got["streams"][r]]
+        check(not differ, f"10a {kind}: mesh (1,1) streams differ from "
+                          f"mesh=None: {differ}")
+        print(f"10a {kind}: {len(reqs)} greedy streams identical, mesh (1,1)"
+              f" vs mesh=None; {got['ms']:.3f} vs {base['ms']:.3f} ms/step "
+              f"({got['ms'] / base['ms']:.3f}x); collectives a step "
+              f"(CommDebugMode, one eager chunk) {n_coll:g} {kinds or ''}")
+        kern = "flash_decode_paged" if paged else "flash_decode"
+        paths[kern][f"yi-9b {kind} engine, mesh (1,1)"] = got["launches"]
+        out[kind] = base["streams"]
+    logits = first_step_logits(torch, cfg, params, mesh_prompts(
+        torch, cfg.vocab_size))
+    dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    return out, logits
+
+
+def _tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 10b: a (1, 2) mesh over gloo on ``cuda:0`` (the world
+    from the environment ``torchrun`` would set, its store on this
+    host); its shard of each job's weights made leaf by leaf; the first
+    step's logits and an eager engine run a job, written under
+    ``out_dir``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K, serve
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((1, 2), device_type="cuda", backend="gloo")
+    res = {"graphs_refused": gloo_graphs_refused(torch, serve, mesh)}
+    for job, (dtype, layers, layouts) in MESH_TP_JOBS.items():
+        cfg = mesh_config(dtype, layers)
+        # nothing of the last job may stay on the card, or its bytes
+        # would count in this job's peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 1e9
+        check(held < MESH_HELD_GB, f"10b {job}: {held:.2f} GB still held "
+                                   "on the card before the job")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = mesh_params(torch, cfg, mesh)
+        torch.cuda.synchronize()
+        rec = {"init_s": time.perf_counter() - t0, "held_gb": held,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        logits = first_step_logits(torch, cfg, params, mesh_prompts(
+            torch, cfg.vocab_size), mesh)
+        if rank == 0:
+            torch.save(logits, os.path.join(out_dir, f"{job}.logits.pt"))
+        reqs = mesh_requests(np, serve, cfg.vocab_size)
+        for paged in layouts:
+            kind = "paged" if paged else "dense"
+            got = serve_mesh(torch, K, serve, cfg, params, reqs, paged=paged,
+                             mesh=mesh, cuda_graphs=False,
+                             label=f"10b {job} {kind} TP=2 rank {rank}")
+            n_coll, kinds = collectives_per_step(torch, got.pop("eng"))
+            rec[kind] = dict(got, collectives=n_coll, kinds=kinds,
+                             tp=2)
+        res[job] = rec
+        del params
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def gloo_graphs_refused(torch, serve, mesh) -> str:
+    """The ``ValueError`` an engine raises when asked for CUDA graphs over
+    ``mesh``'s gloo group (checked before any weight is placed); fails
+    if it serves instead."""
+    cfg = mesh_config("float32", 1)
+    params = {"final_norm": torch.ones(cfg.d_model, device="cuda")}
+    try:
+        serve.ServeEngine(cfg, params, max_slots=MESH_CELL["slots"],
+                          max_len=MESH_CELL["max_len"],
+                          chunk=MESH_CELL["chunk"], device="cuda",
+                          mesh=mesh, cuda_graphs=True)
+    except ValueError as e:
+        if "gloo" not in str(e):
+            raise
+        return str(e)
+    raise PhaseError("10b: an engine over a gloo group took cuda_graphs="
+                     "True instead of refusing it")
+
+
+#: 10b's jobs: dtype, depth (None: all 48 layers) and layouts (paged?)
+MESH_TP_JOBS = {"bf16": ("bfloat16", None, (False,)),
+                "fp32": ("float32", MESH_FP32_LAYERS, (False, True))}
+
+
+def phase_mesh_tp2(torch, np, K, serve, ref_streams: dict, ref_logits,
+                   paths: dict) -> None:
+    """10b: TP=2 as two ranks on the one card over gloo, eager (a gloo
+    group cannot be captured), each job's streams and first-step logits
+    against the unsharded engine on the same weights, the ranks' streams
+    against each other."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    cfg32 = mesh_config("float32", MESH_FP32_LAYERS)
+    reqs = mesh_requests(np, serve, cfg32.vocab_size)
+    params = mesh_params(torch, cfg32)
+    ref = {"bf16": ({"dense": ref_streams["dense"]}, ref_logits)}
+    ref32 = {}
+    for paged in (False, True):
+        got = serve_mesh(torch, K, serve, cfg32, params, reqs,
+                         paged=paged, mesh=None, cuda_graphs=False,
+                         label=f"10b fp32 {'paged' if paged else 'dense'} "
+                               f"mesh=None")
+        ref32["paged" if paged else "dense"] = got["streams"]
+        del got
+    ref["fp32"] = (ref32, first_step_logits(torch, cfg32, params,
+                                            mesh_prompts(torch,
+                                                         cfg32.vocab_size)))
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_tp_rank, args=(port, tmp), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TP_TIMEOUT
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise PhaseError(f"10b: the two ranks ran past "
+                                 f"{MESH_TP_TIMEOUT} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        logits = {job: torch.load(os.path.join(tmp, f"{job}.logits.pt"))
+                  for job in MESH_TP_JOBS}
+    print(f"10b: two ranks (gloo, cuda:0) ran in "
+          f"{time.perf_counter() - t0:.1f} s; cuda_graphs=True refused: "
+          f"{ranks[0]['graphs_refused']}")
+    for job, (want_streams, want_logits) in ref.items():
+        rec, other = ranks[0][job], ranks[1][job]
+        rel = float((logits[job] - want_logits).abs().max()
+                    / want_logits.abs().max())
+        tol = MESH_BF16_REL_TOL if job == "bf16" else MESH_FP32_REL_TOL
+        print(f"10b {job}: rank 0 weights init {rec['init_s']:.1f} s, "
+              f"{rec['held_gb']:.3f} GB held before the job, peak "
+              f"{rec['peak_gb']:.2f} GB a rank; first decode step max "
+              f"|dlogit|/max|logit| TP=2 vs unsharded {rel:.3e} (held "
+              f"under {tol:g})")
+        check(rel <= tol, f"10b {job}: logits {rel:.3e} over {tol:g}")
+        for kind, want in want_streams.items():
+            got = rec[kind]
+            check(got["streams"] == other[kind]["streams"],
+                  f"10b {job} {kind}: the two ranks' streams differ")
+            same = sum(got["streams"][r] == want[r] for r in want)
+            print(f"10b {job} {kind}: {same}/{len(want)} greedy streams "
+                  f"identical to the unsharded engine's; ranks agree; "
+                  f"{got['ms']:.2f} ms/step eager; collectives a step "
+                  f"{got['collectives']:g} {got['kinds']}")
+            if job == "fp32":
+                check(same == len(want), f"10b fp32 {kind}: {len(want) - same}"
+                                         f" streams differ from unsharded")
+            kern = "flash_decode_paged" if kind == "paged" else "flash_decode"
+            paths[kern][f"yi-9b {kind} engine {job}, TP=2 rank 0"] = \
+                got["launches"]
+
+
+def phase_mesh(torch, np, K, serve) -> dict:
+    """Phase 10 (10a, 10b), after phase 9. Returns the mesh paths' decode
+    launches by kernel and path."""
+    t0 = time.perf_counter()
+    paths = {"flash_decode": {}, "flash_decode_paged": {}}
+    ref_streams, ref_logits = phase_mesh_world1(torch, np, K, serve, paths)
+    phase_mesh_tp2(torch, np, K, serve, ref_streams, ref_logits, paths)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4851,6 +5235,8 @@ def main() -> int:
     runtime_launches = phase_runtime(torch, np, K, serve)
     torch.cuda.empty_cache()
     phase_training(torch, np, K)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch, np, K, serve)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],
@@ -4859,12 +5245,14 @@ def main() -> int:
         **{f"{a} forward": n for a, n in family_launches.items()},
         **{f"{a} forward": n for a, n in moe_launches.items()},
         **fig_launches["flash_decode"],
-        **runtime_launches["flash_decode"]))
+        **runtime_launches["flash_decode"],
+        **mesh_launches["flash_decode"]))
     path_launches(by_name["flash_decode_paged"], dict(
         {"yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
          "jamba paged engine": jamba_launches["paged"]},
         **fig_launches["flash_decode_paged"],
-        **runtime_launches["flash_decode_paged"]))
+        **runtime_launches["flash_decode_paged"],
+        **mesh_launches["flash_decode_paged"]))
     print(f"planning phases (plan lines, split sweep, planned engine): "
           f"{plan_s:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

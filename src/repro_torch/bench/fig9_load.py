@@ -12,10 +12,15 @@ round's device work is inside it): a request's latency spans from the
 round it became due (queue wait and backpressure deferrals included) to
 the round it retired.
 
-The port has no device mesh yet (ROADMAP queue 1 item 7), so every
-replica takes the single-device path (``tp = 1``): N replicas on one
-card, one chip. They share one copy of the weights and each owns its
-cache. The router steps them in turn on one CUDA stream, so the decode
+Replicas shard over the world's mesh when the world has more than one
+rank and the heads divide (``tp`` = the world size, a ``(1, tp)`` mesh
+from ``launch/mesh.py``, one card a rank under ``torchrun
+--nproc-per-node N -m repro_torch.bench.run --only fig9``, rank 0
+printing), as the reference shards over its host's devices; else every
+replica takes the
+single-device path (``tp = 1``): N replicas on one card, one chip. They
+share one copy of the weights and each owns its cache. The router steps
+them in turn on one CUDA stream, so the decode
 kernels' per-device split counters (``kernels/attention/decode.py``,
 ``split_counters``) and the stream suite's scratch are never used by two
 dispatches at once. Pipelined replicas (``pipeline=2``) keep that: their
@@ -35,6 +40,7 @@ replica); on the card gemma3-4b at its published width and depth with
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
@@ -136,11 +142,30 @@ def run_trace(router: ReplicaRouter, trace: list, vocab: int,
             "rounds": rnd, "latency_s": _percentiles(latencies)}
 
 
+def world_tp(cfg) -> int:
+    """The TP degree replicas shard over: the world size (the process
+    group's, else the ``WORLD_SIZE`` a launcher such as ``torchrun``
+    sets) when the world has more than one rank and the heads divide it,
+    else 1."""
+    import torch.distributed as dist
+    n = dist.get_world_size() if dist.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", "1"))
+    return n if n > 1 and cfg.n_kv_heads % n == 0 \
+        and cfg.n_heads % n == 0 else 1
+
+
 def build_engines(cfg, params, *, slots: int, device) -> list:
-    """``REPLICAS`` engines over one copy of ``params`` (single-device
-    path, ``tp = 1``), each owning its cache."""
+    """``REPLICAS`` engines over one copy of ``params``, each owning its
+    cache, sharded over a ``(1, tp)`` mesh of the world's ranks when
+    :func:`world_tp` is above 1."""
+    tp = world_tp(cfg)
+    mesh = None
+    if tp > 1:
+        from repro_torch.launch.mesh import make_test_mesh
+        import torch
+        mesh = make_test_mesh((1, tp), device_type=torch.device(device).type)
     return [ServeEngine(cfg, params, max_slots=slots, max_len=MAX_LEN,
-                        chunk=CHUNK, device=device)
+                        chunk=CHUNK, device=device, mesh=mesh)
             for _ in range(REPLICAS)]
 
 
@@ -171,11 +196,12 @@ def load_lines(cfg, engines: list, *, n_req: int, device) -> list:
     """Every trace kind under every policy through one fleet of
     ``engines`` (every trace drains them, so each starts empty); each
     line gated on percentile order and conservation (``run_trace``)."""
-    chips = 1                            # tp = 1, every replica on one card
+    tp = engines[0].tp
+    chips = tp                           # every replica on the same cards
     slots = engines[0].max_slots
     # planner prediction for the plan machine: slots tokens per step,
-    # every replica decoding in turn on the one card
-    plan = plan_chunk_size(cfg, slots, MAX_LEN)
+    # every replica decoding in turn on the same cards
+    plan = plan_chunk_size(cfg, slots, MAX_LEN, mesh=engines[0].mesh)
     pred_tok_s_chip = slots / max(plan.t_step_seconds, 1e-12) / chips
     lines = []
     for policy in POLICIES:
@@ -195,7 +221,7 @@ def load_lines(cfg, engines: list, *, n_req: int, device) -> list:
             st = router.stats()
             lines.append(
                 f"fig9,load.{policy}.{kind},{rec['wall_s']*1e6:.0f},"
-                f"n={n_req};replicas={REPLICAS};slots={slots};tp=1;"
+                f"n={n_req};replicas={REPLICAS};slots={slots};tp={tp};"
                 f"chips={chips};p50_ms={lat[50]*1e3:.1f};"
                 f"p95_ms={lat[95]*1e3:.1f};p99_ms={lat[99]*1e3:.1f};"
                 f"rounds={rec['rounds']};tokens={rec['served_tokens']};"

@@ -10,12 +10,17 @@ unless ``--device cpu`` asks for the host:
 
     python -m repro_torch.bench.run --only fig9 [--full]
     python -m repro_torch.bench.run --only fig4b --device cpu
+
+Under a launcher of several ranks (``torchrun --nproc-per-node N``; fig9
+shards its replicas over them) every rank runs the modules and rank 0
+alone prints.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import os
 import sys
 import time
 import traceback
@@ -41,7 +46,7 @@ def main(argv=None) -> int:
               "measure the host", file=sys.stderr)
         return 2
 
-    print("name,us_per_call,derived")
+    say("name,us_per_call,derived")
     failures = 0
     for mod_name in MODULES:
         if args.only and args.only not in mod_name:
@@ -50,15 +55,23 @@ def main(argv=None) -> int:
         try:
             mod = importlib.import_module(f"repro_torch.bench.{mod_name}")
             for ln in mod.main(quick=not args.full, device=args.device):
-                print(ln, flush=True)
-            print(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},ok",
-                  flush=True)
+                say(ln)
+            say(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},ok")
         except Exception:
             failures += 1
             traceback.print_exc()
-            print(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},FAILED",
-                  flush=True)
+            say(f"_meta,{mod_name},{(time.time()-t0)*1e6:.0f},FAILED")
     return 1 if failures else 0
+
+
+def say(line: str) -> None:
+    """Print ``line`` on rank 0 of the world (its process group, else the
+    ``RANK`` a launcher sets); a single process is rank 0."""
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_initialized() \
+        else int(os.environ.get("RANK", "0"))
+    if rank == 0:
+        print(line, flush=True)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ Two sources, numpy on the host as in the reference:
    by the tests, the examples and the training launcher;
  * MemmapCorpus: packed uint16/uint32 token files (``np.memmap``).
 
-:func:`make_iterator` turns their batches into tensors on one device.
-Placing a batch across a mesh (the reference's ``device_put_batch``)
-waits for the port's mesh (ROADMAP queue 1 item 7b).
+:func:`make_iterator` turns their batches into tensors on one device,
+or with a mesh into DTensors laid out by the batch specs
+(:func:`device_put_batch`, each rank placing its own shard alone).
 """
 
 from __future__ import annotations
@@ -90,11 +90,42 @@ def to_device(cfg: ModelConfig, batch: dict, device) -> dict:
     return out
 
 
+def device_put_batch(batch: dict, mesh, batch_specs: dict) -> dict:
+    """Place a host batch on ``mesh``: each array a DTensor laid out by its
+    spec in ``batch_specs`` (replicated when it has none). A rank copies
+    only its own shard to its device."""
+    from repro_torch.utils.sharding import P, from_shard, placements_for
+    dev = torch.device(mesh.device_type)
+    coords = mesh.get_coordinate()
+    out = {}
+    for k, v in batch.items():
+        full = v if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(v))
+        pl = placements_for(mesh, batch_specs.get(k, P()))
+        lo, hi = [0] * full.ndim, list(full.shape)
+        for m, p in enumerate(pl):     # mesh-dim order: major to minor
+            if p.is_shard():
+                step = (hi[p.dim] - lo[p.dim]) // mesh.shape[m]
+                lo[p.dim] += coords[m] * step
+                hi[p.dim] = lo[p.dim] + step
+        shard = full[tuple(slice(a, b) for a, b in zip(lo, hi))]
+        out[k] = from_shard(shard.contiguous().to(dev), mesh, pl,
+                            tuple(full.shape))
+    return out
+
+
 def make_iterator(cfg: ModelConfig, shape: ShapeSpec, source=None, seed=0,
-                  device="cuda"):
-    """Yields training batches on ``device`` forever, from data step 0."""
+                  device="cuda", mesh=None, batch_specs: dict | None = None):
+    """Yields training batches forever, from data step 0: on ``device``,
+    or with a ``mesh`` and ``batch_specs`` placed on the mesh
+    (:func:`device_put_batch`)."""
     src = source or SyntheticLM(cfg.vocab_size, shape.seq_len, seed)
     step = 0
     while True:
-        yield to_device(cfg, host_batch(cfg, shape, src, step), device)
+        b = host_batch(cfg, shape, src, step)
+        if mesh is not None and batch_specs is not None:
+            yield device_put_batch(to_device(cfg, b, "cpu"), mesh,
+                                   batch_specs)
+        else:
+            yield to_device(cfg, b, device)
         step += 1

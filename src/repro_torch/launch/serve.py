@@ -11,6 +11,11 @@ when asked with ``--device cpu``:
       --batch 4 --prompt-len 64 --gen 32 [--pipeline 2] [--plan-db P]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --smoke --device cpu
+
+Tensor-parallel serving over N cards, one rank a card (rank 0 prints):
+
+  PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.serve \\
+      --arch yi-9b --mesh data,model=1,N
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ def generate(cfg, params, prompt_tokens, gen_len: int, *,
              chunk: int | None = None, machine: str | None = None,
              replicas: int = 1, engine_out: list | None = None,
              fault_tolerant: bool = False, pipeline: bool | int = 0,
-             device="cuda") -> torch.Tensor:
+             device="cuda", mesh=None) -> torch.Tensor:
     """Greedy or sampled batched generation; ``prompt_tokens`` (B, S).
 
     One slot a prompt, the whole batch admitted at once (one batched
@@ -69,8 +74,9 @@ def generate(cfg, params, prompt_tokens, gen_len: int, *,
     round-robin ``ReplicaRouter``, and ``fault_tolerant=True`` takes the
     ``FaultTolerantRouter`` (the same results on a healthy fleet).
     ``pipeline`` sets the engines' in-flight decode rounds (the streams
-    are the serial ones). A list passed as ``engine_out`` receives the
-    engines.
+    are the serial ones). ``mesh`` shards every engine over it (every
+    rank of the mesh makes the same call). A list passed as
+    ``engine_out`` receives the engines.
     """
     b, s = prompt_tokens.shape
     if chunk is None and gen_len > 1:
@@ -83,7 +89,7 @@ def generate(cfg, params, prompt_tokens, gen_len: int, *,
                            max_len=s + gen_len,
                            chunk=min(chunk or 1, max(1, gen_len - 1)),
                            temperature=temperature, seed=seed,
-                           pipeline=pipeline, device=device)
+                           pipeline=pipeline, device=device, mesh=mesh)
                for _ in range(replicas)]
     prompts = prompt_tokens.tolist()
     reqs = [Request(rid=str(i), prompt=tuple(int(t) for t in prompts[i]),
@@ -113,8 +119,9 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="device mesh spec; not ported yet (ROADMAP queue "
-                         "1 item 7): a non-empty value is refused")
+                    help="device mesh spec 'data,model=1,N' over the "
+                         "world's ranks (torchrun --nproc-per-node N; "
+                         "default: single-device, no mesh)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="engine replicas behind the round-robin router "
                          "(default 1: no router)")
@@ -133,32 +140,59 @@ def main(argv=None) -> int:
                     help="device to serve on (default: cuda; the host "
                          "only when asked with --device cpu)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        print(f"repro_torch.launch.serve: --mesh {args.mesh!r}: meshes are "
-              f"not ported yet (ROADMAP queue 1 item 7)", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.serve: no CUDA device; pass --device cpu "
               "to serve on the host", file=sys.stderr)
         return 2
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh, rank_device
+    started = not dist.is_initialized()
+    try:
+        mesh = make_serve_mesh(args.mesh, device_type=device.type)
+    except (ValueError, RuntimeError) as e:     # a bad spec, too few ranks
+        print(f"repro_torch.launch.serve: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _serve(args, device if mesh is None
+                      else rank_device(device.type), mesh)
+    finally:
+        if mesh is not None and started:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, mesh) -> int:
+    """``main`` after the device and the mesh are settled; with a mesh
+    every rank serves and rank 0 alone prints."""
+    lead = mesh is None or mesh.get_rank() == 0
+
+    def say(*a):
+        if lead:
+            print(*a)
 
     for k, v in sorted(apply_runtime_policy().items()):
-        print(f"runtime policy: {k}: {v}")
+        say(f"runtime policy: {k}: {v}")
     from repro_torch.serve import plandb
     from repro_torch.serve.planner import plan_stats, reset_plan_stats
     if args.plan_db:
         db = plandb.PlanDB.load(args.plan_db)
         plandb.install(db)
-        print(f"plan db: {args.plan_db} ({len(db.chunks)} chunk plans, "
+        say(f"plan db: {args.plan_db} ({len(db.chunks)} chunk plans, "
               f"{len(db.tiles)} tile plans)")
     reset_plan_stats()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     # params and prompts from independent generators: one stream for both
     # would correlate the prompt ids with the embedding init
+    place = None
+    if mesh is not None:
+        # each rank keeps its shard of a leaf as it is made: the full
+        # weights are never held at once
+        from repro_torch.utils import sharding as shd
+        place = shd.placer(mesh, M.param_pspecs(
+            cfg, shd.SERVE_ENGINE_RULES, shd.mesh_axis_sizes(mesh)))
     params = M.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
-        device=device)
+        device=device, place=place)
     prompts = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed + 1))
@@ -168,23 +202,24 @@ def main(argv=None) -> int:
                     temperature=args.temperature, seed=args.seed,
                     chunk=args.chunk or None, replicas=args.replicas,
                     engine_out=eng_out, fault_tolerant=args.fault_tolerant,
-                    pipeline=args.pipeline, device=device)
+                    pipeline=args.pipeline, device=device, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     eng = eng_out[0]
     st = eng.stats()
     repl = f" x{len(eng_out)} replicas" if len(eng_out) > 1 else ""
+    repl += f" tp={eng.tp}" if mesh is not None else ""
     pipe = f" pipeline={eng.pipeline}" if eng.pipeline else ""
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "host"
-    print(f"generated {tuple(toks.shape)} on {where} in {dt:.2f}s "
+    say(f"generated {tuple(toks.shape)} on {where} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s): "
           f"{eng.decode_dispatches} decode dispatches (chunk={eng.chunk}) + "
           f"{eng.prefill_dispatches} prefill{repl}{pipe} | mean dispatch "
           f"gap {1e3 * st['mean_dispatch_gap_s']:.2f}ms")
-    print(f"plan stats: {plan_stats()}")
-    print("sample:", toks[0, :16].tolist())
+    say(f"plan stats: {plan_stats()}")
+    say("sample:", toks[0, :16].tolist())
     return 0
 
 

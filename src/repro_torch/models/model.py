@@ -14,6 +14,19 @@ attention (``wq (d,H,Dh)``, ``wk``/``wv (d,Hkv,Dh)``, ``wo (H,Dh,d)``
 of shape (L, B, S, Hkv, Dh) in the parameter dtype, recurrent state
 (Mamba ``{h, conv}``, mLSTM ``{c, n, m}``, sLSTM ``{c, n, h, m}``) in
 fp32. The JAX layer scan becomes a loop over the stacked leaves.
+
+Under a mesh (``utils.sharding.use_mesh_rules``, installed by the serve
+engines) the parameters and the cache are DTensors laid out by
+:func:`param_pspecs` and :func:`cache_pspecs`, and DTensor's sharding
+propagation plays GSPMD's part: it all-reduces after the attention
+out-projection and the FFN down-projection and makes the vocab-sharded
+embedding a masked lookup; the vocab-sharded logits are gathered whole
+on every rank before sampling (``sharding.replicated``). :func:`sc`
+constrains the layouts at the reference's points. Attention runs on each rank's local head shard through
+``local_map`` (:func:`_on_local_heads`), the counterpart of a Pallas
+kernel launched per shard: the decode kernels write and read the rank's
+cache shard in place. With no mesh installed no DTensor appears and the
+ops are the unsharded path's.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
@@ -34,6 +50,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.utils import sharding as shd
+from repro_torch.utils.sharding import sc, spec_for
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: init kinds whose leaves are fp32 whatever the parameter dtype
@@ -225,6 +243,24 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def _pspecs(cfg: ModelConfig, defs: dict, rules: dict,
+            mesh_sizes: dict) -> dict:
+    """Spec tree of a ParamDef tree, ``scan`` leaves led by ``stack``."""
+    n_rep = cfg.scan_split()[0]
+    out: dict = {"tail": {}}
+    for path, d in _walk(defs):
+        stacked = path[0] == "scan"
+        shape = ((n_rep,) + d.shape) if stacked else d.shape
+        axes = (("stack",) + d.axes) if stacked else d.axes
+        _set(out, path, spec_for(shape, axes, rules, mesh_sizes))
+    return out
+
+
+def param_pspecs(cfg: ModelConfig, rules: dict, mesh_sizes: dict) -> dict:
+    """Spec tree matching :func:`model_defs` under ``rules``."""
+    return _pspecs(cfg, model_defs(cfg), rules, mesh_sizes)
+
+
 def _init_std(d: ParamDef) -> float:
     """The JAX package's init scale (``model._init_one``)."""
     if d.init == "embed":
@@ -239,7 +275,7 @@ def _init_std(d: ParamDef) -> float:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
+                device="cuda", place=None) -> dict:
     """Materialize parameters with the JAX package's init rule.
 
     Normal leaves are N(0, std^2) with std from the fan-in (0.02 for the
@@ -249,7 +285,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     come from ``generator`` (which must live on ``device``), leaf by leaf
     in sorted tree order and layer by layer, so a seed fixes the weights;
     they are not the JAX package's numbers (use ``bridge.params_from_jax``
-    for those).
+    for those). ``place(path, leaf)``, when given, replaces each leaf as
+    it is made (a rank keeping its shard, ``utils.sharding.distribute_leaf``),
+    so the whole tree is never held at once.
     """
     dtype = DTYPES[cfg.param_dtype]
     out: dict = {"tail": {}}
@@ -271,7 +309,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             for sl in (leaf if stack else (leaf,)):
                 sl.copy_(torch.randn(sl.shape, generator=generator,
                                      device=device) * std)
-        _set(out, path, leaf)
+        _set(out, path, leaf if place is None else place(path, leaf))
     return out
 
 
@@ -353,13 +391,35 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
     return out
 
 
+def cache_pspecs(cfg: ModelConfig, rules: dict, mesh_sizes: dict,
+                 batch: int, seq: int) -> dict:
+    """Spec tree matching :func:`cache_defs` under ``rules``."""
+    return _pspecs(cfg, cache_defs(cfg, batch, seq), rules, mesh_sizes)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
-               device="cuda") -> dict:
-    """Zero-filled decode cache matching :func:`cache_shapes`."""
+               device="cuda", mesh=None, specs: dict | None = None) -> dict:
+    """Zero-filled decode cache matching :func:`cache_shapes`; with a
+    ``mesh``, DTensors laid out by ``specs`` (:func:`cache_pspecs`), each
+    rank allocating its shard alone."""
     out: dict = {"tail": {}}
     for path, (shape, dtype) in _walk(cache_shapes(cfg, batch, seq)):
-        _set(out, path, torch.zeros(shape, dtype=dtype, device=device))
+        _set(out, path, torch.zeros(shape, dtype=dtype, device=device)
+             if mesh is None else
+             shd.zeros(shape, dtype, mesh, shd.spec_at(specs, path), device))
     return out
+
+
+def check_meshable(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` runs under a mesh: the attention family with
+    dense FFNs. Recurrent mixers and MoE blocks under a mesh wait for
+    ROADMAP queue 1 item 7c."""
+    kinds = {part for blk in cfg.layer_plan() for part in blk.split(":")}
+    other = sorted(kinds - {"attn", "attn_local", "dense", "none"})
+    if other or not cfg.embed_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(other) or 'embedding inputs'} under a "
+            "mesh is not ported (ROADMAP queue 1 item 7c)")
 
 
 # ---------------------------------------------------------------------------
@@ -401,28 +461,97 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, *, local: bool, mode: str,
         # exist and be exclusively held (copy on write done), so the
         # in-place write never reaches a shared page. Attention reads the
         # whole cache bounded by kv_len (no slice, no copy).
-        y = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
-                                      window=window, impl=impl,
-                                      kv_len=kv_len,
-                                      block_tables=block_tables, k_new=k,
-                                      v_new=v, store_flavor=store_flavor)
+        y = _decode_on_local_heads(q, cache["k"], cache["v"], pos, k, v,
+                                   block_tables, window=window, impl=impl,
+                                   kv_len=kv_len, store_flavor=store_flavor)
+        # the cache keeps its layout: page pools pool-resident with heads
+        # on TP, slot caches on the slot-cache layout (no-ops unmeshed)
+        axes = (None, None, "kvheads", None) if block_tables is not None \
+            else ("batch", "kv_seq", "kvheads", None)
+        for name in ("k", "v"):
+            if sc(cache[name], *axes) is not cache[name]:
+                raise RuntimeError(f"decode cache {name!r} is off its "
+                                   "layout: the in-place write would not "
+                                   "land in it")
         new_cache = cache
     else:
-        y = attn_lib.chunked_causal_attention(
-            q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-            window=window)
+        y = _on_local_heads(
+            lambda q, k, v: attn_lib.chunked_causal_attention(
+                q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                window=window), q, k, v)
         if mode == "prefill":
             dtype = DTYPES[cfg.param_dtype]
             kd, vd = k.to(dtype), v.to(dtype)
             if cache_len is not None and cache_len > s:
-                kd = stores_lib.pad_to_horizon(kd, cache_len,
-                                               flavor=store_flavor)
-                vd = stores_lib.pad_to_horizon(vd, cache_len,
-                                               flavor=store_flavor)
-            new_cache = {"k": kd, "v": vd}
+                kd, vd = (_on_local_heads(
+                    lambda t: stores_lib.pad_to_horizon(
+                        t, cache_len, flavor=store_flavor), t)
+                    for t in (kd, vd))
+            new_cache = {"k": sc(kd, "batch", "kv_seq", "kvheads", None),
+                         "v": sc(vd, "batch", "kv_seq", "kvheads", None)}
     h, dh, d = p["wo"].shape
     out = y.reshape(b, s, h * dh) @ p["wo"].reshape(h * dh, d)
     return out, new_cache
+
+
+def _on_local_heads(fn, q, *rest):
+    """``fn(q, *rest)`` on each rank's local shards when ``q`` is a
+    DTensor (``local_map``; ``rest`` are put on ``q``'s placements, the
+    result comes back on them), else on the tensors themselves. Attention
+    over a head shard needs nothing of the others."""
+    if not shd.is_dtensor(q):
+        return fn(q, *rest)
+    pl = tuple(q.placements)
+    rest = tuple(t.redistribute(q.device_mesh, pl) for t in rest)
+    return local_map(fn, out_placements=list(pl),
+                     in_placements=(pl,) * (1 + len(rest)),
+                     device_mesh=q.device_mesh)(q, *rest)
+
+
+def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
+    """``attention.decode_attention`` writing the step's rows ``k``/``v``
+    into the cache ``kc``/``vc`` and attending, on each rank's shards.
+
+    Under a mesh the cache is a DTensor whose shards the kernel writes in
+    place, so it crosses the ``local_map`` boundary on its own placements
+    (a redistribute would copy it). The KV heads may be sharded, and a
+    slot cache's slots; the rows may not (the kernels tile the sequence
+    themselves). q and the new rows are put on the cache's placements
+    (q's heads follow their KV groups), ``pos`` and the block tables on
+    its slot sharding; the output comes back heads-sharded. The plain
+    version on the host crosses the same boundary as the kernel on the
+    card.
+    """
+    def run(q, kc, vc, pos, k, v, bt):
+        return attn_lib.decode_attention(q, kc, vc, pos, k_new=k, v_new=v,
+                                         block_tables=bt, **kw)
+    if not shd.is_dtensor(kc):
+        return run(q, kc, vc, pos, k, v, block_tables)
+    mesh, pl = kc.device_mesh, tuple(kc.placements)
+    ok_dims = (2,) if block_tables is not None else (0, 2)
+    if tuple(vc.placements) != pl or any(
+            p.is_shard() and p.dim not in ok_dims for p in pl):
+        raise ValueError(f"decode under a mesh shards the KV cache on "
+                         f"heads (and a slot cache on slots), got "
+                         f"{pl} / {tuple(vc.placements)}")
+    rows = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in pl)
+
+    def on(t, placements):
+        if not shd.is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements)
+    q, k, v = (on(t, pl) for t in (q, k, v))
+    pos = on(pos, rows)
+    args = (q, kc, vc, pos, k, v)
+    in_pl = (pl, pl, pl, rows, pl, pl)
+    if block_tables is not None:
+        args, in_pl = args + (on(block_tables, rows),), in_pl + (rows,)
+    else:
+        args, in_pl = args + (None,), in_pl + (None,)
+    return local_map(run, out_placements=list(pl), in_placements=in_pl,
+                     device_mesh=mesh)(*args)
 
 
 def _write_state(cache: dict, new: dict) -> dict:
@@ -475,6 +604,7 @@ def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                           kv_len=kv_len, store_flavor=store_flavor,
                           block_tables=block_tables)
     x = x + y
+    x = sc(x, "act_batch", None, "act_embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
         hx = L.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -487,6 +617,7 @@ def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 capacity_factor=cfg.capacity_factor,
                 group_size=cfg.moe_group_size, act=cfg.ffn_act)
         x = x + y
+        x = sc(x, "act_batch", None, "act_embed")
     return x, aux, new_cache
 
 
@@ -570,13 +701,23 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
               kv_len=kv_len, store_flavor=store_flavor,
               block_tables=block_tables)
     if mode == "train":
+        if shd.current_mesh() is not None:
+            raise NotImplementedError(
+                "training under a mesh is not ported (ROADMAP queue 1 "
+                "item 7c)")
         logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
         return logits, aux
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (expected 'train', "
                          "'prefill' or 'decode')")
     with torch.no_grad():
-        return _forward(cfg, params, batch, mode=mode, **kw)
+        if shd.current_mesh() is None:
+            return _forward(cfg, params, batch, mode=mode, **kw)
+        check_meshable(cfg)
+        # host-made tensors (tokens, positions, rope tables) count as
+        # replicated beside the DTensors
+        with implicit_replication():
+            return _forward(cfg, params, batch, mode=mode, **kw)
 
 
 def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
@@ -586,7 +727,10 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     if cfg.embed_inputs:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = params["tok_embed"][tokens].to(dtype)
+        emb = params["tok_embed"]
+        # a vocab-sharded table is a masked lookup and a sum over shards
+        x = (F.embedding(tokens, emb) if shd.is_dtensor(emb)
+             else emb[tokens]).to(dtype)
     else:
         x = batch["embeds"].to(dtype)
         b, s, _ = x.shape
@@ -612,6 +756,7 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
             positions if positions.ndim == 2 else positions[0], cfg.d_model)
         x = x + pe.to(x.dtype)
 
+    x = sc(x, "act_batch", None, "act_embed")
     plan = cfg.layer_plan()
     n_rep, unit, n_tail = cfg.scan_split()
     kw = dict(mode=mode, rope=rope, pos=pos, cache_len=cache_len, impl=impl,
@@ -661,4 +806,6 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
+    # vocab-sharded under a mesh, then gathered whole for the sampler
+    logits = shd.replicated(sc(logits, "act_batch", None, "vocab"))
     return logits, aux_total, new_cache

@@ -179,7 +179,7 @@ class ChunkGraphs:
 
     def __init__(self, body, cfg: ModelConfig, params: dict, cache: dict,
                  *, batch: int, n_tokens: int, sampled: bool, device,
-                 table_cols: int | None = None, share=None):
+                 table_cols: int | None = None, share=None, tp: int = 1):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {dev}")
@@ -196,9 +196,10 @@ class ChunkGraphs:
                                 dtype=torch.float32, device=dev) \
             if sampled else None
         # the decode launches' split counters, made here, outside every
-        # graph: their number depends on the batch and heads, not kv_len
-        split_counters(dev, counters_needed(batch, 1, cfg.n_heads,
-                                            cfg.n_kv_heads))
+        # graph: their number depends on the batch and heads (a rank's
+        # local heads under ``tp``), not kv_len
+        split_counters(dev, counters_needed(batch, 1, cfg.n_heads // tp,
+                                            cfg.n_kv_heads // tp))
         self.graphs: dict = {}     # kv_len -> (graph, outputs, launches)
         if share is None:
             self.pool = torch.cuda.graph_pool_handle()

@@ -92,13 +92,30 @@ Prompts are staged ahead of admission (``serve.staging.PromptStager``:
 :meth:`~ServeEngine.stage`, the router's ``submit``, :meth:`run`'s
 look-ahead), and :meth:`~ServeEngine.snapshot` hands the params to a
 ``checkpoint.Checkpointer`` whose device-to-host copy runs on a side
-stream, behind nothing the decode rounds enqueue. Meshes wait for ROADMAP
-queue 1 item 7.
+stream, behind nothing the decode rounds enqueue.
+
+Under a mesh (``mesh=``, a ``DeviceMesh`` from ``launch/mesh.py``; every
+rank of it runs the same engine calls) the params are distributed by
+``M.param_pspecs`` and the cache built shard by shard by
+``M.cache_pspecs`` (``pages.paged_cache_pspecs``) under
+``SERVE_ENGINE_RULES`` (KV heads on ``"model"``, slots on ``"data"``,
+rows resident), and the steps run with the mesh and rules
+installed (``utils.sharding.use_mesh_rules``): DTensor's propagation
+places the collectives and the decode kernels run on each rank's local
+head shard (``models.model``). The logits come back whole on every rank
+and every rank samples from generators seeded alike, so all ranks pick
+the same tokens and their caches stay one cache. A sharded engine stages
+no prompts; recurrent and MoE configs, pipelined dispatch, snapshots and
+a paged cache with slots over the data axis raise ``NotImplementedError``
+under a mesh (ROADMAP queue 1 item 7c). A chunk on the card is one CUDA
+graph over NCCL; a gloo group cannot be captured, so a gloo mesh on the
+card needs ``cuda_graphs=False``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import zlib
 from collections import deque
@@ -107,6 +124,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention.ops import validate_tp_heads
 from repro_torch.models import model as M
 from repro_torch.serve import pages as pages_lib
 from repro_torch.serve.decode import (ChunkGraphs, draw_noise,
@@ -115,6 +133,7 @@ from repro_torch.serve.planner import plan_chunk_size
 from repro_torch.serve.slots import assign, insert
 from repro_torch.serve.staging import PromptStager
 from repro_torch.train import serve as serve_lib
+from repro_torch.utils import sharding as shd
 
 #: rows of a ``kv_len`` bucket: the dense kernel's block, 16 buckets (16
 #: graphs) to a 2048-row horizon
@@ -209,7 +228,9 @@ class ServeEngine:
     :meth:`capture_graphs`) unless ``cuda_graphs=False``. ``pipeline``
     bounds the decode rounds in flight (``True`` is 2; 0 dispatches
     serially, the default), ``stage_depth`` the prompts staged ahead of
-    admission.
+    admission. ``mesh`` shards the engine over a ``DeviceMesh`` under
+    ``SERVE_ENGINE_RULES`` (``tp`` is read off the mesh through them);
+    ``mesh=None`` is the single-device path.
 
     Subclass hooks (:class:`PagedServeEngine` overrides all six):
     ``_make_plan`` prices the chunk, ``_build_state`` allocates the cache
@@ -227,7 +248,7 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  machine: str | None = None, device="cuda",
                  cuda_graphs: bool = True, pipeline: bool | int = 0,
-                 stage_depth: int = 8):
+                 stage_depth: int = 8, mesh=None):
         if not cfg.embed_inputs:
             raise ValueError("serve engine needs a token-id model")
         self.device = torch.device(device)
@@ -235,6 +256,16 @@ class ServeEngine:
             raise ValueError(f"params live on {params['final_norm'].device},"
                              f" the engine on {self.device}")
         self.cfg, self.params = cfg, params
+        self.mesh = mesh
+        self.rules = shd.SERVE_ENGINE_RULES if mesh is not None else None
+        self._mesh_sizes = shd.mesh_axis_sizes(mesh) if mesh is not None \
+            else {}
+        self.tp = shd.tp_degree(self._mesh_sizes, self.rules)
+        if mesh is not None:
+            self._check_mesh(cuda_graphs, pipeline, max_slots)
+            self.params = shd.distribute(
+                params, mesh, M.param_pspecs(cfg, self.rules,
+                                             self._mesh_sizes))
         self.max_slots, self.max_len = max_slots, max_len
         self.temperature = float(temperature)
         self.seed = int(seed)
@@ -289,19 +320,67 @@ class ServeEngine:
         self.prefill_s = 0.0
         self.decode_s = 0.0
 
+    # -- mesh ---------------------------------------------------------------
+    def _check_mesh(self, cuda_graphs: bool, pipeline, max_slots: int):
+        """Refuse what does not run under a mesh, before anything is
+        placed: heads that do not divide the TP degree (``ValueError``),
+        what waits for ROADMAP queue 1 item 7c (``NotImplementedError``),
+        and CUDA graphs over a gloo group (``ValueError``)."""
+        import torch.distributed as dist
+        cfg, mesh = self.cfg, self.mesh
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, the engine on "
+                             f"{self.device}")
+        M.check_meshable(cfg)
+        validate_tp_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff,
+                          self.tp, page_size=getattr(self, "page_size", None))
+        if pipeline:
+            raise NotImplementedError(
+                "pipelined dispatch under a mesh is not ported (ROADMAP "
+                "queue 1 item 7c)")
+        slots = shd.spec_for((max_slots,), ("batch",), self.rules,
+                             self._mesh_sizes)[0]
+        if self.paged and slots is not None and math.prod(
+                self._mesh_sizes[a] for a in
+                (slots if isinstance(slots, tuple) else (slots,))) > 1:
+            raise NotImplementedError(
+                "a paged cache with slots over the data axis is not "
+                "ported (ROADMAP queue 1 item 7c)")
+        gloo = any(dist.get_backend(mesh.get_group(i)) == "gloo"
+                   for i in range(mesh.ndim))
+        if self.device.type == "cuda" and cuda_graphs and gloo:
+            raise ValueError("a gloo group cannot be captured in a CUDA "
+                             "graph: pass cuda_graphs=False")
+
+    def _meshed(self, fn):
+        """``fn`` run with the engine's mesh and rules installed (``fn``
+        itself when there is no mesh)."""
+        if self.mesh is None:
+            return fn
+        mesh, rules = self.mesh, self.rules
+
+        def wrapped(*a, **kw):
+            with shd.use_mesh_rules(mesh, rules):
+                return fn(*a, **kw)
+        return wrapped
+
     # -- layout hooks -------------------------------------------------------
     def _make_plan(self, machine):
         """Analytic chunk plan for this cache layout: the split-KV decode
         kernels read at most ``max_len`` rows a slot."""
         return plan_chunk_size(self.cfg, self.max_slots, self.max_len,
-                               machine=machine, occupancy=self.max_len)
+                               machine=machine, occupancy=self.max_len,
+                               mesh=self.mesh)
 
     def _build_state(self) -> None:
         """Allocate the cache and build the prefill step."""
+        specs = None if self.mesh is None else M.cache_pspecs(
+            self.cfg, self.rules, self._mesh_sizes, self.max_slots,
+            self.max_len)
         self.cache = M.init_cache(self.cfg, self.max_slots, self.max_len,
-                                  self.device)
-        self._prefill = serve_lib.make_prefill_step(self.cfg,
-                                                    cache_len=self.max_len)
+                                  self.device, mesh=self.mesh, specs=specs)
+        self._prefill = self._meshed(serve_lib.make_prefill_step(
+            self.cfg, cache_len=self.max_len))
 
     def _insert_prefilled(self, slot: int, one: dict, prompt: tuple) -> None:
         """Land one prefilled (batch-1) request cache in ``slot``."""
@@ -335,13 +414,15 @@ class ServeEngine:
         """
         chunk = max(1, int(chunk))
         if chunk not in self._chunks:
-            body = make_chunk_body(self.cfg, chunk, self.temperature)
+            body = self._meshed(make_chunk_body(self.cfg, chunk,
+                                                self.temperature))
             graphs = None
             if self._cuda_graphs:
                 graphs = ChunkGraphs(
                     body, self.cfg, self.params, self.cache,
                     batch=self.max_slots, n_tokens=chunk,
                     sampled=self.temperature > 0, device=self.device,
+                    tp=self.tp,
                     table_cols=self.pages_per_slot if self.paged else None,
                     share=next((g for _, g in self._chunks.values()), None))
             self._chunks[chunk] = (body, graphs)
@@ -409,8 +490,12 @@ class ServeEngine:
         Called ahead of admission (``run``'s look-ahead, the router's
         ``submit``, a rescue replay), so that :meth:`admit` finds the
         prompt on the device. The prefill reads the same bits either way.
-        Returns True iff a new copy was issued.
+        Returns True iff a new copy was issued; a sharded engine declines
+        (its prefill takes the prompt from the host), as the reference's
+        does.
         """
+        if self.mesh is not None:
+            return False
         return self.stager.stage(req.rid, tuple(int(t) for t in req.prompt))
 
     def admit(self, req: Request, slot: int | None = None) -> int:
@@ -432,7 +517,8 @@ class ServeEngine:
         self._check_request(req, s)
         t0 = time.perf_counter()
         prompt = tuple(int(t) for t in req.prompt)
-        tokens = self.stager.take(req.rid, prompt)
+        tokens = self.stager.take(req.rid, prompt) if self.mesh is None \
+            else torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, one = self._prefill(self.params, {"tokens": tokens})
         self.prefill_dispatches += 1
         gen = self._generator(req.rid) if self.temperature > 0 else None
@@ -740,8 +826,12 @@ class ServeEngine:
         the snapshot is skipped (returns False). On a CUDA engine the
         device-to-host copies run on the checkpointer's side stream and
         wait only for the params' own writes, never for the decode rounds
-        in flight.
+        in flight. A sharded engine refuses (ROADMAP queue 1 item 7c).
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "snapshots of a sharded engine are not ported (ROADMAP "
+                "queue 1 item 7c)")
         return checkpointer.save(step, {"params": self.params},
                                  skip_if_busy=True, after=self._params_ready)
 
@@ -857,20 +947,24 @@ class PagedServeEngine(ServeEngine):
     def _make_plan(self, machine):
         return plan_chunk_size(self.cfg, self.max_slots, self.max_len,
                                machine=machine, occupancy=self.max_len,
-                               page_size=self.page_size)
+                               page_size=self.page_size, mesh=self.mesh)
 
     def _build_state(self) -> None:
         ps = self.page_size
         self.pool = pages_lib.PagePool(self.n_pages, ps)
         self._scratch = self.n_pages          # physical index of scratch
-        self.cache = pages_lib.init_paged_cache(self.cfg, self.max_slots,
-                                                self.n_pages + 1, ps,
-                                                self.device)
+        specs = None if self.mesh is None else pages_lib.paged_cache_pspecs(
+            self.cfg, self.rules, self._mesh_sizes, self.max_slots,
+            self.n_pages + 1, ps)
+        self.cache = pages_lib.init_paged_cache(
+            self.cfg, self.max_slots, self.n_pages + 1, ps, self.device,
+            mesh=self.mesh, specs=specs)
         self.block_tables = np.full((self.max_slots, self.pages_per_slot),
                                     -1, np.int32)
         # prefill at exactly the prompt length: no horizon zero-fill;
         # fresh pages get real rows, recycled pages keep stale ones
-        self._prefill = serve_lib.make_prefill_step(self.cfg, cache_len=None)
+        self._prefill = self._meshed(serve_lib.make_prefill_step(
+            self.cfg, cache_len=None))
         self.gather_pages = 0                 # live pages read, summed
                                               # over dispatches
 

@@ -117,7 +117,7 @@ def collective_traffic(cfg: ModelConfig, batch: int, tp: int, *,
 
 
 def bounded_decode_plan(cfg: ModelConfig, batch: int, max_len: int,
-                        occupancy: int, machine) -> tuple:
+                        occupancy: int, machine, tp: int = 1) -> tuple:
     """(TilePlan, bounded rows) of the split-KV kernel at an occupancy.
 
     This is the single source of truth for what the kernel path
@@ -131,14 +131,17 @@ def bounded_decode_plan(cfg: ModelConfig, batch: int, max_len: int,
     ``decode.default_splits``; on ``h100`` the tuner's plan at yi-9b's
     and gemma3-4b's decode shapes has the same split count at every
     bucket from 512 rows up, but this bound rounds to the tuner's block,
-    which at some occupancies is 64 rows.
+    which at some occupancies is 64 rows. Under ``tp`` > 1 (KV heads on
+    TP) the kernel runs on a shard's local heads, ``Hkv / tp`` of them,
+    and is tuned there: on ``h100`` its grid of thread blocks shrinks by
+    ``tp``, so more splits fit in one wave.
     """
     from repro_torch.kernels import tuning
 
     occupancy = max(1, min(int(occupancy), max_len))
     plan = tuning.decode_tiles(
         get_machine(machine).name, skv=occupancy, dh=cfg.head_dim_eff,
-        h=cfg.n_heads, hkv=cfg.n_kv_heads, batch=batch,
+        h=cfg.n_heads // tp, hkv=cfg.n_kv_heads // tp, batch=batch,
         dtype=cfg.param_dtype)
     bound = min(math.ceil(occupancy / plan.bk) * plan.bk, max_len)
     return plan, bound

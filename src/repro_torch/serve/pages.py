@@ -26,10 +26,9 @@ page: it stays slot-batched, one row a slot, as in the dense cache.
 free list, prefix index), the JAX package's class line for line, so
 both pools hand out the same pages in the same order. The device steps
 (:func:`paged_insert`, :func:`page_copy`, :func:`slot_copy`) update the
-cache in place.
-
-Not ported yet: ``paged_cache_pspecs`` (sharding, ROADMAP queue 1
-item 7).
+cache in place; under a mesh (DTensor leaves, laid out by
+:func:`paged_cache_pspecs`: pools resident, heads on TP) each rank
+updates its own shards.
 """
 
 from __future__ import annotations
@@ -42,6 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.serve.slots import SLOT_AXIS
+from repro_torch.utils import sharding as shd
+from repro_torch.utils.sharding import local
 
 
 def pages_per_slot(max_len: int, page_size: int) -> int:
@@ -77,8 +78,11 @@ def paged_cache_shapes(cfg: ModelConfig, max_slots: int, n_pages: int,
 
 
 def init_paged_cache(cfg: ModelConfig, max_slots: int, n_pages: int,
-                     page_size: int, device="cuda") -> dict:
-    """Zero-filled paged cache matching :func:`paged_cache_shapes`.
+                     page_size: int, device="cuda", mesh=None,
+                     specs: dict | None = None) -> dict:
+    """Zero-filled paged cache matching :func:`paged_cache_shapes`; with a
+    ``mesh``, DTensors laid out by ``specs`` (:func:`paged_cache_pspecs`),
+    each rank allocating its shard alone.
 
     This is the pool's one-time zero store; recycled pages are never
     re-zeroed (:class:`PagePool` hands them out stale, admission
@@ -87,7 +91,33 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, n_pages: int,
     out: dict = {"tail": {}}
     for path, (shape, dtype) in M._walk(paged_cache_shapes(
             cfg, max_slots, n_pages, page_size)):
-        M._set(out, path, torch.zeros(shape, dtype=dtype, device=device))
+        M._set(out, path, torch.zeros(shape, dtype=dtype, device=device)
+               if mesh is None else
+               shd.zeros(shape, dtype, mesh, shd.spec_at(specs, path),
+                         device))
+    return out
+
+
+def paged_cache_pspecs(cfg: ModelConfig, rules: dict, mesh_sizes: dict,
+                       max_slots: int, n_pages: int,
+                       page_size: int) -> dict:
+    """Spec tree matching :func:`paged_cache_shapes`.
+
+    KV pool leaves ``(P, page, Hkv, Dh)`` keep the pool and page dims
+    resident (every shard must see every block-table entry; the gather
+    is the kernel's job) and put the TP split on ``kvheads``: the
+    ``batch``/``kv_seq`` rules are masked out so the dense cache rules
+    can never claim the pool dims. Recurrent leaves keep their dense
+    slot-batched specs.
+    """
+    pool_rules = dict(rules, batch=(), kv_seq=())
+    out: dict = {"tail": {}}
+    for (path, flag), (_, kv), (_, slot) in zip(
+            M._walk(kv_leaf_flags(cfg)),
+            M._walk(M.cache_pspecs(cfg, pool_rules, mesh_sizes, n_pages,
+                                   page_size)),
+            M._walk(M.cache_pspecs(cfg, rules, mesh_sizes, max_slots, 1))):
+        M._set(out, path, kv if flag else slot)
     return out
 
 
@@ -311,11 +341,13 @@ class PagePool:
 # ---------------------------------------------------------------------------
 
 def _leaves(cache: dict, other: dict, flags: dict):
-    """(axis, leaf, the same leaf of ``other``, is KV) over the cache."""
+    """(axis, leaf, the same leaf of ``other``, is KV) over the cache; a
+    DTensor leaf as this rank's shard (a pool leaf shards heads alone, so
+    page and slot indices are the same on every rank)."""
     for part, axis in SLOT_AXIS.items():
         if part in cache:
             for (_, big), (_, small), (_, kv) in zip(
-                    M._walk(cache[part]), M._walk(other[part]),
+                    M._walk(local(cache[part])), M._walk(local(other[part])),
                     M._walk(flags[part])):
                 yield axis, big, small, kv
 

@@ -225,7 +225,7 @@ def _kernel_adjusted(cfg: ModelConfig, batch: int, max_len: int,
                         max_len)
         else:
             _, bound = bounded_decode_plan(cfg, batch, max_len, occupancy,
-                                           name)
+                                           name, tp=tp)
         dense_kv = kv_read_seconds(cfg, batch, max_len, name,
                                    max_len=max_len)
         split_kv = kv_read_seconds(cfg, batch, bound, name,
@@ -246,7 +246,7 @@ def plan_chunk_size(cfg: ModelConfig, batch: int, max_len: int, *,
                     backend: str = "tp_bound",
                     store_flavor: str = "auto",
                     page_size: int | None = None,
-                    tp: int | None = None) -> ChunkPlan:
+                    tp: int | None = None, mesh=None) -> ChunkPlan:
     """Pick the decode chunk size from the port model's per-step cost.
 
     chunk = ceil(dispatch_overhead / (overhead_frac * t_step)) clamped to
@@ -280,27 +280,34 @@ def plan_chunk_size(cfg: ModelConfig, batch: int, max_len: int, *,
     bound then rounds to the page grid (the paged kernel's KV block is
     pinned to the page) instead of the machine's autotuned dense block.
 
-    ``tp`` > 1 prices a tensor-parallel plan as the JAX planner prices
-    one without a mesh: the serve layout of a ``(data=1, model=tp)``
-    mesh, the KV stream divided per shard and the per-step activation
-    all-reduce (``kv_traffic.collective_traffic``) added per machine.
-    Meshes themselves wait for ROADMAP queue 1 item 7.
+    ``mesh`` switches the plan to sharded pricing: the TP degree is read
+    off the mesh through ``SERVE_ENGINE_RULES``' ``kvheads`` axes
+    (``sharding.tp_degree``), the KV
+    stream is divided per shard, the decode kernels' tiles are priced on
+    a shard's local heads, and the per-step activation all-reduce
+    (``kv_traffic.collective_traffic``) is added per machine. ``tp`` > 1
+    without a mesh stands in for the serve layout of a ``(data=1,
+    model=tp)`` mesh, under the very memo and plan-database key such a
+    mesh gives.
     """
     from repro_torch.core.backends import get_backend
     from repro_torch.kernels.tuning import default_machine
     from repro_torch.utils.sharding import (SERVE_ENGINE_RULES,
+                                            mesh_axis_sizes,
                                             rules_fingerprint, tp_degree)
     backend = get_backend(backend).name     # canonical (aliases fold)
     if machine is None:
         machine = default_machine()
-    rules = None
-    if tp is not None and int(tp) > 1:
+    rules = SERVE_ENGINE_RULES
+    if mesh is not None:
+        mesh_sizes = mesh_axis_sizes(mesh)
+        tp = tp_degree(mesh_sizes, rules)
+    elif tp is not None and int(tp) > 1:
         # meshless sharded pricing: stand in for a (1, tp) serve mesh
         mesh_sizes = {"data": 1, "model": int(tp)}
-        rules = SERVE_ENGINE_RULES
         tp = tp_degree(mesh_sizes, rules)
     else:
-        mesh_sizes, tp = {}, 1
+        mesh_sizes, tp, rules = {}, 1, None
     cache_key = None
     if trace is None:
         cache_key = (cfg, batch, max_len, machine, dispatch_overhead_s,

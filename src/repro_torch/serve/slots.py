@@ -9,6 +9,8 @@ place, so the slot cache is never reallocated as the batch changes.
 
 from __future__ import annotations
 
+from repro_torch.utils.sharding import is_dtensor, shard_owner
+
 #: slot (batch) axis of cache leaves per top-level cache part
 SLOT_AXIS = {"scan": 1, "tail": 0}
 
@@ -21,17 +23,46 @@ def _pairs(big, small):
         yield big, small
 
 
+def _shards(big, small, axis: int):
+    """Under a mesh, this rank's shards of a cache leaf and of the leaf
+    landing in it, which must agree on every dim but the slot axis (the
+    prefill makes its cache on the engine's layout)."""
+    from torch.distributed.tensor import Replicate
+    norm = [Replicate() if p.is_shard() and p.dim == axis else p
+            for p in big.placements]
+    if [Replicate() if p.is_shard() and p.dim == axis else p
+            for p in small.placements] != norm:
+        raise ValueError(f"cache leaf on {big.placements}, the prefill's "
+                         f"on {small.placements}")
+    return big.to_local(), small.to_local()
+
+
 def insert(cache: dict, one: dict, slot: int) -> None:
-    """Copy a batch-1 cache ``one`` (same horizon) into slot ``slot``."""
+    """Copy a batch-1 cache ``one`` (same horizon) into slot ``slot``.
+
+    Under a mesh (DTensor leaves) each rank writes its own shard in
+    place, and only the ranks whose shard holds the slot write."""
     for part, axis in SLOT_AXIS.items():
         if part in cache:
             for big, small in _pairs(cache[part], one[part]):
-                big.narrow(axis, slot, 1).copy_(small)
+                at = slot
+                if is_dtensor(big):
+                    at = shard_owner(big.device_mesh, big.placements, axis,
+                                     big.shape[axis], slot)
+                    if at is None:
+                        continue
+                    big, small = _shards(big, small, axis)
+                big.narrow(axis, at, 1).copy_(small)
 
 
 def assign(cache: dict, new: dict) -> None:
     """Copy a whole cache ``new`` of the same shapes into ``cache``, in
     place (a batched prefill lands here, so the cache tensors that a
-    captured decode graph reads stay the same)."""
+    captured decode graph reads stay the same). Under a mesh each rank
+    copies its shard."""
     for big, small in _pairs(cache, new):
+        if is_dtensor(big):
+            if tuple(small.placements) != tuple(big.placements):
+                small = small.redistribute(big.device_mesh, big.placements)
+            big, small = big.to_local(), small.to_local()
         big.copy_(small)

@@ -19,6 +19,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig, adamw_update, init_opt_state
 from repro_torch.train.losses import cross_entropy
+from repro_torch.utils.sharding import P, spec_for
 
 AUX_COEF = 0.01
 
@@ -130,6 +131,84 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     md = oc.moments_dtype if oc is not None else "float32"
     return {"params": params, "opt": init_opt_state(params, md),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Shapes and shardings of the train state and the batch
+# ---------------------------------------------------------------------------
+
+def _meta(shape: tuple, dtype) -> torch.Tensor:
+    """A meta tensor: a shape and a dtype, no storage (JAX's
+    ``ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_state_shapes(cfg: ModelConfig, oc: OptConfig | None = None) -> dict:
+    """The train state as meta tensors: params, AdamW moments (fp32, or
+    int8 with an fp32 scale a row, the last dim 1) and the int32 step."""
+    ps = _map_leaves(lambda sd: _meta(*sd), M.param_shapes(cfg))
+    if oc is not None and oc.moments_dtype == "int8":
+        def mo(t):
+            return {"q": _meta(t.shape, torch.int8),
+                    "s": _meta(t.shape[:-1] + (1,), torch.float32)}
+    else:
+        def mo(t):
+            return _meta(t.shape, torch.float32)
+    return {"params": ps,
+            "opt": {"m": _map_leaves(mo, ps), "v": _map_leaves(mo, ps)},
+            "step": _meta((), torch.int32)}
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeSpec, *,
+                 with_targets: bool = True) -> dict:
+    """One step's batch as meta tensors (a decode shape has one token a
+    row)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        s = 1
+    out = {}
+    if cfg.embed_inputs:
+        out["tokens"] = _meta((b, s), torch.int32)
+    else:
+        out["embeds"] = _meta((b, s, cfg.d_model), M.DTYPES[cfg.param_dtype])
+    if cfg.rope_kind == "mrope":
+        out["positions"] = _meta((3, b, s), torch.int32)
+    if with_targets and shape.kind == "train":
+        out["targets"] = _meta((b, s), torch.int32)
+    return out
+
+
+def batch_pspecs(cfg: ModelConfig, shapes: dict, rules: dict,
+                 mesh_sizes: dict) -> dict:
+    """Specs of :func:`batch_shapes`: rows on ``batch`` (M-RoPE's
+    ``positions`` carry the batch second)."""
+    def f(name, t):
+        if name == "positions" and t.ndim == 3 and t.shape[0] == 3:
+            axes = (None, "batch", None)
+        else:
+            axes = ("batch",) + (None,) * (t.ndim - 1)
+        return spec_for(tuple(t.shape), axes, rules, mesh_sizes)
+    return {k: f(k, v) for k, v in shapes.items()}
+
+
+def train_state_pspecs(cfg: ModelConfig, rules: dict, mesh_sizes: dict,
+                       oc: OptConfig | None = None) -> dict:
+    """Specs of :func:`train_state_shapes`: the moments on their
+    params' specs, an int8 moment's scale with its last dim unsharded."""
+    pp = M.param_pspecs(cfg, rules, mesh_sizes)
+    if oc is not None and oc.moments_dtype == "int8":
+        def mo(spec):
+            return {"q": spec,
+                    "s": P(*(tuple(spec)[:-1] + (None,))) if spec else P()}
+        mom = _map_leaves(mo, pp)
+        return {"params": pp, "opt": {"m": mom, "v": mom}, "step": P()}
+    return {"params": pp, "opt": {"m": pp, "v": pp}, "step": P()}
 
 
 def default_accum_steps(cfg: ModelConfig, shape: ShapeSpec,

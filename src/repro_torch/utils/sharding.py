@@ -1,13 +1,34 @@
-"""Logical-axis sharding rules: the constants the chunk planner reads.
+"""Logical-axis sharding rules (MaxText-style) and constraint helpers, on
+DTensor.
 
-A copy of the pure-Python part of ``repro/utils/sharding.py`` that
-``serve/planner.py`` needs to price a tensor-parallel plan without a
-mesh: the rules tables, ``tp_degree`` and ``rules_fingerprint``. The
-spec builders, meshes and constraints wait with sharding itself
-(ROADMAP queue 1 item 7).
+The counterpart of ``repro/utils/sharding.py``. Parameters, caches and
+activations carry *logical* axis names; a rules table maps each logical
+name to an ordered list of mesh-axis candidates. :func:`spec_for` assigns
+candidates greedily, subject to (a) divisibility of the dim by the
+mesh-axis size and (b) no mesh axis used twice in one spec, which is what
+lets grok-1's 8 experts fall back from expert-parallel to ffn-dim tensor
+parallelism.
+
+A spec is a :class:`P`, a tuple with one entry a dim: ``None``, one mesh
+axis, or a tuple of axes (JAX's ``PartitionSpec``, entry for entry).
+:func:`placements_for` maps it onto DTensor placements on a
+``DeviceMesh`` (``launch/mesh.py``): a named axis becomes ``Shard(dim)``
+on its mesh dim, every other mesh dim ``Replicate()``. :func:`distribute`
+turns a tree of full tensors, the same on every rank, into DTensors
+without a collective (each rank keeps its own shard), and :func:`sc` is
+``with_sharding_constraint``: a redistribute to the spec's placements
+under the mesh and rules :func:`use_mesh_rules` installs.
 """
 
 from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 # Meta mesh-axis groups, expanded against the live mesh's axis names.
 FSDP = ("pod", "data")
@@ -40,6 +61,61 @@ SERVE_RULES = dict(TRAIN_RULES, embed=())
 # kernels tile the sequence themselves.
 SERVE_ENGINE_RULES = dict(SERVE_RULES, kv_seq=())
 
+# FSDP-flavored engine rules: same KV layout, activations 2-D sharded.
+SERVE_ENGINE_FSDP_RULES = dict(SERVE_ENGINE_RULES, act_batch=(),
+                               act_embed=FSDP)
+
+# FSDP serving for models larger than one device's memory: every matmul
+# a partial sum over resident 2-D-sharded weights plus an activation
+# all-reduce, instead of a weight all-gather a layer.
+SERVE_FSDP_RULES = dict(TRAIN_RULES, act_batch=(), act_embed=FSDP)
+
+# The gather baseline: weights FSDP-sharded, activations batch-sharded,
+# so every layer's weights are all-gathered a step.
+SERVE_FSDP_GATHER_RULES = dict(TRAIN_RULES)
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, ``None``, a mesh axis name or a
+    tuple of them (JAX's ``PartitionSpec``)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class _MeshState(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules = None
+
+
+_STATE = _MeshState()
+
+
+@contextlib.contextmanager
+def use_mesh_rules(mesh, rules: dict | None):
+    """Install ``mesh`` and ``rules`` for this thread: :func:`sc` and the
+    model's sharded paths read them."""
+    prev = (_STATE.mesh, _STATE.rules)
+    _STATE.mesh, _STATE.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.rules = prev
+
+
+def current_mesh():
+    """The mesh :func:`use_mesh_rules` installed on this thread, or None."""
+    return _STATE.mesh if _STATE.rules is not None else None
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
 
 def tp_degree(mesh_sizes: dict, rules: dict | None = None) -> int:
     """Tensor-parallel degree of a mesh under ``rules``: the product of
@@ -57,3 +133,205 @@ def rules_fingerprint(rules: dict | None) -> tuple:
     if rules is None:
         return ()
     return tuple(sorted((str(k), tuple(v)) for k, v in rules.items()))
+
+
+def spec_for(shape: tuple, axes: tuple, rules: dict, mesh_sizes: dict) -> P:
+    """Build a :class:`P` for ``shape`` with logical ``axes`` under
+    ``rules``."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} vs axes {axes}")
+    used = set()
+    parts = []
+    for dim, ax in zip(shape, axes):
+        picked = []
+        prod = 1
+        for m in rules.get(ax, ()):
+            if m in used or m not in mesh_sizes:
+                continue
+            if dim % (prod * mesh_sizes[m]) != 0:
+                continue
+            picked.append(m)
+            prod *= mesh_sizes[m]
+        used.update(picked)
+        if not picked:
+            parts.append(None)
+        elif len(picked) == 1:
+            parts.append(picked[0])
+        else:
+            parts.append(tuple(picked))
+    return P(*parts)
+
+
+def placements_for(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(dim)`` on the
+    mesh dim of each axis a spec entry names, ``Replicate()`` elsewhere.
+
+    A tuple of axes on one dim splits it by each axis in turn, major to
+    minor, as JAX's ``NamedSharding`` does; DTensor splits in mesh-dim
+    order, so the tuple must name its axes in the mesh's order. A mesh
+    dim of size 1 holds the whole dim either way and stays
+    ``Replicate()``, so that DTensor's view rules (a matmul flattening a
+    batch of one) meet no sharded dim there.
+    """
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {part!r} splits dim {dim} out of "
+                             f"the mesh's axis order {names}")
+        for i in idx:
+            if mesh.shape[i] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def local_shape(shape: tuple, mesh, placements) -> tuple:
+    """The shape of this rank's shard of a ``shape`` tensor (specs from
+    :func:`spec_for` divide evenly)."""
+    out = list(shape)
+    for size, pl in zip(mesh.shape, placements):
+        if pl.is_shard():
+            out[pl.dim] //= size
+    return tuple(out)
+
+
+def shard_owner(mesh, placements, dim: int, size: int, index: int):
+    """Where global ``index`` of dim ``dim`` (``size`` long) lives: its
+    index in this rank's shard, or None when another rank's shard holds
+    it."""
+    block, chunk = size, 0
+    coords = mesh.get_coordinate()
+    for m, pl in enumerate(placements):
+        if pl.is_shard() and pl.dim == dim:
+            n = mesh.shape[m]
+            block //= n
+            chunk = chunk * n + coords[m]
+    return index - chunk * block if index // block == chunk else None
+
+
+def _own(local: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """``local`` not keeping ``full``'s storage alive (a shard is a view)."""
+    if local.numel() < full.numel() and \
+            local.untyped_storage().data_ptr() == \
+            full.untyped_storage().data_ptr():
+        return local.clone()
+    return local
+
+
+def distribute_leaf(t: torch.Tensor, mesh, spec):
+    """A full tensor, the same on every rank, as a DTensor laid out by
+    ``spec``; each rank keeps its own shard, no collective is made, and
+    the shard does not hold the full tensor's storage."""
+    pl = placements_for(mesh, spec)
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+    d = distribute_tensor(t, mesh, pl, src_data_rank=None)
+    return DTensor.from_local(_own(d.to_local(), t), mesh, pl,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def spec_at(specs: dict, path: tuple):
+    """The spec at ``path`` of a spec tree."""
+    for key in path:
+        specs = specs[key]
+    return specs
+
+
+def placer(mesh, specs: dict):
+    """``place(path, leaf)`` for ``models.model.init_params``: each leaf,
+    made whole and alike on every rank, becomes the DTensor of its spec
+    in ``specs`` (:func:`distribute_leaf`), so a rank holds its shards
+    and one whole leaf at a time."""
+    return lambda path, leaf: distribute_leaf(leaf, mesh,
+                                              spec_at(specs, path))
+
+
+def _map2(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def distribute(tree, mesh, specs):
+    """A tree of full tensors as DTensors laid out by the matching tree of
+    specs (:func:`distribute_leaf` a leaf)."""
+    return _map2(lambda t, s: distribute_leaf(t, mesh, s), tree, specs)
+
+
+def from_shard(local: torch.Tensor, mesh, placements, shape: tuple):
+    """A DTensor of global ``shape`` (contiguous) from this rank's shard
+    ``local``; no collective is made."""
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def zeros(shape: tuple, dtype, mesh, spec, device):
+    """A zero DTensor of global ``shape`` laid out by ``spec``, made shard
+    by shard (no rank holds the full tensor)."""
+    pl = placements_for(mesh, spec)
+    local = torch.zeros(local_shape(shape, mesh, pl), dtype=dtype,
+                        device=device)
+    return from_shard(local, mesh, pl, tuple(shape))
+
+
+def local(tree):
+    """A tree of DTensors as this rank's shards (views: writes land in
+    the DTensors); plain tensors pass through."""
+    if isinstance(tree, dict):
+        return {k: local(v) for k, v in tree.items()}
+    return tree.to_local() if is_dtensor(tree) else tree
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank, as a plain tensor; a plain tensor passes
+    through.
+
+    A DTensor's partial sums are all-reduced by DTensor; its shards are
+    gathered by ``torch.distributed.all_gather_into_tensor`` on each
+    sharding mesh dim's group, minor to major. Not DTensor's own
+    gather: its functional all-gather kills the rank on a gloo group over
+    CUDA tensors (torch 2.11), where the c10d call works
+    (``scripts/gloo_cuda_probe.py``), and two ranks on one card run over
+    gloo.
+    """
+    if not is_dtensor(x):
+        return x
+    import torch.distributed as dist
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    t = x.to_local()
+    for m in reversed(range(mesh.ndim)):
+        p = x.placements[m]
+        if p.is_shard():
+            part = t.movedim(p.dim, 0).contiguous()
+            out = part.new_empty((mesh.shape[m] * part.shape[0],)
+                                 + part.shape[1:])
+            dist.all_gather_into_tensor(out, part, group=mesh.get_group(m))
+            t = out.movedim(0, p.dim)
+    return t.contiguous()
+
+
+def sc(x, *axes):
+    """``with_sharding_constraint`` against the installed mesh and rules:
+    ``x`` redistributed to the placements of its spec under the rules.
+    ``x`` comes back untouched when no mesh is installed or it is not a
+    DTensor."""
+    mesh, rules = _STATE.mesh, _STATE.rules
+    if mesh is None or rules is None or not is_dtensor(x):
+        return x
+    spec = spec_for(tuple(x.shape), tuple(axes), rules,
+                    mesh_axis_sizes(mesh))
+    pl = placements_for(mesh, spec)
+    return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)

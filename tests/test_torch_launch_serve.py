@@ -2,7 +2,7 @@
 the JAX package's: ``generate`` streams equal JAX's on bridged fp32 params
 (one engine, pipelined, and two replicas behind the routers); ``main``
 refuses without a card unless ``--device cpu`` asks for the host, refuses
-a mesh, serves from an installed plan database with no online plan; the
+a mesh it cannot build, serves from an installed plan database with no online plan; the
 dtype policy maps to PyTorch's matmul precision and an unknown value
 raises."""
 
@@ -64,9 +64,15 @@ def test_main_runs_on_the_host_when_asked(capsys):
     assert "generated (2, 6) on host" in out and "pipeline=2" in out
 
 
-def test_main_refuses_a_mesh(capsys):
+def test_main_refuses_a_mesh(capsys, monkeypatch):
+    """A mesh it cannot build: a bad spec, or more ranks than the world
+    has (``tests/test_torch_mesh_serve.py`` serves under two ranks)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert LS.main(["--smoke", "--device", "cpu", "--mesh", "1,2"]) == 2
-    assert "item 7" in capsys.readouterr().err
+    assert "bad mesh spec '1,2'" in capsys.readouterr().err
+    assert LS.main(["--smoke", "--device", "cpu", "--mesh",
+                    "data,model=1,2"]) == 2
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
 
 
 def test_main_plans_from_an_installed_db(tmp_path, capsys):
