@@ -309,6 +309,33 @@ Phases, each printed on its own line:
          streams counted) and fp32 at 4 layers, dense and paged (logits
          within ``MESH_FP32_REL_TOL``, streams identical); the two ranks'
          streams identical; rank 0's launches join ``launches_by_path``.
+11. The dry run (``launch/dryrun.py``) on fake process groups, its
+    lowerings in child processes started together before phase 10 (CPU
+    work beside phase 10's; their times count under load):
+    11a. full-width records (``DRYRUN_CELLS``: yi-9b ``train_4k``,
+         ``prefill_32k``, ``decode_32k`` on 16x16, qwen1.5-110b
+         ``decode_32k`` under ``gather`` and ``resident2d``, yi-9b
+         ``train_4k`` on 2x16x16), each with its lowering time, peak GB
+         a rank against the card's 80 GB, FLOPs a rank, collectives by
+         kind and bytes, and its ``h100`` roofline terms;
+    11b. yi-9b's decode step (8 slots, 2048 rows) lowered at mesh (1,1)
+         and run on the card: ``argument_bytes`` against the allocator's
+         growth from placing the arguments, the matrix products' FLOPs
+         outside the kernel regions against ``FlopCounterMode`` over the
+         step (the kernels are ctypes calls it does not see), its peak
+         against ``max_memory_allocated``; 10b's TP=2 step lowered at
+         (1,2): 97 all-reduces and 1 all-gather, 10b's count;
+    11c. two gloo ranks on ``cuda:0``, eager, once the decode kernel's
+         partials at a rank's shape are held against their plain version
+         at the local positions and bounds a rank gets (below, inside
+         and past its rows; its bound clipped): the decode cache sharded
+         on its rows (``SERVE_RULES``), the decode kernel's partials over
+         each rank's half merged across the ranks (fp32 at 4 layers:
+         every step's logits fed the same tokens, streams identical to
+         mesh=None but at a tie; bf16 at 48 layers: the first step's
+         logits), its launches a path of ``launches_by_path``; and
+         yi-9b's train step at (1,2) (2 layers, fp32) against
+         mesh=None's: loss, grad norm, parameters.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -5140,6 +5167,665 @@ def phase_mesh(torch, np, K, serve) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dry run on fake process groups, held against the card
+# ---------------------------------------------------------------------------
+
+#: 11a: full-width cells (arch, shape, multi-pod, serve variant), each
+#: lowered by ``python -m repro_torch.launch.dryrun`` in a process of its
+#: own (a process holds one fake world), all at once
+DRYRUN_CELLS = (("yi-9b", "train_4k", False, "resident2d"),
+                ("yi-9b", "prefill_32k", False, "resident2d"),
+                ("yi-9b", "decode_32k", False, "resident2d"),
+                ("qwen1.5-110b", "decode_32k", False, "gather"),
+                ("qwen1.5-110b", "decode_32k", False, "resident2d"),
+                ("yi-9b", "train_4k", True, "resident2d"))
+#: every phase-11 child's time limit, from its start
+DRYRUN_TIMEOUT = 600
+CARD_GB = 80.0
+#: 11b: yi-9b's decode step lowered at mesh (1,1) (a fake world of one)
+#: and run on the card: slots, cache rows, the slots' position
+DRYRUN_STEP = dict(slots=8, rows=2048, pos=1500)
+#: the caching allocator rounds each block up to 512 bytes
+ALLOC_ROUND = 512
+#: 11c: the sequence-sharded decode jobs (name, dtype, depth (None: all
+#: 48 layers), decode steps) and the yi-9b train step at (1,2) (layers,
+#: batch, sequence)
+SEQ_JOBS = (("fp32", "float32", 4, 16), ("bf16", "bfloat16", None, 1))
+MESH_TRAIN = dict(layers=2, batch=4, seq=256)
+MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
+PHASE11_SEEDS = {"step": 111, "seq": 112, "train": 113, "data": 114}
+#: 11c's held limits. The sequence-sharded decode in fp32: each rank's
+#: partials over its half of the rows, merged by log-sum-exp across the
+#: ranks, against the kernel's merge of its splits over all rows, beside
+#: TP=2's row-parallel sums: sums in another order (~1e-6 relative of
+#: the largest logit). Held: the logits of every step that both runs
+#: computed from the same tokens within this (all steps of a stream
+#: that stays identical to mesh=None's; those up to and including its
+#: parting step of one that parts); a stream may part only where
+#: mesh=None's top two logits stood within twice that step's max|dlogit|
+#: of each other (a tie that the two sums' rounding flipped; counted and
+#: printed). bf16: the first step's
+#: logits as 10b holds its (MESH_BF16_REL_TOL's reasoning: the
+#: row-parallel products round once more a rank).
+SEQ_FP32_REL_TOL = 1e-4
+#: the train step: loss and grad norm within 1e-5 relative (fp32 sums in
+#: another order); a parameter within 1e-5 of its leaf's largest plus
+#: 1 % of lr of mesh=None's, but where a gradient near 0 flipped sign
+#: (AdamW's update is ~lr whatever the gradient's size): at most 1 % of
+#: a leaf's elements, each within 2 lr more
+MESH_TRAIN_RTOL = 1e-5
+
+
+def dryrun_children(tmp: str) -> dict:
+    """Start every phase-11 lowering at once: 11a's cells through the
+    CLI, 11b's two steps from ``python -c``. Returns ``{name: Popen}``;
+    their records land in ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {}
+    for arch, shape, mp, variant in DRYRUN_CELLS:
+        tag = dryrun_tag(arch, shape, mp, variant)
+        if variant == "gather":
+            argv = [sys.executable, "-c", DRYRUN_GATHER_CODE.format(
+                src=SRC, arch=arch, shape=shape, mp=mp,
+                out=os.path.join(tmp, tag + ".json"))]
+        else:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--out", tmp] + (
+                        ["--multi-pod"] if mp else [])
+        procs[tag] = subprocess.Popen(argv, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE)
+    for name, code in (("step11", DRYRUN_STEP_CODE),
+                       ("step12", DRYRUN_TP2_CODE)):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", code.format(
+                src=SRC, out=os.path.join(tmp, f"{name}.json"),
+                slots=DRYRUN_STEP["slots"], rows=DRYRUN_STEP["rows"],
+                mesh_rows=MESH_CELL["max_len"])],
+            env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+    return procs
+
+
+def dryrun_tag(arch: str, shape: str, mp: bool, variant: str) -> str:
+    """An 11a record's name: the CLI's ``<arch>_<shape>_<sp|mp>``, and
+    ``_gather`` for the weight-gather serve rules."""
+    return f"{arch}_{shape}_{'mp' if mp else 'sp'}" + (
+        "_gather" if variant == "gather" else "")
+
+
+#: 11a: a cell under the weight-gather serve rules (``run_cell``'s
+#: ``serve_variant``; the CLI lowers the reference's resident 2-D rules)
+DRYRUN_GATHER_CODE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch import dryrun as D
+rec = D.run_cell({arch!r}, {shape!r}, multi_pod={mp!r}, serve_variant="gather")
+json.dump(rec, open({out!r}, "w"))
+"""
+
+#: 11b: yi-9b's decode step at mesh (1,1), a fake world of one
+DRYRUN_STEP_CODE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_test_mesh
+mesh = make_test_mesh((1, 1), fake=True)
+rec = D.run_cell("yi-9b", "decode_2k", cfg=get_config("yi-9b"), mesh=mesh,
+                 shape=ShapeSpec("decode_2k", {rows}, {slots}, "decode"))
+json.dump(rec, open({out!r}, "w"))
+"""
+
+#: 11b: 10b's TP=2 decode step (the engines' rules, logits gathered whole)
+#: at mesh (1,2), a fake world of two
+DRYRUN_TP2_CODE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.utils import sharding as S
+mesh = make_test_mesh((1, 2), fake=True)
+rec = D.run_cell("yi-9b", "decode_mesh", cfg=get_config("yi-9b"), mesh=mesh,
+                 shape=ShapeSpec("decode_mesh", {mesh_rows}, {slots}, "decode"),
+                 rules=S.SERVE_ENGINE_RULES, gather_logits=True)
+json.dump(rec, open({out!r}, "w"))
+"""
+
+
+def child_result(p, name: str, deadline: float) -> str:
+    """A phase-11 child's standard output by ``deadline``; fails if it
+    hangs (killed) or exits non-zero."""
+    try:
+        out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise PhaseError(f"11: {name} ran past {DRYRUN_TIMEOUT} s")
+    check(p.returncode == 0, f"11: {name} exited {p.returncode}: "
+                             f"{err[-2000:]}")
+    return out
+
+
+def print_roofline(rec: dict, label: str) -> None:
+    """The ``h100`` roofline of a record: its terms and dominant term."""
+    from repro_torch.bench.roofline_sweep import report_of
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import roofline
+    from repro_torch.core.machine import MACHINES
+    c = roofline.analyze_cell(rec, get_config(rec["arch"]),
+                              SHAPES[rec["shape"]], machine=MACHINES["h100"],
+                              report=report_of(rec["portmodel"]))
+    print(f"11a {label} h100 roofline: T_comp {c.t_compute*1e3:.2f} ms, "
+          f"T_comp(port) {c.t_compute_port*1e3:.2f} ms, T_mem "
+          f"{c.t_memory*1e3:.2f} ms, T_coll {c.t_collective*1e3:.2f} ms; "
+          f"dominant {c.dominant}; useful {c.useful_ratio:.2f}, peak "
+          f"fraction {c.peak_fraction:.3f}")
+
+
+def phase_dryrun_records(procs: dict, tmp: str, deadline: float) -> None:
+    """11a: the full-width records, each with its lowering time: peak GB a
+    rank against the card's 80 GB, FLOPs a rank, collectives by kind
+    with their bytes, the ``h100`` roofline."""
+    for arch, shape, mp, variant in DRYRUN_CELLS:
+        tag = dryrun_tag(arch, shape, mp, variant)
+        child_result(procs.pop(tag), tag, deadline)
+        with open(os.path.join(tmp, tag + ".json")) as f:
+            rec = json.load(f)
+        m = rec["memory"]
+        check(rec["device_type"] == "cuda" and rec["n_devices"] ==
+              (512 if mp else 256), f"11a {tag}: mesh {rec['mesh']} on "
+                                    f"{rec['device_type']}")
+        check(sum(v["count"] for v in rec["collectives"].values()) > 0,
+              f"11a {tag}: no collectives")
+        coll = "; ".join(
+            f"{k} {v['count']:g} x, {v['bytes']/1e9:.3f} GB (groups "
+            f"{v['groups']})" for k, v in sorted(rec["collectives"].items()))
+        print(f"11a {tag} ({rec['mesh']}, rules {rec['rules']}): lowered in "
+              f"{rec['lower_s']} s; peak {m['peak_bytes']/1e9:.2f} GB a rank "
+              f"of the card's {CARD_GB:.0f} GB (arguments "
+              f"{m['argument_bytes']/1e9:.2f}); FLOPs a rank "
+              f"{rec['cost']['flops']:.4e}; {coll}")
+        print_roofline(rec, tag)
+
+
+def step_args(torch, cfg, M):
+    """11b's decode step on the card: yi-9b's weights from the phase's
+    seed, a zero cache of ``DRYRUN_STEP``'s slots and rows, a token a
+    slot and the slots' position (the lowered step's arguments)."""
+    c = DRYRUN_STEP
+    gen = torch.Generator(device="cuda").manual_seed(PHASE11_SEEDS["step"])
+    params = M.init_params(cfg, gen, device="cuda")
+    cache = M.init_cache(cfg, c["slots"], c["rows"], device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (c["slots"], 1), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    pos = torch.tensor(c["pos"], dtype=torch.int32, device="cuda")
+    return params, cache, {"tokens": tok}, pos
+
+
+def phase_dryrun_card(torch, procs: dict, tmp: str, deadline: float) -> None:
+    """11b: the (1,1) record of yi-9b's decode step against the same step
+    on the card: its argument bytes against the allocator's growth from
+    placing them, its matrix-product FLOPs outside the kernel regions
+    against ``FlopCounterMode`` over the step, its peak against the
+    card's; then 10b's TP=2 step lowered at (1,2): its collectives by
+    kind against what 10b counted on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as serve_lib
+    cfg = get_config("yi-9b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = step_args(torch, cfg, M)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    n_leaves = len(list(_leaves({"params": args[0], "cache": args[1],
+                                 "batch": args[2]}))) + 1     # and pos
+    torch.cuda.reset_peak_memory_stats()
+    step = serve_lib.make_decode_step(cfg)
+    step(*args)                      # warm: the kernels' first launch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    child_result(procs.pop("step11"), "step11", deadline)
+    with open(os.path.join(tmp, "step11.json")) as f:
+        rec = json.load(f)
+    m, cost = rec["memory"], rec["cost"]
+    print(f"11b yi-9b decode step ({DRYRUN_STEP['slots']} slots, "
+          f"{DRYRUN_STEP['rows']} rows, mesh (1,1), lowered in "
+          f"{rec['lower_s']} s): argument_bytes {m['argument_bytes']} against "
+          f"the card's memory_allocated growth {placed} from placing its "
+          f"{n_leaves} tensors (held within {n_leaves} x {ALLOC_ROUND} B of "
+          f"the allocator's rounding); matmul FLOPs outside the kernels "
+          f"{cost['matmul_flops_outside_kernels']:.6e} against "
+          f"FlopCounterMode {card_flops:.6e}; peak_bytes "
+          f"{m['peak_bytes']} against max_memory_allocated growth "
+          f"{card_peak} ({m['peak_bytes'] / max(card_peak, 1):.3f}x)")
+    check(0 <= placed - m["argument_bytes"] <= n_leaves * ALLOC_ROUND,
+          f"11b: argument_bytes {m['argument_bytes']} vs placed {placed}")
+    check(cost["matmul_flops_outside_kernels"] == card_flops,
+          f"11b: FLOPs {cost['matmul_flops_outside_kernels']} vs the "
+          f"card's {card_flops}")
+    del args, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    child_result(procs.pop("step12"), "step12", deadline)
+    with open(os.path.join(tmp, "step12.json")) as f:
+        rec = json.load(f)
+    kinds = {k: v["count"] for k, v in rec["collectives"].items()}
+    print(f"11b 10b's TP=2 decode step lowered at (1,2) "
+          f"({rec['lower_s']} s): collectives {kinds} (groups "
+          f"{ {k: v['groups'] for k, v in rec['collectives'].items()} })")
+    want = {"all-reduce": 2 * cfg.n_layers + 1, "all-gather": 1}
+    check(kinds == want, f"11b: (1,2) collectives {kinds}, 10b counts "
+                         f"{want} on the card")
+
+
+def seq_params(torch, cfg, mesh, seed: int):
+    """yi-9b's weights from ``seed``; with a ``mesh`` each rank keeps its
+    shard of every leaf under ``SERVE_RULES``."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import sharding as shd
+    place = None if mesh is None else shd.placer(mesh, M.param_pspecs(
+        cfg, shd.SERVE_RULES, shd.mesh_axis_sizes(mesh)))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return M.init_params(cfg, gen, device="cuda", place=place)
+
+
+def seq_decode(torch, cfg, params, n_new: int, mesh=None, K=None,
+               first=None):
+    """Greedy streams of ``mesh_prompts`` (prefill at 384 rows, then
+    ``n_new`` decode steps; ``first``, when given, the token a slot's
+    first step decodes instead of the prefill's pick), the prefill's
+    last-position logits and each step's (fp32, on the host), and the
+    decode kernels' launches over the decode steps (counts zeroed just
+    before them). Under ``mesh`` the cache is sharded on its rows
+    (``SERVE_RULES``)."""
+    import contextlib
+    from repro_torch.train import serve as serve_lib
+    from repro_torch.utils import sharding as shd
+    prompts = mesh_prompts(torch, cfg.vocab_size).cuda()
+    b, s = prompts.shape
+    ctx = contextlib.nullcontext() if mesh is None else \
+        shd.use_mesh_rules(mesh, shd.SERVE_RULES)
+    with ctx:
+        logits, cache = serve_lib.make_prefill_step(
+            cfg, cache_len=MESH_CELL["max_len"])(params, {"tokens": prompts})
+        if mesh is not None:
+            pl = cache["scan"]["0"]["k"].placements
+            check(any(p.is_shard() and p.dim == 2 for p in pl),
+                  f"11c: the cache is not sharded on its rows: {pl}")
+        pre = logits[:, -1].float().cpu()
+        tok = logits[:, -1].argmax(-1)[:, None] if first is None \
+            else first.cuda()
+        pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        step = serve_lib.make_decode_step(cfg)
+        toks, steps = [tok], []
+        if K is not None:
+            K.reset_launches()
+        for _ in range(n_new):
+            lg, cache = step(params, cache, {"tokens": tok}, pos)
+            steps.append(lg.float().cpu())
+            tok = lg.argmax(-1)[:, None]
+            toks.append(tok)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        launches = None if K is None else dict(K.LAUNCHES)
+    return (torch.cat(toks, 1).cpu().tolist(), pre, torch.stack(steps),
+            launches)
+
+
+def stream_partings(got: list, want: list, got_lg, want_lg) -> list:
+    """Where each stream of ``got`` first parts from ``want``: ``(slot,
+    token, mesh=None's top-2 logit gap there, max |dlogit| there)``,
+    each of the largest logit; ``*_lg`` are the logits each token was
+    picked from (the prefill's, then each step's: ``(tokens, B, V)``),
+    the two runs fed the same tokens up to the parting. A parting is a
+    tie when that gap is within twice the max |dlogit| there."""
+    out = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+        ref = want_lg[t, b]
+        top = ref.topk(2).values
+        scale = float(ref.abs().max())
+        out.append((b, t, float(top[0] - top[1]) / scale,
+                    float((got_lg[t, b] - ref).abs().max()) / scale))
+    return out
+
+
+def shared_step_err(got: list, want: list, got_lg, want_lg) -> float:
+    """max |dlogit| / max |logit| (of mesh=None's logits, a slot and step
+    at a time) over every step whose logits both runs computed from the
+    same tokens: every step of a stream identical to ``want``'s, those
+    up to and including the parting step of one that parts (``*_lg`` as
+    :func:`stream_partings` takes them)."""
+    worst = 0.0
+    for b, (g, w) in enumerate(zip(got, want)):
+        n = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                 len(w) - 1) + 1
+        ref = want_lg[:n, b]
+        err = (got_lg[:n, b] - ref).abs().amax(-1) / ref.abs().amax(-1)
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def mesh_train_cell(torch, cfg, mesh=None):
+    """11c's train step: yi-9b's state from the phase's seed, one batch,
+    one AdamW step; under ``mesh`` (``TRAIN_RULES``) each rank keeps its
+    shards. Returns the new state and the metrics."""
+    import contextlib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as ST
+    from repro_torch.utils import sharding as shd
+    oc = OptConfig(**MESH_TRAIN_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(PHASE11_SEEDS["train"])
+    state = ST.init_train_state(cfg, gen, oc, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(PHASE11_SEEDS["data"])
+    shape = (MESH_TRAIN["batch"], MESH_TRAIN["seq"])
+    batch = {k: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        sizes = shd.mesh_axis_sizes(mesh)
+        state = shd.distribute(state, mesh, ST.train_state_pspecs(
+            cfg, shd.TRAIN_RULES, sizes, oc))
+        batch = shd.distribute(batch, mesh, ST.batch_pspecs(
+            cfg, batch, shd.TRAIN_RULES, sizes))
+        ctx = shd.use_mesh_rules(mesh, shd.TRAIN_RULES)
+    with ctx:
+        new, met = ST.make_train_step(cfg, oc, 1)(state, batch)
+    torch.cuda.synchronize()
+    return new, {k: float(shd.replicated(v)) for k, v in met.items()}
+
+
+def _seq_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 11c: a (1, 2) gloo mesh on ``cuda:0``; the
+    sequence-sharded decode in fp32 (4 layers, streams) and bf16 (48
+    layers, the first step's logits), then the train step at (1,2)
+    against mesh=None's new parameters (``out_dir/train_ref.pt``)."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.utils import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((1, 2), device_type="cuda", backend="gloo")
+    res = {}
+    firsts = torch.load(os.path.join(out_dir, "first_tokens.pt"))
+    for job, dtype, layers, n_new in SEQ_JOBS:
+        cfg = mesh_config(dtype, layers)
+        params = seq_params(torch, cfg, mesh, PHASE11_SEEDS["seq"])
+        t0 = time.perf_counter()
+        streams, pre, logits, launches = seq_decode(
+            torch, cfg, params, n_new, mesh, K, firsts.get(job))
+        res[job] = {"streams": streams, "s": time.perf_counter() - t0,
+                    "launches": launches["flash_decode"],
+                    "want_launches": attention_layers(cfg) * n_new}
+        if rank == 0:
+            torch.save(torch.cat([pre[None], logits]),
+                       os.path.join(out_dir, f"seq_{job}.pt"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = mesh_config("float32", MESH_TRAIN["layers"])
+    t0 = time.perf_counter()
+    new, met = mesh_train_cell(torch, cfg, mesh)
+    res["train"] = {"metrics": met, "s": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ref = torch.load(os.path.join(out_dir, "train_ref.pt"), mmap=True)
+    worst, far = 0.0, 0.0
+    lr = MESH_TRAIN_OPT["lr"]
+    for (path, got), (_, want) in zip(M._walk(new["params"]),
+                                      M._walk(ref)):
+        sl = [slice(None)] * want.ndim
+        for d in range(want.ndim):
+            off, n = shd.shard_offset(mesh, got.placements, d, want.shape[d])
+            sl[d] = slice(off, off + n)
+        w = want[tuple(sl)].to("cuda")
+        err = (got.to_local() - w).abs()
+        tol = 1e-5 * float(want.abs().max()) + 0.01 * lr
+        far = max(far, float((err > tol).float().mean()))
+        worst = max(worst, float(err.max()) - tol)
+    res["train"].update(far=far, over=worst)
+    with open(os.path.join(out_dir, f"seq_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+#: 11c: rank-local positions of the 8 slots that the partials are held
+#: at against their plain version: below every row of a rank (its rows
+#: all after the slot; none read), at its first row, inside, at its last
+#: and past every row (all read up to the bound)
+SEQ_LOCAL_POS = (-64, -1, 0, 5, 127, 191, 192, 250)
+#: ... and the bounds: the whole shard (no ``kv_len``), one clipped into
+#: it (``min(kv_len - off, S_loc)``) and the floor of 1 a rank whose rows
+#: all lie past ``kv_len`` gets
+SEQ_BOUNDS = (None, 150, 1)
+
+
+def seq_partials_check(torch, dtype) -> float:
+    """The decode kernel's partials at the sequence-sharded path's shape
+    (a rank's half of the 384 rows, 8 slots, yi-9b's heads): held against
+    the plain version (``impl="ref"``) on the same inputs at the
+    positions and bounds the path hands a rank (``SEQ_LOCAL_POS`` x
+    ``SEQ_BOUNDS``): the splits merged by ``combine_splits`` within
+    DECODE_TOL, the dead splits (l = 0) the same, a slot below every row
+    all dead (m = -1e30) with an output of 0. Then the device µs of one
+    launch with every row live, beside its byte bound (the live K and V
+    rows over 3.35 TB/s, the q, partials and positions besides). Returns
+    the max abs err."""
+    from repro_torch.kernels.attention import decode as D
+    from repro_torch.kernels.attention import ops
+    b, rows, h, hkv, dh = (MESH_CELL["slots"], MESH_CELL["max_len"] // 2,
+                           32, 4, 128)
+    g = torch.Generator(device="cuda").manual_seed(PHASE11_SEEDS["seq"])
+    q = torch.randn((b, 1, h, dh), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, rows, hkv, dh), generator=g,
+                        device="cuda").to(dtype) for _ in range(2))
+    lpos = torch.tensor(SEQ_LOCAL_POS, dtype=torch.int32, device="cuda")
+    below = lpos < 0
+    worst = 0.0
+    for bound in SEQ_BOUNDS:
+        ok_, mk, lk = ops.flash_decode_partials(q, k, v, lpos, kv_len=bound)
+        orf, mr, lr = ops.flash_decode_partials(q, k, v, lpos, kv_len=bound,
+                                                impl="ref")
+        torch.cuda.synchronize()
+        where = f"11c partials ({str(dtype)[6:]}, bound {bound})"
+        check(torch.equal(lk == 0, lr == 0), f"{where}: dead splits differ")
+        check(bool((lk[:, below] == 0).all()) and bool(
+            (mk[:, below] == D.NEG_INF).all()),
+            f"{where}: a slot below every row read a row")
+        got = D.combine_splits(ok_, mk, lk)
+        err = (got - D.combine_splits(orf, mr, lr)).abs().max().item()
+        check(err <= DECODE_TOL, f"{where}: max err {err:.3g} > {DECODE_TOL}")
+        check(not got[below].any(), f"{where}: a slot below every row has "
+                                    f"an output")
+        worst = max(worst, err)
+    pos = torch.full((b,), MESH_CELL["max_len"] - 1, dtype=torch.int32,
+                     device="cuda")
+    o, _, _ = ops.flash_decode_partials(q, k, v, pos, kv_len=rows)
+    elt = q.element_size()
+    nbytes = (2 * b * rows * hkv * dh + b * h * dh) * elt \
+        + o.shape[0] * b * h * (dh + 2) * 4 + 4 * b
+    bound_us = nbytes / _H100.hbm_bw * 1e6
+    us = timed(torch, lambda: ops.flash_decode_partials(
+        q, k, v, pos, kv_len=rows), 200) * 1e3
+    print(f"11c decode kernel partials at the sequence-sharded path's shape "
+          f"({b} slots, {rows} rows a rank, H {h}, Hkv {hkv}, Dh {dh}, "
+          f"{str(dtype)[6:]}): against the plain version at local positions "
+          f"{list(SEQ_LOCAL_POS)} and bounds {list(SEQ_BOUNDS)} max abs err "
+          f"{worst:.3g} (tol {DECODE_TOL}, splits merged in fp32; dead "
+          f"splits equal, slots below every row read none); every row live "
+          f"({o.shape[0]} splits): {us:.2f} us a launch, bound "
+          f"{bound_us:.2f} us ({nbytes} bytes)")
+    return worst
+
+
+def phase_mesh_paths(torch, np, paths: dict) -> None:
+    """11c: the new mesh paths on the card, two gloo ranks on ``cuda:0``
+    (eager, as 10b): the decode cache sharded on its rows under
+    ``SERVE_RULES`` (the decode kernel's partials over each rank's half,
+    merged across the ranks), and yi-9b's train step at (1,2) under
+    ``TRAIN_RULES``, each against mesh=None on the same weights. gloo has
+    no reduce-scatter on CUDA tensors that FSDP over ``data`` > 1 would
+    run, so that is held by the fake group's lowering (the CPU tests),
+    not numerically here."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.models import model as M
+    for dtype in (torch.float32, torch.bfloat16):
+        seq_partials_check(torch, dtype)
+    ref = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for job, dtype, layers, n_new in SEQ_JOBS:
+            cfg = mesh_config(dtype, layers)
+            params = seq_params(torch, cfg, None, PHASE11_SEEDS["seq"])
+            streams, pre, logits, _ = seq_decode(torch, cfg, params, n_new)
+            ref[job] = (streams, torch.cat([pre[None], logits]))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the ranks' first step decodes mesh=None's prefill token: a
+        # prefill pick that a rounding flips at a near tie would feed
+        # another token, and its logits would be another's (the prefill's
+        # logits are held apart)
+        torch.save({job: torch.tensor([s[:1] for s in r[0]])
+                    for job, r in ref.items()},
+                   os.path.join(tmp, "first_tokens.pt"))
+        cfg = mesh_config("float32", MESH_TRAIN["layers"])
+        new, met = mesh_train_cell(torch, cfg)
+        torch.save(M._map_tree(lambda t: t.cpu(), new["params"]),
+                   os.path.join(tmp, "train_ref.pt"))
+        del new
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.start_processes(_seq_rank, args=(port, tmp), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TP_TIMEOUT
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise PhaseError(f"11c: the two ranks ran past "
+                                 f"{MESH_TP_TIMEOUT} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"seq_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got_lg = {job: torch.load(os.path.join(tmp, f"seq_{job}.pt"))
+                  for job in ref}
+    print(f"11c: two ranks (gloo, cuda:0) ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for job, (streams, want_lg) in ref.items():
+        rec = ranks[0][job]
+        check(rec["streams"] == ranks[1][job]["streams"],
+              f"11c {job}: the two ranks' streams differ")
+        check(rec["launches"] == rec["want_launches"],
+              f"11c {job}: {rec['launches']} decode launches, expected "
+              f"{rec['want_launches']} (attention layers x steps)")
+        lg = got_lg[job]
+        rel_pre, rel = (float((lg[i] - want_lg[i]).abs().max()
+                              / want_lg[i].abs().max()) for i in (0, 1))
+        same = sum(a == b for a, b in zip(rec["streams"], streams))
+        tol = SEQ_FP32_REL_TOL if job == "fp32" else MESH_BF16_REL_TOL
+        shared = shared_step_err(rec["streams"], streams, lg, want_lg)
+        print(f"11c {job} sequence-sharded decode (cache rows over model, "
+              f"TP=2; the first step fed mesh=None's prefill token): "
+              f"{same}/{len(streams)} greedy streams of {len(streams[0])} "
+              f"tokens identical to mesh=None; max|dlogit|/max|logit| "
+              f"prefill {rel_pre:.3e}, first step {rel:.3e}, every step "
+              f"fed the same tokens {shared:.3e} (held under {tol:g}); "
+              f"decode kernel launches {rec['launches']} a rank; "
+              f"{rec['s']:.1f} s")
+        check(max(rel_pre, rel, shared) <= tol,
+              f"11c {job}: logits {rel_pre:.3e} / {rel:.3e} / {shared:.3e} "
+              f"over {tol:g}")
+        if job == "fp32":
+            parts = stream_partings(rec["streams"], streams, lg, want_lg)
+            for b, t, gap, err in parts:
+                print(f"11c fp32: stream {b} parts at token {t}: mesh=None's "
+                      f"top-2 logit gap there {gap:.3e} of the largest, "
+                      f"max|dlogit| there {err:.3e} (a tie when the gap "
+                      f"is within 2 x that)")
+            check(all(gap <= 2 * err for _, _, gap, err in parts),
+                  f"11c fp32: a stream parts from mesh=None where its top "
+                  f"two logits stand further apart than the two runs' "
+                  f"logits differ: {parts}")
+        paths["flash_decode"][f"yi-9b {job} sequence-sharded decode, TP=2 "
+                              f"rank 0"] = rec["launches"]
+    tr = ranks[0]["train"]
+    for k in ("loss", "grad_norm"):
+        rel = abs(tr["metrics"][k] - met[k]) / abs(met[k])
+        print(f"11c train (yi-9b, {MESH_TRAIN['layers']} layers, fp32, "
+              f"(1,2)): {k} {tr['metrics'][k]:.7f} against mesh=None "
+              f"{met[k]:.7f} (rel {rel:.2e}, held under {MESH_TRAIN_RTOL:g})")
+        check(rel <= MESH_TRAIN_RTOL, f"11c train: {k} rel {rel:.2e}")
+    for r, rec in enumerate(ranks):
+        t = rec["train"]
+        print(f"11c train rank {r}: {t['s']:.1f} s, peak {t['peak_gb']:.2f} "
+              f"GB; params off mesh=None's beyond 1e-5 of the leaf's max + "
+              f"0.01 lr on a share {t['far']:.2e} of a leaf at most (held "
+              f"under 0.01), by {max(t['over'], 0.0):.2e} at most (held "
+              f"under 2 lr)")
+        check(t["far"] < 0.01 and t["over"] <= 2 * MESH_TRAIN_OPT["lr"],
+              f"11c train rank {r}: params off mesh=None's")
+
+
+def start_dryrun() -> tuple:
+    """Start phase 11's lowerings (:func:`dryrun_children`) in a fresh
+    directory; returns ``(children, directory, deadline)``. They are CPU
+    work alone, so chip_smoke starts them before phase 10, beside it."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    return dryrun_children(tmp), tmp, time.monotonic() + DRYRUN_TIMEOUT
+
+
+def stop_dryrun(procs: dict, tmp: str) -> None:
+    """Kill what is left of phase 11's children; remove their directory."""
+    import shutil
+    for p in procs.values():
+        p.kill()
+        p.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dryrun(torch, np, paths: dict, procs: dict, tmp: str,
+                 deadline: float) -> None:
+    """Phase 11 (11a-11c), last: 11c's ranks and 11b's step on the card
+    while the lowerings (started by :func:`start_dryrun`) finish, then
+    their records."""
+    t0 = time.perf_counter()
+    phase_mesh_paths(torch, np, paths)
+    phase_dryrun_card(torch, procs, tmp, deadline)
+    phase_dryrun_records(procs, tmp, deadline)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s (its lowerings "
+          f"started before phase 10)")
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5236,7 +5922,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_training(torch, np, K)
     torch.cuda.empty_cache()
-    mesh_launches = phase_mesh(torch, np, K, serve)
+    procs, dry_tmp, dry_deadline = start_dryrun()
+    try:
+        mesh_launches = phase_mesh(torch, np, K, serve)
+        torch.cuda.empty_cache()
+        phase_dryrun(torch, np, mesh_launches, procs, dry_tmp, dry_deadline)
+    finally:
+        stop_dryrun(procs, dry_tmp)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],

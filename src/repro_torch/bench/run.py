@@ -4,7 +4,9 @@ The counterpart of ``benchmarks/run.py``, with its CSV: prints
 ``name,us_per_call,derived`` lines, and each module ends with a
 ``_meta,<module>,<us>,ok|FAILED`` line. ``--only <tag>`` runs the modules
 whose name holds the tag; ``--full`` runs the complete (slow) variants,
-e.g. the 416-block Fig. 3 suite, or fig11's 15 timed pairs for 9. The
+e.g. the 416-block Fig. 3 suite, or fig11's 15 timed pairs for 9;
+``roofline_sweep`` reads the dry run's records (``results/dryrun_torch``,
+``python -m repro_torch.launch.dryrun``) and measures nothing. The
 measured rows measure the CUDA card; without one the runner refuses,
 unless ``--device cpu`` asks for the host:
 
@@ -28,7 +30,7 @@ import traceback
 MODULES = ("table1_machines", "table2_ports", "table3_instructions",
            "fig2_unitmix", "fig3_rpe", "fig4_wa", "fig4b_ntstore",
            "fig5_memladder", "fig6_serve", "fig7_decode", "fig8_paged",
-           "fig9_load", "fig10_chaos", "fig11_overlap")
+           "fig9_load", "fig10_chaos", "fig11_overlap", "roofline_sweep")
 
 
 def main(argv=None) -> int:

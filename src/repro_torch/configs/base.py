@@ -113,6 +113,15 @@ SHAPES = {
 }
 
 
+def shapes_for(cfg: ModelConfig) -> list:
+    """The shape cells that apply to this architecture (the JAX
+    package's ``shapes_for``)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.long_context_ok:
+        out.append(SHAPES["long_500k"])
+    return out
+
+
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     unit = len(cfg.block_pattern)

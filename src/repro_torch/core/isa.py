@@ -8,6 +8,13 @@ their units are the JAX package's, so one trace prices across vendors:
 a `vpu`/`vlsu` unit is an (8,128) f32 block, an `mxu` unit one 128^3
 pass counted as ``_dot_mnkb`` counts them. An unknown op degrades to
 VPU-class elementwise work, flagged ``unknown`` — never a crash.
+
+A collective (``_c10d_functional.all_reduce`` and its kin, or the c10d
+forms ``c10d.allreduce_``...) is priced as the JAX package prices its
+HLO counterpart: ``ici`` wire bytes from the payload (what the op
+returns or writes) and its group's size ``g``, 2(g-1)/g of it for an
+all-reduce and (g-1)/g for an all-gather, a reduce-scatter or an
+all-to-all, plus the reduction's ``vpu`` pass; waiting on one is free.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ XLU_OPS = {
     "erfinv", "softplus", "mish", "elu", "selu", "logit", "uniform",
     "normal", "bernoulli", "rand", "randn", "randint", "random",
     "exponential", "log_sigmoid", "log_sigmoid_forward",
+    # backward passes that recompute a transcendental
+    "silu_backward", "gelu_backward", "softplus_backward",
+    "log_sigmoid_backward", "elu_backward",
 }
 #: exp of every element plus its max and sum reductions
 SOFTMAX_OPS = {"_softmax", "_log_softmax", "softmax", "log_softmax",
@@ -48,14 +58,17 @@ CHEAP_EW = {
     "sgn", "floor", "ceil", "round", "trunc", "frac", "isfinite", "isnan",
     "isinf", "lerp", "addcmul", "addcdiv", "relu", "threshold", "hardtanh",
     "copysign", "square", "_to_copy", "to", "nan_to_num", "fmax", "fmin",
-    "tril", "triu", "heaviside",
+    "tril", "triu", "heaviside", "__or__", "__and__", "__xor__",
+    "__invert__", "tanh_backward", "sigmoid_backward", "threshold_backward",
+    "hardtanh_backward", "_softmax_backward_data",
+    "_log_softmax_backward_data",
 }
 #: reductions: two VPU passes over the input (JAX's ``reduce``)
 REDUCE_OPS = {
     "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin",
     "prod", "var", "std", "var_mean", "std_mean", "all", "any",
     "logsumexp", "norm", "linalg_vector_norm", "cumsum", "cumprod",
-    "count_nonzero", "nansum", "aminmax", "topk", "sort",
+    "count_nonzero", "nansum", "aminmax", "topk", "sort", "argsort",
 }
 #: reads of rows picked by an index: random-index gathers
 GATHER_OPS = {"embedding", "index_select", "gather", "index", "take"}
@@ -67,16 +80,38 @@ WRITE_OPS = {
     "diagonal_scatter", "as_strided_scatter", "constant_pad_nd", "pad",
     "repeat", "flip", "roll", "fill", "zero", "zeros", "ones", "full",
     "zeros_like", "ones_like", "full_like", "arange", "linspace",
-    "masked_scatter", "scalar_tensor",
+    "masked_scatter", "scalar_tensor", "new_zeros", "new_ones", "new_full",
+    # backward passes that write a slice's gradient into zeros
+    "slice_backward", "select_backward", "index_select_backward",
+    "embedding_dense_backward", "unbind_backward",
 }
 #: allocations: no work and no traffic
 ALLOC_OPS = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided", "lift_fresh"}
+#: collectives, functional and c10d, by the HLO kind they lower to
+COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allreduce": "all-reduce", "allreduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "_allgather_base": "all-gather", "allgather": "all-gather",
+    "allgather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_reduce_scatter_base": "reduce-scatter",
+    "reduce_scatter": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base": "all-to-all",
+    "alltoall": "all-to-all",
+}
+#: waiting on a collective: no work (the HLO ``-done``)
+WAIT_OPS = {"wait_tensor", "_wrap_tensor_autograd"}
 #: writes whose mutated operand is overwritten, not read
 OVERWRITE_OPS = {"copy", "index_copy", "index_put", "_index_put_impl",
                  "scatter", "index_fill", "slice_scatter", "fill", "zero",
                  "uniform", "normal", "bernoulli", "random", "exponential",
-                 "masked_scatter"}
+                 "masked_scatter", "_allgather_base", "allgather",
+                 "_reduce_scatter_base", "reduce_scatter", "alltoall_base",
+                 "alltoall", "allgather_into_tensor_coalesced"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +185,7 @@ def decompose(op: str, ins: list, outs: list,
     """
     name = base_name(op)
     e = written if written is not None else sum(o.elems for o in outs)
-    if name in ALLOC_OPS:
+    if name in ALLOC_OPS or name in WAIT_OPS:
         return Uops([("sc", 1)])
     if name in MATMUL_OPS:
         bsz, m, n, k = _dot_mnkb(name, ins, outs)
@@ -175,6 +210,25 @@ def decompose(op: str, ins: list, outs: list,
         return Uops([("vlsu", _vpu_blocks(e))])
     # unknown op: degrade to elementwise
     return Uops([("vpu", _vpu_blocks(e))], flops=float(e), unknown=True)
+
+
+def collective(kind: str, payload: float, elems: int, g: int) -> Uops:
+    """µ-ops of one collective of HLO kind ``kind`` (``"all-reduce"``,
+    ``"all-gather"``, ``"reduce-scatter"``, ``"all-to-all"``) over a
+    group of ``g`` ranks: ``payload`` the bytes it returns or writes
+    (the gathered whole, the scattered shard), ``elems`` their elements.
+    The wire bytes are the JAX package's (``repro/core/isa.py``)."""
+    g = max(1, int(g))
+    if kind == "all-reduce":
+        wire = 2.0 * (g - 1) / g * payload
+    elif kind in ("all-gather", "reduce-scatter", "all-to-all"):
+        wire = (g - 1) / g * payload
+    else:                      # collective-permute
+        wire = float(payload)
+    u = [("ici", wire)]
+    if kind in ("all-reduce", "reduce-scatter"):
+        u.append(("vpu", _vpu_blocks(elems)))
+    return Uops(u, coll_bytes=wire, coll_kind=kind)
 
 
 def latency_class(op: str) -> str:

@@ -26,15 +26,31 @@ decode kernels write the step's rows and attend in one): lowered, its
 ATen ops form an ``inline`` region, as an HLO fusion does, whose HBM
 traffic is what enters and leaves it — the tensors from outside it
 reads, the rows it writes into them, and what it returns.
+
+Under a mesh the function's tensors are DTensors: the recorder lets
+DTensor run each op and records the ops on the local shards that it
+dispatches, the collectives of its redistributions among them (and
+skips the fake-tensor ops of its sharding propagation), so a trace is
+one rank's program, as the JAX package's compiled SPMD module is. A
+collective is one record with its wire bytes (``isa.collective``) and
+lands in ``Trace.collectives`` with its group's size. A :func:`repeat`
+loop is one region whose trips multiply its body; the backward pass of
+such a body (the autograd nodes its ops made, run later by
+``torch.autograd``) is recorded as a loop region of the same trips.
+``lower_call(..., memory=True)`` also tracks the storages the call
+makes, alive at once (``Trace.memory``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import weakref
 
 import torch
-from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils._python_dispatch import (_disable_current_modes,
+                                          _get_current_dispatch_mode)
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import isa
@@ -111,6 +127,21 @@ class StoreRecord:
     count: int = 1                # times it runs (a loop body's: trips)
 
 
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective of a trace: its HLO kind (``"all-reduce"``...), the
+    ATen op, the bytes it returns or writes (``payload``), its wire bytes
+    (``isa.collective``), its group's size, and the times it runs (the
+    trips of the loops around it)."""
+
+    kind: str
+    opcode: str
+    payload: float
+    wire: float
+    group: int
+    count: int = 1
+
+
 @dataclasses.dataclass
 class Trace:
     """A lowered module: the entry region plus lowering metadata.
@@ -118,12 +149,21 @@ class Trace:
     ``stores`` (the port's addition) lists the stores that cross HBM, in
     op order: every boundary op's, a kernel region's writes into tensors
     from outside it and what it returns; ``None`` unless the lowering
-    asked for them (:func:`lower_call`'s ``stores``)."""
+    asked for them (:func:`lower_call`'s ``stores``). ``collectives``
+    lists the :class:`CollectiveRecord` of each collective, in op order.
+    ``memory`` (``lower_call(..., memory=True)``): ``{"peak_bytes",
+    "end_bytes"}``, the most bytes of storages made during the call
+    alive at once, and those still alive when it returned (its result
+    among them). ``result`` is what the call returned, when kept."""
 
     module_name: str
     entry: TraceRegion
     n_devices: int = 1
     stores: tuple | None = None
+    collectives: tuple = ()
+    memory: dict | None = None
+    result: object = dataclasses.field(default=None, repr=False,
+                                       compare=False)
 
     def n_ops(self) -> int:
         """Total op records across the whole trace."""
@@ -141,20 +181,37 @@ def lower_step(fn, *args, **kwargs) -> Trace:
 
 
 def lower_call(fn, args=(), kwargs=None, *, on_op=None,
-               stores: bool = False) -> Trace:
+               stores: bool = False, memory: bool = False,
+               keep_result: bool = False) -> Trace:
     """:func:`lower_step` with the call's arguments as a tuple and a dict,
     and a hook: ``on_op(opcode, ins, outs)`` is called for every non-view
     op with the ``isa.Operand`` of each tensor it reads and of what it
     writes (its fresh outputs, or the elements it writes in place).
     ``stores=True`` also records the trace's HBM stores (``Trace.stores``,
-    what ``core/wa.analyze_trace_stores`` scans)."""
-    rec = _Recorder(on_op, stores)
-    with rec:
-        fn(*args, **(kwargs or {}))
+    what ``core/wa.analyze_trace_stores`` scans); ``memory=True`` tracks
+    the storages the call makes (``Trace.memory``); ``keep_result=True``
+    keeps what it returns (``Trace.result``). A remat checkpoint
+    recomputes its whole body in the backward pass here (no early
+    stop), so the trace prices every op it may run."""
+    rec = _Recorder(on_op, stores, memory)
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False), rec:
+        try:
+            result = fn(*args, **(kwargs or {}))
+        finally:
+            rec.backward_loop(None)
     entry = rec.scopes[0]
+    mem = None
+    if memory:
+        mem = {"peak_bytes": float(rec.peak), "end_bytes": float(rec.live_now)}
+    # tensors that outlive the call keep their finalizers: let them find
+    # nothing, and hold no scope of the trace
+    rec.info.clear()
+    rec.live.clear()
     return Trace(getattr(fn, "__name__", "step"),
                  TraceRegion(entry.name, True, entry.ops),
-                 stores=None if rec.stores is None else tuple(rec.stores))
+                 stores=None if rec.stores is None else tuple(rec.stores),
+                 collectives=tuple(rec.collectives), memory=mem,
+                 result=result if keep_result else None)
 
 
 def kernel(fn):
@@ -222,13 +279,57 @@ def _tensors(tree) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
+def _group_size(args, kwargs) -> int:
+    """Ranks in a collective's group: its ``ProcessGroup`` argument (the
+    c10d forms), or the group its name resolves to (the functional
+    forms, whose group is a name)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    flat = list(args) + list((kwargs or {}).values())
+    for a in flat:
+        if isinstance(a, torch.ScriptObject):
+            a = dist.ProcessGroup.unbox(a)       # the c10d ops' argument
+        if isinstance(a, dist.ProcessGroup):
+            return a.size()
+    for a in flat:
+        if isinstance(a, str):
+            try:
+                return _resolve_process_group(a).size()
+            except (ValueError, RuntimeError, KeyError):
+                continue
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _collective_kind(func) -> str | None:
+    """The HLO kind of a collective op (``isa.COLLECTIVE_OPS``), else
+    None."""
+    if func.namespace not in ("_c10d_functional", "c10d",
+                              "_c10d_functional_autograd"):
+        return None
+    return isa.COLLECTIVE_OPS.get(
+        isa.base_name(func.overloadpacket.__name__))
+
+
+def _autograd_mark() -> int:
+    """The autograd sequence number the next node made on this thread
+    will get, less one: nodes made after this call have larger ones."""
+    with _disable_current_modes(), torch.enable_grad():
+        return (torch.zeros(1, requires_grad=True) * 1).grad_fn._sequence_nr()
+
+
+@functools.cache
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return issubclass(t, DTensor)
+
+
 class _Scope:
     """Ops recorded into one region: the entry, a kernel's body, or a
     loop's body."""
 
     def __init__(self, name: str, boundary: bool, owner=None,
-                 mult: int = 1):
-        self.name, self.boundary = name, boundary
+                 mult: int = 1, trips: int = 1):
+        self.name, self.boundary, self.trips = name, boundary, trips
         # the scope whose tensors count as made here: a loop body inside
         # a kernel body belongs to the kernel's; ``mult`` its trips
         self.owner, self.mult = owner or self, mult
@@ -238,26 +339,48 @@ class _Scope:
         # storage -> {id of a view read: bytes}, what it reads from outside
         self.ext_read: dict = {}
         self.ext_write = 0.0          # bytes written into outside tensors
-        self.touched: dict = {}       # id -> tensor made or written here
+        # id -> tensor made or written here (kernel bodies only: what a
+        # kernel region returns is priced from it)
+        self.touched: dict = {}
         self.named: set = set()       # ids whose last writer is an op here
+
+
+@dataclasses.dataclass
+class _LoopNodes:
+    """The autograd nodes a loop body's ops made, by sequence number:
+    those in ``(lo, hi)``; their backward runs ``trips`` times."""
+
+    lo: int
+    hi: int
+    trips: int
 
 
 class _Recorder(LoopRecorder):
     """Records every ATen op into the innermost open :class:`_Scope`."""
 
-    def __init__(self, on_op=None, stores: bool = False):
+    def __init__(self, on_op=None, stores: bool = False,
+                 memory: bool = False):
         super().__init__()
         self.on_op = on_op
         self.scopes = [_Scope("entry", True)]
         # id(tensor) -> (name of the op that made or last wrote it, the
         # scope that op is in, the scope its storage was made in; None,
         # None, None for a tensor made before the lowering). A view's
-        # storage is its input's.
+        # storage is its input's. An entry goes when its tensor dies, so
+        # a later tensor at the same id starts afresh.
         self.info: dict = {}
-        self.keep: dict = {}          # every tensor seen, so ids stay unique
         self.count = 0
         # StoreRecords of HBM stores, when asked for
         self.stores: list | None = [] if stores else None
+        self.collectives: list = []
+        # storages made during the call: key -> [bytes, live tensors]
+        self.memory = memory
+        self.live: dict = {}
+        self.live_now = self.peak = 0
+        # loops whose bodies made autograd nodes, and the backward loop
+        # region open now (its _LoopNodes and scope)
+        self.loop_nodes: list = []
+        self.bwd = None
 
     # -- helpers -------------------------------------------------------------
     def _name(self, opcode: str) -> str:
@@ -284,9 +407,46 @@ class _Recorder(LoopRecorder):
 
     def _set(self, t: torch.Tensor, name: str, origin) -> None:
         scope = self.scopes[-1]
-        self.keep[id(t)] = t
-        self.info[id(t)] = (name, scope, origin)
-        scope.named.add(id(t))
+        key = id(t)
+        if key not in self.info:
+            weakref.finalize(t, self.info.pop, key, None)
+        self.info[key] = (name, scope, origin)
+        scope.named.add(key)
+
+    def _touch(self, scope: _Scope, t: torch.Tensor) -> None:
+        if not scope.boundary:
+            scope.touched[id(t)] = t
+
+    def _hold(self, t: torch.Tensor, made: bool) -> None:
+        """Count ``t`` as holding its storage (``made``: a storage this
+        call made, new if unseen) until it dies."""
+        if not self.memory:
+            return
+        st = t.untyped_storage()
+        key = st._cdata
+        rec = self.live.get(key)
+        if rec is None:
+            if not made:
+                return
+            rec = self.live[key] = [st.nbytes(), 0]
+            self.live_now += rec[0]
+            self.peak = max(self.peak, self.live_now)
+        rec[1] += 1
+        weakref.finalize(t, self._release, key)
+
+    def _release(self, key) -> None:
+        rec = self.live.get(key)
+        if rec is None:
+            return
+        rec[1] -= 1
+        if rec[1] <= 0:
+            self.live_now -= rec[0]
+            del self.live[key]
+
+    def _mult(self) -> int:
+        """The times an op recorded now runs: the trips of every loop
+        region open around it."""
+        return math.prod(s.trips for s in self.scopes)
 
     def _origin(self, t: torch.Tensor):
         return self.info.get(id(t), (None, None, None))[2]
@@ -299,9 +459,49 @@ class _Recorder(LoopRecorder):
     # -- recording -----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(_is_dtensor_type(t) for t in types):
+            # let DTensor run the op: its local ops come back here
+            return NotImplemented
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None or any(
+                issubclass(t, torch._subclasses.FakeTensor) for t in types):
+            # DTensor's sharding propagation on fake tensors: not the
+            # rank's program
+            return func(*args, **kwargs)
+        if self.loop_nodes:
+            self.backward_loop(self._loop_of_node())
         out = func(*args, **kwargs)
         self._record(func, args, kwargs, out)
         return out
+
+    def _loop_of_node(self):
+        """The innermost loop whose body made the autograd node running
+        now (None outside a backward pass, or for another node)."""
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        seq = node._sequence_nr()
+        best = None
+        for ln in self.loop_nodes:
+            if ln.lo < seq < ln.hi and (best is None or ln.lo > best.lo):
+                best = ln
+        return best
+
+    def backward_loop(self, loop) -> None:
+        """Record from now on into the backward loop region of ``loop``
+        (a :class:`_LoopNodes`), closing the one open if it is another;
+        None closes it."""
+        if self.bwd is not None and self.bwd[0] is loop:
+            return
+        if self.bwd is not None:
+            ln, body, first = self.bwd
+            self.bwd = None
+            if self.scopes[-1] is body:
+                self.scopes.pop()
+                self._close_loop(body, ln.trips, first)
+        if loop is not None:
+            body, first = self._open_loop(loop.trips)
+            self.bwd = (loop, body, first)
 
     def _record(self, func, args, kwargs, out) -> None:
         scope = self.scopes[-1]
@@ -309,8 +509,6 @@ class _Recorder(LoopRecorder):
         opcode = func.overloadpacket.__name__
         name = self._name(opcode)
         ins = _tensors((args, kwargs))
-        for t in ins:
-            self.keep[id(t)] = t
         outs = _tensors(out)
         # mutated operands: arguments the schema marks as written
         mutated = []
@@ -319,6 +517,14 @@ class _Recorder(LoopRecorder):
         for a, v in zip(schema.arguments, flat_args):
             if a.alias_info is not None and a.alias_info.is_write:
                 mutated += _tensors(v)
+        kind = _collective_kind(func)
+        if kind is not None and not mutated:
+            # the c10d forms write their first tensor argument, return it
+            # unannotated or not at all
+            landing = {o.untyped_storage()._cdata for o in outs}
+            mutated = [t for t in ins
+                       if t.untyped_storage()._cdata in landing] \
+                if outs else ins[:1]
         mutated_ids = {id(t) for t in mutated}
         in_storages = {t.untyped_storage()._cdata for t in ins}
         aliases = [r.alias_info is not None for r in schema.returns]
@@ -335,6 +541,7 @@ class _Recorder(LoopRecorder):
                                      lat_cls="vpu"))
             for o in outs:
                 self._set(o, name, origin)
+                self._hold(o, False)
             return
         gathered = sum(_operand(o).bytes for o in outs) \
             if base in isa.GATHER_OPS else None
@@ -360,15 +567,25 @@ class _Recorder(LoopRecorder):
                 written = rest[0].numel()
             else:
                 written = sum(t.numel() for t in mutated)
-        u = isa.decompose(opcode, [_operand(t) for t in ins],
-                          [_operand(o) for o in fresh], written)
+        if kind is not None:
+            landed = mutated if mutated else fresh
+            payload = float(sum(_operand(t).bytes for t in landed))
+            g = _group_size(args, kwargs)
+            u = isa.collective(kind, payload, sum(t.numel() for t in landed),
+                               g)
+            self.collectives.append(CollectiveRecord(
+                kind, opcode, payload, u.coll_bytes, g, self._mult()))
+        else:
+            u = isa.decompose(opcode, [_operand(t) for t in ins],
+                              [_operand(o) for o in fresh], written)
         if self.on_op is not None:
             self.on_op(opcode, [_operand(t) for t in ins],
                        [_operand(o) for o in fresh] if not mutated else
                        [isa.Operand((written,), mutated[0].element_size())])
         op = TraceOp(name, opcode, uops=tuple(u.uops), deps=deps,
-                     flops=u.flops, unknown=u.unknown,
-                     free=base in isa.ALLOC_OPS,
+                     flops=u.flops, coll_bytes=u.coll_bytes,
+                     coll_kind=u.coll_kind, unknown=u.unknown,
+                     free=base in isa.ALLOC_OPS or base in isa.WAIT_OPS,
                      lat_cls=isa.latency_class(opcode))
         w_bytes = 0.0
         if mutated:
@@ -388,24 +605,42 @@ class _Recorder(LoopRecorder):
         scope.ops.append(op)
         for t in mutated:
             self._set(t, name, self._origin(t))
-            scope.touched[id(t)] = t
+            self._touch(scope, t)
         for o in fresh:
             self._set(o, name, scope.owner)
-            scope.touched[id(o)] = o
+            self._touch(scope, o)
+            self._hold(o, True)
 
-    def looped(self, trips: int, step) -> None:
-        """Run ``step(0)`` as the body of one ``repeat`` loop region
-        (``utils/loops.py``)."""
+    def _open_loop(self, trips: int) -> tuple:
+        """Push the body scope of a loop region of ``trips`` trips;
+        returns it and the index of its first store."""
         outer = self.scopes[-1]
         body = _Scope(f"while.{self.count + 1}", outer.boundary,
                       None if outer.boundary else outer.owner,
-                      outer.mult * trips)
-        first_store = len(self.stores or ())
+                      outer.mult * trips, trips)
         self.scopes.append(body)
+        return body, len(self.stores or ())
+
+    def looped(self, trips: int, step) -> None:
+        """Run ``step(0)`` as the body of one ``repeat`` loop region
+        (``utils/loops.py``); the backward pass of the autograd nodes
+        its ops make is a loop region of the same trips."""
+        self.backward_loop(None)
+        body, first_store = self._open_loop(trips)
+        lo = _autograd_mark()
         try:
             step(0)
         finally:
+            self.backward_loop(None)
             self.scopes.pop()
+        hi = _autograd_mark()
+        if hi > lo + 1:
+            self.loop_nodes.append(_LoopNodes(lo, hi, trips))
+        self._close_loop(body, trips, first_store)
+
+    def _close_loop(self, body: _Scope, trips: int, first_store: int) -> None:
+        """Append the loop op of a popped body scope to the scope below."""
+        outer = self.scopes[-1]
         name = self._name("while")
         if self.stores is not None:
             self.stores[first_store:] = [
@@ -420,15 +655,25 @@ class _Recorder(LoopRecorder):
                                  region=TraceRegion(body.name,
                                                     body.boundary,
                                                     body.params + body.ops)))
+        self._rehome(body, name, outer)
+        if not outer.boundary:
+            outer.touched.update(body.touched)
+
+    def _rehome(self, body: _Scope, name: str, outer: _Scope) -> None:
+        """Tensors last written in ``body`` count as made or written by
+        its region's op ``name`` in ``outer``."""
         for key in body.named:
-            _, _, origin = self.info[key]
+            entry = self.info.get(key)
+            if entry is None:
+                continue            # died inside the region
+            origin = entry[2]
             self.info[key] = (name, outer, outer if origin is body
                               else origin)
             outer.named.add(key)
-        outer.touched.update(body.touched)
 
     def fused(self, kname: str, fn, args, kwargs):
         """Run a :func:`kernel` ``fn`` as one inline region."""
+        self.backward_loop(None)
         outer = self.scopes[-1]
         body = _Scope(f"{kname}.{self.count + 1}", False)
         self.scopes.append(body)
@@ -456,9 +701,5 @@ class _Recorder(LoopRecorder):
         outer.ops.append(op)
         if outer.boundary:
             self._stored(kname, "fresh", [(t, t) for t in made])
-        for key in body.named:
-            _, _, origin = self.info[key]
-            self.info[key] = (name, outer, outer if origin is body
-                              else origin)
-            outer.named.add(key)
+        self._rehome(body, name, outer)
         return result

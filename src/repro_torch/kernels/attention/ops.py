@@ -59,6 +59,25 @@ def validate_tp_heads(h: int, hkv: int, dh: int, tp: int, *,
 
 
 @kernel
+def flash_decode_partials(q, k, v, pos, *, window=None, impl: str = "auto",
+                          bk: int = 128, n_splits: int | None = None,
+                          kv_len: int | None = None):
+    """The split-KV decode kernel's per-split partials ``(o, m, l)``,
+    without its merge (``decode.decode_partials``; impl-routed), under
+    :func:`flash_decode`'s split plan: fp32 ``o`` (S, B, Sq, H, Dh)
+    unnormalized, ``m`` and ``l`` (S, B, Sq, H). A slot whose position
+    lies before every row (``pos < 0``) reads none (m = -1e30, l = 0),
+    one past them all reads every row up to ``kv_len``: the rows of one
+    shard of a sequence-sharded cache, at positions relative to it."""
+    bound, split_len, n_splits = D.split_plan(q.shape[0], k.shape[2],
+                                              k.shape[1], bk, n_splits,
+                                              kv_len)
+    return D.decode_partials(q, k, v, pos, window=window,
+                             split_len=split_len, n_splits=n_splits,
+                             bound=bound, impl=impl)
+
+
+@kernel
 def flash_decode(q, k, v, pos, *, window=None, impl: str = "auto",
                  bk: int = 128, n_splits: int | None = None,
                  kv_len: int | None = None, k_new=None, v_new=None,

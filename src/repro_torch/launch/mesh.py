@@ -19,6 +19,13 @@ The device type is the card's (``"cuda"``) unless the caller asks for
 ranks on one card, which NCCL refuses (its collectives are staged
 through the host, and a gloo group cannot be captured in a CUDA graph).
 A rank's device is ``cuda:{local_rank % device_count}``.
+
+``fake=True`` builds the mesh over a fake process group
+(``torch.testing._internal.distributed.fake_pg``): one process stands
+for rank 0 of a world of the mesh's size, its collectives do nothing,
+and with meta tensors DTensor lowers a step of any size without a card
+(``launch/dryrun.py``). The device type stays the card's by default, so
+DTensor picks the collectives NCCL would run; no card is needed for it.
 """
 
 from __future__ import annotations
@@ -65,10 +72,30 @@ def rank_device(device_type: str = "cuda") -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
+def start_fake_world(n: int) -> None:
+    """Make the default process group a fake one of ``n`` ranks (this
+    process rank 0), unless such a group is already up; raises if a real
+    group, or a fake one of another size, is."""
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if backend != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"a fake world of {n} ranks needs no process group, this "
+                f"process has a {backend!r} one of "
+                f"{dist.get_world_size()} ranks")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
 def _mesh(shape: tuple, axes: tuple, what: str, device_type: str | None,
-          backend: str | None):
+          backend: str | None, fake: bool = False):
     from torch.distributed.device_mesh import init_device_mesh
     device_type = device_type or "cuda"
+    if fake:
+        start_fake_world(math.prod(shape))
+        return init_device_mesh(device_type, tuple(shape),
+                                mesh_dim_names=tuple(axes))
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{what}: no CUDA device; pass "
                            "device_type='cpu' for a mesh on the host")
@@ -81,19 +108,23 @@ def _mesh(shape: tuple, axes: tuple, what: str, device_type: str | None,
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str | None = None,
-                         backend: str | None = None):
-    """The 16x16 ``("data", "model")`` mesh, or 2x16x16 with ``"pod"``."""
+                         backend: str | None = None, fake: bool = False):
+    """The 16x16 ``("data", "model")`` mesh, or 2x16x16 with ``"pod"``;
+    ``fake=True`` over a fake world of 256 or 512 ranks
+    (:func:`start_fake_world`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, "the production mesh", device_type, backend)
+    return _mesh(shape, axes, "the production mesh", device_type, backend,
+                 fake)
 
 
 def make_test_mesh(shape=(1, 1), axes=("data", "model"), *,
                    device_type: str | None = None,
-                   backend: str | None = None):
-    """A small mesh over the world's ranks (tests, smoke runs)."""
+                   backend: str | None = None, fake: bool = False):
+    """A small mesh over the world's ranks (tests, smoke runs); ``fake``
+    as in :func:`make_production_mesh`."""
     return _mesh(tuple(shape), tuple(axes), f"mesh {tuple(shape)}",
-                 device_type, backend)
+                 device_type, backend, fake)
 
 
 def parse_mesh_spec(spec: str) -> tuple:

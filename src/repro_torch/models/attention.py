@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import stores
 from repro_torch.kernels.attention import ops as kops
+from repro_torch.utils.loops import repeat
 
 NEG_INF = -1e30
 
@@ -58,7 +59,10 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
 
     Self-attention only (Sq == Skv). Each q chunk visits only its causal
     KV prefix (and only chunks inside the window when set), so the work
-    matches the lower triangle at chunk granularity.
+    matches the lower triangle at chunk granularity. The kv-chunk walk of
+    a q chunk is a :func:`~repro_torch.utils.loops.repeat` loop, carried
+    in a dict: a trace lowering records it as one loop region, as the
+    JAX package's ``fori_loop`` lowers to one ``while``.
 
     q: (B, S, H, Dh); k, v: (B, S, Hkv, Dh) -> (B, S, H, Dh)
     """
@@ -91,10 +95,12 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
         j_lo = 0
         if window is not None:
             j_lo = max(0, (i * q_chunk - window) // kv_chunk)
-        m = torch.full((b, hkv, g, q_chunk), NEG_INF, device=dev)
-        l = torch.zeros((b, hkv, g, q_chunk), device=dev)
-        acc = torch.zeros((b, hkv, g, q_chunk, dh), device=dev)
-        for j in range(j_lo, j_hi):
+        c = {"m": torch.full((b, hkv, g, q_chunk), NEG_INF, device=dev),
+             "l": torch.zeros((b, hkv, g, q_chunk), device=dev),
+             "acc": torch.zeros((b, hkv, g, q_chunk, dh), device=dev)}
+
+        def kv_step(t, qi_g=qi_g, qpos=qpos, j_lo=j_lo, c=c):
+            j = j_lo + t
             kj = k[:, j * kv_chunk:(j + 1) * kv_chunk]
             vj = v[:, j * kv_chunk:(j + 1) * kv_chunk]
             kpos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
@@ -103,13 +109,15 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int = 512,
             if window is not None:
                 mask &= kpos[None, :] > (qpos[:, None] - window)
             st = torch.where(mask, st, NEG_INF)
-            m_new = torch.maximum(m, st.amax(-1))
-            alpha = torch.exp(m - m_new)
+            m_new = torch.maximum(c["m"], st.amax(-1))
+            alpha = torch.exp(c["m"] - m_new)
             p = torch.exp(st - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
+            c["l"] = c["l"] * alpha + p.sum(-1)
+            c["acc"] = c["acc"] * alpha[..., None] + torch.einsum(
                 "bhgqk,bkhd->bhgqd", p.to(vj.dtype), vj).float()
-            m = m_new
+            c["m"] = m_new
+        repeat(j_hi - j_lo, kv_step)
+        l, acc = c["l"], c["acc"]
         o = acc / l.clamp_min(1e-30)[..., None]               # (B,Hkv,G,qc,Dh)
         o = o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, dh)
         outs.append(o.to(q.dtype))

@@ -25,8 +25,14 @@ on every rank before sampling (``sharding.replicated``). :func:`sc`
 constrains the layouts at the reference's points. Attention runs on each rank's local head shard through
 ``local_map`` (:func:`_on_local_heads`), the counterpart of a Pallas
 kernel launched per shard: the decode kernels write and read the rank's
-cache shard in place. With no mesh installed no DTensor appears and the
-ops are the unsharded path's.
+cache shard in place. A KV cache sharded on its sequence (``kv_seq``
+over ``model``, the ``SERVE_RULES`` and ``TRAIN_RULES`` layouts) is read
+by distributed flash-decoding (:func:`_decode_on_seq_shards`): each rank
+runs the decode kernel's partials over its own rows and the ranks'
+partials merge by log-sum-exp. Training runs under a mesh too
+(``TRAIN_RULES``: FSDP on ``embed``, TP on ``model``), DTensor's
+autograd differentiating it. With no mesh installed no DTensor appears
+and the ops are the unsharded path's.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 from torch.utils import checkpoint as ckpt
@@ -45,6 +52,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import pos_vector
 from repro_torch.kernels import stores as stores_lib
+from repro_torch.kernels.attention import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -412,14 +420,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 
 def check_meshable(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` runs under a mesh: the attention family with
-    dense FFNs. Recurrent mixers and MoE blocks under a mesh wait for
-    ROADMAP queue 1 item 7c."""
+    dense FFNs and token inputs. Recurrent mixers, MoE blocks and
+    embedding-input models under a mesh wait for ROADMAP queue 1 item
+    7d."""
     kinds = {part for blk in cfg.layer_plan() for part in blk.split(":")}
     other = sorted(kinds - {"attn", "attn_local", "dense", "none"})
     if other or not cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other) or 'embedding inputs'} under a "
-            "mesh is not ported (ROADMAP queue 1 item 7c)")
+            "mesh is not ported (ROADMAP queue 1 item 7d)")
 
 
 # ---------------------------------------------------------------------------
@@ -498,14 +507,43 @@ def _on_local_heads(fn, q, *rest):
     """``fn(q, *rest)`` on each rank's local shards when ``q`` is a
     DTensor (``local_map``; ``rest`` are put on ``q``'s placements, the
     result comes back on them), else on the tensors themselves. Attention
-    over a head shard needs nothing of the others."""
+    over a head shard needs nothing of the others. KV heads that the
+    query heads' shards do not divide (4 over 16 ranks) stay whole on
+    every rank, and each rank takes the KV heads of its own query heads
+    (:func:`_kv_for_local_heads`)."""
     if not shd.is_dtensor(q):
         return fn(q, *rest)
     pl = tuple(q.placements)
-    rest = tuple(t.redistribute(q.device_mesh, pl) for t in rest)
+    rest = tuple(_kv_for_local_heads(t, q) for t in rest)
     return local_map(fn, out_placements=list(pl),
                      in_placements=(pl,) * (1 + len(rest)),
                      device_mesh=q.device_mesh)(q, *rest)
+
+
+def _kv_for_local_heads(t, q):
+    """``t`` (B, S, Hkv, Dh) on ``q``'s (B, S, H, Dh) placements, each
+    rank's KV heads those its query heads attend with. Where ``q``'s head
+    shards split the KV heads evenly that is a redistribute; otherwise
+    ``t``'s heads are whole on the head-sharding mesh dims and each rank
+    picks head ``h // G`` for each of its query heads ``h``."""
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    h, hkv = q.shape[2], t.shape[2]
+    shards = math.prod(mesh.shape[m] for m, p in enumerate(pl)
+                       if p.is_shard() and p.dim == 2)
+    if hkv % shards == 0:
+        return t.redistribute(q.device_mesh, pl)
+    whole = tuple(Replicate() if p.is_shard() and p.dim == 2 else p
+                  for p in pl)
+    t = t.redistribute(mesh, whole)
+    off, n = shd.shard_offset(mesh, pl, 2, h)
+    idx = torch.arange(off, off + n, device=t.device) // (h // hkv)
+    # a rank's picked heads take the gradient of its own query heads: a
+    # sum over the head-sharding dims
+    grad_pl = tuple(Partial() if p.is_shard() and p.dim == 2 else w
+                    for p, w in zip(pl, whole))
+    loc = t.to_local(grad_placements=grad_pl).index_select(2, idx)
+    return shd.from_shard(loc, mesh, pl, tuple(t.shape[:2]) + (h,)
+                          + tuple(t.shape[3:]))
 
 
 def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
@@ -515,12 +553,12 @@ def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
     Under a mesh the cache is a DTensor whose shards the kernel writes in
     place, so it crosses the ``local_map`` boundary on its own placements
     (a redistribute would copy it). The KV heads may be sharded, and a
-    slot cache's slots; the rows may not (the kernels tile the sequence
-    themselves). q and the new rows are put on the cache's placements
-    (q's heads follow their KV groups), ``pos`` and the block tables on
-    its slot sharding; the output comes back heads-sharded. The plain
-    version on the host crosses the same boundary as the kernel on the
-    card.
+    slot cache's slots; a slot cache sharded on its rows goes to
+    :func:`_decode_on_seq_shards`. q and the new rows are put on the
+    cache's placements (q's heads follow their KV groups), ``pos`` and
+    the block tables on its slot sharding; the output comes back
+    heads-sharded. The plain version on the host crosses the same
+    boundary as the kernel on the card.
     """
     def run(q, kc, vc, pos, k, v, bt):
         return attn_lib.decode_attention(q, kc, vc, pos, k_new=k, v_new=v,
@@ -528,30 +566,119 @@ def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
     if not shd.is_dtensor(kc):
         return run(q, kc, vc, pos, k, v, block_tables)
     mesh, pl = kc.device_mesh, tuple(kc.placements)
+    if block_tables is None and tuple(vc.placements) == pl and any(
+            p.is_shard() and p.dim == 1 for p in pl):
+        return _decode_on_seq_shards(q, kc, vc, pos, k, v, **kw)
     ok_dims = (2,) if block_tables is not None else (0, 2)
     if tuple(vc.placements) != pl or any(
             p.is_shard() and p.dim not in ok_dims for p in pl):
         raise ValueError(f"decode under a mesh shards the KV cache on "
-                         f"heads (and a slot cache on slots), got "
+                         f"heads (and a slot cache on slots or rows), got "
                          f"{pl} / {tuple(vc.placements)}")
     rows = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
                  for p in pl)
-
-    def on(t, placements):
-        if not shd.is_dtensor(t):
-            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
-                                   run_check=False)
-        return t.redistribute(mesh, placements)
-    q, k, v = (on(t, pl) for t in (q, k, v))
-    pos = on(pos, rows)
+    q, k, v = (_placed(t, mesh, pl) for t in (q, k, v))
+    pos = _placed(pos, mesh, rows)
     args = (q, kc, vc, pos, k, v)
     in_pl = (pl, pl, pl, rows, pl, pl)
     if block_tables is not None:
-        args, in_pl = args + (on(block_tables, rows),), in_pl + (rows,)
+        args, in_pl = args + (_placed(block_tables, mesh, rows),), \
+            in_pl + (rows,)
     else:
         args, in_pl = args + (None,), in_pl + (None,)
     return local_map(run, out_placements=list(pl), in_placements=in_pl,
                      device_mesh=mesh)(*args)
+
+
+def _placed(t, mesh, placements):
+    """``t`` as a DTensor on ``placements`` (a plain tensor counts as
+    replicated); gathers by c10d (``sharding.relayout``)."""
+    return shd.relayout(shd.as_replicated(t, mesh), placements)
+
+
+def _decode_on_seq_shards(q, kc, vc, pos, k, v, *, window=None,
+                          impl: str = "auto", kv_len=None,
+                          store_flavor=None):
+    """Distributed flash-decoding over a slot cache whose rows are
+    sharded over one mesh dim (``kv_seq`` on ``model``; slots may be
+    sharded too): the counterpart of the reference's decode over a
+    sequence-sharded cache, where XLA turns the softmax and value sums
+    into cross-device reductions.
+
+    q and the step's new rows are gathered whole over their heads (a few
+    KB a step, the cache GBs). Each rank writes the new row of a slot
+    only if the row's position falls in its own rows (its shard of rows
+    ``off .. off + S_loc - 1``), then runs the decode kernel's partials
+    (``ops.flash_decode_partials``, the split-KV kernel without its
+    merge) over its rows at positions ``pos - off``: a rank whose rows
+    all lie past a slot's position sees none of them, one whose rows lie
+    before it sees them all. The partials ``(o, m, l)`` merge over the
+    splits, then over the ranks by log-sum-exp: an all-reduce of the
+    max, then one of the rescaled sums. The output comes back whole over
+    the heads, on the cache's slot sharding.
+
+    The row write and the merges are plain PyTorch here, not fused into
+    the kernel's launch as on an unsharded cache, and write with the
+    standard stores: non-temporal ones (``store_flavor="nt"``) raise
+    ``NotImplementedError`` (ROADMAP queue 1 item 7d).
+    """
+    mesh, pl = kc.device_mesh, tuple(kc.placements)
+    seq = [m for m, p in enumerate(pl) if p.is_shard() and p.dim == 1]
+    if len(seq) != 1 or any(p.is_shard() and p.dim not in (0, 1)
+                            for p in pl):
+        raise ValueError(f"sequence-sharded decode takes a slot cache with "
+                         f"its rows over one mesh dim (and slots over "
+                         f"others), got {pl}")
+    group = mesh.get_group(seq[0])
+    off, s_loc = shd.shard_offset(mesh, pl, 1, kc.shape[1])
+    rows = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in pl)
+    q, k, v = (_placed(t, mesh, rows) for t in (q, k, v))
+    pos = _placed(pos, mesh, rows)
+    bound = None if kv_len is None else max(1, min(int(kv_len) - off, s_loc))
+    writes = stores_lib.writes_rows(k, v, store_flavor)
+    if writes and stores_lib.executed_flavor(store_flavor) != "standard":
+        raise NotImplementedError(
+            f"store_flavor={store_flavor!r} on a sequence-sharded cache: "
+            "its row write is plain PyTorch with standard stores (ROADMAP "
+            "queue 1 item 7d)")
+
+    def run(q, kc, vc, pos, k, v):
+        q = q.contiguous()
+        lpos = pos.to(torch.int32) - off
+        if writes:
+            _write_owned_rows(kc, vc, k, v, lpos)
+        o, m, l = kops.flash_decode_partials(q, kc, vc, lpos, window=window,
+                                             impl=impl, kv_len=bound)
+        m_loc = m.amax(0)
+        w = torch.exp(m - m_loc[None])
+        l_loc = (l * w).sum(0)
+        o_loc = (o * w[..., None]).sum(0)
+        m_all = funcol.all_reduce(m_loc, "max", group)
+        scale = torch.exp(m_loc - m_all)
+        both = torch.cat([o_loc * scale[..., None],
+                          (l_loc * scale)[..., None]], -1)
+        both = funcol.all_reduce(both, "sum", group)
+        out = both[..., :-1] / both[..., -1:].clamp_min(1e-30)
+        return out.to(q.dtype)
+    return local_map(run, out_placements=list(rows),
+                     in_placements=(rows, pl, pl, rows, rows, rows),
+                     device_mesh=mesh)(q, kc, vc, pos, k, v)
+
+
+def _write_owned_rows(kc, vc, k, v, lpos) -> None:
+    """Write the step's row of each slot into this rank's rows of the
+    cache, in place, where the slot's local position ``lpos`` falls in
+    them; every other slot's row is written back as it was (bit for bit),
+    so no rank writes a row it does not own. k, v: (B, 1, Hkv, Dh)."""
+    s_loc = kc.shape[1]
+    own = (lpos >= 0) & (lpos < s_loc)
+    at = lpos.clamp(0, s_loc - 1).long()
+    slots = torch.arange(kc.shape[0], device=kc.device)
+    for cache, new in ((kc, k), (vc, v)):
+        keep = cache[slots, at]
+        cache[slots, at] = torch.where(own[:, None, None],
+                                       new[:, 0].to(cache.dtype), keep)
 
 
 def _write_state(cache: dict, new: dict) -> dict:
@@ -596,14 +723,18 @@ def _mixer(cfg: ModelConfig, mixer: str, p: dict, x, *, mode: str, cache,
 def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 rope, cache, pos, cache_len=None, impl: str = "auto",
                 kv_len=None, store_flavor=None, block_tables=None):
-    """One ``mixer:ffn`` block; returns (x_out, aux_loss, new_cache)."""
+    """One ``mixer:ffn`` block; returns (x_out, aux_loss, new_cache).
+    Under a mesh its weights' FSDP shards are gathered at use
+    (``sharding.gather_fsdp``)."""
     mixer, ffn = blk.split(":")
+    if shd.current_mesh() is not None:
+        p = _map_tree(shd.gather_fsdp, p)
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     y, new_cache = _mixer(cfg, mixer, p["mixer"], hx, mode=mode, cache=cache,
                           rope=rope, pos=pos, cache_len=cache_len, impl=impl,
                           kv_len=kv_len, store_flavor=store_flavor,
                           block_tables=block_tables)
-    x = x + y
+    x = x + _reduced(y)
     x = sc(x, "act_batch", None, "act_embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
@@ -616,9 +747,24 @@ def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 top_k=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor,
                 group_size=cfg.moe_group_size, act=cfg.ffn_act)
-        x = x + y
+        x = x + _reduced(y)
         x = sc(x, "act_batch", None, "act_embed")
     return x, aux, new_cache
+
+
+def _reduced(y):
+    """A row-parallel product's partial sums all-reduced, in training
+    such that the gradient flows back replicated
+    (``sharding.reduce_partials``); elsewhere DTensor reduces them where
+    they meet the residual."""
+    return shd.reduce_partials(y) if shd.is_dtensor(y) and y.requires_grad \
+        else y
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -630,6 +776,41 @@ def _unstack(tree: dict, n: int) -> list:
         for i in range(n):
             out[i][key] = parts[i]
     return out
+
+
+def _sharded_lookup(emb, tokens):
+    """Rows ``tokens`` of a DTensor table whose rows (the vocab) may be
+    sharded, for training: each rank looks up the tokens its rows hold,
+    zero elsewhere, and the ranks' rows are summed over the vocab shards
+    (``sharding.sum_over``: the gradient comes back whole to each rank's
+    rows). The table's other shards (FSDP's columns) are gathered first.
+    DTensor's own lookup marks its result with a mask that its backward
+    pass cannot take a partial gradient into."""
+    mesh, pl = emb.device_mesh, tuple(emb.placements)
+    vocab = [m for m, p in enumerate(pl) if p.is_shard() and p.dim == 0]
+    emb_pl = tuple(p if m in vocab else Replicate() for m, p in enumerate(pl))
+    tok = shd.as_replicated(tokens, mesh)
+    tok_pl = tuple(Replicate() if m in vocab else p
+                   for m, p in enumerate(tok.placements))
+    off, n = shd.shard_offset(mesh, emb_pl, 0, emb.shape[0])
+    groups = [mesh.get_group(m) for m in vocab]
+
+    def pick(e, t):
+        t = t.long() - off
+        ok = (t >= 0) & (t < n)
+        rows = e[t.clamp(0, n - 1)]
+        rows = torch.where(ok[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        return shd.sum_over(rows, groups)
+    # each rank's rows take the gradient of its own tokens only: a sum
+    # over the dims that shard the tokens and not the table
+    grad_pl = tuple(Partial() if t.is_shard() and not e.is_shard() else e
+                    for e, t in zip(emb_pl, tok_pl))
+    return local_map(pick, out_placements=list(tok_pl),
+                     in_placements=(emb_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh)(
+        emb.redistribute(mesh, emb_pl), tok.redistribute(mesh, tok_pl))
 
 
 def _remat_wrap(cfg: ModelConfig, fn):
@@ -660,7 +841,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "prefill", cache: dict | None = None, pos=None,
             cache_len: int | None = None, impl: str = "auto",
             kv_len: int | None = None, store_flavor: str | None = None,
-            block_tables: torch.Tensor | None = None):
+            block_tables: torch.Tensor | None = None,
+            gather_logits: bool = True):
     """Run the model; returns ``(logits, aux, cache)``, or ``(logits,
     aux)`` in training.
 
@@ -696,16 +878,23 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     returns it as its mixer made it (Mamba's ``conv`` in the compute
     dtype). ``aux`` is the MoE load-balance loss summed over the layers
     (0-d fp32; zero without MoE blocks).
+
+    Under a mesh (``utils.sharding.use_mesh_rules``) the parameters are
+    DTensors. Serving gathers the vocab-sharded logits whole on every
+    rank (the sampler's input) unless ``gather_logits=False`` leaves
+    them on their layout, as the dry run lowers a step; training leaves
+    them sharded for the loss (``train.losses.cross_entropy``).
     """
     kw = dict(cache=cache, pos=pos, cache_len=cache_len, impl=impl,
               kv_len=kv_len, store_flavor=store_flavor,
-              block_tables=block_tables)
+              block_tables=block_tables, gather_logits=gather_logits)
     if mode == "train":
-        if shd.current_mesh() is not None:
-            raise NotImplementedError(
-                "training under a mesh is not ported (ROADMAP queue 1 "
-                "item 7c)")
-        logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
+        if shd.current_mesh() is None:
+            logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
+            return logits, aux
+        check_meshable(cfg)
+        with implicit_replication():
+            logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
         return logits, aux
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (expected 'train', "
@@ -722,15 +911,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
              cache, pos, cache_len, impl, kv_len, store_flavor,
-             block_tables):
+             block_tables, gather_logits=True):
     dtype = DTYPES[cfg.param_dtype]
     if cfg.embed_inputs:
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = params["tok_embed"]
         # a vocab-sharded table is a masked lookup and a sum over shards
-        x = (F.embedding(tokens, emb) if shd.is_dtensor(emb)
-             else emb[tokens]).to(dtype)
+        if not shd.is_dtensor(emb):
+            x = emb[tokens].to(dtype)
+        elif mode == "train":
+            x = _sharded_lookup(emb, tokens).to(dtype)
+        else:
+            x = F.embedding(tokens, emb).to(dtype)
     else:
         x = batch["embeds"].to(dtype)
         b, s, _ = x.shape
@@ -755,6 +948,10 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
         pe = L.sinusoidal_embedding(
             positions if positions.ndim == 2 else positions[0], cfg.d_model)
         x = x + pe.to(x.dtype)
+    if rope is not None and mode == "train" and shd.is_dtensor(x):
+        # the tables meet DTensors in the backward pass too, where no
+        # implicit replication is in force (autograd's threads)
+        rope = tuple(shd.as_replicated(t, x.device_mesh) for t in rope)
 
     x = sc(x, "act_batch", None, "act_embed")
     plan = cfg.layer_plan()
@@ -804,8 +1001,11 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the last position's logits
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = shd.gather_fsdp(params["tok_embed"].T if cfg.tie_embeddings
+                           else params["lm_head"])
     logits = x @ head.to(x.dtype)
     # vocab-sharded under a mesh, then gathered whole for the sampler
-    logits = shd.replicated(sc(logits, "act_batch", None, "vocab"))
+    logits = sc(logits, "act_batch", None, "vocab")
+    if gather_logits and mode != "train":
+        logits = shd.replicated(logits)
     return logits, aux_total, new_cache

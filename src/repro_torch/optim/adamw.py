@@ -104,11 +104,52 @@ def init_opt_state(params: dict, moments_dtype: str = "float32") -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
+    """sqrt of the sum of squares of every leaf, in fp32.
+
+    Leaves that are DTensors are summed over their local shards, each
+    shard's sum divided by the ranks that hold the same shard (a leaf
+    replicated over a mesh dim is counted once), and the ranks' sums are
+    added by one all-reduce over the whole mesh: no leaf is gathered.
+    The norm comes back a plain 0-d tensor, the same on every rank."""
+    leaves = _leaves(tree)
+    meshes = {leaf.device_mesh for leaf in leaves if _is_dtensor(leaf)}
+    if not meshes:
+        total = 0
+        for leaf in leaves:
+            total = total + leaf.float().square().sum()
+        return torch.sqrt(total)
+    if len(meshes) > 1:
+        raise ValueError("global_norm takes leaves on one mesh")
+    mesh = meshes.pop()
     total = 0
-    for leaf in _leaves(tree):
-        total = total + leaf.float().square().sum()
-    return torch.sqrt(total)
+    for leaf in leaves:
+        if not _is_dtensor(leaf):
+            total = total + leaf.float().square().sum() / mesh.size()
+            continue
+        if any(p.is_partial() for p in leaf.placements):
+            raise ValueError("global_norm takes leaves without partial sums")
+        copies = math.prod(n for n, p in zip(mesh.shape, leaf.placements)
+                           if not p.is_shard())
+        total = total + leaf.to_local().float().square().sum() / copies
+    return torch.sqrt(_all_ranks_sum(total, mesh))
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _all_ranks_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over every rank of ``mesh``: one all-reduce on the
+    world's group when the mesh spans the world, else one a mesh dim."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    if mesh.ndim == 1 or mesh.size() == dist.get_world_size():
+        group = mesh.get_group(0) if mesh.ndim == 1 else dist.group.WORLD
+        return funcol.all_reduce(x, "sum", group)
+    for m in range(mesh.ndim):
+        x = funcol.all_reduce(x, "sum", mesh.get_group(m))
+    return x
 
 
 def adamw_update(oc: OptConfig, params: dict, grads: dict, opt_state: dict,

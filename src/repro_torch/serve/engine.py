@@ -105,9 +105,9 @@ places the collectives and the decode kernels run on each rank's local
 head shard (``models.model``). The logits come back whole on every rank
 and every rank samples from generators seeded alike, so all ranks pick
 the same tokens and their caches stay one cache. A sharded engine stages
-no prompts; recurrent and MoE configs, pipelined dispatch, snapshots and
-a paged cache with slots over the data axis raise ``NotImplementedError``
-under a mesh (ROADMAP queue 1 item 7c). A chunk on the card is one CUDA
+no prompts; recurrent, MoE and embedding-input configs, pipelined
+dispatch, snapshots and a paged cache with slots over the data axis
+raise ``NotImplementedError`` under a mesh (ROADMAP queue 1 item 7d). A chunk on the card is one CUDA
 graph over NCCL; a gloo group cannot be captured, so a gloo mesh on the
 card needs ``cuda_graphs=False``.
 """
@@ -324,7 +324,7 @@ class ServeEngine:
     def _check_mesh(self, cuda_graphs: bool, pipeline, max_slots: int):
         """Refuse what does not run under a mesh, before anything is
         placed: heads that do not divide the TP degree (``ValueError``),
-        what waits for ROADMAP queue 1 item 7c (``NotImplementedError``),
+        what waits for ROADMAP queue 1 item 7d (``NotImplementedError``),
         and CUDA graphs over a gloo group (``ValueError``)."""
         import torch.distributed as dist
         cfg, mesh = self.cfg, self.mesh
@@ -337,7 +337,7 @@ class ServeEngine:
         if pipeline:
             raise NotImplementedError(
                 "pipelined dispatch under a mesh is not ported (ROADMAP "
-                "queue 1 item 7c)")
+                "queue 1 item 7d)")
         slots = shd.spec_for((max_slots,), ("batch",), self.rules,
                              self._mesh_sizes)[0]
         if self.paged and slots is not None and math.prod(
@@ -345,7 +345,7 @@ class ServeEngine:
                 (slots if isinstance(slots, tuple) else (slots,))) > 1:
             raise NotImplementedError(
                 "a paged cache with slots over the data axis is not "
-                "ported (ROADMAP queue 1 item 7c)")
+                "ported (ROADMAP queue 1 item 7d)")
         gloo = any(dist.get_backend(mesh.get_group(i)) == "gloo"
                    for i in range(mesh.ndim))
         if self.device.type == "cuda" and cuda_graphs and gloo:
@@ -826,12 +826,12 @@ class ServeEngine:
         the snapshot is skipped (returns False). On a CUDA engine the
         device-to-host copies run on the checkpointer's side stream and
         wait only for the params' own writes, never for the decode rounds
-        in flight. A sharded engine refuses (ROADMAP queue 1 item 7c).
+        in flight. A sharded engine refuses (ROADMAP queue 1 item 7d).
         """
         if self.mesh is not None:
             raise NotImplementedError(
                 "snapshots of a sharded engine are not ported (ROADMAP "
-                "queue 1 item 7c)")
+                "queue 1 item 7d)")
         return checkpointer.save(step, {"params": self.params},
                                  skip_if_busy=True, after=self._params_ready)
 

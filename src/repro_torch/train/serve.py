@@ -10,6 +10,16 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import pos_vector
 from repro_torch.models import model as M
+from repro_torch.models.model import count_params
+
+
+def serve_uses_fsdp(cfg: ModelConfig, tp: int = 16,
+                    hbm_budget: float = 10e9) -> bool:
+    """Pure-TP weights only when they fit a chip's HBM with headroom (the
+    reference's rule, copied with its budget: 10 GB is a TPU v5e's 16 GB
+    less headroom, not an H100's 80 GB; the dry run's records keep the
+    reference's rules tables by it)."""
+    return count_params(cfg) * 2 / tp > hbm_budget
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int | None = None,

@@ -8,17 +8,28 @@ The state is a plain dict: ``{"params", "opt": {"m", "v"}, "step"}``
 each scan unit under ``cfg.remat``. The step's matmuls are
 ``torch.matmul``, as the reference leaves them to XLA; nothing on this
 path is a hand-written kernel.
+
+Under a mesh (``utils.sharding.use_mesh_rules`` with ``TRAIN_RULES``) the
+state and the batch are DTensors laid out by :func:`train_state_pspecs`
+and :func:`batch_pspecs`; DTensor's autograd differentiates the sharded
+forward, each gradient is put on its parameter's layout (its partial
+sums reduced) and the update runs shard by shard.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig, adamw_update, init_opt_state
 from repro_torch.train.losses import cross_entropy
+from repro_torch.utils import sharding as shd
+from repro_torch.utils.loops import repeat
 from repro_torch.utils.sharding import P, spec_for
 
 AUX_COEF = 0.01
@@ -51,27 +62,56 @@ def value_and_grad(loss_fn):
         leaves = [p.detach().requires_grad_(True) for p in flat]
         (loss, parts) = loss_fn(adamw._unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _on_layout(g, p)
                  for p, g in zip(flat, grads)]
         return ((loss.detach(), {k: v.detach() for k, v in parts.items()}),
                 adamw._unflatten(params, grads))
     return grad_fn
 
 
+def _on_layout(g, p):
+    """A gradient on its parameter's DTensor layout (partial sums
+    reduced, shards cut); a plain tensor as it is."""
+    if shd.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def split_batch(batch: dict, accum_steps: int) -> list:
     """The reference's microbatch rule: a leaf of rank >= 2 whose batch
     divides is split on axis 0, any other leaf is repeated; M-RoPE
-    positions (3, B, S) are split on axis 1."""
+    positions (3, B, S) are split on axis 1. A DTensor leaf whose batch is
+    sharded is split rank by rank: microbatch ``i`` takes the ``i``-th
+    part of every rank's rows (the same rows in all, so the same summed
+    gradients, in another grouping)."""
     def split(name, x):
-        if name == "positions" and x.ndim == 3 and x.shape[0] == 3:
+        axis = 1 if name == "positions" and x.ndim == 3 \
+            and x.shape[0] == 3 else 0
+        if x.ndim < 2 or x.shape[axis] % accum_steps:
+            return [x] * accum_steps
+        if shd.is_dtensor(x):
+            return _split_shards(x, axis, accum_steps)
+        if axis == 1:
             return list(x.reshape(3, accum_steps, x.shape[1] // accum_steps,
                                   x.shape[2]).movedim(1, 0))
-        if x.ndim >= 2 and x.shape[0] % accum_steps == 0:
-            return list(x.reshape(accum_steps, x.shape[0] // accum_steps,
-                                  *x.shape[1:]))
-        return [x] * accum_steps
+        return list(x.reshape(accum_steps, x.shape[0] // accum_steps,
+                              *x.shape[1:]))
     parts = {k: split(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(accum_steps)]
+
+
+def _split_shards(x, axis: int, n: int) -> list:
+    """``n`` DTensors, the ``i``-th of each rank's shard of ``x`` along
+    ``axis`` (every rank's shard divides)."""
+    loc = x.to_local()
+    if loc.shape[axis] % n:
+        raise ValueError(f"a rank's {loc.shape[axis]} rows do not split "
+                         f"into {n} microbatches")
+    shape = list(x.shape)
+    shape[axis] //= n
+    return [shd.from_shard(p.contiguous(), x.device_mesh,
+                           tuple(x.placements), tuple(shape))
+            for p in loc.chunk(n, axis)]
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
@@ -81,25 +121,36 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
     With ``accum_steps > 1`` the batch is cut by :func:`split_batch`, the
     microbatches' gradients are summed in fp32, and the loss, the aux loss
     and the gradients are divided by the step count; ``ce`` is then the
-    mean loss, as in the reference.
+    mean loss, as in the reference. The microbatch loop is a
+    :func:`~repro_torch.utils.loops.repeat` loop (its carry the fp32 sums,
+    added to in place), so a trace lowering records one microbatch as a
+    loop region of ``accum_steps`` trips, the counterpart of the
+    reference's ``lax.scan``.
     """
     grad_fn = value_and_grad(make_loss_fn(cfg))
 
     def step(state, batch):
+        meshed = shd.is_dtensor(state["step"])
+        with implicit_replication() if meshed else contextlib.nullcontext():
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if accum_steps == 1:
             (loss, parts), grads = grad_fn(params, batch)
         else:
-            grads = adamw._map(lambda x: torch.zeros(
-                x.shape, dtype=torch.float32, device=x.device), params)
-            loss = aux = torch.zeros((), dtype=torch.float32,
-                                     device=state["step"].device)
-            for mb in split_batch(batch, accum_steps):
-                (l, parts), g = grad_fn(params, mb)
+            grads = adamw._map(
+                lambda x: torch.zeros_like(x, dtype=torch.float32), params)
+            loss = torch.zeros_like(state["step"], dtype=torch.float32)
+            aux = torch.zeros_like(loss)
+            mbs = split_batch(batch, accum_steps)
+
+            def micro(i):
+                (l, parts), g = grad_fn(params, mbs[i])
                 _add32(grads, g)
-                loss = loss + l
-                aux = aux + parts["aux"]
-                del g
+                loss.add_(l)
+                aux.add_(parts["aux"])
+            repeat(accum_steps, micro)
             loss = loss / accum_steps
             parts = {"ce": loss, "aux": aux / accum_steps}
             grads = adamw._map(lambda g: g / accum_steps, grads)
@@ -107,7 +158,9 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
                                                state["opt"], state["step"])
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        return new_state, {"loss": loss, **parts, **om}
+        metrics = {"loss": loss, **parts, **om}
+        return new_state, {k: shd.reduce_partials(v) if shd.is_dtensor(v)
+                           else v for k, v in metrics.items()}
 
     return step
 

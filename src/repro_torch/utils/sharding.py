@@ -17,7 +17,8 @@ on its mesh dim, every other mesh dim ``Replicate()``. :func:`distribute`
 turns a tree of full tensors, the same on every rank, into DTensors
 without a collective (each rank keeps its own shard), and :func:`sc` is
 ``with_sharding_constraint``: a redistribute to the spec's placements
-under the mesh and rules :func:`use_mesh_rules` installs.
+under the mesh and rules :func:`use_mesh_rules` installs (off the
+autograd path through :func:`relayout`, whose gathers are c10d's).
 """
 
 from __future__ import annotations
@@ -207,14 +208,8 @@ def shard_owner(mesh, placements, dim: int, size: int, index: int):
     """Where global ``index`` of dim ``dim`` (``size`` long) lives: its
     index in this rank's shard, or None when another rank's shard holds
     it."""
-    block, chunk = size, 0
-    coords = mesh.get_coordinate()
-    for m, pl in enumerate(placements):
-        if pl.is_shard() and pl.dim == dim:
-            n = mesh.shape[m]
-            block //= n
-            chunk = chunk * n + coords[m]
-    return index - chunk * block if index // block == chunk else None
+    off, n = shard_offset(mesh, placements, dim, size)
+    return index - off if off <= index < off + n else None
 
 
 def _own(local: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
@@ -275,6 +270,15 @@ def from_shard(local: torch.Tensor, mesh, placements, shape: tuple):
                               shape=torch.Size(shape), stride=stride)
 
 
+def as_replicated(t: torch.Tensor, mesh):
+    """A plain tensor, the same on every rank, as a replicated DTensor
+    (no collective); a DTensor passes through."""
+    if is_dtensor(t):
+        return t
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
 def zeros(shape: tuple, dtype, mesh, spec, device):
     """A zero DTensor of global ``shape`` laid out by ``spec``, made shard
     by shard (no rank holds the full tensor)."""
@@ -292,35 +296,137 @@ def local(tree):
     return tree.to_local() if is_dtensor(tree) else tree
 
 
-def replicated(x: torch.Tensor) -> torch.Tensor:
-    """``x`` whole on every rank, as a plain tensor; a plain tensor passes
-    through.
+def shard_offset(mesh, placements, dim: int, size: int) -> tuple:
+    """``(offset, length)`` of this rank's block of dim ``dim`` (``size``
+    long) under ``placements`` (even shards, as :func:`spec_for` makes
+    them)."""
+    block, chunk = size, 0
+    coords = mesh.get_coordinate()
+    for m, pl in enumerate(placements):
+        if pl.is_shard() and pl.dim == dim:
+            n = mesh.shape[m]
+            block //= n
+            chunk = chunk * n + coords[m]
+    return chunk * block, block
 
-    A DTensor's partial sums are all-reduced by DTensor; its shards are
-    gathered by ``torch.distributed.all_gather_into_tensor`` on each
-    sharding mesh dim's group, minor to major. Not DTensor's own
-    gather: its functional all-gather kills the rank on a gloo group over
-    CUDA tensors (torch 2.11), where the c10d call works
+
+def relayout(x, placements):
+    """``x`` (a DTensor) redistributed to ``placements``, each shard that
+    must be gathered gathered by ``torch.distributed.all_gather_into_tensor``
+    on its mesh dim's group, minor to major; partial sums are
+    all-reduced and shards cut by DTensor (no gather in either). Not
+    DTensor's own gather: its functional all-gather kills the rank on a
+    gloo group over CUDA tensors (torch 2.11), where the c10d call works
     (``scripts/gloo_cuda_probe.py``), and two ranks on one card run over
-    gloo.
-    """
-    if not is_dtensor(x):
-        return x
+    gloo. Not differentiable: the autograd path redistributes with
+    DTensor."""
     import torch.distributed as dist
     mesh = x.device_mesh
+    want = tuple(placements)
+    if tuple(x.placements) == want:
+        return x
     if any(p.is_partial() for p in x.placements):
         x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
                                   for p in x.placements])
+    cur = list(x.placements)
+    gather = [m for m in range(mesh.ndim)
+              if cur[m].is_shard() and want[m] != cur[m]]
+    # a dim sharded further by a minor mesh dim that stays: DTensor's
+    if any(cur[m2].is_shard() and cur[m2].dim == cur[m].dim
+           and m2 not in gather for m in gather
+           for m2 in range(m + 1, mesh.ndim)):
+        return x.redistribute(mesh, want)
     t = x.to_local()
-    for m in reversed(range(mesh.ndim)):
-        p = x.placements[m]
-        if p.is_shard():
-            part = t.movedim(p.dim, 0).contiguous()
-            out = part.new_empty((mesh.shape[m] * part.shape[0],)
-                                 + part.shape[1:])
-            dist.all_gather_into_tensor(out, part, group=mesh.get_group(m))
-            t = out.movedim(0, p.dim)
-    return t.contiguous()
+    for m in reversed(gather):
+        d = cur[m].dim
+        part = t.movedim(d, 0).contiguous()
+        out = part.new_empty((mesh.shape[m] * part.shape[0],)
+                             + part.shape[1:])
+        dist.all_gather_into_tensor(out, part, group=mesh.get_group(m))
+        t = out.movedim(0, d)
+        cur[m] = Replicate()
+    shape = tuple(x.shape)
+    t = from_shard(t.contiguous(), mesh, tuple(cur), shape)
+    return t if tuple(cur) == want else t.redistribute(mesh, want)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank, as a plain tensor; a plain tensor passes
+    through. Gathered by :func:`relayout` (c10d all-gathers)."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    return relayout(x, (Replicate(),) * mesh.ndim).to_local().contiguous()
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """Sum (or average) a local tensor over the ranks of ``groups``, an
+    all-reduce a group; the backward pass hands the gradient through
+    unchanged (Megatron's ``g``): the caller reads it as the gradient of
+    the reduced whole, replicated."""
+
+    @staticmethod
+    def forward(ctx, t, groups, mean):
+        from torch.distributed import _functional_collectives as funcol
+        for g in groups:
+            t = funcol.all_reduce(t, "sum", g)
+            if mean:
+                t = t / g.size()
+        return funcol.wait_tensor(t) if groups else t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def sum_over(t: torch.Tensor, groups, mean: bool = False) -> torch.Tensor:
+    """``t`` summed (``mean``: averaged) over the ranks of each process
+    group in ``groups``, differentiably (:class:`_SumOverGroups`)."""
+    return _SumOverGroups.apply(t, tuple(groups), mean)
+
+
+def reduce_partials(x):
+    """A DTensor's partial sums or means all-reduced (its ``Partial`` mesh
+    dims made ``Replicate``) such that the backward pass takes the
+    gradient as replicated: DTensor's own redistribute hands back a
+    partial gradient, and a matmul's backward then gathers the other
+    operand. Other placements stay; partial maxima and minima are
+    DTensor's to reduce."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    mesh = x.device_mesh
+    out = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    ops = {p.reduce_op for p in x.placements if p.is_partial()}
+    if len(ops) != 1 or ops - {"sum", "avg"}:
+        return x.redistribute(mesh, out)
+    groups = [mesh.get_group(m) for m, p in enumerate(x.placements)
+              if p.is_partial()]
+    loc = x.to_local(grad_placements=out)
+    return DTensor.from_local(sum_over(loc, groups, ops == {"avg"}), mesh,
+                              out, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def gather_fsdp(w):
+    """A weight with its FSDP shards gathered for use (the mesh dims the
+    installed rules put ``embed`` on made ``Replicate``), where the rules
+    keep activations whole on ``d_model`` (``act_embed`` empty: training,
+    the FSDP gather baseline). Under the resident-2-D rules the weight
+    stays sharded and its products are partial sums. Anything else comes
+    back as it is."""
+    mesh, rules = _STATE.mesh, _STATE.rules
+    if mesh is None or rules is None or not is_dtensor(w) \
+            or rules.get("act_embed"):
+        return w
+    fsdp = set(rules.get("embed", ()))
+    names = w.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if p.is_shard() and names[m] in fsdp else p
+               for m, p in enumerate(w.placements))
+    if pl == tuple(w.placements):
+        return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.redistribute(w.device_mesh, pl)     # differentiable
+    return relayout(w, pl)
 
 
 def sc(x, *axes):
@@ -334,4 +440,8 @@ def sc(x, *axes):
     spec = spec_for(tuple(x.shape), tuple(axes), rules,
                     mesh_axis_sizes(mesh))
     pl = placements_for(mesh, spec)
-    return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+    if tuple(x.placements) == pl:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return x.redistribute(mesh, pl)     # differentiable
+    return relayout(x, pl)

@@ -215,11 +215,9 @@ def test_runner_refuses_without_a_card(monkeypatch, capsys):
 
 
 def test_runner_lists_the_reference_modules_in_order():
-    ref = ("table1_machines", "table2_ports", "table3_instructions",
-           "fig2_unitmix", "fig3_rpe", "fig4_wa", "fig4b_ntstore",
-           "fig5_memladder", "fig6_serve", "fig7_decode", "fig8_paged",
-           "fig9_load", "fig10_chaos", "fig11_overlap")
-    assert bench_run.MODULES == ref
+    from benchmarks import run as ref_run
+    assert bench_run.MODULES == ref_run.MODULES
+    assert len(bench_run.MODULES) == 15
 
 
 # --- fig11 ------------------------------------------------------------------

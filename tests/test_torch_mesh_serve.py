@@ -132,7 +132,7 @@ def test_two_rank_mesh_serves_as_jax(world, case, tp):
             if tp > 1 else ref["indivisible_heads"] == "no error"
         for name in ("recurrent", "pipeline", "snapshot"):
             assert ref[name].startswith("NotImplementedError"), name
-            assert "ROADMAP queue 1 item 7c" in ref[name], name
+            assert "ROADMAP queue 1 item 7d" in ref[name], name
         assert ref["stage"] is False
         assert rec["batches"]["shards_ok"] and rec["batches"]["iterator_ok"]
     assert _rel(logits["prefill"], world["logits"]["prefill"]) <= LOGIT_TOL
