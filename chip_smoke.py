@@ -232,7 +232,8 @@ Phases, each printed on its own line:
        fault and rescue path run, a replan landed.
 8. the runtime around the engine (:func:`phase_runtime`, after phase
    7's engines are freed):
-   8a. yi-9b at its published width (48 layers, bf16, seed 81), a dense
+   8a. yi-9b at its published width (16 of its 48 layers,
+       ``RUNTIME_LAYERS``, bf16, seed 81), a dense
        and a paged (page 16) engine of 8 slots, a 2048-row horizon and
        8-token chunks, greedy and at T=0.8, their graphs captured first;
        phase 5's 16 requests served once unmeasured, then serially, then
@@ -295,7 +296,8 @@ Phases, each printed on its own line:
     9): yi-9b at its published width, 8 slots, 8 requests of 128-256
     token prompts and 32 new tokens, chunk 8 (``MESH_CELL``).
     10a. a world of one NCCL rank, mesh (1,1) (``launch.mesh``), bf16,
-         48 layers, dense and paged, CUDA graphs on: greedy streams
+         16 layers (``MESH_BF16_LAYERS``), dense and paged, CUDA graphs
+         on: greedy streams
          identical to the mesh=None engine's on the same weights, ms a
          step beside mesh=None's, collectives a step as ``CommDebugMode``
          counts them over one eager chunk; its launches join
@@ -304,7 +306,7 @@ Phases, each printed on its own line:
          ranks on one device; ``scripts/gloo_cuda_probe.py`` records what
          gloo carries on CUDA tensors), eager, spawned with a time limit
          (``MESH_TP_TIMEOUT``), each rank making its shard of every
-         weight leaf by leaf: bf16 at 48 layers (first decode step's
+         weight leaf by leaf: bf16 at 16 layers (first decode step's
          logits within ``MESH_BF16_REL_TOL`` of the unsharded step's,
          streams counted) and fp32 at 4 layers, dense and paged (logits
          within ``MESH_FP32_REL_TOL``, streams identical); the two ranks'
@@ -315,7 +317,8 @@ Phases, each printed on its own line:
     11a. full-width records (``DRYRUN_CELLS``: yi-9b ``train_4k``,
          ``prefill_32k``, ``decode_32k`` on 16x16, qwen1.5-110b
          ``decode_32k`` under ``gather`` and ``resident2d``, yi-9b
-         ``train_4k`` on 2x16x16), each with its lowering time, peak GB
+         ``train_4k`` on 2x16x16, jamba ``train_4k`` and qwen3-moe
+         ``decode_32k`` on 16x16), each with its lowering time, peak GB
          a rank against the card's 80 GB, FLOPs a rank, collectives by
          kind and bytes, and its ``h100`` roofline terms;
     11b. yi-9b's decode step (8 slots, 2048 rows) lowered at mesh (1,1)
@@ -332,10 +335,35 @@ Phases, each printed on its own line:
          on its rows (``SERVE_RULES``), the decode kernel's partials over
          each rank's half merged across the ranks (fp32 at 4 layers:
          every step's logits fed the same tokens, streams identical to
-         mesh=None but at a tie; bf16 at 48 layers: the first step's
+         mesh=None but at a tie; bf16 at 16 layers: the first step's
          logits), its launches a path of ``launches_by_path``; and
          yi-9b's train step at (1,2) (2 layers, fp32) against
          mesh=None's: loss, grad norm, parameters.
+
+12. What a mesh once refused (:func:`phase_mesh_families`, after phase
+    11), two gloo ranks on ``cuda:0`` spawned under
+    ``FAMILY_MESH_TIMEOUT`` as 10b's, each job against mesh=None on the
+    same card, weights and inputs (``PHASE12_SEED``): the recurrent, MoE
+    and embedding-input configs at their published widths at (1,2)
+    (``FAMILY_MESH_JOBS``: jamba's period in bf16 and 5 layers in fp32,
+    xlstm-125m whole in fp32 and bf16, musicgen-large's 48 layers in
+    bf16, grok-1 and qwen3-moe at one layer, expert-parallel, in fp32),
+    8 slots of 128-token prompts (or frames) then greedy decode steps
+    through ``forward``: the first step's and the prefill's max
+    |dlogit| / max |logit| over the slots routed alike (held under
+    ``MESH_BF16_REL_TOL`` / ``MESH_FP32_REL_TOL``), fp32 streams
+    identical but at a tie (:func:`stream_partings`), bf16 streams
+    counted, collectives a step by op, ms a step, ``flash_decode``
+    launches a rank (xlstm-125m's own prefill and streams printed, its
+    fp32 prefill and first step held at prompts of up to
+    ``AMPLIFIED_HELD`` tokens, ``ROUNDING_AMPLIFIED``); then yi-9b fp32
+    at 4 layers: ``pipeline=2`` at
+    (1,2) streaming as serial, a snapshot of the (1,2) engine restored at
+    mesh=None to its leaves, the paged engine at (2,1) (slots over
+    ``data``) streaming as mesh=None with its ``flash_decode_paged``
+    launches a rank, and 11c's sequence-sharded decode with
+    ``store_flavor="nt"``: streams equal to the standard stores', one
+    step at rows one rank owns writing those rows alone.
 
 Every timing is device time from ``torch.profiler``. A profiler window
 that reads a call under a bound that is a true floor (the bytes of an
@@ -3801,16 +3829,16 @@ FIG10_REQUESTS = 16
 
 
 def fig_model(torch, arch: str, seed: int, label: str,
-              dtype: str | None = None):
-    """``(cfg, params)`` of ``arch`` at its published width and depth on
-    the card, weights from ``seed`` (``bench._common.model``); prints
-    their size."""
+              dtype: str | None = None, layers: int | None = None):
+    """``(cfg, params)`` of ``arch`` at its published width and depth (or
+    ``layers`` layers) on the card, weights from ``seed``
+    (``bench._common.model``); prints their size."""
     from repro_torch.bench._common import model
     t0 = time.perf_counter()
-    cfg, params = model(arch, "cuda", seed=seed, dtype=dtype)
+    cfg, params = model(arch, "cuda", seed=seed, dtype=dtype, layers=layers)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    print(f"{label}: {cfg.name} at its published width and depth "
+    print(f"{label}: {cfg.name} at its published width "
           f"({cfg.n_layers} layers, d_model {cfg.d_model}), {n / 1e9:.3f} B "
           f"params {cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
     return cfg, params
@@ -4004,6 +4032,10 @@ def phase_serving_benchmarks(torch, K) -> dict:
 #: phase 8: the seeds of 8a's weights (yi-9b) and of 8c's and 8e's
 #: (xlstm-125m), and of their requests
 RUNTIME_SEEDS = {"yi-9b": 81, "xlstm-125m": 82, "requests": 5}
+#: phase 8a: yi-9b's depth, 16 of its 48 layers (all 48 until phase 12
+#: came; cut so that the script stays well inside its time limit on a
+#: slow host: its four engines' graph captures took ~50 s of it)
+RUNTIME_LAYERS = 16
 #: phase 8: the pipelined engines' in-flight bound
 PIPELINE = 2
 #: phase 8a: host calls that block the host on the card's work
@@ -4448,10 +4480,10 @@ def phase_launch_serve(torch) -> None:
 def phase_runtime(torch, np, K, serve) -> dict:
     """Phase 8 (8a-8e), after every earlier engine is freed. Returns the
     new paths' decode launches by kernel and path."""
-    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     paths = {"flash_decode": {}, "flash_decode_paged": {}}
-    cfg, params = fig_model(torch, "yi-9b", RUNTIME_SEEDS["yi-9b"], "8a")
+    cfg, params = fig_model(torch, "yi-9b", RUNTIME_SEEDS["yi-9b"], "8a",
+                            layers=RUNTIME_LAYERS)
     reqs = runtime_requests(np, serve, cfg.vocab_size)
     traces = {}
     keep = None
@@ -4475,7 +4507,7 @@ def phase_runtime(torch, np, K, serve) -> dict:
               f"{s_['gap_us']:.1f} -> {p_['gap_us']:.1f} us; blocking calls "
               f"between enqueues serial {s_['blocking']} -> pipelined "
               f"{p_['blocking'] or 'none'}")
-    phase_staging(torch, K, serve, get_config("yi-9b"), keep["eng"], reqs,
+    phase_staging(torch, K, serve, cfg, keep["eng"], reqs,
                   keep["streams"], paths)
     del keep, traces, params
     torch.cuda.empty_cache()
@@ -4815,16 +4847,19 @@ MESH_CELL = dict(slots=8, n=8, prompt=(128, 257), new=32, chunk=8,
 #: jobs) and yi-9b's depth in fp32
 MESH_TP_TIMEOUT = 420
 MESH_FP32_LAYERS = 4
+#: yi-9b's depth in bf16 in 10a, 10b and 11c: 16 of its 48 layers (all
+#: 48 until phase 12 came; cut so that the script stays near 1000 s)
+MESH_BF16_LAYERS = 16
 #: 10b: GB a rank may hold on the card between jobs (the mesh, the
 #: kernels' split counters), so that each job's peak is its own
 MESH_HELD_GB = 0.5
 #: 10b's held limits, as max |logit difference| over max |logit| of the
 #: first decode step (8 prompts of 128 tokens, greedy), TP=2 against the
 #: unsharded engine's weights and prompts.
-#: bf16, 48 layers: the unsharded out-projection and down-projection each
+#: bf16, 16 layers: the unsharded out-projection and down-projection each
 #: accumulate one product in fp32 and round once to bf16; at TP=2 each
 #: rank rounds its half-sum to bf16 and the all-reduce rounds their sum
-#: again, so every one of the 96 row-parallel products a step differs by
+#: again, so every one of the 32 row-parallel products a step differs by
 #: up to about one bf16 ulp (2**-8 relative) on most of its elements,
 #: where the kernels-vs-plain comparison of phase 5 (0.0204 and 0.0236 on
 #: an H100, limit 5e-2) differs only where a sum straddles a rounding
@@ -4956,12 +4991,12 @@ def serve_mesh(torch, K, serve, cfg, params, reqs, *, paged: bool, mesh,
 
 def phase_mesh_world1(torch, np, K, serve, paths: dict) -> tuple:
     """10a: a world of one over NCCL, mesh (1,1), yi-9b at its published
-    width (48 layers, bf16), dense and paged, against mesh=None on the
-    same weights and requests (CUDA graphs on). Returns the unsharded
-    streams and first-step logits (10b's reference)."""
+    width (``MESH_BF16_LAYERS`` layers, bf16), dense and paged, against
+    mesh=None on the same weights and requests (CUDA graphs on). Returns
+    the unsharded streams and first-step logits (10b's reference)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_serve_mesh
-    cfg = mesh_config("bfloat16")
+    cfg = mesh_config("bfloat16", MESH_BF16_LAYERS)
     t0 = time.perf_counter()
     params = mesh_params(torch, cfg)
     torch.cuda.synchronize()
@@ -5074,8 +5109,8 @@ def gloo_graphs_refused(torch, serve, mesh) -> str:
                      "True instead of refusing it")
 
 
-#: 10b's jobs: dtype, depth (None: all 48 layers) and layouts (paged?)
-MESH_TP_JOBS = {"bf16": ("bfloat16", None, (False,)),
+#: 10b's jobs: dtype, depth and layouts (paged?)
+MESH_TP_JOBS = {"bf16": ("bfloat16", MESH_BF16_LAYERS, (False,)),
                 "fp32": ("float32", MESH_FP32_LAYERS, (False, True))}
 
 
@@ -5179,7 +5214,9 @@ DRYRUN_CELLS = (("yi-9b", "train_4k", False, "resident2d"),
                 ("yi-9b", "decode_32k", False, "resident2d"),
                 ("qwen1.5-110b", "decode_32k", False, "gather"),
                 ("qwen1.5-110b", "decode_32k", False, "resident2d"),
-                ("yi-9b", "train_4k", True, "resident2d"))
+                ("yi-9b", "train_4k", True, "resident2d"),
+                ("jamba-v0.1-52b", "train_4k", False, "resident2d"),
+                ("qwen3-moe-235b-a22b", "decode_32k", False, "resident2d"))
 #: every phase-11 child's time limit, from its start
 DRYRUN_TIMEOUT = 600
 CARD_GB = 80.0
@@ -5188,10 +5225,10 @@ CARD_GB = 80.0
 DRYRUN_STEP = dict(slots=8, rows=2048, pos=1500)
 #: the caching allocator rounds each block up to 512 bytes
 ALLOC_ROUND = 512
-#: 11c: the sequence-sharded decode jobs (name, dtype, depth (None: all
-#: 48 layers), decode steps) and the yi-9b train step at (1,2) (layers,
-#: batch, sequence)
-SEQ_JOBS = (("fp32", "float32", 4, 16), ("bf16", "bfloat16", None, 1))
+#: 11c: the sequence-sharded decode jobs (name, dtype, depth, decode
+#: steps) and the yi-9b train step at (1,2) (layers, batch, sequence)
+SEQ_JOBS = (("fp32", "float32", 4, 16),
+            ("bf16", "bfloat16", MESH_BF16_LAYERS, 1))
 MESH_TRAIN = dict(layers=2, batch=4, seq=256)
 MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
 PHASE11_SEEDS = {"step": 111, "seq": 112, "train": 113, "data": 114}
@@ -5555,7 +5592,7 @@ def mesh_train_cell(torch, cfg, mesh=None):
 
 def _seq_rank(rank: int, port: int, out_dir: str) -> None:
     """One rank of 11c: a (1, 2) gloo mesh on ``cuda:0``; the
-    sequence-sharded decode in fp32 (4 layers, streams) and bf16 (48
+    sequence-sharded decode in fp32 (4 layers, streams) and bf16 (16
     layers, the first step's logits), then the train step at (1,2)
     against mesh=None's new parameters (``out_dir/train_ref.pt``)."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
@@ -5826,6 +5863,564 @@ def phase_dryrun(torch, np, paths: dict, procs: dict, tmp: str,
     print(f"phase 11: {time.perf_counter() - t0:.1f} s (its lowerings "
           f"started before phase 10)")
 
+# ---------------------------------------------------------------------------
+# Phase 12: what a mesh once refused, on the card
+# ---------------------------------------------------------------------------
+
+#: phase 12: the seed of every job's weights and inputs
+PHASE12_SEED = 121
+#: the families' jobs: (name, arch, dtype, depth (None: every layer),
+#: decode steps). jamba at 5 layers holds its attention layer (layer 4)
+#: and two MoE layers; grok-1 and qwen3-moe at one layer are
+#: expert-parallel at (1,2) (4 and 64 experts a rank)
+FAMILY_MESH_JOBS = (
+    ("jamba bf16", "jamba-v0.1-52b", "bfloat16", JAMBA_LAYERS, 2),
+    ("jamba fp32", "jamba-v0.1-52b", "float32", 5, 8),
+    ("xlstm-125m fp32", "xlstm-125m", "float32", None, 8),
+    ("xlstm-125m bf16", "xlstm-125m", "bfloat16", None, 2),
+    ("musicgen-large bf16", "musicgen-large", "bfloat16", None, 2),
+    ("grok-1 fp32", "grok-1-314b", "float32", MOE_LAYERS, 8),
+    ("qwen3-moe fp32", "qwen3-moe-235b-a22b", "float32", MOE_LAYERS, 8))
+#: the jobs' slots, prompt tokens (or frames) and cache rows
+FAMILY_MESH_CELL = dict(slots=8, prompt=128, horizon=256)
+#: configs whose prefill amplifies a rounding-level change to O(1): at
+#: xlstm-125m's published width (random weights, fp32) a 1-ulp change to
+#: one input element moves an sLSTM layer's output by 1.2-1.4 of its
+#: largest element by 64 tokens, on the card and on the host alike, and
+#: projecting the heads' halves apart (what TP=2 does) by as much
+#: (``scripts/slstm_rounding_probe.py``). Their TP=2 prefill and streams
+#: at ``FAMILY_MESH_CELL``'s prompt are printed, not held; their first
+#: decode step is held from mesh=None's prefill cache as every job's is,
+#: and in fp32 their own TP=2 prefill and first step at the short
+#: prompts of ``AMPLIFIED_PROMPTS``
+ROUNDING_AMPLIFIED = ("xlstm-125m",)
+#: the short prompts (tokens) at which a ``ROUNDING_AMPLIFIED`` config's
+#: own TP=2 prefill and first step are read against mesh=None's; those
+#: of at most ``AMPLIFIED_HELD`` tokens held within ``MESH_FP32_REL_TOL``.
+#: The difference grows about 1.5x a token (as an sLSTM layer grows the
+#: training gradient), from 1.2e-5 at one token (the first step from
+#: mesh=None's cache) to 6.8e-3 at 16 tokens; at 4 tokens it stays near
+#: 5e-5 (an H100, fp32)
+AMPLIFIED_PROMPTS = (2, 4, 8, 16)
+AMPLIFIED_HELD = 4
+#: the two ranks' time limit (their spawn, every job)
+FAMILY_MESH_TIMEOUT = 600
+
+
+def fam_config(arch: str, dtype: str, layers):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def fam_params(torch, cfg, mesh=None):
+    """A job's weights from ``PHASE12_SEED``; with a ``mesh`` each rank
+    keeps its shard of every leaf (the engines' rules) as it is made."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import sharding as shd
+    place = None if mesh is None else shd.placer(mesh, M.param_pspecs(
+        cfg, shd.SERVE_ENGINE_RULES, shd.mesh_axis_sizes(mesh)))
+    gen = torch.Generator(device="cuda").manual_seed(PHASE12_SEED)
+    return M.init_params(cfg, gen, device="cuda", place=place)
+
+
+def fam_inputs(torch, cfg, steps: int, prompt: int | None = None) -> dict:
+    """The prompts of ``prompt`` tokens (``FAMILY_MESH_CELL``'s by
+    default; token ids, or frame embeddings and one frame a decode step
+    for an embedding-input model) from ``PHASE12_SEED``."""
+    c = FAMILY_MESH_CELL
+    s = prompt or c["prompt"]
+    g = torch.Generator(device="cuda").manual_seed(PHASE12_SEED)
+    if cfg.embed_inputs:
+        return {"tokens": torch.randint(0, cfg.vocab_size, (c["slots"], s),
+                                        generator=g, device="cuda")}
+    dt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+    return {"embeds": torch.randn((c["slots"], s, cfg.d_model),
+                                  generator=g, device="cuda").to(dt),
+            "steps": torch.randn((steps, c["slots"], 1, cfg.d_model),
+                                 generator=g, device="cuda").to(dt)}
+
+
+def _routes(log) -> list:
+    return [(e.cpu(), k.cpu()) for e, k in log.calls]
+
+
+def routes_alike(a: list, b: list, slots: int):
+    """(slots,) bool: the slots whose tokens two runs sent to the same
+    experts and kept or dropped alike in every MoE call of their logs
+    (prefill and first decode step; all True without MoE layers)."""
+    import torch
+    check(len(a) == len(b), "MoE route logs of unequal length")
+    same = torch.ones(slots, dtype=torch.bool)
+    for (ea, ka), (eb, kb) in zip(a, b):
+        same &= (ea.reshape(slots, -1) == eb.reshape(slots, -1)).all(-1)
+        same &= (ka.reshape(slots, -1) == kb.reshape(slots, -1)).all(-1)
+    return same
+
+
+def fam_decode(torch, cfg, params, inputs: dict, steps: int, mesh=None,
+               K=None, first=None, rules=None, flavor=None,
+               keep_prefill: bool = False) -> dict:
+    """Prefill the slots (``FAMILY_MESH_CELL``'s rows) and decode
+    ``steps`` greedy steps through ``forward`` under ``mesh`` and
+    ``rules`` (the engines' by default): the streams (``first``, when
+    given, the token the first step decodes instead of the prefill's
+    pick), the prefill's last-position logits and each step's (fp32, on
+    the host), the MoE routes of the prefill and the first step, the
+    decode kernels' launches over the steps (counts zeroed just before
+    them), ms a step, and under a mesh the collectives of one more step
+    by op (``CommDebugMode``); with ``keep_prefill`` the prefill's cache
+    copied to the host (whole)."""
+    import contextlib
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as serve_lib
+    from repro_torch.utils import sharding as shd
+    c = FAMILY_MESH_CELL
+    ctx = contextlib.nullcontext() if mesh is None else \
+        shd.use_mesh_rules(mesh, rules or shd.SERVE_ENGINE_RULES)
+    out = {}
+    with ctx:
+        batch = {k: v for k, v in inputs.items() if k != "steps"}
+        b, s = next(iter(batch.values())).shape[:2]
+        with RouteLog() as pre_log:
+            logits, cache = serve_lib.make_prefill_step(
+                cfg, cache_len=c["horizon"])(params, batch)
+        logits = shd.replicated(logits)
+        out["pre"] = logits[:, -1].float().cpu()
+        if keep_prefill:
+            out["prefill_cache"] = M._map_tree(
+                lambda t: shd.replicated(t).to("cpu", copy=True), cache)
+        tok = logits[:, -1].argmax(-1)[:, None] if first is None \
+            else first.cuda()
+        pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        toks, lgs, walls = [tok], [], []
+        out["routes_pre"] = _routes(pre_log)
+        if K is not None:
+            K.reset_launches()
+        for t in range(steps):
+            x = {"tokens": tok} if cfg.embed_inputs \
+                else {"embeds": inputs["steps"][t]}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with RouteLog() as log:
+                lg, _, cache = M.forward(cfg, params, x, mode="decode",
+                                         cache=cache, pos=pos,
+                                         store_flavor=flavor)
+            lg = shd.replicated(lg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if t == 0:
+                out["routes_step"] = _routes(log)
+            lgs.append(lg[:, 0].float().cpu())
+            tok = lg[:, 0].argmax(-1)[:, None]
+            toks.append(tok)
+            pos = pos + 1
+        out["launches"] = None if K is None else dict(K.LAUNCHES)
+        if mesh is not None:
+            x = {"tokens": tok} if cfg.embed_inputs \
+                else {"embeds": inputs["steps"][-1]}
+            with CommDebugMode() as cm:
+                M.forward(cfg, params, x, mode="decode", cache=cache,
+                          pos=pos, store_flavor=flavor)
+            torch.cuda.synchronize()
+            out["collectives"] = {k._qualified_op_name: n for k, n in
+                                  cm.get_comm_counts().items() if n}
+        out["cache"] = cache
+    out["streams"] = torch.cat(toks, 1).cpu().tolist()
+    out["steps"] = torch.stack(lgs)
+    out["ms"] = 1e3 * sum(walls[1:] or walls) / len(walls[1:] or walls)
+    return out
+
+
+def fam_held_step(torch, cfg, params, cache: dict, x: dict, mesh) -> dict:
+    """One decode step under ``mesh`` from mesh=None's prefill ``cache``
+    (whole, on the host; each rank keeps its shard) and its inputs ``x``:
+    the step's logits (fp32, on the host) and MoE routes, so that TP=2
+    and mesh=None step from one state (a bf16 prefill's router near ties
+    part the two runs' own caches)."""
+    from repro_torch.models import model as M
+    from repro_torch.utils import sharding as shd
+    c = FAMILY_MESH_CELL
+    rules = shd.SERVE_ENGINE_RULES
+    specs = M.cache_pspecs(cfg, rules, shd.mesh_axis_sizes(mesh),
+                           c["slots"], c["horizon"])
+    with shd.use_mesh_rules(mesh, rules):
+        cache = shd.distribute(M._map_tree(lambda t: t.cuda(), cache), mesh,
+                               specs)
+        pos = torch.full((c["slots"],), c["prompt"], dtype=torch.int32,
+                         device="cuda")
+        with RouteLog() as log:
+            lg, _, _ = M.forward(cfg, params, {k: v.cuda() for k, v in
+                                               x.items()}, mode="decode",
+                                 cache=cache, pos=pos)
+        lg = shd.replicated(lg)
+    return {"logits": lg[:, 0].float().cpu(), "routes": _routes(log)}
+
+
+def _fam_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 12: the families' jobs at (1,2), then the engine
+    features (``pipeline=2`` and a snapshot at (1,2), the paged engine at
+    (2,1), the sequence-sharded decode with non-temporal stores), two
+    gloo ranks on ``cuda:0`` as 10b's; records under ``out_dir``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K, serve
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.utils import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((1, 2), device_type="cuda", backend="gloo")
+    firsts = torch.load(os.path.join(out_dir, "first_tokens.pt"))
+    res = {}
+    for name, arch, dtype, layers, steps in FAMILY_MESH_JOBS:
+        cfg = fam_config(arch, dtype, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = fam_params(torch, cfg, mesh)
+        inputs = fam_inputs(torch, cfg, steps)
+        got = fam_decode(torch, cfg, params, inputs, steps, mesh, K,
+                         firsts.get(name))
+        del got["cache"]
+        res[name] = {k: got[k] for k in ("streams", "ms", "collectives")}
+        res[name].update(
+            launches=got["launches"]["flash_decode"], s=time.perf_counter()
+            - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        held = torch.load(os.path.join(out_dir, f"{name}.prefill.pt"))
+        x0 = {"tokens": firsts[name]} if cfg.embed_inputs \
+            else {"embeds": inputs["steps"][0]}
+        step = fam_held_step(torch, cfg, params, held, x0, mesh)
+        if rank == 0:
+            torch.save(dict(step, pre=got["pre"], steps=got["steps"],
+                            routes_pre=got["routes_pre"]),
+                       os.path.join(out_dir, f"{name}.pt"))
+        if arch in ROUNDING_AMPLIFIED and dtype == "float32":
+            short = {}
+            for n in AMPLIFIED_PROMPTS:
+                got = fam_decode(torch, cfg, params, fam_inputs(
+                    torch, cfg, 1, n), 1, mesh, first=firsts[f"{name} {n}"])
+                short[n] = {k: got[k] for k in ("pre", "steps")}
+            if rank == 0:
+                torch.save(short, os.path.join(out_dir, f"{name}.short.pt"))
+        del params, got, held
+    # the engine features on yi-9b, fp32, 4 layers (10b's fp32 job)
+    cfg = mesh_config("float32", MESH_FP32_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = mesh_params(torch, cfg, mesh)
+    reqs = mesh_requests(np, serve, cfg.vocab_size)
+    feats = {}
+    for depth in (0, PIPELINE):
+        c = MESH_CELL
+        eng = serve.ServeEngine(cfg, params, max_slots=c["slots"],
+                                max_len=c["max_len"], chunk=c["chunk"],
+                                device="cuda", mesh=mesh, cuda_graphs=False,
+                                pipeline=depth)
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        feats[f"pipeline{depth}"] = {
+            "streams": {r: np.asarray(t).tolist() for r, t in out.items()},
+            "ms": st["decode_s"] / st["decode_tokens"] * 1e3,
+            "s": time.perf_counter() - t0}
+        if depth:
+            ck = Checkpointer(os.path.join(out_dir, "ckpt"))
+            t0 = time.perf_counter()
+            feats["snapshot"] = {"took": eng.snapshot(ck, 1)}
+            ck.wait()
+            feats["snapshot"]["s"] = time.perf_counter() - t0
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh21 = make_test_mesh((2, 1), device_type="cuda", backend="gloo")
+    params = mesh_params(torch, cfg, mesh21)
+    got = serve_mesh(torch, K, serve, cfg, params, reqs, paged=True,
+                     mesh=mesh21, cuda_graphs=False,
+                     label=f"12 yi-9b fp32 paged (2,1) rank {rank}")
+    del got["eng"], params
+    feats["paged21"] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the cache's rows over model (11c's layout), non-temporal stores
+    params = seq_params(torch, cfg, mesh, PHASE11_SEEDS["seq"])
+    seq_in = {"tokens": mesh_prompts(torch, cfg.vocab_size).cuda()}
+    nt = {}
+    for flavor in ("standard", "nt"):
+        got = fam_decode(torch, cfg, params, seq_in, SEQ_JOBS[0][3], mesh, K,
+                         firsts["seq"], rules=shd.SERVE_RULES, flavor=flavor)
+        nt[flavor] = {"streams": got["streams"],
+                      "writer": got["launches"]["kv_row_update"],
+                      "decode": got["launches"]["flash_decode"]}
+        cache = got.pop("cache")
+    # one step at positions a single rank owns a row of: slot 0 at rank
+    # 1's 6th row, every other slot at rank 0's 4th; each rank's shards
+    # before and after
+    from repro_torch.models import model as M
+    half = FAMILY_MESH_CELL["horizon"] // 2
+    own = torch.full((FAMILY_MESH_CELL["slots"],), 3, dtype=torch.int32,
+                     device="cuda")
+    own[0] = half + 5
+    kv = [t for path, t in M._walk(cache) if path[-1] in ("k", "v")]
+    before = [t.to_local().clone() for t in kv]
+    with shd.use_mesh_rules(mesh, shd.SERVE_RULES):
+        M.forward(cfg, params, {"tokens": seq_in["tokens"][:, :1]},
+                  mode="decode", cache=cache, pos=own, store_flavor="nt")
+    torch.cuda.synchronize()
+    changed = set()
+    for a, t in zip(before, kv):
+        diff = (a != t.to_local()).any(-1).any(-1).any(0)
+        changed |= {(int(b), int(r)) for b, r in diff.nonzero().tolist()}
+    nt["changed"] = sorted(changed)
+    feats["nt"] = nt
+    res["features"] = feats
+    with open(os.path.join(out_dir, f"fam_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def fam_reference(torch, name: str, arch: str, dtype: str, layers,
+                  steps: int) -> dict:
+    """A job's run at mesh=None on the card (the same weights and
+    inputs), timed as the ranks' are; a ``ROUNDING_AMPLIFIED`` fp32 job's
+    also at each of ``AMPLIFIED_PROMPTS`` (``short``)."""
+    cfg = fam_config(arch, dtype, layers)
+    params = fam_params(torch, cfg)
+    got = fam_decode(torch, cfg, params, fam_inputs(torch, cfg, steps),
+                     steps, keep_prefill=True)
+    del got["cache"]
+    if arch in ROUNDING_AMPLIFIED and dtype == "float32":
+        got["short"] = {}
+        for n in AMPLIFIED_PROMPTS:
+            got["short"][n] = fam_decode(torch, cfg, params, fam_inputs(
+                torch, cfg, 1, n), 1)
+            del got["short"][n]["cache"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_mesh_families(torch, np, K, paths: dict) -> None:
+    """Phase 12, after phase 11: the recurrent, MoE and embedding-input
+    configs at full width under a (1,2) mesh (``FAMILY_MESH_JOBS``), and
+    the engine features a mesh once refused, each against mesh=None on
+    the same card, weights and inputs, two gloo ranks on ``cuda:0``
+    spawned under ``FAMILY_MESH_TIMEOUT`` as 10b's."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch import serve
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    ref = {}
+    for job in FAMILY_MESH_JOBS:
+        ref[job[0]] = fam_reference(torch, *job)
+    cfg = mesh_config("float32", MESH_FP32_LAYERS)
+    params = mesh_params(torch, cfg)
+    reqs = mesh_requests(np, serve, cfg.vocab_size)
+    paged_ref = serve_mesh(torch, K, serve, cfg, params, reqs, paged=True,
+                           mesh=None, cuda_graphs=False,
+                           label="12 yi-9b fp32 paged mesh=None")
+    del paged_ref["eng"]
+    seq_params_ref = seq_params(torch, cfg, None, PHASE11_SEEDS["seq"])
+    seq_ref = fam_decode(torch, cfg, seq_params_ref, {
+        "tokens": mesh_prompts(torch, cfg.vocab_size).cuda()},
+        SEQ_JOBS[0][3])
+    del seq_ref["cache"], seq_params_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks' first step decodes mesh=None's prefill token (11c's
+        # reason: a near-tie prefill pick would feed another token)
+        firsts = {name: torch.tensor([s[:1] for s in ref[name]["streams"]])
+                  for name, arch, dtype, layers, _ in FAMILY_MESH_JOBS
+                  if fam_config(arch, dtype, layers).embed_inputs}
+        firsts.update({f"{name} {n}": torch.tensor(
+            [s[:1] for s in short["streams"]])
+            for name, r in ref.items()
+            for n, short in r.get("short", {}).items()})
+        firsts["seq"] = torch.tensor([s[:1] for s in seq_ref["streams"]])
+        torch.save(firsts, os.path.join(tmp, "first_tokens.pt"))
+        for name, r in ref.items():
+            torch.save(r.pop("prefill_cache"),
+                       os.path.join(tmp, f"{name}.prefill.pt"))
+        t0 = time.perf_counter()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.start_processes(_fam_rank, args=(port, tmp), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + FAMILY_MESH_TIMEOUT
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise PhaseError(f"12: the two ranks ran past "
+                                 f"{FAMILY_MESH_TIMEOUT} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"fam_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got_lg = {job[0]: torch.load(os.path.join(tmp, f"{job[0]}.pt"))
+                  for job in FAMILY_MESH_JOBS}
+        short = {name: torch.load(os.path.join(tmp, f"{name}.short.pt"))
+                 for name in ref if "short" in ref[name]}
+        ck = Checkpointer(os.path.join(tmp, "ckpt"))
+        restored = ck.restore(1, {"params": params})["params"]
+        leaves_equal = all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                M._walk(restored), M._walk(params)))
+        n_leaves = len(list(M._walk(params)))
+    del params, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"12: two ranks (gloo, cuda:0) ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, arch, dtype, layers, steps in FAMILY_MESH_JOBS:
+        cfg = fam_config(arch, dtype, layers)
+        want, rec, other = ref[name], ranks[0][name], ranks[1][name]
+        lg = got_lg[name]
+        check(rec["streams"] == other["streams"],
+              f"12 {name}: the two ranks' streams differ")
+        slots = FAMILY_MESH_CELL["slots"]
+        # the first step from one state: mesh=None's prefill cache
+        alike = routes_alike(lg["routes"], want["routes_step"], slots)
+        apart = int((~alike).sum())
+        check(2 * apart < slots, f"12 {name}: {apart} of {slots} slots "
+                                 f"routed apart in the first step")
+        ref0 = want["steps"][0]
+        rel = float((lg["logits"] - ref0)[alike].abs().max()
+                    / ref0.abs().max())
+        pre_alike = routes_alike(lg["routes_pre"], want["routes_pre"], slots)
+        rel_pre = float((lg["pre"] - want["pre"])[pre_alike].abs().max()
+                        / want["pre"].abs().max()) if pre_alike.any() \
+            else float("nan")
+        tol = MESH_FP32_REL_TOL if dtype == "float32" else MESH_BF16_REL_TOL
+        same = sum(a == b for a, b in zip(rec["streams"], want["streams"]))
+        kinds = rec["collectives"]
+        want_launches = attention_layers(cfg) * steps
+        print(f"12 {name} ({cfg.n_layers} layers, {arch} at its published "
+              f"width, (1,2)): first decode step from mesh=None's prefill "
+              f"cache max|dlogit|/max|logit| {rel:.3e} (held under {tol:g};"
+              f" {slots - apart} of {slots} slots routed alike); the ranks' "
+              f"own prefill {rel_pre:.3e} over the {int(pre_alike.sum())} "
+              f"slots routed alike there; {same}/{len(want['streams'])} "
+              f"greedy streams of {steps + 1} tokens identical; collectives "
+              f"a step {sum(kinds.values())} {kinds}; {rec['ms']:.2f} ms/step"
+              f" eager TP=2 vs {want['ms']:.2f} mesh=None; flash_decode "
+              f"launches {rec['launches']} a rank (= {want_launches}); "
+              f"{rec['s']:.1f} s, peak {rec['peak_gb']:.2f} GB a rank")
+        check(rel <= tol, f"12 {name}: first step {rel:.3e} over {tol:g}")
+        check(rec["launches"] == want_launches, f"12 {name}: "
+              f"{rec['launches']} decode launches, expected {want_launches}")
+        if attention_layers(cfg):
+            paths["flash_decode"][f"{name} forward, (1,2) rank 0"] = \
+                rec["launches"]
+        if arch in ROUNDING_AMPLIFIED:
+            print(f"12 {name}: the TP=2 prefill and streams of "
+                  f"{FAMILY_MESH_CELL['prompt']} tokens are not held "
+                  f"(ROUNDING_AMPLIFIED: its sLSTM layers amplify a "
+                  f"rounding-level change to O(1) within 64 tokens)")
+            if name in short:
+                rels = {n: [float((a - b).abs().max() / b.abs().max())
+                            for a, b in ((g["pre"], w["pre"]),
+                                         (g["steps"][0], w["steps"][0]))]
+                        for n, (g, w) in ((n, (short[name][n],
+                                               want["short"][n]))
+                                          for n in AMPLIFIED_PROMPTS)}
+                print(f"12 {name}, the ranks' own prefill and first decode "
+                      f"step at short prompts, max|dlogit|/max|logit|: " +
+                      "; ".join(f"{n} tokens {p:.3e}, {t:.3e}"
+                                for n, (p, t) in rels.items()) +
+                      f" (held under {MESH_FP32_REL_TOL:g} up to "
+                      f"{AMPLIFIED_HELD} tokens)")
+                over = {n: r for n, r in rels.items()
+                        if n <= AMPLIFIED_HELD and max(r) > MESH_FP32_REL_TOL}
+                check(not over, f"12 {name}: short prompts over "
+                                f"{MESH_FP32_REL_TOL:g}: {over}")
+            continue
+        if dtype == "float32":
+            check(rel_pre <= tol and bool(pre_alike.all()),
+                  f"12 {name}: prefill {rel_pre:.3e} over {tol:g} or "
+                  f"routed apart")
+            want_lg = torch.cat([want["pre"][None], want["steps"]])
+            both = torch.cat([lg["pre"][None], lg["steps"]])
+            shared = shared_step_err(rec["streams"], want["streams"], both,
+                                     want_lg)
+            parts = stream_partings(rec["streams"], want["streams"], both,
+                                    want_lg)
+            print(f"12 {name}: every step fed the same tokens max|dlogit|/"
+                  f"max|logit| {shared:.3e}; partings {parts}")
+            check(all(gap <= 2 * err for _, _, gap, err in parts),
+                  f"12 {name}: a stream parts where mesh=None's top two "
+                  f"logits stand apart: {parts}")
+            check(shared <= tol, f"12 {name}: logits {shared:.3e} over "
+                                 f"{tol:g}")
+    feats, other = ranks[0]["features"], ranks[1]["features"]
+    serial, piped = feats["pipeline0"], feats[f"pipeline{PIPELINE}"]
+    check(piped["streams"] == serial["streams"]
+          == other[f"pipeline{PIPELINE}"]["streams"],
+          "12 pipeline: pipelined streams differ from serial under the mesh")
+    print(f"12 yi-9b fp32 ({MESH_FP32_LAYERS} layers) pipeline={PIPELINE} at"
+          f" (1,2): {len(reqs)} greedy streams identical to serial; "
+          f"{piped['ms']:.2f} vs {serial['ms']:.2f} ms/step eager")
+    snap = feats["snapshot"]
+    check(snap["took"] and other["snapshot"]["took"] and leaves_equal,
+          f"12 snapshot: taken {snap['took']}, leaves equal {leaves_equal}")
+    print(f"12 snapshot of the (1,2) engine ({snap['s']:.1f} s, rank 0 "
+          f"writes the whole leaves): restored at mesh=None, its "
+          f"{n_leaves} leaves equal to mesh=None's params")
+    pg = feats["paged21"]
+    check(pg["streams"] == paged_ref["streams"]
+          == other["paged21"]["streams"],
+          "12 paged (2,1): streams differ from mesh=None's")
+    print(f"12 yi-9b fp32 paged engine at (2,1) (slots over data): "
+          f"{len(reqs)} greedy streams identical to mesh=None's; "
+          f"{pg['ms']:.2f} vs {paged_ref['ms']:.2f} ms/step; "
+          f"flash_decode_paged launches {pg['launches']} a rank")
+    paths["flash_decode_paged"]["yi-9b paged engine fp32, (2,1) rank 0"] = \
+        pg["launches"]
+    nt = feats["nt"]
+    half = FAMILY_MESH_CELL["horizon"] // 2
+    owned = {0: [[b, 3] for b in range(1, FAMILY_MESH_CELL["slots"])],
+             1: [[0, 5]]}
+    for r, rec in enumerate(ranks):
+        got = rec["features"]["nt"]
+        check(got["nt"]["streams"] == got["standard"]["streams"],
+              f"12 nt rank {r}: streams differ from the standard stores'")
+        check(got["changed"] == owned[r], f"12 nt rank {r}: rows written "
+              f"{got['changed']}, owned {owned[r]}")
+    writers = [rec["features"]["nt"]["nt"]["writer"] for rec in ranks]
+    same = sum(a == b for a, b in zip(nt["nt"]["streams"],
+                                      seq_ref["streams"]))
+    print(f"12 sequence-sharded decode (yi-9b fp32, rows over model) with "
+          f"store_flavor='nt': streams identical to the standard stores' "
+          f"({same}/{len(seq_ref['streams'])} to mesh=None's); one step at "
+          f"rows owned by one rank each: rank 0 wrote {len(owned[0])} rows, "
+          f"rank 1 {len(owned[1])}, no other row changed (of {half} a rank);"
+          f" kv_row_update launches {writers[0]} on rank 0 and "
+          f"{writers[1]} on rank 1 over {SEQ_JOBS[0][3]} steps (every slot "
+          f"at rows of one rank; a launch a layer and run of owned slots), "
+          f"flash_decode {nt['nt']['decode']} a rank")
+    paths["flash_decode"]["yi-9b fp32 sequence-sharded decode, nt, rank 0"] = \
+        nt["nt"]["decode"]
+    paths["kv_row_update"] = {
+        f"yi-9b fp32 sequence-sharded decode, nt, rank {r}": n
+        for r, n in enumerate(writers)}
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5929,6 +6524,9 @@ def main() -> int:
         phase_dryrun(torch, np, mesh_launches, procs, dry_tmp, dry_deadline)
     finally:
         stop_dryrun(procs, dry_tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh_families(torch, np, K, mesh_launches)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],
@@ -5939,6 +6537,8 @@ def main() -> int:
         **fig_launches["flash_decode"],
         **runtime_launches["flash_decode"],
         **mesh_launches["flash_decode"]))
+    by_name["kv_row_update"]["standalone_launches_by_path"] = \
+        mesh_launches["kv_row_update"]
     path_launches(by_name["flash_decode_paged"], dict(
         {"yi-9b paged engine": by_name["flash_decode_paged"]["launches"],
          "jamba paged engine": jamba_launches["paged"]},

@@ -18,14 +18,17 @@ def on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def model(arch: str, device, *, seed: int = 0, dtype: str | None = None):
+def model(arch: str, device, *, seed: int = 0, dtype: str | None = None,
+          layers: int | None = None):
     """``(cfg, params)``: ``arch`` at its published width and depth on a
-    CUDA device, its smoke configuration elsewhere, in ``dtype`` when
-    given; weights from ``M.init_params`` on a generator seeded with
-    ``seed`` on ``device``."""
+    CUDA device, its smoke configuration elsewhere, in ``dtype`` and at
+    ``layers`` layers when given; weights from ``M.init_params`` on a
+    generator seeded with ``seed`` on ``device``."""
     cfg = get_config(arch) if on_card(device) else get_smoke_config(arch)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
     return cfg, M.init_params(cfg, gen, device=device)
 

@@ -6,9 +6,9 @@ again (the counterpart of ``benchmarks/perf_iterations.py``).
      attention chunks (q 2048, kv 4096).
   H2 qwen1.5-110b ``decode_32k`` (collective-bound): FSDP ``gather``,
      the same with a 16-token decode loop, ``resident2d``.
-  H3 jamba ``train_4k`` and H4 qwen3-moe ``train_4k``: refused under a
-     mesh until ROADMAP queue 1 item 7d (recurrent and MoE configs);
-     each counts as a failure.
+  H3 jamba ``train_4k``: the Mamba scan unfused (the decay and input
+     materialized a step) and fused.
+  H4 qwen3-moe ``train_4k``: fp32 and int8 AdamW moments.
 
 Records land in ``results/perf_torch/<tag>.json`` (a record already
 there is read, not lowered again). Run on the card's host (the mesh's
@@ -113,8 +113,7 @@ def iterations(cell: str = "all") -> list:
 
 def run_cells(cell: str = "all", out: str = OUT,
               device_type: str = "cuda") -> int:
-    """Run the iterations of ``cell``; returns how many failed (H3 and H4
-    raise the item-7d refusal)."""
+    """Run the iterations of ``cell``; returns how many failed."""
     failures = 0
     for tag, kw in iterations(cell):
         try:

@@ -42,6 +42,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.utils import sharding as shd
+
 #: dtypes numpy cannot hold, written as an unsigned view of their bits
 #: under their own name (the JAX package's ``_VIEW``): torch dtype ->
 #: (name, signed torch view, unsigned numpy view, signed numpy view)
@@ -134,11 +136,30 @@ class Checkpointer:
         background write is joined either way, so its errors surface
         here. ``after`` is the ``torch.cuda.Event`` the device copies
         wait for (default: the current stream's work so far).
+
+        A tree of DTensors (a sharded engine's or train state's) is saved
+        as the reference saves its sharded arrays, whole: every rank of
+        the mesh calls ``save``; with ``skip_if_busy`` the ranks first
+        agree (an all-reduce of the busy flags: the writer's decides),
+        then each leaf is gathered whole (``sharding.replicated``) and the
+        mesh's first rank writes it; the others return True at once.
         """
-        if skip_if_busy and self.busy():
+        leaves, treedef = flatten(tree)
+        mesh = next((t.device_mesh for t in leaves if shd.is_dtensor(t)),
+                    None)
+        if mesh is not None:
+            # every rank of the mesh takes part: the skip is agreed on
+            # before any gather, so no rank gathers while another skips
+            if skip_if_busy and _on_any_rank(mesh, self.busy()):
+                return False
+            leaves = [shd.replicated(t) if shd.is_dtensor(t) else t
+                      for t in leaves]
+            after = None          # the gathers are the current stream's
+            if any(mesh.get_coordinate()):
+                return True       # the mesh's first rank writes
+        elif skip_if_busy and self.busy():
             return False
         self.wait()
-        leaves, treedef = flatten(tree)
         host, done = self._to_host(leaves, after)
         self._thread = threading.Thread(
             target=self._guarded_write, args=(step, host, treedef, done),
@@ -258,10 +279,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree):
+    def restore(self, step: int, like_tree, mesh=None, spec_tree=None):
         """Restore into the structure of ``like_tree``: each leaf on the
         device of ``like_tree``'s leaf (a tensor's), in its recorded
-        dtype."""
+        dtype; with ``mesh`` and ``spec_tree`` (a matching tree of specs,
+        ``sharding.P``) each leaf is placed on the mesh by its spec, each
+        rank keeping its shard (the reference's elastic re-shard: a
+        snapshot restores onto any mesh)."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         like, _ = flatten(like_tree)
         n = len(like)
@@ -274,10 +298,33 @@ class Checkpointer:
             if isinstance(ref, torch.Tensor):
                 t = t.to(ref.device)
             loaded.append(t)
+        if mesh is not None and spec_tree is not None:
+            specs = _dict_leaves(spec_tree)
+            loaded = [shd.distribute_leaf(t.to(mesh.device_type), mesh, sp)
+                      for t, sp in zip(loaded, specs)]
         return unflatten(like_tree, loaded)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, mesh=None, spec_tree=None):
         s = self.latest_step()
         if s is None:
             return None, None
-        return s, self.restore(s, like_tree)
+        return s, self.restore(s, like_tree, mesh, spec_tree)
+
+
+def _dict_leaves(tree) -> list:
+    """The leaves of a tree of dicts in :func:`flatten`'s order, anything
+    but a dict a leaf (a spec is a tuple)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _dict_leaves(tree[k])]
+    return [tree]
+
+
+def _on_any_rank(mesh, flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank of ``mesh`` (a max all-reduce
+    over each mesh dim's group)."""
+    import torch.distributed as dist
+    t = torch.tensor([int(flag)], dtype=torch.int32,
+                     device=mesh.device_type)
+    for m in range(mesh.ndim):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(m))
+    return bool(t.item())

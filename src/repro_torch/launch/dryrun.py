@@ -36,9 +36,10 @@ trace priced by ``portmodel.analyze`` on ``--machine`` (``h100``).
 The mesh's device type is the card's (``--device cuda``, the default:
 DTensor picks what NCCL runs; without a card the CLI exits 2), or the
 host's (``--device cpu``: gloo has no all-to-all, so DTensor gathers and
-cuts instead). Recurrent, MoE and embedding-input configurations are
-refused under a mesh (ROADMAP queue 1 item 7d): their cells write a
-``.err`` and count as failures.
+cuts instead). Every configuration lowers: the recurrent mixers and the
+MoE experts run on each rank's shards (``models.model``), an sLSTM's
+steps as one loop body (``utils.loops.repeat``). A cell that fails
+writes a ``.err`` and counts as a failure.
 """
 
 from __future__ import annotations

@@ -29,7 +29,14 @@ cache shard in place. A KV cache sharded on its sequence (``kv_seq``
 over ``model``, the ``SERVE_RULES`` and ``TRAIN_RULES`` layouts) is read
 by distributed flash-decoding (:func:`_decode_on_seq_shards`): each rank
 runs the decode kernel's partials over its own rows and the ranks'
-partials merge by log-sum-exp. Training runs under a mesh too
+partials merge by log-sum-exp. The recurrent mixers and the MoE experts
+run their cores on each rank's shards through ``local_map``, their
+placements derived from the input's layout (:func:`_on_shards`): Mamba
+on its channels (``ssm_inner``), mLSTM and sLSTM on their heads, the
+experts on ``expert`` or on their FFN width (``emlp``), with the
+reference's parameter placements; their time loops then run on local
+tensors, their states are written into the cache shards in place, and
+their collectives are all-reduces. Training runs under a mesh too
 (``TRAIN_RULES``: FSDP on ``embed``, TP on ``model``), DTensor's
 autograd differentiating it. With no mesh installed no DTensor appears
 and the ops are the unsharded path's.
@@ -43,7 +50,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import Partial, Placement, Replicate, Shard
 from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
@@ -418,19 +425,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     return out
 
 
-def check_meshable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` runs under a mesh: the attention family with
-    dense FFNs and token inputs. Recurrent mixers, MoE blocks and
-    embedding-input models under a mesh wait for ROADMAP queue 1 item
-    7d."""
-    kinds = {part for blk in cfg.layer_plan() for part in blk.split(":")}
-    other = sorted(kinds - {"attn", "attn_local", "dense", "none"})
-    if other or not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other) or 'embedding inputs'} under a "
-            "mesh is not ported (ROADMAP queue 1 item 7d)")
-
-
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -575,14 +569,18 @@ def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
         raise ValueError(f"decode under a mesh shards the KV cache on "
                          f"heads (and a slot cache on slots or rows), got "
                          f"{pl} / {tuple(vc.placements)}")
+    if block_tables is not None and shd.is_dtensor(q) and any(
+            p.is_shard() and p.dim == 0 for p in q.placements):
+        return _decode_paged_on_slots(q, kc, vc, pos, k, v, block_tables,
+                                      **kw)
     rows = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
                  for p in pl)
-    q, k, v = (_placed(t, mesh, pl) for t in (q, k, v))
-    pos = _placed(pos, mesh, rows)
+    q, k, v = (shd.put(t, mesh, pl) for t in (q, k, v))
+    pos = shd.put(pos, mesh, rows)
     args = (q, kc, vc, pos, k, v)
     in_pl = (pl, pl, pl, rows, pl, pl)
     if block_tables is not None:
-        args, in_pl = args + (_placed(block_tables, mesh, rows),), \
+        args, in_pl = args + (shd.put(block_tables, mesh, rows),), \
             in_pl + (rows,)
     else:
         args, in_pl = args + (None,), in_pl + (None,)
@@ -590,10 +588,52 @@ def _decode_on_local_heads(q, kc, vc, pos, k, v, block_tables, **kw):
                      device_mesh=mesh)(*args)
 
 
-def _placed(t, mesh, placements):
-    """``t`` as a DTensor on ``placements`` (a plain tensor counts as
-    replicated); gathers by c10d (``sharding.relayout``)."""
-    return shd.relayout(shd.as_replicated(t, mesh), placements)
+def _decode_paged_on_slots(q, kc, vc, pos, k, v, block_tables, **kw):
+    """Paged decode with the slots sharded over the data axis: each rank
+    runs the paged decode kernel (its fused row write and attention) on
+    its own slots against its replica of the page pool (heads on TP, the
+    pool and page dims resident, ``pages.paged_cache_pspecs``).
+
+    The pool is one pool on every data shard, as the reference's layout
+    has it: a page a slot of one shard writes may be read by a slot of
+    another after a fork or a prefix share. So every replica takes every
+    slot's new row: the step's rows, positions and block tables are
+    gathered whole over the slot shards (a few KB), and each rank writes
+    the other shards' rows with the plain row write
+    (``stores.ref_paged_row_update``, the reference's scatter) before
+    its kernel writes its own and attends."""
+    mesh, pl = kc.device_mesh, tuple(kc.placements)
+    slot_dims = {m for m, p in enumerate(q.placements)
+                 if p.is_shard() and p.dim == 0}
+    if any(m in slot_dims for m, p in enumerate(pl) if p.is_shard()):
+        raise ValueError(f"a page pool sharded on the slots' mesh dims: {pl}")
+    loc = tuple(Shard(0) if m in slot_dims else p for m, p in enumerate(pl))
+    rows = tuple(Shard(0) if m in slot_dims else Replicate()
+                 for m in range(mesh.ndim))
+    whole = (Replicate(),) * mesh.ndim
+    b = q.shape[0]
+    off, n = shd.shard_offset(mesh, rows, 0, b)
+    other = torch.tensor([i for i in range(b) if not off <= i < off + n],
+                         dtype=torch.long)
+    args = (shd.put(q, mesh, loc), kc, vc, shd.put(pos, mesh, rows),
+            shd.put(k, mesh, loc), shd.put(v, mesh, loc),
+            shd.put(block_tables, mesh, rows), shd.put(k, mesh, pl),
+            shd.put(v, mesh, pl), shd.put(pos, mesh, whole),
+            shd.put(block_tables, mesh, whole))
+
+    def run(q, kc, vc, pos, k, v, bt, k_all, v_all, pos_all, bt_all):
+        if other.numel():
+            idx = other.to(kc.device)
+            stores_lib.ref_paged_row_update(
+                kc, vc, bt_all.index_select(0, idx),
+                k_all.index_select(0, idx), v_all.index_select(0, idx),
+                pos_all.index_select(0, idx))
+        return attn_lib.decode_attention(q, kc, vc, pos, k_new=k, v_new=v,
+                                         block_tables=bt, **kw)
+    return local_map(run, out_placements=list(loc),
+                     in_placements=(loc, pl, pl, rows, loc, loc, rows, pl,
+                                    pl, whole, whole),
+                     device_mesh=mesh)(*args)
 
 
 def _decode_on_seq_shards(q, kc, vc, pos, k, v, *, window=None,
@@ -617,10 +657,11 @@ def _decode_on_seq_shards(q, kc, vc, pos, k, v, *, window=None,
     max, then one of the rescaled sums. The output comes back whole over
     the heads, on the cache's slot sharding.
 
-    The row write and the merges are plain PyTorch here, not fused into
-    the kernel's launch as on an unsharded cache, and write with the
-    standard stores: non-temporal ones (``store_flavor="nt"``) raise
-    ``NotImplementedError`` (ROADMAP queue 1 item 7d).
+    The row write and the merges are not fused into the kernel's launch
+    as on an unsharded cache: the standard stores write the rows in plain
+    PyTorch, non-temporal ones (``store_flavor="nt"``) with the port's
+    non-temporal row writer (``stores.kv_row_update``) on the slots the
+    rank owns alone (:func:`_write_owned_rows`).
     """
     mesh, pl = kc.device_mesh, tuple(kc.placements)
     seq = [m for m, p in enumerate(pl) if p.is_shard() and p.dim == 1]
@@ -633,21 +674,17 @@ def _decode_on_seq_shards(q, kc, vc, pos, k, v, *, window=None,
     off, s_loc = shd.shard_offset(mesh, pl, 1, kc.shape[1])
     rows = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
                  for p in pl)
-    q, k, v = (_placed(t, mesh, rows) for t in (q, k, v))
-    pos = _placed(pos, mesh, rows)
+    q, k, v = (shd.put(t, mesh, rows) for t in (q, k, v))
+    pos = shd.put(pos, mesh, rows)
     bound = None if kv_len is None else max(1, min(int(kv_len) - off, s_loc))
     writes = stores_lib.writes_rows(k, v, store_flavor)
-    if writes and stores_lib.executed_flavor(store_flavor) != "standard":
-        raise NotImplementedError(
-            f"store_flavor={store_flavor!r} on a sequence-sharded cache: "
-            "its row write is plain PyTorch with standard stores (ROADMAP "
-            "queue 1 item 7d)")
+    flavor = stores_lib.executed_flavor(store_flavor)
 
     def run(q, kc, vc, pos, k, v):
         q = q.contiguous()
         lpos = pos.to(torch.int32) - off
         if writes:
-            _write_owned_rows(kc, vc, k, v, lpos)
+            _write_owned_rows(kc, vc, k, v, lpos, flavor=flavor, impl=impl)
         o, m, l = kops.flash_decode_partials(q, kc, vc, lpos, window=window,
                                              impl=impl, kv_len=bound)
         m_loc = m.amax(0)
@@ -666,13 +703,35 @@ def _decode_on_seq_shards(q, kc, vc, pos, k, v, *, window=None,
                      device_mesh=mesh)(q, kc, vc, pos, k, v)
 
 
-def _write_owned_rows(kc, vc, k, v, lpos) -> None:
+def _write_owned_rows(kc, vc, k, v, lpos, *, flavor: str = "standard",
+                      impl: str = "auto") -> None:
     """Write the step's row of each slot into this rank's rows of the
     cache, in place, where the slot's local position ``lpos`` falls in
-    them; every other slot's row is written back as it was (bit for bit),
-    so no rank writes a row it does not own. k, v: (B, 1, Hkv, Dh)."""
+    them; no rank writes a row it does not own. k, v: (B, 1, Hkv, Dh).
+
+    Standard stores: every slot's row is written, the others' back as
+    they were (bit for bit). Non-temporal stores: the row writer
+    (``stores.kv_row_update``) clamps a start into ``[0, S_loc - 1]``, as
+    JAX's ``dynamic_update_slice`` does, so a slot the rank does not own
+    would overwrite its last or first row; it is given the owned slots
+    alone, a contiguous run of slots a launch (the owners are read on the
+    host)."""
     s_loc = kc.shape[1]
     own = (lpos >= 0) & (lpos < s_loc)
+    if flavor != "standard":
+        slots = own.nonzero()[:, 0].tolist()
+        runs = [[b] for b in slots[:1]]
+        for b in slots[1:]:
+            if b == runs[-1][-1] + 1:
+                runs[-1].append(b)
+            else:
+                runs.append([b])
+        for run in runs:
+            lo, hi = run[0], run[-1] + 1
+            stores_lib.kv_row_update(kc[lo:hi], vc[lo:hi], k[lo:hi],
+                                     v[lo:hi], lpos[lo:hi], flavor=flavor,
+                                     impl=impl)
+        return
     at = lpos.clamp(0, s_loc - 1).long()
     slots = torch.arange(kc.shape[0], device=kc.device)
     for cache, new in ((kc, k), (vc, v)):
@@ -684,17 +743,192 @@ def _write_owned_rows(kc, vc, k, v, lpos) -> None:
 def _write_state(cache: dict, new: dict) -> dict:
     """Copy a decode step's new recurrent state into the cache tensors, in
     place (cast to their fp32, the counterpart of the reference's pin of
-    the decode carry to the cache contract); returns ``cache``."""
+    the decode carry to the cache contract); returns ``cache``. Under a
+    mesh each rank writes its own shard of each leaf, the new state put
+    on the leaf's placements first (``sharding.relayout``)."""
     for name, val in new.items():
-        cache[name].copy_(val)
+        dst = cache[name]
+        if shd.is_dtensor(dst):
+            val = shd.relayout(shd.as_replicated(val, dst.device_mesh),
+                               tuple(dst.placements)).to_local()
+            dst = dst.to_local()
+        dst.copy_(val)
     return cache
+
+
+def _derived(pl: tuple, dims: dict) -> tuple:
+    """Placements of a tensor laid out alongside one with placements
+    ``pl``: on each mesh dim where ``pl`` shards dim ``k``, this tensor's
+    dim ``dims[k]`` (replicated where ``dims`` has no ``k``)."""
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                 else Replicate() for p in pl)
+
+
+def _on_shards(fn, mesh, args, in_pl, out_pl):
+    """``fn`` on each rank's local shards of ``args`` put on ``in_pl``
+    (``local_map``; None args pass through); its output on ``out_pl``
+    (its outputs, one placements tuple each). The computation is split
+    over every mesh dim that shards an input, so an input replicated on
+    such a dim takes a partial gradient there (each rank's share, summed
+    over the ranks); elsewhere its gradient keeps its placements."""
+    args = tuple(None if a is None else shd.put(a, mesh, pl)
+                 for a, pl in zip(args, in_pl))
+    in_pl = tuple(None if a is None else tuple(pl)
+                  for a, pl in zip(args, in_pl))
+    split = {m for pl in in_pl if pl is not None
+             for m, p in enumerate(pl) if p.is_shard()}
+    grad_pl = tuple(None if pl is None else tuple(
+        Partial() if m in split and not p.is_shard() else p
+        for m, p in enumerate(pl)) for pl in in_pl)
+    out_pl = list(out_pl) if isinstance(out_pl[0], Placement) \
+        else tuple(tuple(o) for o in out_pl)
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh)(*args)
+
+
+def _groups(mesh, pl: tuple, dim: int) -> list:
+    """The process groups of the mesh dims that shard tensor dim ``dim``
+    under ``pl``."""
+    return [mesh.get_group(m) for m, p in enumerate(pl)
+            if p.is_shard() and p.dim == dim]
+
+
+def _summer(groups: list):
+    """A sum over the ranks of ``groups`` of partial products that each
+    rank then uses in its own way (``sharding.sum_shared``), or None
+    where there is nothing to sum."""
+    return (lambda t: shd.sum_shared(t, groups)) if groups else None
+
+
+def _mamba_on_shards(core, args):
+    """:func:`ssm_lib.mamba_core` on each rank's channels (``ssm_inner``)
+    and slots: the conv, the scan and the gate are channel-local, the
+    ``x_dbc`` product is summed over the channel shards (one all-reduce)
+    and the state comes back on the channels' layout. Off a mesh the
+    core runs as it is."""
+    xi, z = args[0], args[1]
+    if not shd.is_dtensor(xi):
+        return core(*args)
+    xi, z = (sc(t, "act_batch", None, "ssm_inner") for t in (xi, z))
+    mesh, pl = xi.device_mesh, tuple(xi.placements)
+    # per-channel leaves: (di,) and (di, .) on dim 0, (., di) on dim 1
+    rows, cols = _derived(pl, {2: 0}), _derived(pl, {2: 1})
+    conv_pl, h_pl = _derived(pl, {0: 0, 2: 2}), _derived(pl, {0: 0, 2: 1})
+    in_pl = (pl, pl, cols, rows, rows, cols, rows, rows, rows, conv_pl, h_pl)
+    fn = functools.partial(core, reduce=_summer(_groups(mesh, pl, 2)))
+    return _on_shards(fn, mesh, (xi, z) + tuple(args[2:]), in_pl,
+                      (pl, h_pl, conv_pl))
+
+
+def _mlstm_on_shards(core, args):
+    """An mLSTM core (``xlstm.mlstm_*_core``) on each rank's heads
+    (``qheads``; replicated where the heads do not divide the mesh
+    dims, 4 heads over 16 ranks) and slots: the recurrence is
+    head-local."""
+    q = args[0]
+    if not shd.is_dtensor(q):
+        return core(*args)
+    q = sc(q, "act_batch", None, "qheads", None)
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    gate, st = _derived(pl, {0: 0, 2: 2}), _derived(pl, {0: 0, 2: 1})
+    in_pl = (pl, pl, pl, gate, gate, st, st, st)
+    return _on_shards(core, mesh, (q,) + tuple(args[1:]), in_pl,
+                      (pl, st, st, st))
+
+
+def _slstm_on_shards(core, args):
+    """:func:`xlstm_lib.slstm_chunk` on each rank's heads: the input
+    projection's columns and bias (``slstm_h``), the recurrent weights
+    ``r`` cut to the rank's heads and the state on the channels' layout;
+    the chunk's input whole over the channels. Head-local. Where the
+    channels' shards split a head (768 channels over 16 ranks: 48 of a
+    192-wide head) the chunk runs on the whole heads, replicated: the
+    projection's weights and the state are gathered once a chunk, each
+    rank runs every head, and the outputs are cut back to their layouts
+    where they are used (the parameters keep the reference's
+    placement)."""
+    x, w, r = args[0], args[1], args[3]
+    if not shd.is_dtensor(x) and not shd.is_dtensor(w):
+        return core(*args)
+    x = sc(shd.as_replicated(x, shd.current_mesh()), "act_batch", None,
+           None)
+    mesh, xpl = x.device_mesh, tuple(x.placements)
+    wpl = tuple(w.placements) if shd.is_dtensor(w) \
+        else (Replicate(),) * mesh.ndim
+    chan = {m for m, p in enumerate(wpl) if p.is_shard() and p.dim == 2}
+    shards = math.prod(mesh.shape[m] for m in chan)
+    if (w.shape[2] // shards) % r.shape[1]:
+        chan = set()
+    # mesh dims: batch where x's slots are sharded, the heads on ``chan``
+    pl = tuple(Shard(0) if p.is_shard() and p.dim == 0 else
+               Shard(3) if m in chan else Replicate()
+               for m, p in enumerate(xpl))
+    vec, heads = _derived(pl, {0: 0, 3: 1}), _derived(pl, {3: 0})
+    in_pl = (_derived(pl, {0: 0}), _derived(pl, {3: 2}),
+             _derived(pl, {3: 1}), heads, vec, vec, vec, vec)
+    return _on_shards(core, mesh, (x,) + tuple(args[1:]), in_pl,
+                      (_derived(pl, {0: 0, 3: 2}), vec, vec, vec, vec))
+
+
+def _moe_on_shards(routing, experts, x, p):
+    """``moe.route_core`` and ``moe.expert_core`` on each rank's shards.
+
+    The routing runs on each rank's token groups where the data shards
+    hold whole groups, and on every group (the tokens gathered over the
+    data shards) where they do not, so that routing, capacity and the
+    aux loss's sums are those of the global groups, never of a data
+    shard's rows; its sums are partial over the data shards. The
+    experts: where ``expert`` shards the stacked weights, each rank takes
+    its experts' slice of the dispatch and combine one-hots
+    (expert-parallel); where ``emlp`` does, every expert on every rank
+    with its FFN width sharded and ``w_down`` row-parallel. Either way
+    the output is each rank's partial sum, all-reduced where it meets
+    the residual. Under the resident 2-D serve rules (d sharded) the
+    router and up/gate products are summed over d's shards and the
+    output keeps d's layout. Returns ``(out, token sums, prob sums)``."""
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    g = max(1, x.shape[0] * x.shape[1] // routing.keywords["group_size"])
+    n_batch = math.prod(mesh.shape[m] for m, q in enumerate(pl)
+                        if q.is_shard() and q.dim == 0)
+    if g % n_batch:
+        pl = _derived(pl, {2: 2})
+    w_up = p["w_up"]
+    wpl = tuple(w_up.placements) if shd.is_dtensor(w_up) \
+        else (Replicate(),) * mesh.ndim
+    embed = {m for m, q in enumerate(pl) if q.is_shard() and q.dim == 2}
+    if embed != {m for m, q in enumerate(wpl) if q.is_shard() and q.dim == 1}:
+        pl = _derived(pl, {0: 0})
+        wpl = tuple(Replicate() if q.is_shard() and q.dim == 1 else q
+                    for q in wpl)
+        embed = set()
+    egroups = [mesh.get_group(m) for m in sorted(embed)]
+    grp = _derived(pl, {0: 0})
+    part = tuple(Partial() if q.is_shard() and q.dim == 0 else Replicate()
+                 for q in pl)
+    top_p, top_e, keep, pos, tok_sum, prob_sum = _on_shards(
+        functools.partial(routing, reduce=_summer(egroups)), mesh,
+        (x, p["router"]), (pl, _derived(pl, {2: 0})),
+        (grp, grp, grp, grp, part, part))
+    down = tuple(Shard({0: 0, 1: 2, 2: 1}[q.dim]) if q.is_shard()
+                 else Replicate() for q in wpl)
+    out_pl = tuple(Shard(0) if q.is_shard() and q.dim == 0 else
+                   Shard(2) if q.is_shard() and q.dim == 2 else
+                   Partial() if wq.is_shard() else Replicate()
+                   for q, wq in zip(pl, wpl))
+    e0 = shd.shard_offset(mesh, wpl, 0, w_up.shape[0])[0]
+    fn = functools.partial(experts, expert0=e0, reduce=_summer(egroups))
+    out = _on_shards(fn, mesh, (x, top_p, top_e, keep, pos, w_up,
+                                p.get("w_gate"), p["w_down"]),
+                     (pl, grp, grp, grp, grp, wpl,
+                      wpl if "w_gate" in p else None, down), out_pl)
+    return out, tok_sum, prob_sum
 
 
 def _mixer(cfg: ModelConfig, mixer: str, p: dict, x, *, mode: str, cache,
            **attn_kw):
     """One block's mixer: ``(y, new_cache)``. At decode the new cache is
     ``cache`` itself, updated in place; in training it is None (no state
-    is kept)."""
+    is kept). A prefill's new state comes back on the cache's layout."""
     if mixer in ("attn", "attn_local"):
         return _attn_mixer(cfg, p, x, local=(mixer == "attn_local"),
                            mode=mode, cache=cache, **attn_kw)
@@ -704,20 +938,26 @@ def _mixer(cfg: ModelConfig, mixer: str, p: dict, x, *, mode: str, cache,
         y, st = ssm_lib.mamba_mixer(
             p, x, d_state=cfg.ssm_d_state, conv_dim=cfg.ssm_conv_dim,
             chunk=cfg.ssm_chunk, state=state, want_state=want_state,
-            fuse=cfg.ssm_fuse)
+            fuse=cfg.ssm_fuse, on_shards=_mamba_on_shards)
     elif mixer == "mlstm":
         z = x @ p["up_z"]
         y, st = xlstm_lib.mlstm_mixer(
             p, x @ p["up_x"], n_heads=cfg.n_heads,
             chunk=max(16, cfg.ssm_chunk // 2), state=state,
-            want_state=want_state)
-        y = (y * F.silu(z)) @ p["down"]
+            want_state=want_state, on_shards=_mlstm_on_shards)
+        y = (shd.reduce_partials(y) * F.silu(z)) @ p["down"]
     elif mixer == "slstm":
         y, st = xlstm_lib.slstm_mixer(p, x, n_heads=cfg.n_heads,
-                                      state=state, want_state=want_state)
+                                      state=state, want_state=want_state,
+                                      on_shards=_slstm_on_shards)
     else:
         raise ValueError(mixer)
-    return y, (_write_state(cache, st) if mode == "decode" else st)
+    if mode == "decode":
+        return y, _write_state(cache, st)
+    if st is not None:
+        defs = _cache_defs(cfg, f"{mixer}:none", 1, 1)
+        st = {n: sc(t, *defs[n].axes) for n, t in st.items()}
+    return y, st
 
 
 def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
@@ -746,7 +986,8 @@ def apply_block(cfg: ModelConfig, blk: str, p: dict, x, *, mode: str,
                 p["ffn"], hx, n_experts=cfg.n_experts,
                 top_k=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor,
-                group_size=cfg.moe_group_size, act=cfg.ffn_act)
+                group_size=cfg.moe_group_size, act=cfg.ffn_act,
+                on_shards=_moe_on_shards if shd.is_dtensor(hx) else None)
         x = x + _reduced(y)
         x = sc(x, "act_batch", None, "act_embed")
     return x, aux, new_cache
@@ -892,7 +1133,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         if shd.current_mesh() is None:
             logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
             return logits, aux
-        check_meshable(cfg)
         with implicit_replication():
             logits, aux, _ = _forward(cfg, params, batch, mode=mode, **kw)
         return logits, aux
@@ -902,7 +1142,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     with torch.no_grad():
         if shd.current_mesh() is None:
             return _forward(cfg, params, batch, mode=mode, **kw)
-        check_meshable(cfg)
         # host-made tensors (tokens, positions, rope tables) count as
         # replicated beside the DTensors
         with implicit_replication():
@@ -927,6 +1166,10 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     else:
         x = batch["embeds"].to(dtype)
         b, s, _ = x.shape
+        if shd.current_mesh() is not None:
+            # frame embeddings, whole on every rank, placed as the
+            # token models' lookup comes out (``sc`` below)
+            x = shd.as_replicated(x, shd.current_mesh())
     dev = x.device
     if mode == "decode":
         if s != 1:

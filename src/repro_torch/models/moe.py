@@ -11,6 +11,8 @@ slots and the same ones are dropped.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -39,10 +41,13 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 
 def route(xg: torch.Tensor, router: torch.Tensor, *, n_experts: int,
-          top_k: int, cap: int, renormalize: bool = True) -> tuple:
+          top_k: int, cap: int, renormalize: bool = True,
+          reduce=None) -> tuple:
     """Route grouped tokens xg (G, Sg, d): fp32 router and softmax, top-k,
     renormalized weights, and each (token, k) slot's place in its
     expert's queue, counted over the group's Sg*K slots in order.
+    ``reduce``, when given, sums the router logits over the ranks holding
+    slices of d before the softmax.
 
     Returns ``(probs (G, Sg, E), top_p (G, Sg, K), top_e (G, Sg, K),
     keep (G, Sg*K), pos (G, Sg*K))``: ``keep`` is False for a slot past
@@ -50,7 +55,10 @@ def route(xg: torch.Tensor, router: torch.Tensor, *, n_experts: int,
     dropped).
     """
     g, sg, _ = xg.shape
-    probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+    logits = xg.float() @ router.float()
+    if reduce is not None:
+        logits = reduce(logits)
+    probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, top_k, dim=-1)
     if renormalize:
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -62,30 +70,75 @@ def route(xg: torch.Tensor, router: torch.Tensor, *, n_experts: int,
 
 def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, group_size: int = 1024,
-            act: str = "swiglu", renormalize: bool = True):
+            act: str = "swiglu", renormalize: bool = True, on_shards=None):
     """Top-k routed MoE MLP.
 
     p: ``router (d, E)``, ``w_up (E, d, f)``, ``w_down (E, f, d)``
     [, ``w_gate (E, d, f)`` for SwiGLU]. x: (B, S, d).
     Returns ``(out (B, S, d), aux_loss 0-d fp32)``.
+
+    The routing (:func:`route_core`) and the experts (:func:`expert_core`)
+    are two calls; ``on_shards(routing, experts, x, p)``, when given, runs
+    them on each rank's shards under a mesh (``models.model``) and
+    returns what they return. The aux loss is taken from the routing's
+    sums over every token of every group.
     """
     b, s, d = x.shape
+    t = b * s
+    g = max(1, t // group_size)
+    sg = t // g
+    cap = max(top_k, int(round(top_k * sg * capacity_factor / n_experts)))
+    routing = functools.partial(route_core, group_size=group_size,
+                                n_experts=n_experts, top_k=top_k, cap=cap,
+                                renormalize=renormalize)
+    experts = functools.partial(expert_core, group_size=group_size,
+                                n_experts=n_experts, top_k=top_k, cap=cap,
+                                act=act)
+    if on_shards is None:
+        top_p, top_e, keep, pos, tok_sum, prob_sum = routing(x, p["router"])
+        out = experts(x, top_p, top_e, keep, pos, p["w_up"], p.get("w_gate"),
+                      p["w_down"])
+    else:
+        out, tok_sum, prob_sum = on_shards(routing, experts, x, p)
+    # Switch aux loss: E * sum(fraction of tokens * mean probability)
+    aux = n_experts * ((tok_sum / t) * (prob_sum / t)).sum()
+    return out, aux
+
+
+def route_core(x: torch.Tensor, router: torch.Tensor, *, group_size: int,
+               n_experts: int, top_k: int, cap: int, renormalize: bool,
+               reduce=None) -> tuple:
+    """Group the tokens of x (B, S, d) and route them (:func:`route`).
+
+    Returns ``(top_p, top_e, keep, pos)`` as :func:`route` does and the
+    sums over the groups' tokens of the top-1 one-hot and of the router
+    probabilities, (E,) fp32 each (the aux loss's numerators). ``reduce``
+    goes to :func:`route`."""
+    probs, top_p, top_e, keep, pos = route(
+        _group(x, group_size), router, n_experts=n_experts, top_k=top_k,
+        cap=cap, renormalize=renormalize, reduce=reduce)
+    tok_sum = _one_hot(top_e[..., 0], n_experts, torch.float32).sum((0, 1))
+    return top_p, top_e, keep, pos, tok_sum, probs.sum((0, 1))
+
+
+def expert_core(x, top_p, top_e, keep, pos, w_up, w_gate, w_down, *,
+                group_size: int, n_experts: int, top_k: int, cap: int,
+                act: str, expert0: int = 0, reduce=None) -> torch.Tensor:
+    """The dispatch, the expert MLPs and the combine of routed tokens.
+
+    ``w_*`` may hold a slice of the experts, ``expert0`` .. ``expert0 +
+    E_loc - 1`` (each rank's slice of the dispatch and combine one-hots
+    is taken), or a slice of their FFN width, or of d (``reduce`` then
+    sums the up and gate products over the ranks holding d's slices);
+    the output is then the slice's partial sum, or its slice of d.
+    Returns out (B, S, d_out)."""
+    b, s, _ = x.shape
     xg = _group(x, group_size)                       # (G, Sg, d)
     g, sg, _ = xg.shape
-    e = n_experts
+    e = w_up.shape[0]
     dtype = xg.dtype
-    cap = max(top_k, int(round(top_k * sg * capacity_factor / e)))
-
-    probs, top_p, top_e, keep, pos = route(xg, p["router"], n_experts=e,
-                                           top_k=top_k, cap=cap,
-                                           renormalize=renormalize)
-    # Switch aux loss: E * sum(fraction of tokens * mean probability)
-    frac_tokens = _one_hot(top_e[..., 0], e, torch.float32).mean((0, 1))
-    frac_probs = probs.mean((0, 1))
-    aux = e * (frac_tokens * frac_probs).sum()
-
-    slot_e = top_e.reshape(g, sg * top_k)            # (G, SgK)
-    oh_e = _one_hot(slot_e, e, dtype)                # (G, SgK, E)
+    slot_e = top_e.reshape(g, sg * top_k) - expert0  # (G, SgK)
+    oh_e = _one_hot(slot_e, e, dtype)                # (G, SgK, E_loc)
     oh_c = _one_hot(pos, cap, dtype) * keep[..., None].to(dtype)
     disp_k = (oh_e[..., :, None] * oh_c[..., None, :]).reshape(
         g, sg, top_k, e, cap)
@@ -94,12 +147,17 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     # experts
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)        # (G, E, C, d)
-    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    up = torch.einsum("gecd,edf->gecf", xe, w_up)
+    if reduce is not None:
+        up = reduce(up)
     if act == "swiglu":
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) * up
+        gate = torch.einsum("gecd,edf->gecf", xe, w_gate)
+        if reduce is not None:
+            gate = reduce(gate)
+        h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E, C, d)
+    ye = torch.einsum("gecf,efd->gecd", h, w_down)           # (G, E, C, d)
 
     out = torch.einsum("gsec,gecd->gsd", combine, ye)         # (G, Sg, d)
-    return out.reshape(b, s, d), aux
+    return out.reshape(b, s, out.shape[-1])

@@ -8,13 +8,18 @@ entering each chunk; pass 2 scans again from those states and emits
 ``y_t = C_t . h_t``. Decode takes the exact sequential step. The state
 ``h`` is fp32; the conv state comes back in the compute dtype. The time
 loops are Python loops over steps (the JAX package's ``lax.scan``s are
-not Pallas kernels).
+not Pallas kernels), written as ``utils.loops.repeat`` loops so that a
+trace lowering records one step of each.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.loops import repeat
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -47,12 +52,45 @@ def _to_steps(z: torch.Tensor, nc: int, chunk: int) -> torch.Tensor:
 def _bridge(pr: torch.Tensor, h_loc: torch.Tensor, h0: torch.Tensor):
     """The state entering each chunk, (B, nc, D, N), and the final state,
     from each chunk's decay product and local final state."""
-    h = h0.float()
-    h_init = []
-    for c in range(pr.shape[1]):
-        h_init.append(h)
-        h = pr[:, c] * h + h_loc[:, c]
-    return torch.stack(h_init, dim=1), h
+    st = {"h": h0.float()}
+    h_init = pr.new_empty(pr.shape)
+
+    def step(c):
+        h_init[:, c] = st["h"]
+        st["h"] = pr[:, c] * st["h"] + h_loc[:, c]
+    repeat(pr.shape[1], step)
+    return h_init, st["h"]
+
+
+def _two_passes(a_u, c_s, shape: tuple, h0, chunk: int):
+    """The two scans of the chunkwise method over ``chunk`` steps, every
+    chunk at once (``a_u(i)`` the step's decay and input, (B, nc, D, N);
+    ``c_s`` the C rows by step): pass 1 from a zero state keeps each
+    chunk's local final state and decay product, :func:`_bridge` the
+    state entering each chunk, pass 2 emits ``y_t = C_t . h_t``. Each
+    pass is a :func:`~repro_torch.utils.loops.repeat` loop (a trace
+    lowering records one step), as the reference's ``lax.scan``s.
+    Returns y (B, nc, chunk, D) fp32 and h_T."""
+    b, nc, d, n = shape
+    st = {"h": torch.zeros(shape, dtype=torch.float32, device=c_s.device)}
+    st["pr"] = torch.ones_like(st["h"])
+
+    def pass1(i):
+        a_t, u_t = a_u(i)
+        st["h"] = a_t * st["h"] + u_t
+        st["pr"] = st["pr"] * a_t
+    repeat(chunk, pass1)
+    h_init, h_final = _bridge(st["pr"], st["h"], h0)
+    st["h"] = h_init
+    ys = torch.empty((b, nc, chunk, d), dtype=torch.float32,
+                     device=c_s.device)
+
+    def pass2(i):
+        a_t, u_t = a_u(i)
+        st["h"] = a_t * st["h"] + u_t
+        ys[:, :, i] = torch.einsum("bgdn,bgn->bgd", st["h"], c_s[i])
+    repeat(chunk, pass2)
+    return ys, h_final
 
 
 def _ssm_scan_chunked(a_in, u_b, c_mat, h0, chunk: int):
@@ -74,18 +112,9 @@ def _ssm_scan_chunked(a_in, u_b, c_mat, h0, chunk: int):
         return y[:, :t], h_final
     nc = t // chunk
     a_s, u_s, c_s = (_to_steps(z, nc, chunk) for z in (a_in, u_b, c_mat))
-    h = torch.zeros((b, nc, d, n), dtype=torch.float32, device=a_in.device)
-    pr = torch.ones_like(h)
-    for i in range(chunk):
-        h = a_s[i] * h + u_s[i]
-        pr = pr * a_s[i]
-    h_init, h_final = _bridge(pr, h, h0)
-    h, ys = h_init, []
-    for i in range(chunk):
-        h = a_s[i] * h + u_s[i]
-        ys.append(torch.einsum("bgdn,bgn->bgd", h, c_s[i]))
-    y = torch.stack(ys, dim=2).reshape(b, t, d)      # (B, nc, L, D)
-    return y, h_final
+    ys, h_final = _two_passes(lambda i: (a_s[i], u_s[i]), c_s,
+                              (b, nc, d, n), h0, chunk)
+    return ys.reshape(b, t, d), h_final               # (B, nc, L, D)
 
 
 def _ssm_scan_chunked_fused(dt, b_mat, c_mat, xif, a, h0, chunk: int):
@@ -115,25 +144,14 @@ def _ssm_scan_chunked_fused(dt, b_mat, c_mat, xif, a, h0, chunk: int):
         u_t = (dt_s[i] * x_s[i])[..., None] * b_s[i][:, :, None, :]
         return a_t, u_t
 
-    h = torch.zeros((b, nc, d, n), dtype=torch.float32, device=dt.device)
-    pr = torch.ones_like(h)
-    for i in range(chunk):
-        a_t, u_t = a_u(i)
-        h = a_t * h + u_t
-        pr = pr * a_t
-    h_init, h_final = _bridge(pr, h, h0)
-    h, ys = h_init, []
-    for i in range(chunk):
-        a_t, u_t = a_u(i)
-        h = a_t * h + u_t
-        ys.append(torch.einsum("bgdn,bgn->bgd", h, c_s[i]))
-    y = torch.stack(ys, dim=2).reshape(b, t, d)
-    return y, h_final
+    ys, h_final = _two_passes(a_u, c_s, (b, nc, d, n), h0, chunk)
+    return ys.reshape(b, t, d), h_final
 
 
 def mamba_mixer(p: dict, x: torch.Tensor, *, d_state: int, conv_dim: int,
                 chunk: int = 128, state: dict | None = None,
-                want_state: bool = False, fuse: bool = True):
+                want_state: bool = False, fuse: bool = True,
+                on_shards=None):
     """Mamba-1 mixer. x: (B, T, d_model), already normed.
 
     p: ``in_x``/``in_z`` (d, di), ``conv_w`` (K, di), ``conv_b`` (di,),
@@ -142,31 +160,61 @@ def mamba_mixer(p: dict, x: torch.Tensor, *, d_state: int, conv_dim: int,
     state (decode): ``{"h": (B, di, N) fp32, "conv": (B, K-1, di)}``.
     Returns ``(y (B, T, d), new_state | None)``; the new ``h`` is fp32,
     the new ``conv`` in x's dtype.
-    """
-    b, t, _ = x.shape
-    di = p["conv_w"].shape[1]
-    dt_rank = p["dt_w"].shape[0]
 
+    The input and output projections are products on whatever tensors
+    they are given (DTensors under a mesh); everything between them,
+    the time loops included, is :func:`mamba_core` over the channels,
+    run by ``on_shards(core, args)`` when given (each rank's channel
+    shard under a mesh, ``models.model``), else called as it is.
+    """
     z = x @ p["in_z"]
     xi_raw = x @ p["in_x"]                            # (B, T, di)
-    xi, new_conv = causal_conv1d(xi_raw, p["conv_w"],
-                                 state["conv"] if state is not None else None)
-    xi = F.silu(xi + p["conv_b"])
+    args = (xi_raw, z, p["conv_w"], p["conv_b"], p["x_dbc"], p["dt_w"],
+            p["dt_b"], p["a_log"], p["d_skip"],
+            state["conv"] if state is not None else None,
+            state["h"] if state is not None else None)
+    core = functools.partial(mamba_core, d_state=d_state, chunk=chunk,
+                             fuse=fuse)
+    y, h_t, new_conv = core(*args) if on_shards is None \
+        else on_shards(core, args)
+    out = y @ p["out_proj"]
+    return out, ({"h": h_t, "conv": new_conv} if want_state else None)
 
-    dbc = xi @ p["x_dbc"]                             # (B, T, R+2N)
+
+def mamba_core(xi_raw, z, conv_w, conv_b, x_dbc, dt_w, dt_b, a_log, d_skip,
+               conv0, h0, *, d_state: int, chunk: int, fuse: bool,
+               reduce=None):
+    """The mixer between its projections, channel by channel: the causal
+    conv, the ``x_dbc`` product, dt, the scan (chunkwise from a zero
+    state, or the exact sequential step from ``h0``) and the gate.
+
+    Every per-channel tensor may be any slice of the channels: the one
+    product that mixes them, ``xi @ x_dbc`` (di -> R+2N), is summed over
+    the slices by ``reduce`` when given (an all-reduce over the ranks
+    holding them). Returns ``(y (B, T, di) in xi_raw's dtype, h (B, di, N)
+    fp32, conv (B, K-1, di))``.
+    """
+    b, t, di = xi_raw.shape
+    dt_rank = dt_w.shape[0]
+    xi, new_conv = causal_conv1d(xi_raw, conv_w, conv0)
+    xi = F.silu(xi + conv_b)
+
+    dbc = xi @ x_dbc                                  # (B, T, R+2N)
+    if reduce is not None:
+        dbc = reduce(dbc)
     dt_low = dbc[..., :dt_rank]
     b_mat = dbc[..., dt_rank:dt_rank + d_state].float()
     c_mat = dbc[..., dt_rank + d_state:].float()
     # the fp32 bias promotes the sum to fp32; XLA then keeps the bf16
     # product's fp32 accumulator unrounded, so the product is taken in fp32
-    dt = F.softplus(dt_low.float() @ p["dt_w"].float() + p["dt_b"])
+    dt = F.softplus(dt_low.float() @ dt_w.float() + dt_b)
 
-    a = -torch.exp(p["a_log"].float())                # (di, N), negative
+    a = -torch.exp(a_log.float())                     # (di, N), negative
     xif = xi.float()
 
-    if state is None:
+    if h0 is None:
         h0 = torch.zeros((b, di, d_state), dtype=torch.float32,
-                         device=x.device)
+                         device=xi_raw.device)
         if fuse:
             y, h_t = _ssm_scan_chunked_fused(dt, b_mat, c_mat, xif, a, h0,
                                              chunk)
@@ -177,13 +225,12 @@ def mamba_mixer(p: dict, x: torch.Tensor, *, d_state: int, conv_dim: int,
     else:
         a_bar = torch.exp(dt[..., None] * a)
         u = (dt * xif)[..., None] * b_mat[..., None, :]
-        h_t, ys = state["h"].float(), []
+        h_t, ys = h0.float(), []
         for i in range(t):
             h_t = a_bar[:, i] * h_t + u[:, i]
             ys.append(torch.einsum("bdn,bn->bd", h_t, c_mat[:, i]))
         y = torch.stack(ys, dim=1)
 
-    y = y + xif * p["d_skip"].float()
-    y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
-    return out, ({"h": h_t, "conv": new_conv} if want_state else None)
+    y = y + xif * d_skip.float()
+    y = y.to(xi_raw.dtype) * F.silu(z)
+    return y, h_t, new_conv

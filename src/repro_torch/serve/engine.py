@@ -104,18 +104,21 @@ installed (``utils.sharding.use_mesh_rules``): DTensor's propagation
 places the collectives and the decode kernels run on each rank's local
 head shard (``models.model``). The logits come back whole on every rank
 and every rank samples from generators seeded alike, so all ranks pick
-the same tokens and their caches stay one cache. A sharded engine stages
-no prompts; recurrent, MoE and embedding-input configs, pipelined
-dispatch, snapshots and a paged cache with slots over the data axis
-raise ``NotImplementedError`` under a mesh (ROADMAP queue 1 item 7d). A chunk on the card is one CUDA
-graph over NCCL; a gloo group cannot be captured, so a gloo mesh on the
-card needs ``cuda_graphs=False``.
+the same tokens and their caches stay one cache. Every config runs under
+a mesh (the recurrent mixers and the MoE experts on each rank's shards,
+``models.model``); pipelined dispatch runs there as it does unsharded,
+every rank enqueueing the same rounds and deferring the same readbacks,
+so the ranks' collectives meet in the same order; a paged cache with
+its slots over the data axis runs the paged decode kernel on each data
+shard's slots against one pool (``models.model._decode_paged_on_slots``);
+a snapshot writes the params whole. A sharded engine stages no prompts.
+A chunk on the card is one CUDA graph over NCCL; a gloo group cannot be
+captured, so a gloo mesh on the card needs ``cuda_graphs=False``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 import zlib
 from collections import deque
@@ -262,7 +265,7 @@ class ServeEngine:
             else {}
         self.tp = shd.tp_degree(self._mesh_sizes, self.rules)
         if mesh is not None:
-            self._check_mesh(cuda_graphs, pipeline, max_slots)
+            self._check_mesh(cuda_graphs)
             self.params = shd.distribute(
                 params, mesh, M.param_pspecs(cfg, self.rules,
                                              self._mesh_sizes))
@@ -321,31 +324,17 @@ class ServeEngine:
         self.decode_s = 0.0
 
     # -- mesh ---------------------------------------------------------------
-    def _check_mesh(self, cuda_graphs: bool, pipeline, max_slots: int):
+    def _check_mesh(self, cuda_graphs: bool):
         """Refuse what does not run under a mesh, before anything is
-        placed: heads that do not divide the TP degree (``ValueError``),
-        what waits for ROADMAP queue 1 item 7d (``NotImplementedError``),
-        and CUDA graphs over a gloo group (``ValueError``)."""
+        placed: heads that do not divide the TP degree and CUDA graphs
+        over a gloo group (``ValueError``)."""
         import torch.distributed as dist
         cfg, mesh = self.cfg, self.mesh
         if mesh.device_type != self.device.type:
             raise ValueError(f"mesh on {mesh.device_type}, the engine on "
                              f"{self.device}")
-        M.check_meshable(cfg)
         validate_tp_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff,
                           self.tp, page_size=getattr(self, "page_size", None))
-        if pipeline:
-            raise NotImplementedError(
-                "pipelined dispatch under a mesh is not ported (ROADMAP "
-                "queue 1 item 7d)")
-        slots = shd.spec_for((max_slots,), ("batch",), self.rules,
-                             self._mesh_sizes)[0]
-        if self.paged and slots is not None and math.prod(
-                self._mesh_sizes[a] for a in
-                (slots if isinstance(slots, tuple) else (slots,))) > 1:
-            raise NotImplementedError(
-                "a paged cache with slots over the data axis is not "
-                "ported (ROADMAP queue 1 item 7d)")
         gloo = any(dist.get_backend(mesh.get_group(i)) == "gloo"
                    for i in range(mesh.ndim))
         if self.device.type == "cuda" and cuda_graphs and gloo:
@@ -826,12 +815,11 @@ class ServeEngine:
         the snapshot is skipped (returns False). On a CUDA engine the
         device-to-host copies run on the checkpointer's side stream and
         wait only for the params' own writes, never for the decode rounds
-        in flight. A sharded engine refuses (ROADMAP queue 1 item 7d).
+        in flight. A sharded engine's params are written whole, as the
+        reference writes them, by the mesh's first rank; every rank calls
+        this, agrees on the skip before any gather and returns the same
+        answer (``Checkpointer.save``).
         """
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "snapshots of a sharded engine are not ported (ROADMAP "
-                "queue 1 item 7d)")
         return checkpointer.save(step, {"params": self.params},
                                  skip_if_busy=True, after=self._params_ready)
 

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
-from repro_torch.serve.slots import SLOT_AXIS
+from repro_torch.serve.slots import SLOT_AXIS, copy_slot, insert_leaf
 from repro_torch.utils import sharding as shd
 from repro_torch.utils.sharding import local
 
@@ -340,14 +340,16 @@ class PagePool:
 # Device steps, in place
 # ---------------------------------------------------------------------------
 
-def _leaves(cache: dict, other: dict, flags: dict):
+def _leaves(cache: dict, other: dict, flags: dict, shards: bool = True):
     """(axis, leaf, the same leaf of ``other``, is KV) over the cache; a
     DTensor leaf as this rank's shard (a pool leaf shards heads alone, so
-    page and slot indices are the same on every rank)."""
+    page indices are the same on every rank), or as it is when not
+    ``shards``."""
+    pick = local if shards else (lambda t: t)
     for part, axis in SLOT_AXIS.items():
         if part in cache:
             for (_, big), (_, small), (_, kv) in zip(
-                    M._walk(local(cache[part])), M._walk(local(other[part])),
+                    M._walk(pick(cache[part])), M._walk(pick(other[part])),
                     M._walk(flags[part])):
                 yield axis, big, small, kv
 
@@ -366,12 +368,15 @@ def paged_insert(cfg: ModelConfig, cache: dict, one: dict, slot: int, phys,
     copied. ``phys`` and ``logical`` are int64 tensors on the cache's
     device.
     """
-    for axis, big, small, kv in _leaves(cache, one, kv_leaf_flags(cfg)):
+    for axis, big, small, kv in _leaves(cache, one, kv_leaf_flags(cfg),
+                                        shards=False):
         if not kv:
-            big.narrow(axis, slot, 1).copy_(small)
+            # slot-batched: under a mesh the slot's owner writes it
+            insert_leaf(big, small, axis, slot)
             continue
         if phys.numel() == 0:
             continue
+        big, small = local(big), local(small)
         ps = big.shape[axis + 1]
         s = small.shape[axis + 1]
         npg = -(-s // ps)
@@ -395,6 +400,7 @@ def slot_copy(cfg: ModelConfig, cache: dict, src: int, dst: int) -> None:
     """Copy slot row ``src`` to ``dst`` in every recurrent leaf, in place:
     a fork shares the KV pages through its block table, but its recurrent
     state (Mamba, xLSTM) is its own row. KV pools are left alone."""
-    for axis, big, _, kv in _leaves(cache, cache, kv_leaf_flags(cfg)):
+    for axis, big, _, kv in _leaves(cache, cache, kv_leaf_flags(cfg),
+                                    shards=False):
         if not kv:
-            big.select(axis, dst).copy_(big.select(axis, src))
+            copy_slot(big, axis, src, dst)

@@ -45,14 +45,40 @@ def insert(cache: dict, one: dict, slot: int) -> None:
     for part, axis in SLOT_AXIS.items():
         if part in cache:
             for big, small in _pairs(cache[part], one[part]):
-                at = slot
-                if is_dtensor(big):
-                    at = shard_owner(big.device_mesh, big.placements, axis,
-                                     big.shape[axis], slot)
-                    if at is None:
-                        continue
-                    big, small = _shards(big, small, axis)
-                big.narrow(axis, at, 1).copy_(small)
+                insert_leaf(big, small, axis, slot)
+
+
+def insert_leaf(big, small, axis: int, slot: int) -> None:
+    """Copy ``small`` (one slot on ``axis``) into slot ``slot`` of the
+    cache leaf ``big``, in place; under a mesh only the ranks whose
+    shard holds the slot write."""
+    at = slot
+    if is_dtensor(big):
+        at = shard_owner(big.device_mesh, big.placements, axis,
+                         big.shape[axis], slot)
+        if at is None:
+            return
+        big, small = _shards(big, small, axis)
+    big.narrow(axis, at, 1).copy_(small)
+
+
+def copy_slot(big, axis: int, src: int, dst: int) -> None:
+    """Copy slot ``src`` of a cache leaf to slot ``dst``, in place. Under
+    a mesh whose ranks shard the slots the leaf is gathered over the slot
+    shards (``sharding.relayout``, every rank takes part) and the rank
+    holding ``dst`` writes it."""
+    if not is_dtensor(big):
+        big.select(axis, dst).copy_(big.select(axis, src))
+        return
+    from torch.distributed.tensor import Replicate
+    from repro_torch.utils.sharding import relayout
+    pl = tuple(big.placements)
+    whole = tuple(Replicate() if p.is_shard() and p.dim == axis else p
+                  for p in pl)
+    row = relayout(big, whole).to_local().select(axis, src)
+    at = shard_owner(big.device_mesh, pl, axis, big.shape[axis], dst)
+    if at is not None:
+        big.to_local().select(axis, at).copy_(row)
 
 
 def assign(cache: dict, new: dict) -> None:

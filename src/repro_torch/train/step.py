@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.distributed.tensor import Replicate, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
@@ -77,27 +78,42 @@ def _on_layout(g, p):
     return g
 
 
-def split_batch(batch: dict, accum_steps: int) -> list:
+def split_batch(batch: dict, accum_steps: int, whole: bool = False) -> list:
     """The reference's microbatch rule: a leaf of rank >= 2 whose batch
     divides is split on axis 0, any other leaf is repeated; M-RoPE
     positions (3, B, S) are split on axis 1. A DTensor leaf whose batch is
     sharded is split rank by rank: microbatch ``i`` takes the ``i``-th
     part of every rank's rows (the same rows in all, so the same summed
-    gradients, in another grouping)."""
+    gradients, in another grouping), unless ``whole``: microbatch ``i``
+    is then the reference's, rows ``i B/n .. (i+1) B/n - 1`` of the whole
+    batch, laid out as the batch was (the leaf gathered first). A model
+    that routes tokens in groups (MoE) takes the whole rows, since its
+    routing and capacity depend on which tokens share a microbatch."""
     def split(name, x):
         axis = 1 if name == "positions" and x.ndim == 3 \
             and x.shape[0] == 3 else 0
         if x.ndim < 2 or x.shape[axis] % accum_steps:
             return [x] * accum_steps
-        if shd.is_dtensor(x):
+        if shd.is_dtensor(x) and not whole:
             return _split_shards(x, axis, accum_steps)
-        if axis == 1:
-            return list(x.reshape(3, accum_steps, x.shape[1] // accum_steps,
-                                  x.shape[2]).movedim(1, 0))
-        return list(x.reshape(accum_steps, x.shape[0] // accum_steps,
-                              *x.shape[1:]))
+        if shd.is_dtensor(x):
+            mesh, pl = x.device_mesh, tuple(x.placements)
+            full = shd.relayout(x, (Replicate(),) * mesh.ndim).to_local()
+            return [distribute_tensor(p.contiguous(), mesh, pl,
+                                      src_data_rank=None)
+                    for p in _split_whole(full, axis, accum_steps)]
+        return _split_whole(x, axis, accum_steps)
     parts = {k: split(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(accum_steps)]
+
+
+def _split_whole(x, axis: int, n: int) -> list:
+    """``x`` cut into ``n`` equal parts along ``axis`` (0, or 1 for
+    M-RoPE's (3, B, S) positions)."""
+    if axis == 1:
+        return list(x.reshape(3, n, x.shape[1] // n,
+                              x.shape[2]).movedim(1, 0))
+    return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]))
 
 
 def _split_shards(x, axis: int, n: int) -> list:
@@ -128,6 +144,7 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
     reference's ``lax.scan``.
     """
     grad_fn = value_and_grad(make_loss_fn(cfg))
+    routed = any(b.endswith(":moe") for b in cfg.layer_plan())
 
     def step(state, batch):
         meshed = shd.is_dtensor(state["step"])
@@ -143,7 +160,7 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, accum_steps: int = 1):
                 lambda x: torch.zeros_like(x, dtype=torch.float32), params)
             loss = torch.zeros_like(state["step"], dtype=torch.float32)
             aux = torch.zeros_like(loss)
-            mbs = split_batch(batch, accum_steps)
+            mbs = split_batch(batch, accum_steps, whole=routed)
 
             def micro(i):
                 (l, parts), g = grad_fn(params, mbs[i])

@@ -279,6 +279,18 @@ def as_replicated(t: torch.Tensor, mesh):
                               run_check=False)
 
 
+def put(t, mesh, placements):
+    """``t`` (a plain tensor counts as replicated) on ``placements``:
+    differentiably under autograd (DTensor's redistribute), by
+    :func:`relayout` (c10d gathers) otherwise."""
+    t = as_replicated(t, mesh)
+    if tuple(t.placements) == tuple(placements):
+        return t
+    if t.requires_grad and torch.is_grad_enabled():
+        return t.redistribute(mesh, placements)
+    return relayout(t, placements)
+
+
 def zeros(shape: tuple, dtype, mesh, spec, device):
     """A zero DTensor of global ``shape`` laid out by ``spec``, made shard
     by shard (no rank holds the full tensor)."""
@@ -385,6 +397,35 @@ def sum_over(t: torch.Tensor, groups, mean: bool = False) -> torch.Tensor:
     return _SumOverGroups.apply(t, tuple(groups), mean)
 
 
+class _SumShared(torch.autograd.Function):
+    """Sum a local tensor over the ranks of ``groups`` (an all-reduce a
+    group) where each rank then uses the sum in its own way (its own
+    channels of a row-parallel product's consumer): the backward pass
+    sums the ranks' gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _all_reduce(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.groups), None
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.all_reduce(t, "sum", g)
+    return funcol.wait_tensor(t) if groups else t
+
+
+def sum_shared(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` summed over the ranks of each process group in ``groups``,
+    differentiably, the gradient summed likewise (:class:`_SumShared`)."""
+    return _SumShared.apply(t, tuple(groups))
+
+
 def reduce_partials(x):
     """A DTensor's partial sums or means all-reduced (its ``Partial`` mesh
     dims made ``Replicate``) such that the backward pass takes the
@@ -407,6 +448,21 @@ def reduce_partials(x):
                               stride=x.stride())
 
 
+def whole_dim(x, dim: int):
+    """A DTensor with dim ``dim`` whole on every rank (its partial sums
+    reduced, :func:`reduce_partials`; the mesh dims that shard it made
+    ``Replicate``, differentiably under autograd, by :func:`relayout`
+    otherwise); a plain tensor passes through. Before a view splits the
+    dim into pieces its shards may not divide (heads)."""
+    if not is_dtensor(x):
+        return x
+    x = reduce_partials(x)
+    d = dim % x.ndim
+    return put(x, x.device_mesh,
+               tuple(Replicate() if p.is_shard() and p.dim == d else p
+                     for p in x.placements))
+
+
 def gather_fsdp(w):
     """A weight with its FSDP shards gathered for use (the mesh dims the
     installed rules put ``embed`` on made ``Replicate``), where the rules
@@ -420,13 +476,9 @@ def gather_fsdp(w):
         return w
     fsdp = set(rules.get("embed", ()))
     names = w.device_mesh.mesh_dim_names
-    pl = tuple(Replicate() if p.is_shard() and names[m] in fsdp else p
-               for m, p in enumerate(w.placements))
-    if pl == tuple(w.placements):
-        return w
-    if w.requires_grad and torch.is_grad_enabled():
-        return w.redistribute(w.device_mesh, pl)     # differentiable
-    return relayout(w, pl)
+    return put(w, w.device_mesh,
+               tuple(Replicate() if p.is_shard() and names[m] in fsdp else p
+                     for m, p in enumerate(w.placements)))
 
 
 def sc(x, *axes):

@@ -8,7 +8,9 @@ decode and sharded train step on 2 gloo ranks on the CPU.
 
 * ``cells``: a fake world of 4, the smoke yi-9b's train, prefill and
   decode cells (``ShapeSpec(kind, 64, 4, kind)``) at a (2,2) ``cpu``
-  mesh; their records go to ``OUT/<kind>.json``.
+  mesh; their records go to ``OUT/<kind>.json``; with ``IN`` a comma
+  list of archs, those archs' cells, to ``OUT/<arch>_<kind>.json``
+  (yi-9b's as before).
 * ``full``: a fake world of 256, one full-width yi-9b layer's
   ``decode_32k`` and ``train_4k`` records at 16x16 (``cpu`` mesh), to
   ``OUT/<shape>.json``.
@@ -37,20 +39,45 @@ HORIZON = 48          # cache rows of the decode case (24 a rank)
 STEPS = 6             # greedy decode steps
 
 
-def _cells(out: str) -> None:
+def _cells(out: str, archs: tuple = ("yi-9b",)) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_test_mesh
     mesh = make_test_mesh((2, 2), device_type="cpu", fake=True)
-    cfg = get_smoke_config("yi-9b")
-    for kind in ("train", "prefill", "decode"):
-        rec = D.run_cell("yi-9b", {"train": "train_4k", "prefill":
-                                   "prefill_32k", "decode": "decode_32k"}[kind],
-                         cfg=cfg, mesh=mesh,
-                         shape=ShapeSpec(kind, 64, 4, kind))
-        with open(os.path.join(out, f"{kind}.json"), "w") as f:
-            json.dump(rec, f)
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        for kind in ("train", "prefill", "decode"):
+            rec = D.run_cell(arch, {"train": "train_4k", "prefill":
+                                    "prefill_32k", "decode":
+                                    "decode_32k"}[kind],
+                             cfg=cfg, mesh=mesh,
+                             shape=ShapeSpec(kind, 64, 4, kind))
+            name = kind if arch == "yi-9b" else f"{arch}_{kind}"
+            if kind == "decode" and arch != "yi-9b":
+                rec["xla_differs"] = _xla_differs(cfg, mesh)
+            with open(os.path.join(out, f"{name}.json"), "w") as f:
+                json.dump(rec, f)
+
+
+def _xla_differs(cfg, mesh) -> dict:
+    """The bytes a rank of two decode arguments whose count XLA's memory
+    analysis makes differ from the port's: the position ``pos``, which
+    XLA prunes where no layer reads it, and the conv state's cache
+    leaves, which the port writes in place (aliased) and the reference
+    hands back in the compute dtype as a new buffer (``conv_out``: their
+    bytes at that dtype)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    _, args, _, _ = D.lower_cell(cfg, ShapeSpec("decode", 64, 4, "decode"),
+                                 mesh)
+    conv = [leaf for path, leaf in M._walk(args[1]) if path[-1] == "conv"]
+    n = D.local_bytes(conv)
+    itemsize = M.DTYPES[cfg.param_dtype].itemsize
+    return {"pos": D.local_bytes(args[3]), "conv": n,
+            "conv_out": sum(D.local_bytes([c]) // c.element_size()
+                            for c in conv) * itemsize}
 
 
 def _full(out: str) -> None:
@@ -155,20 +182,19 @@ def _decode(torch, cases: dict) -> dict:
             step(p, cache, {"tokens": tok}, own_pos)
             after = [S.local(cache)["scan"]["0"][n].clone()
                      for n in ("k", "v")]
-            # non-temporal stores are refused before any row is written
-            try:
-                M.forward(cfg, p, {"tokens": tok}, mode="decode",
-                          cache=cache, pos=own_pos, store_flavor="nt")
-                nt = None
-            except NotImplementedError as e:
-                nt = str(e)
-            untouched = all(torch.equal(a, S.local(cache)["scan"]["0"][n])
-                            for a, n in zip(after, ("k", "v")))
+            # the same step with non-temporal stores, from the shards as
+            # they were before it: the owners' rows alone are written
+            for b, n in zip(before, ("k", "v")):
+                S.local(cache)["scan"]["0"][n].copy_(b)
+            M.forward(cfg, p, {"tokens": tok}, mode="decode", cache=cache,
+                      pos=own_pos, store_flavor="nt")
+            nt_after = [S.local(cache)["scan"]["0"][n].clone()
+                        for n in ("k", "v")]
             got[arch] = {
                 "placements": placements,
                 "streams": torch.cat(toks, 1), "logits": torch.stack(lgs),
                 "cache": whole, "before": before, "after": after,
-                "nt_refusal": nt, "nt_untouched": untouched}
+                "nt_after": nt_after}
     return got
 
 
@@ -210,7 +236,8 @@ def _map(fn, tree):
 def main() -> int:
     case, out = sys.argv[1], sys.argv[2]
     if case == "cells":
-        _cells(out)
+        _cells(out, *([tuple(sys.argv[3].split(","))] if len(sys.argv) > 3
+                      else []))
     elif case == "full":
         _full(out)
     elif case == "collectives":

@@ -12,9 +12,10 @@ other argument and run their ranks as ``torchrun`` would.
 JAX package's, bridged), ``REQUESTS`` a JSON list of ``[rid, prompt,
 max_new_tokens]``. Each rank serves the requests with and without the
 mesh, greedy and at T=0.8, and records its streams, the first decode
-step's logits, whether its local cache shards kept their storage, and
-what the engine refuses; the ranks' records go to ``OUT`` (JSON) and
-``OUT.logits.pt``.
+step's logits, whether its local cache shards kept their storage, what
+the engine refuses and what it once refused and now runs (a recurrent
+config, pipelined dispatch, a snapshot); the ranks' records go to
+``OUT`` (JSON) and ``OUT.logits.pt``.
 """
 
 from __future__ import annotations
@@ -45,33 +46,47 @@ def _engine(serve, cfg, params, paged: bool, **kw):
 
 
 def _refusals(torch, serve, cfg, params, mesh) -> dict:
-    """What an engine under ``mesh`` refuses, by name: the exception's
-    type and message."""
+    """What an engine under ``mesh`` refuses, and what it once refused and
+    now runs, by name: ``"ok"`` where the run gave what it should, else
+    the exception's type and message (or ``"mismatch"``)."""
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_smoke_config
     out = {}
 
     def attempt(name, fn):
         try:
-            fn()
-            out[name] = "no error"
+            out[name] = "ok" if fn() else "mismatch"
         except Exception as e:      # recorded for the parent to assert
             out[name] = f"{type(e).__name__}: {e}"
     attempt("indivisible_heads", lambda: serve.ServeEngine(
         dataclasses.replace(cfg, n_kv_heads=1), params, max_slots=2,
-        max_len=24, chunk=3, device="cpu", mesh=mesh))
+        max_len=24, chunk=3, device="cpu", mesh=mesh) is not None)
     xcfg = dataclasses.replace(get_smoke_config("xlstm-125m"),
                                param_dtype="float32")
     from repro_torch.models import model as M
     xparams = M.init_params(xcfg, torch.Generator().manual_seed(0), "cpu")
-    attempt("recurrent", lambda: serve.ServeEngine(
-        xcfg, xparams, max_slots=2, max_len=24, chunk=3, device="cpu",
-        mesh=mesh))
-    attempt("pipeline", lambda: _engine(serve, cfg, params, False,
-                                        mesh=mesh, pipeline=2))
+    reqs = [serve.Request(str(i), (i + 1, 2 * i + 3, 7), 5) for i in range(3)]
+
+    def xlstm(m):
+        return serve.ServeEngine(xcfg, xparams, max_slots=2, max_len=24,
+                                 chunk=3, device="cpu", mesh=m).run(reqs)
+    # the recurrent config streams as it does unsharded
+    attempt("recurrent", lambda: _same(xlstm(mesh), xlstm(None)))
+    attempt("pipeline", lambda: _same(
+        _engine(serve, cfg, params, False, mesh=mesh, pipeline=2).run(reqs),
+        _engine(serve, cfg, params, False, mesh=mesh).run(reqs)))
     eng = _engine(serve, cfg, params, False, mesh=mesh)
-    attempt("snapshot", lambda: eng.snapshot(None, 0))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        attempt("snapshot", lambda: eng.snapshot(ck, 0) is True)
+        ck.wait()
     out["stage"] = eng.stage(serve.Request("s", (1, 2), 2))
     return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        list(map(int, a[r])) == list(map(int, b[r])) for r in a)
 
 
 def _first_step_logits(torch, cfg, params, mesh):
@@ -190,20 +205,29 @@ def _walk(tree, prefix=()):
 
 def _launch_rank(rank: int, port: int, case: str) -> None:
     """One of two ranks from the environment ``torchrun`` sets, running
-    ``launch.serve`` under a (1, 2) mesh or ``bench.run``'s fig9."""
+    ``launch.serve`` under a (1, 2) mesh or ``bench.run``'s fig9.
+
+    The ranks write to one inherited stdout, which the parent parses: a
+    rank's ``rank N exit rc`` line is printed only after a barrier that
+    follows every line the run printed (rank 0's flushed first), so it
+    never lands inside one of rank 0's lines. The group is made here, so
+    the run takes it as it would take ``torchrun``'s."""
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
+    dist.init_process_group("gloo")
     if case == "launch":
         from repro_torch.launch import serve
         rc = serve.main(LAUNCH_ARGV + ["--mesh", "data,model=1,2"])
     else:
         from repro_torch.bench import run
         rc = run.main(FIG9_ARGV)
-        dist.destroy_process_group()
+    sys.stdout.flush()
+    dist.barrier()
     print(f"rank {rank} exit {rc}", flush=True)
+    dist.destroy_process_group()
     if rc:
         raise SystemExit(rc)
 

@@ -3,7 +3,8 @@ parts from mesh=None's and whether that is a tie (``stream_partings``),
 the logits error over every step both runs fed the same tokens
 (``shared_step_err``), and that ``main`` starts the phase's lowerings
 before phase 10, drives 11a-11c after it and adds the sequence-sharded
-path's decode launches before the ``kernels`` line."""
+path's decode launches before the ``kernels`` line; phase 12's MoE
+route comparison (``routes_alike``) and its place in ``main``."""
 
 import inspect
 import os
@@ -92,3 +93,46 @@ def test_dryrun_cells_are_the_full_width_records():
             for v in ("gather", "resident2d")} <= cells
     assert {s for a, s, mp, _ in cells if a == "yi-9b" and not mp} == {
         "train_4k", "prefill_32k", "decode_32k"}
+
+
+# --- phase 12 ---------------------------------------------------------------
+
+def test_routes_alike_marks_slots_whose_experts_or_drops_differ():
+    """A slot is routed alike when every MoE call sent its tokens to the
+    same experts and kept or dropped them alike: 2 slots of 2 tokens,
+    top-2, one prefill-shaped call (1 group of 4 tokens) and one
+    decode-shaped call (1 group of 2)."""
+    e = torch.tensor([[[0, 1], [2, 3], [1, 0], [3, 2]]])
+    k = torch.ones((1, 8), dtype=torch.bool)
+    e1 = torch.tensor([[[0, 1], [2, 3]]])
+    k1 = torch.ones((1, 4), dtype=torch.bool)
+    same = [(e, k), (e1, k1)]
+    assert chip_smoke.routes_alike(same, same, 2).tolist() == [True, True]
+    e_b = e.clone()
+    e_b[0, 3, 1] = 1                     # slot 1's second token, expert 2 -> 1
+    assert chip_smoke.routes_alike([(e_b, k), (e1, k1)], same,
+                                   2).tolist() == [True, False]
+    k_b = k1.clone()
+    k_b[0, 0] = False                    # slot 0 dropped at decode
+    assert chip_smoke.routes_alike([(e, k), (e1, k_b)], same,
+                                   2).tolist() == [False, True]
+    assert chip_smoke.routes_alike([], [], 3).tolist() == [True] * 3
+
+
+def test_phase_twelve_is_listed_and_driven_after_eleven():
+    """Phase 12 is in the script's phase list, runs after phase 11's
+    lowerings are stopped and before the ``kernels`` line, and its
+    launches join that line's paths (the standalone writer's too)."""
+    assert "\n12. What a mesh once refused" in chip_smoke.__doc__
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_dryrun(") < src.index("stop_dryrun(") \
+        < src.index("phase_mesh_families(") \
+        < src.index('json.dumps({"kernels": rows})')
+    assert 'mesh_launches["kv_row_update"]' in src
+    jobs = {j[1] for j in chip_smoke.FAMILY_MESH_JOBS}
+    assert jobs == {"jamba-v0.1-52b", "xlstm-125m", "musicgen-large",
+                    "grok-1-314b", "qwen3-moe-235b-a22b"}
+    assert ("jamba-v0.1-52b", "train_4k", False, "resident2d") in \
+        chip_smoke.DRYRUN_CELLS
+    assert ("qwen3-moe-235b-a22b", "decode_32k", False, "resident2d") in \
+        chip_smoke.DRYRUN_CELLS

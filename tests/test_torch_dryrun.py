@@ -12,8 +12,9 @@ the same payload. In this process: a ``repeat`` loop's trip-multiplied
 counts against every trip lowered, ``serve_uses_fsdp`` against the
 reference's, the benchmarks that read records (``roofline_sweep``,
 ``make_experiments``, ``perf_iterations --report``,
-``h1_flash_substitution``) on records written to ``tmp_path``, and the
-CLI's refusals. Exact equality unless a tolerance is named.
+``h1_flash_substitution``) on records written to ``tmp_path``, the
+CLI's refusal without a card and its ``--all`` sweep, and
+``perf_iterations``' H3 and H4. Exact equality unless a tolerance is named.
 """
 
 import dataclasses
@@ -61,17 +62,25 @@ REFERENCE_CELLS = textwrap.dedent("""
     from repro.utils.sharding import use_mesh_rules
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    cfg = get_smoke_config("yi-9b")
     out = {{}}
-    for kind in ("train", "prefill", "decode"):
-        jfn, args, rules, _ = lower_cell(cfg, ShapeSpec(kind, 64, 4, kind),
-                                         mesh)
-        with mesh, use_mesh_rules(mesh, rules):
-            ma = jfn.lower(*args).compile().memory_analysis()
-        out[kind] = [ma.argument_size_in_bytes, ma.output_size_in_bytes,
-                     ma.alias_size_in_bytes]
+    for arch in {archs!r}:
+        cfg = get_smoke_config(arch)
+        out[arch] = {{}}
+        for kind in ("train", "prefill", "decode"):
+            jfn, args, rules, _ = lower_cell(
+                cfg, ShapeSpec(kind, 64, 4, kind), mesh)
+            with mesh, use_mesh_rules(mesh, rules):
+                ma = jfn.lower(*args).compile().memory_analysis()
+            out[arch][kind] = [ma.argument_size_in_bytes,
+                               ma.output_size_in_bytes,
+                               ma.alias_size_in_bytes]
     print(json.dumps(out))
 """)
+
+#: the configs a mesh once refused, their (2,2) smoke cells held as
+#: yi-9b's (the port's in one child, the reference's in a child each)
+FAMILY_CELLS = ("jamba-v0.1-52b", "qwen3-moe-235b-a22b", "xlstm-125m",
+                "musicgen-large")
 
 #: keys of a reference record (``repro/launch/dryrun.py:run_cell``)
 REFERENCE_KEYS = {"arch", "shape", "mesh", "n_devices", "lower_s",
@@ -103,13 +112,27 @@ def _finish(p: subprocess.Popen, deadline: float) -> subprocess.CompletedProcess
     return subprocess.CompletedProcess(p.args, p.returncode, out, err)
 
 
+#: perf_iterations' H3 and H4 through ``run_cells``, each iteration's
+#: config cut to its smoke size (its variant kept) on a (2,2) fake mesh
 H34 = textwrap.dedent("""
     import sys
     sys.path.insert(0, {src!r})
     from repro_torch.bench import perf_iterations as P
+    from repro_torch.configs.base import ShapeSpec, smoke_config
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((2, 2), device_type="cpu", fake=True)
+    full = P.iterations
+    P.iterations = lambda cell: [
+        (tag, dict(kw, cfg=smoke_config(kw["cfg"]), mesh=mesh,
+                   shape=ShapeSpec("train", 64, 4, "train")))
+        for tag, kw in full(cell)]
     n = P.run_cells("H3", {out!r}, "cpu") + P.run_cells("H4", {out!r}, "cpu")
     print("FAILURES", n)
 """)
+
+#: ``--all`` over a directory holding a record of every cell but one
+#: (a config the mesh once refused): the sweep lowers that one
+SWEEP_CELL = ("xlstm-125m", "decode_32k")
 
 
 @pytest.fixture(scope="module")
@@ -118,23 +141,33 @@ def kids(tmp_path_factory):
     records, the reference's compiled cells, the full-width layer's
     records, the collectives, the CLI's refusals and perf_iterations'
     H3/H4. Their results, and the directories they wrote."""
-    d = {k: tmp_path_factory.mktemp(k) for k in ("cells", "full", "coll",
-                                                 "cli", "h34")}
+    d = {k: tmp_path_factory.mktemp(k) for k in ("cells", "cells_fam",
+                                                 "full", "coll", "cli",
+                                                 "h34")}
     src = os.path.join(REPO, "src")
     cli = [sys.executable, "-m", "repro_torch.launch.dryrun",
            "--out", str(d["cli"])]
     argv = {
         "cells": [sys.executable, CHILD, "cells", str(d["cells"])],
-        "reference": [sys.executable, "-c", REFERENCE_CELLS.format(src=src)],
+        "cells_fam": [sys.executable, CHILD, "cells", str(d["cells_fam"]),
+                      ",".join(FAMILY_CELLS)],
+        "reference": [sys.executable, "-c", REFERENCE_CELLS.format(
+            src=src, archs=("yi-9b",))],
+        **{f"reference_{a}": [sys.executable, "-c", REFERENCE_CELLS.format(
+            src=src, archs=(a,))] for a in FAMILY_CELLS},
         "full": [sys.executable, CHILD, "full", str(d["full"])],
         "coll": [sys.executable, CHILD, "collectives",
                  str(d["coll"] / "coll.json")],
-        "cli_7d": cli + ["--arch", "xlstm-125m", "--shape", "decode_32k",
-                         "--device", "cpu"],
+        "cli_7d": cli + ["--all", "--device", "cpu"],
         "h34": [sys.executable, "-c", H34.format(src=src,
                                                  out=str(d["h34"]))]}
     if not torch.cuda.is_available():
         argv["cli_cuda"] = cli + ["--arch", "yi-9b", "--shape", "decode_32k"]
+    from repro_torch.configs.base import shapes_for
+    for arch in ARCH_IDS:
+        for sh in shapes_for(get_config(arch)):
+            if (arch, sh.name) != SWEEP_CELL:
+                (d["cli"] / f"{arch}_{sh.name}_sp.json").write_text("{}")
     deadline = time.time() + TIME_LIMIT
     procs = {k: _start(a) for k, a in argv.items()}
     return {k: _finish(p, deadline) for k, p in procs.items()}, d
@@ -154,7 +187,7 @@ def test_reference_cells_memory_equal(kids, cells):
     (2,2) fake mesh equal the reference's compiled cells."""
     res = kids[0]["reference"]
     assert res.returncode == 0, res.stderr[-3000:]
-    want = json.loads(res.stdout.strip().splitlines()[-1])
+    want = json.loads(res.stdout.strip().splitlines()[-1])["yi-9b"]
     got = {k: [r["memory"][n] for n in ("argument_bytes", "output_bytes",
                                         "alias_bytes")]
            for k, r in cells[0].items()}
@@ -163,6 +196,46 @@ def test_reference_cells_memory_equal(kids, cells):
     assert want == {"train": [1072388, 1071720, 1071364],
                     "prefill": [427776, 33816, 0],
                     "decode": [460044, 33816, 32768]}
+
+
+#: where XLA's memory analysis of a (2,2) smoke decode cell counts other
+#: bytes than the port's step holds: the decode step's position, which no
+#: layer of an attention-free, position-free model reads, XLA prunes from
+#: the arguments (``jit``'s ``keep_unused=False``); a Mamba layer's conv
+#: state the port writes in place into its fp32 cache leaf (aliased),
+#: where the reference hands it back in bf16 as a new output buffer.
+XLA_DIFFERS = {"xlstm-125m": ("pos",), "jamba-v0.1-52b": ("conv",)}
+
+
+@pytest.mark.parametrize("arch", FAMILY_CELLS)
+def test_family_reference_cells_memory_equal(kids, arch):
+    """The configs a mesh once refused (Mamba and MoE, MoE, mLSTM and
+    sLSTM, embedding inputs): the (2,2) smoke cells' argument, output and
+    alias bytes a device equal the reference's compiled cells, but for
+    the differences of :data:`XLA_DIFFERS` in the decode cell, whose
+    sizes the child reads off the step's own arguments."""
+    res, d = kids
+    for name in ("cells_fam", f"reference_{arch}"):
+        assert res[name].returncode == 0, res[name].stderr[-3000:]
+    want = json.loads(res[f"reference_{arch}"].stdout.strip()
+                      .splitlines()[-1])
+    for kind in ("train", "prefill", "decode"):
+        rec = json.loads((d["cells_fam"] / f"{arch}_{kind}.json")
+                         .read_text())
+        arg, out, alias = [rec["memory"][n] for n in (
+            "argument_bytes", "output_bytes", "alias_bytes")]
+        differs = XLA_DIFFERS.get(arch, ()) if kind == "decode" else ()
+        if "pos" in differs:
+            assert rec["xla_differs"]["pos"] > 0
+            arg -= rec["xla_differs"]["pos"]
+        if "conv" in differs:
+            conv, conv_out = (rec["xla_differs"][k]
+                              for k in ("conv", "conv_out"))
+            assert conv > 0 and conv_out < conv
+            alias -= conv
+            out += conv_out - conv
+        assert [arg, out, alias] == want[arch][kind], kind
+        assert rec["portmodel"]["unknown_ops"] == 0, kind
 
 
 def test_smoke_cells_keep_the_reference_keys(cells):
@@ -344,17 +417,21 @@ def test_serve_uses_fsdp_equals_jax(tp):
 
 
 def test_dryrun_cli_refuses_without_a_card_and_counts_7d(kids):
-    """``--device cuda`` without a card exits 2; a recurrent config under
-    the mesh writes its ``.err`` naming item 7d and the sweep exits 1."""
+    """``--device cuda`` without a card exits 2. ``--all`` now exits 0:
+    the recurrent config a mesh once refused lowers (its record written,
+    no ``.err``), every other cell read from its record."""
     res, d = kids
     if "cli_cuda" in res:
         assert res["cli_cuda"].returncode == 2
         assert "no CUDA device" in res["cli_cuda"].stderr
     r = res["cli_7d"]
-    assert r.returncode == 1, r.stderr[-2000:]
-    err = (d["cli"] / "xlstm-125m_decode_32k_sp.err").read_text()
-    assert "NotImplementedError" in err and "item 7d" in err
-    assert "[FAIL] xlstm-125m_decode_32k_sp" in r.stdout
+    assert r.returncode == 0, r.stderr[-2000:]
+    tag = "_".join(SWEEP_CELL) + "_sp"
+    assert f"[ok]   {tag}" in r.stdout and "done; 0 failures" in r.stdout
+    assert not list(d["cli"].glob("*.err"))
+    rec = json.loads((d["cli"] / f"{tag}.json").read_text())
+    assert REFERENCE_KEYS <= set(rec) and rec["n_devices"] == 256
+    assert rec["collectives"]["all-reduce"]["count"] > 0
 
 
 def test_benchmarks_read_the_records(cells, tmp_path, capsys):
@@ -403,9 +480,13 @@ def test_h1_attributes_attention_bytes(full):
 
 
 def test_h3_h4_refused_until_7d(kids):
-    """perf_iterations' H3 and H4 cells (jamba, qwen3-moe) count as
-    failures: a mesh refuses them (item 7d)."""
+    """perf_iterations' H3 (jamba, Mamba unfused and fused) and H4
+    (qwen3-moe, fp32 and int8 moments), once refused under a mesh, now
+    report: each iteration lowered (at its smoke size on a (2,2) fake
+    mesh) and priced, no failure."""
     res = kids[0]["h34"]
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "FAILURES 4" in res.stdout
-    assert res.stdout.count("item 7d") == 4
+    assert "FAILURES 0" in res.stdout
+    for tag in ("H3_base_unfused", "H3_it1_fused", "H4_base",
+                "H4_it1_int8_moments"):
+        assert f"[ok]   {tag}: Tc=" in res.stdout, res.stdout
