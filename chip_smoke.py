@@ -365,12 +365,30 @@ Phases, each printed on its own line:
     ``store_flavor="nt"``: streams equal to the standard stores', one
     step at rows one rank owns writing those rows alone.
 
-Every timing is device time from ``torch.profiler``. A profiler window
-that reads a call under a bound that is a true floor (the bytes of an
-HBM-resident working set, or any operation count; ``under_bound``) is
-taken again and named, as an empty window is; the L2 rung and the decode
-kernels, whose working sets fit the 50 MB L2, are not held to their byte
-bounds.
+13. the entry points (:func:`phase_examples`, last): the five scripts
+    of ``examples/torch`` through their ``main(argv)`` in-process, each
+    timed and its output echoed: ``compare_arch`` (every machine's row,
+    the ordering line OK), ``analyze_arch`` (jamba's smoke train step,
+    no unknown op), ``quickstart`` (the ``stream_triad`` kernel at 2^28
+    f32 an array held against the plain triad and timed by CUDA events
+    in the script itself; every figure finite and positive, the RPEs
+    printed), ``serve_lm`` at gemma3-4b's published width alone and
+    with ``--replicas 2`` (144 tokens each, tok/s printed,
+    ``flash_decode`` a whole number of steps), ``train_lm --steps 2``
+    into a temporary directory (both steps' losses and the committed
+    checkpoint); and ``serve_lm --smoke --mesh data,model=1,2`` as two
+    gloo ranks on ``cuda:0`` spawned as 10b's under
+    ``EXAMPLES_MESH_TIMEOUT``, overlapping the pricing-only scripts
+    (rank 0 prints its 144 tokens). The launches of ``flash_decode`` and
+    ``stream_triad`` join ``launches_by_path``.
+
+Every timing is device time from ``torch.profiler``, but phase 13's,
+which are the scripts' own (CUDA events, the wall clock). A profiler
+window that reads a call under a bound that is a true floor (the bytes
+of an HBM-resident working set, or any operation count;
+``under_bound``) is taken again and named, as an empty window is; the L2
+rung and the decode kernels, whose working sets fit the 50 MB L2, are
+not held to their byte bounds.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 references on the
 card run in full fp32. Any failed phase raises and the script exits
@@ -6421,6 +6439,211 @@ def phase_mesh_families(torch, np, K, paths: dict) -> None:
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 13: the entry points ---------------------------------------------
+
+EXAMPLES = os.path.join(HERE, "examples", "torch")
+EXAMPLE_TOKENS = 144              # serve_lm's 6 requests, 16 + 8 * (i % 3)
+EXAMPLES_MESH = "data,model=1,2"
+EXAMPLES_MESH_TIMEOUT = 300
+#: a number and its unit as the examples print them (``1054.1 us``)
+US_FIGURE = re.compile(r"([-+\d.eE]+) us\b")
+RPE_FIGURE = re.compile(r"\(rpe ([-+\d.]+)")
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module, its ``main`` callable
+    in-process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, name: str, argv: list) -> str:
+    """``mod.main(argv)`` with its standard output captured and echoed a
+    line at a time; fails unless it returns 0. Returns the output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"13 {name}| {line}")
+    print(f"13 {name} {' '.join(argv)}: exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(rc == 0, f"13 {name} {argv}: exit {rc}")
+    return out
+
+
+def served_tokens(out: str, label: str) -> float:
+    """Check a serve_lm output's tokens; returns its seconds."""
+    m = re.search(r"served 6 requests on 2 slots: (\d+) tokens in "
+                  r"([\d.]+)s", out)
+    check(m is not None, f"13 {label}: no 'served' line")
+    check(int(m.group(1)) == EXAMPLE_TOKENS, f"13 {label}: {m.group(1)} "
+          f"tokens, expected {EXAMPLE_TOKENS}")
+    return float(m.group(2))
+
+
+def _examples_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 13's mesh run: the world from the environment
+    ``torchrun`` would set, its gloo group made here (NCCL refuses two
+    ranks on one card), then ``serve_lm --smoke --mesh`` through its
+    ``main``; the output and the rank's ``flash_decode`` launches written
+    under ``out_dir``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, SRC)
+    import contextlib
+    import io
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    dist.init_process_group("gloo", rank=rank, world_size=2)
+    mod = load_example("serve_lm")
+    K.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(["--smoke", "--mesh", EXAMPLES_MESH])
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "out": buf.getvalue(),
+                   "flash_decode": K.LAUNCHES["flash_decode"]}, f)
+    dist.destroy_process_group()
+
+
+def start_examples_mesh(tmp: str):
+    """Spawn the two ranks of :func:`_examples_rank`; returns the context
+    and its deadline."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(_examples_rank, args=(port, tmp), nprocs=2,
+                             join=False, start_method="spawn")
+    return ctx, time.monotonic() + EXAMPLES_MESH_TIMEOUT
+
+
+def join_examples_mesh(ctx, deadline: float, tmp: str) -> tuple:
+    """Wait for the ranks (killed past the deadline); returns rank 0's
+    output and its ``flash_decode`` launches."""
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise PhaseError(f"13 serve_lm --mesh: the two ranks ran past "
+                             f"{EXAMPLES_MESH_TIMEOUT} s")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, rec in enumerate(ranks):
+        check(rec["rc"] == 0, f"13 serve_lm --mesh rank {r}: exit "
+                              f"{rec['rc']}")
+    check(not ranks[1]["out"].strip(), "13 serve_lm --mesh: rank 1 printed")
+    for line in ranks[0]["out"].splitlines():
+        print(f"13 serve_lm --mesh rank 0| {line}")
+    return ranks[0]["out"], ranks[0]["flash_decode"]
+
+
+def phase_examples(torch, K, cfg_mod) -> dict:
+    """Phase 13 (module docstring). Returns the launches by kernel and
+    path."""
+    import tempfile
+    t0 = time.perf_counter()
+    paths = {"flash_decode": {}, "stream_triad": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx, deadline = start_examples_mesh(tmp)
+        try:
+            mod = load_example("compare_arch")
+            out = run_example(mod, "compare_arch", [])
+            check("WA ordering Grace <= SPR <= Zen4 (no NT stores): OK" in
+                  out, "13 compare_arch: the ordering line is not OK")
+            for m in mod.DEFAULT_MACHINES:
+                check(re.search(rf"^{m}\s", out, re.M) is not None,
+                      f"13 compare_arch: no row for {m}")
+            out = run_example(load_example("analyze_arch"), "analyze_arch",
+                              ["--arch", "jamba-v0.1-52b"])
+            check(re.search(r"unknown ops\s*: 0$", out, re.M) is not None,
+                  "13 analyze_arch: the trace holds unknown ops")
+            figs = [float(x) for x in US_FIGURE.findall(out)]
+            check(len(figs) == 4 and all(map(math.isfinite, figs)),
+                  f"13 analyze_arch: terms {figs}")
+        finally:
+            mesh_out, mesh_launches = join_examples_mesh(ctx, deadline, tmp)
+    mesh_s = served_tokens(mesh_out, "serve_lm --mesh")
+    check(", tp=2" in mesh_out, "13 serve_lm --mesh: not at tp=2")
+    check(mesh_launches > 0, "13 serve_lm --mesh: no flash_decode launch")
+    paths["flash_decode"][f"examples serve_lm --smoke --mesh "
+                          f"{EXAMPLES_MESH}, rank 0"] = mesh_launches
+
+    K.reset_launches()
+    out = run_example(load_example("quickstart"), "quickstart", [])
+    torch.cuda.synchronize()
+    paths["stream_triad"]["examples quickstart"] = K.LAUNCHES["stream_triad"]
+    check(K.LAUNCHES["stream_triad"] > 0, "13 quickstart: no stream_triad "
+                                          "launch")
+    us = [float(x) for x in US_FIGURE.findall(out)]
+    rpes = [float(x) for x in RPE_FIGURE.findall(out)]
+    m = re.search(r"flops=(\S+)\s+hbm_bytes=(\S+)", out)
+    check(m is not None, "13 quickstart: no flops line")
+    figs = us + [float(m.group(1)), float(m.group(2))]
+    check(len(us) == 6 and len(rpes) == 3 and all(
+        math.isfinite(x) and x > 0 for x in figs) and all(
+        map(math.isfinite, rpes)), f"13 quickstart: figures {figs}, "
+        f"RPEs {rpes}")
+    print(f"13 quickstart: RPE against the h100 file {rpes[0]:+.4f}, the "
+          f"calibrated model {rpes[1]:+.4f}, the naive baseline "
+          f"{rpes[2]:+.4f}; stream_triad launches "
+          f"{K.LAUNCHES['stream_triad']}")
+
+    per_step = attention_layers(cfg_mod.get_config("gemma3-4b"))
+    for argv in ([], ["--replicas", "2"]):
+        label = " ".join(["serve_lm"] + argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        out = run_example(load_example("serve_lm"), "serve_lm", argv)
+        torch.cuda.synchronize()
+        n = K.LAUNCHES["flash_decode"]
+        check(n > 0 and n % per_step == 0, f"13 {label}: flash_decode "
+              f"launches {n}, not a positive multiple of {per_step}")
+        secs = served_tokens(out, label)
+        print(f"13 {label}: gemma3-4b full width, {EXAMPLE_TOKENS} tokens "
+              f"in {secs:.2f} s = {EXAMPLE_TOKENS / secs:.1f} tok/s; "
+              f"flash_decode {n} ({n // per_step} steps of {per_step} "
+              f"layers)")
+        paths["flash_decode"]["examples " + label] = n
+    print(f"13 serve_lm --smoke --mesh {EXAMPLES_MESH}: {EXAMPLE_TOKENS} "
+          f"tokens in {mesh_s:.2f} s on two gloo ranks, eager; "
+          f"flash_decode {mesh_launches} on rank 0")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = run_example(load_example("train_lm"), "train_lm",
+                          ["--steps", "2", "--ckpt-dir", ckpt])
+        first = re.search(r"^step\s+0 loss (\S+) gnorm (\S+)", out, re.M)
+        done = re.search(r"^done: first loss (\S+) -> last (\S+)", out, re.M)
+        check(first is not None and done is not None,
+              "13 train_lm: no loss line for each step")
+        check(math.isfinite(float(first.group(1))),
+              f"13 train_lm: step 0 loss {first.group(1)}")
+        committed = os.path.join(ckpt, "step_00000002", "COMMIT")
+        check(os.path.exists(committed),
+              "13 train_lm: no committed checkpoint at step 2")
+        print(f"13 train_lm: step 0 loss {first.group(1)} gnorm "
+              f"{first.group(2)}; step 1 loss {done.group(2)}; the "
+              f"checkpoint of step 2 committed")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6527,6 +6750,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh_families(torch, np, K, mesh_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    example_launches = phase_examples(torch, K, cfg_mod)
     by_name = {r["name"]: r for r in rows}
     path_launches(by_name["flash_decode"], dict(
         {"yi-9b dense engine": by_name["flash_decode"]["launches"],
@@ -6536,7 +6762,11 @@ def main() -> int:
         **{f"{a} forward": n for a, n in moe_launches.items()},
         **fig_launches["flash_decode"],
         **runtime_launches["flash_decode"],
-        **mesh_launches["flash_decode"]))
+        **mesh_launches["flash_decode"],
+        **example_launches["flash_decode"]))
+    path_launches(by_name["stream_triad"], dict(
+        {"stream main path": by_name["stream_triad"]["launches"]},
+        **example_launches["stream_triad"]))
     by_name["kv_row_update"]["standalone_launches_by_path"] = \
         mesh_launches["kv_row_update"]
     path_launches(by_name["flash_decode_paged"], dict(

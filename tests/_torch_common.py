@@ -55,3 +55,16 @@ def trace_from_jax(tr):
         return T.TraceOp(**kw)
 
     return T.Trace(tr.module_name, region(tr.entry), tr.n_devices)
+
+
+def matmul_flops(region, mult: int = 1) -> float:
+    """FLOPs of a trace region's matrix products, loop bodies times their
+    trips (either package's trace dataclasses)."""
+    total = 0.0
+    for op in region.ops:
+        if op.region is not None:
+            trips = op.trips if op.kind == "loop" else 1
+            total += matmul_flops(op.region, mult * trips)
+        elif any(cls == "mxu" for cls, _ in op.uops):
+            total += mult * op.flops
+    return total

@@ -34,7 +34,7 @@ from repro_torch.core import portmodel as TP
 from repro_torch.core import trace as TT
 from repro_torch.serve import planner as TPL
 
-from _torch_common import cfg_pair, trace_from_jax
+from _torch_common import cfg_pair, matmul_flops, trace_from_jax
 
 torch.set_num_threads(1)
 
@@ -119,17 +119,6 @@ def test_uops_seconds_matches_jax():
                     JB.uops_seconds(name, uops, b)
 
 
-def _matmul_flops(region, mult: int = 1) -> float:
-    total = 0.0
-    for op in region.ops:
-        if op.region is not None:
-            trips = op.trips if op.kind == "loop" else 1
-            total += _matmul_flops(op.region, mult * trips)
-        elif any(cls == "mxu" for cls, _ in op.uops):
-            total += mult * op.flops
-    return total
-
-
 def _ops(region):
     for op in region.ops:
         yield op
@@ -145,8 +134,8 @@ def test_smoke_decode_step_lowers_as_jax_prices_it():
     jtr = JT.lower_text(JPL.decode_step_hlo(cj, 2, 64))
     ttr = TPL.decode_step_trace(ct, 2, 64)
     assert not [op.opcode for op in _ops(ttr.entry) if op.unknown]
-    want = _matmul_flops(jtr.entry)
-    got = _matmul_flops(ttr.entry)
+    want = matmul_flops(jtr.entry)
+    got = matmul_flops(ttr.entry)
     assert want > 0 and got == pytest.approx(want, rel=0.01)
     # one inline region a layer: the decode kernel's launch
     kernels = [op for op in ttr.entry.ops if op.kind == "inline"]
