@@ -691,7 +691,8 @@ def phase_build(build) -> None:
     t0 = time.perf_counter()
     built = build.build()
     dt = time.perf_counter() - t0
-    print(f"build: compiled {built or 'nothing (up to date)'} in {dt:.1f} s")
+    print(f"build: compiled {built or 'nothing (up to date)'} in {dt:.1f} s"
+          + "".join(f"; {n} {build.BUILD_SECONDS[n]:.1f} s" for n in built))
     for name in build.SOURCES:
         log = build.library_path(name).with_name(
             build.library_path(name).name + ".log").read_text()
@@ -970,16 +971,89 @@ def sass_loops(sass: str, function: str) -> list:
     return loops
 
 
+#: SASS opcodes that show a body runs on Hopper's own instructions: the
+#: warpgroup products (``wgmma``) and the TMA tensor loads
+HOPPER_OPS = ("HGMMA", "UTMALDG")
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """mangled kernel name: (registers, spill stores, spill loads, stack)
+    from a ``ptxas -v`` report."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            name, frame = m.group(1), (0, 0, 0)
+        elif (m := _PTXAS_SPILL.search(line)) and name:
+            frame = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
+        elif (m := _PTXAS_REGS.search(line)) and name:
+            out[name] = (int(m.group(1)), *frame)
+            name = None
+    return out
+
+
+def sass_op_counts(sass: str, ops=HOPPER_OPS) -> dict:
+    """{mangled function name: {opcode: instructions}} of every function
+    in ``cuobjdump -sass`` output."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        out[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                             for op in ops}
+    return out
+
+
+def library_sass(build, name: str) -> str | None:
+    """``cuobjdump -sass`` of the built library ``name``; None without
+    ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+
+
+def flash_bodies(build) -> list:
+    """``(demangled name, registers, spill bytes, {opcode: count})`` of each
+    bf16 body of the flash library, from its ``ptxas -v`` report and its
+    SASS (counts None without ``cuobjdump``)."""
+    lib = build.library_path("flash")
+    regs = ptxas_kernels(lib.with_name(lib.name + ".log").read_text())
+    sass = library_sass(build, "flash")
+    ops = sass_op_counts(sass) if sass is not None else {}
+    from torch._C import _demangle
+    named = ((re.search(r"flash_bf16_kernel<[^>]*>", _demangle(k)), k, r)
+             for k, r in sorted(regs.items()))
+    return [(m.group(0), r[0], r[1] + r[2], ops.get(k))
+            for m, k, r in named if m]
+
+
+def phase_flash_sass(build) -> None:
+    """The bf16 flash bodies are Hopper's: each instance's SASS holds
+    ``HGMMA`` and ``UTMALDG`` instructions, and none spills."""
+    bodies = flash_bodies(build)
+    check(bool(bodies), "flash: no bf16 body in the library's ptxas report")
+    for name, regs, spill, ops in bodies:
+        print(f"flash sass: {name}: {regs} registers, {spill} bytes of "
+              f"spill, " + (", ".join(f"{op} {n}" for op, n in ops.items())
+                            if ops is not None else "no cuobjdump"))
+        check(spill == 0, f"flash: {name} spills {spill} bytes")
+        check(ops is None or all(ops.values()),
+              f"flash: {name} lacks {HOPPER_OPS} in its SASS: {ops}")
+
+
 def pi_issue_per_point(build) -> float | None:
     """Instructions a point in ``pi_kernel<true>``'s fast loop (its loop
     with the fewest instructions a MUFU.RCP among those of a whole chunk
     of points), from the stream library's SASS; None without
     ``cuobjdump``."""
-    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
+    sass = library_sass(build, "stream")
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(build.library_path("stream"))],
-                          check=True, capture_output=True, text=True).stdout
     loops = [n / r for n, r in sass_loops(sass, "pi_kernelILb1E") if r >= 16]
     return min(loops) if loops else None
 
@@ -3108,6 +3182,7 @@ def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
                       paged_err, flash_launches, flash_err) -> list:
     """The paged decode kernel at page 16 and the dense timing's live rows,
     and the flash-attention kernel at yi-9b prefill shapes."""
+    from repro_torch.kernels.attention import flash as FL
     F = torch.nn.functional
     pool = peng.cache["scan"]["0"]
     n_layers, n_pages, ps = pool["k"].shape[:3]
@@ -3219,6 +3294,10 @@ def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
         fp = timed(torch, lambda: R.attention(q, k, v), 5, bound=floor)
         fl = timed(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 50, bound=floor)
+        tiles = {bk: timed(torch, lambda bk=bk: ops.flash_attention(
+            q, k, v, bk=bk, impl="cuda"), 20, bound=floor)
+            for bk in FL.KERNEL_KEY_TILES
+            if bk <= FL.default_bk(torch.bfloat16, DH)} if s == 2048 else {}
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash.cu",
@@ -3235,7 +3314,9 @@ def phase_new_timings(torch, D, ops, R, S_, peng, reqs, paged_launches,
               f"{max(tb, to) * 1e3:.2f} us ({'bytes' if tb >= to else 'ops'}"
               f"; {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
               f"{BF16_FLOPS / 1e12:.0f} TFLOP/s), plain {fp * 1e3:.1f} us, "
-              f"sdpa {fl * 1e3:.2f} us (device time by profiler)")
+              f"sdpa {fl * 1e3:.2f} us" + ("; by key tile " + ", ".join(
+                  f"{bk} keys {ms * 1e3:.1f} us" for bk, ms in tiles.items())
+                  if tiles else "") + " (device time by profiler)")
     return [paged_row, rows[-1]]
 
 
@@ -3318,7 +3399,8 @@ def phase_wide_timings(torch, D, ops, R, reqs) -> None:
         fq, fk, fv, is_causal=True, enable_gqa=True), 50, bound=floor)
     tiles = {bk: timed(torch, lambda bk=bk: ops.flash_attention(
         fq, fk, fv, bk=bk, impl="cuda"), 20, bound=floor)
-        for bk in FL.KERNEL_KEY_TILES}
+        for bk in FL.KERNEL_KEY_TILES if bk <= FL.default_bk(torch.bfloat16,
+                                                              dh)}
     print(f"timing: flash_attention at gemma3-4b heads (B=1 S={s} H={h} "
           f"Hkv={hkv} Dh={dh} bf16 causal), default "
           f"{FL.default_bk(torch.bfloat16, dh)}-key tiles: "
@@ -3617,6 +3699,9 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
     guards = {}
     for label, h, hkv, dh, kk, vv, table, pos, bound in shapes:
         live = int((pos + 1).clamp(max=bound).sum())
+        entries = 0 if table is None else int(((pos + 1).clamp(max=bound)
+                                               + ps - 1).div(ps).sum())
+        bound_ms, bound_by, _ = decode_bound(B, h, hkv, dh, live, 2, entries)
         q = torch.randn(B, 1, h, dh, generator=gen, device="cuda").bfloat16()
         plan = tuner_plan(q, hkv, bound)
         blocks = -(-bound // 128) if table is None else nb
@@ -3647,7 +3732,8 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
                 "split_sweep": label, "which": which or "fixed",
                 "n_splits": n, "bk": bk if table is None else ps,
                 "blocks": B * hkv * n, "bound": bnd, "live_rows": live,
-                "us": ms * 1e3, "tuner_bk": plan.bk,
+                "us": ms * 1e3, "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by, "tuner_bk": plan.bk,
                 "tuner_splits": plan.n_splits,
                 "tuner_model_us": plan.seconds * 1e6}))
         ratio = times["tuner"] / times["default_splits"]
@@ -3659,7 +3745,8 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
               f"{times[f'n{fastest}'] * 1e3:.2f} us (guard "
               f"{guards[label]:.3f}x), default_splits' {default} "
               f"{times['default_splits'] * 1e3:.2f} us ({ratio:.3f}x), "
-              f"model {plan.seconds * 1e6:.2f} us")
+              f"model {plan.seconds * 1e6:.2f} us; {live} live rows at "
+              f"Dh={dh}, bound {bound_ms * 1e3:.2f} us ({bound_by})")
     del gk, gv
     held = [k for k, g in guards.items() if g <= SWEEP_GUARD]
     print(f"split sweep: guard (the tuner's pick over the sweep's fastest "
@@ -6672,6 +6759,7 @@ def main() -> int:
     phase_build(build)
     decode_err = phase_decode(torch, D, ops)
     paged_err = phase_paged_decode(torch, D, ops)
+    phase_flash_sass(build)
     flash_err = phase_flash(torch, ops, R)
     phase_fused_write(torch, D, ops, S_, K)
     writer_launches = phase_stores(torch, S_, K)

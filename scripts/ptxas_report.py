@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Registers, spills and stack of every kernel instantiation in one of
 the port's CUDA sources, as ``ptxas -v`` reports them, for the change
-and, when given, a parent checkout side by side.
+and, when given, a parent checkout side by side; and the change's Hopper
+instructions, counted in its SASS.
 
 Run from the repository root on a machine with ``nvcc``:
 
-    python3 scripts/ptxas_report.py decode [<parent checkout>]
+    python3 scripts/ptxas_report.py flash [<parent checkout>]
 
 The change's library is built by ``build.build`` (its report is the
 ``.log`` kept beside the library); the parent's source is compiled with
 the same flags into a scratch file under the build directory. One line a
 kernel, by demangled name: registers, spill stores/loads in bytes and
-stack frame bytes; a kernel missing on one side shows ``-``.
+stack frame bytes; a kernel missing on one side shows ``-``. Where the
+toolkit has ``cuobjdump``, each of the change's kernels also shows its
+``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tensor load) instructions.
 """
 
 from __future__ import annotations
@@ -24,32 +27,17 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
-_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                    r"(\d+) bytes spill loads")
-_REGS = re.compile(r"Used (\d+) registers")
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+import chip_smoke  # noqa: E402
 
-
-def parse(log: str) -> dict:
-    """mangled kernel name: (registers, spill stores, spill loads, stack)
-    from a ``ptxas -v`` report."""
-    out, name, frame = {}, None, (0, 0, 0)
-    for line in log.splitlines():
-        if m := _ENTRY.search(line):
-            name, frame = m.group(1), (0, 0, 0)
-        elif (m := _SPILL.search(line)) and name:
-            frame = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
-        elif (m := _REGS.search(line)) and name:
-            out[name] = (int(m.group(1)), *frame)
-            name = None
-    return out
+#: mangled kernel name: (registers, spill stores, spill loads, stack)
+parse = chip_smoke.ptxas_kernels
 
 
 def main() -> int:
     if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from torch._C import _demangle
 
     from repro_torch.kernels import build
@@ -67,15 +55,23 @@ def main() -> int:
         sides["parent"] = parse(run.stdout + run.stderr)
     by_key = {s: {key(_demangle(k)): r for k, r in side.items()}
               for s, side in sides.items()}
+    sass = chip_smoke.library_sass(build, name)
+    ops = {} if sass is None else {
+        key(_demangle(k)): c
+        for k, c in chip_smoke.sass_op_counts(sass).items()}
     order = list(by_key)[::-1]
     print(f"ptxas -v, {name}.cu: " + " | ".join(
-        f"{s}: registers, spill stores/loads (bytes), stack" for s in order))
+        f"{s}: registers, spill stores/loads (bytes), stack" for s in order)
+        + ("; the change's SASS: " + ", ".join(chip_smoke.HOPPER_OPS)
+           if sass is not None else "; no cuobjdump"))
     for kern in sorted(set().union(*by_key.values())):
         cols = []
         for s in order:
             r = by_key[s].get(kern)
             cols.append("-" if r is None else
                         f"{r[0]} regs, {r[1]}/{r[2]} spill, {r[3]} stack")
+        if kern in ops:
+            cols.append(", ".join(f"{op} {n}" for op, n in ops[kern].items()))
         print(f"  {kern}: " + " | ".join(cols))
     return 0
 

@@ -16,10 +16,12 @@ wrappers drive the kernels of both, by swapping which library
 ``build.load`` hands them, where their C interfaces are the same. The
 entry points whose interface changed are bound for the parent as the
 parent had them and called directly: the parent's
-``pi_integration`` is its partials kernel (``stream_pi_partials``,
-``PARENT_PI_SIGNATURE``), then ``parts.sum() / n``, against the change's
-one launch; both results' distance from the float64 sum of the IEEE fp32
-terms is printed. When a library's C interface changes, bind the
+``flash_attention_fwd`` takes no block order, split point or split
+scratch (``PARENT_FLASH_SIGNATURE``); it is called at its own default
+tiles (``bq`` as the change's, 64 keys), the change at its own, at
+yi-9b's and gemma3-4b's heads, and both outputs' distance from the fp32
+plain version is printed, as both pi results' from the float64 sum of
+the IEEE fp32 terms. When a library's C interface changes, bind the
 parent's as it was here. Each kernel is
 timed parent, change, change, parent with ``chip_smoke.timed`` (device
 time by torch.profiler) and printed with its two means and their ratio.
@@ -37,33 +39,45 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 LIBS = ("stream", "stencil", "flash", "decode")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: the parent's pi entry point, block partials summed by PyTorch
-PARENT_PI_SIGNATURE = {"stream_pi_partials": [_L, _I, _P, _P]}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the parent's flash entry point (before the block order and the split)
+PARENT_FLASH_SIGNATURE = {
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                            _I, _I, ctypes.c_float, _P]}
+PARENT_FLASH_BK = 64
 
 
-def parent_lib(build, csrc: str, name: str, signatures: dict):
-    """csrc/<name>.cu of the parent, built beside the change's libraries
-    under a name of its own digest, with ``signatures`` bound."""
-    src = os.path.join(csrc, f"{name}.cu")
-    h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
-    h.update(open(src, "rb").read())
-    for hdr in sorted(os.listdir(csrc)):
-        if hdr.endswith(".cuh"):
-            h.update(open(os.path.join(csrc, hdr), "rb").read())
-    out = build.BUILD_DIR / f"libparent_{name}-{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
-                       check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in signatures.items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+def parent_libs(build, csrc: str, signatures: dict) -> dict:
+    """csrc/<name>.cu of the parent for each name of ``signatures``, built
+    at once beside the change's libraries under names of their own digest,
+    with each one's signatures bound."""
+    outs, jobs = {}, []
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in signatures:
+        src = os.path.join(csrc, f"{name}.cu")
+        h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+        h.update(open(src, "rb").read())
+        for hdr in sorted(os.listdir(csrc)):
+            if hdr.endswith(".cuh"):
+                h.update(open(os.path.join(csrc, hdr), "rb").read())
+        out = outs[name] = (build.BUILD_DIR /
+                            f"libparent_{name}-{h.hexdigest()[:16]}.so")
+        if not out.exists():
+            jobs.append(subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    if any(j.wait() for j in jobs):
+        raise RuntimeError("a parent library failed to build")
+    libs = {}
+    for name, out in outs.items():
+        lib = libs[name] = ctypes.CDLL(str(out))
+        for fn, argtypes in signatures[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return libs
 
 
 def main() -> int:
@@ -86,11 +100,9 @@ def main() -> int:
     sigs = {"stream": SK._STREAM_SIGNATURES,
             "stencil": SK._STENCIL_SIGNATURES, "flash": FL._SIGNATURES,
             "decode": D._SIGNATURES}
+    build.build(LIBS)
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    parent_sigs = {**sigs,
-                   "stream": {**{k: v for k, v in sigs["stream"].items()
-                                 if k != "stream_pi"}, **PARENT_PI_SIGNATURE}}
-    old = {n: parent_lib(build, csrc, n, parent_sigs[n]) for n in LIBS}
+    old = parent_libs(build, csrc, {**sigs, "flash": PARENT_FLASH_SIGNATURE})
 
     def using(libs, fn):
         def call():
@@ -122,20 +134,9 @@ def main() -> int:
     timed = [(label, using(old, fn), using(new, fn), iters)
              for label, fn, iters in cases]
     pi_n = chip_smoke.PI_N
-
-    def parent_pi():
-        """The parent's pi: its block partials, then PyTorch's sum."""
-        parts = torch.empty(-(-pi_n // SK.PI_BLOCK), dtype=torch.float32,
-                            device="cuda")
-        build.check(old["stream"], old["stream"].stream_pi_partials(
-            pi_n, SK.PI_BLOCK, parts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "parent pi")
-        return parts.sum() / pi_n
-
     pi_label = f"pi_integration n=2^{pi_n.bit_length() - 1}"
-    timed.insert(len(cases), (pi_label, parent_pi,
-                              using(new, lambda: SK.pi_integration(pi_n)),
-                              10))
+    timed.append((pi_label, using(old, lambda: SK.pi_integration(pi_n)),
+                  using(new, lambda: SK.pi_integration(pi_n)), 10))
 
     # decode at the served shape: B=8, H=32, Hkv=4, Dh=128, bf16, 2912
     # live rows, 48 layers' caches cycled so every call reads cold rows
@@ -192,16 +193,37 @@ def main() -> int:
     timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
                using(old, fn), using(new, fn), 480)
               for name, fn in decode_cases.items()]
-    for s in (512, 2048):
-        fq = torch.randn(1, hq, s, dh, generator=gen,
+    def parent_flash(q, k, v):
+        """The parent's bf16 flash launch, causal, at its default tiles."""
+        b, h, s, d = q.shape
+        o = torch.empty_like(q)
+        st = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v)
+                                      for i in range(3)))
+        build.check(old["flash"], old["flash"].flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, b, h,
+            k.shape[1], s, d, st, FL.default_bq(h, k.shape[1]),
+            PARENT_FLASH_BK, 1, 0, 1.0 / d ** 0.5,
+            torch.cuda.current_stream().cuda_stream), "parent flash")
+        return o
+
+    for fh, fhkv, fdh, s in ((hq, hkv, dh, 512), (hq, hkv, dh, 2048),
+                             (8, 4, 256, 2048)):
+        fq = torch.randn(1, fh, s, fdh, generator=gen,
                          device="cuda").bfloat16()
-        fk = torch.randn(1, hkv, s, dh, generator=gen,
+        fk = torch.randn(1, fhkv, s, fdh, generator=gen,
                          device="cuda").bfloat16()
-        fv = torch.randn(1, hkv, s, dh, generator=gen,
+        fv = torch.randn(1, fhkv, s, fdh, generator=gen,
                          device="cuda").bfloat16()
         fn = lambda fq=fq, fk=fk, fv=fv: FL.flash_attention(fq, fk, fv)  # noqa: E731
-        timed.append((f"flash_attention S={s} H={hq} Hkv={hkv} Dh={dh} "
-                      f"bf16 causal", using(old, fn), using(new, fn), 20))
+        pfn = lambda fq=fq, fk=fk, fv=fv: parent_flash(fq, fk, fv)  # noqa: E731
+        want = FL.R.attention(fq.float(), fk.float(), fv.float())
+        build._LIBS.update(new)
+        errs = [(f().float() - want).abs().max().item() for f in (pfn, fn)]
+        print(f"ab: flash_attention S={s} H={fh} Hkv={fhkv} Dh={fdh}: max "
+              f"abs err against the fp32 plain version: parent {errs[0]:.3g},"
+              f" change {errs[1]:.3g}")
+        timed.append((f"flash_attention S={s} H={fh} Hkv={fhkv} Dh={fdh} "
+                      f"bf16 causal", pfn, using(new, fn), 20))
 
     only = sys.argv[2] if len(sys.argv) == 3 else ""
     for label, p_fn, c_fn, iters in timed:
@@ -216,8 +238,10 @@ def main() -> int:
     build._LIBS.update(new)
     if only in pi_label:
         ref = chip_smoke.pi_reference64(torch, pi_n)
-        got = {"parent": parent_pi().item(),
-               "change": SK.pi_integration(pi_n).item()}
+        got = {}
+        for side, libs in (("parent", old), ("change", new)):
+            build._LIBS.update(libs)
+            got[side] = SK.pi_integration(pi_n).item()
         print(f"ab: {pi_label}: against the float64 sum of the IEEE fp32 "
               f"terms ({ref!r}): " + ", ".join(
                   f"{k} {v!r} off by {abs(v - ref):.3g}"

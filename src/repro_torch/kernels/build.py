@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+#: seconds from the start of the last build to each library's compiler exit
+BUILD_SECONDS: dict = {}
 
 
 def nvcc() -> str:
@@ -56,28 +59,39 @@ def build(names=SOURCES) -> list:
     """Compile every named source not built yet, all at once.
 
     One ``nvcc`` process per source, all started together; returns the
-    names that were compiled. Raises with the compiler's output if any
-    compile fails.
+    names that were compiled, and records each one's seconds from the
+    start to its compiler's exit in :data:`BUILD_SECONDS`. Raises with the
+    compiler's output if any compile fails.
     """
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cc = nvcc()
-    jobs = []
+    t0 = time.perf_counter()
+    jobs = {}
     for n in todo:
         out = library_path(n)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((n, proc, tmp, out))
+        log = out.with_name(out.name + ".log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=f, stderr=subprocess.STDOUT)
+        jobs[n] = (proc, tmp, out, log)
+    pending = set(jobs)
+    while pending:
+        for n in sorted(pending):
+            if jobs[n][0].poll() is not None:
+                BUILD_SECONDS[n] = time.perf_counter() - t0
+                pending.discard(n)
+        if pending:
+            time.sleep(0.05)
     failed = []
-    for n, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
-        out.with_name(out.name + ".log").write_text(log)
+    for n, (proc, tmp, out, log) in jobs.items():
         if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n"
+                          f"{log.read_text()}")
         else:
             os.replace(tmp, out)
     if failed:

@@ -1,11 +1,16 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels and the
-// KV row writer: 16-byte cp.async copies into shared memory, committed and
-// waited on as groups; 16-byte stores, plain or streaming; and the
-// ldmatrix / mma.sync.m16n8k16 forms of the bf16 tensor core path.
+// Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
+// cp.async copies into shared memory, committed and waited on as groups;
+// 16-byte stores, plain or streaming; the ldmatrix / mma.sync.m16n8k16
+// forms of the bf16 tensor core path; and the tensor route: mbarriers,
+// TMA tensor copies (cp.async.bulk.tensor) between device and shared
+// memory, and the host's cuTensorMapEncodeTiled, reached through the
+// runtime so that no library links libcuda.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -78,6 +83,132 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// --- the tensor route (TMA) ------------------------------------------------
+
+// An mbarrier whose phase completes after `count` arrivals (and the bytes
+// any arrival announced with mbar_expect have landed).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar`, announcing `bytes` that tensor copies will complete.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrive on `bar`.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  while (!mbar_try(bar, parity)) {
+  }
+}
+
+// One box of a 2-D tensor map into shared memory at coordinates
+// (column, row), completing on `bar`; elements outside the tensor are
+// zero-filled.
+__device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map, int col, int row,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 3-D tensor map at (column, row, plane), as tensor_load.
+__device__ __forceinline__ void tensor_load_3d(void* dst, const CUtensorMap* map, int col,
+                                               int row, int plane, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), fastest
+// first, as tensor_load.
+__device__ __forceinline__ void tensor_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                               int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box from shared memory into a 2-D tensor map at (column, row), in
+// the current bulk group; elements outside the tensor are not written.
+__device__ __forceinline__ void tensor_store(const CUtensorMap* map, int col, int row,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(col), "r"(row), "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy accesses to shared memory ordered before the bulk
+// copies' (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda
+// link); null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                            12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace

@@ -105,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async.cuh"  // cp.async, mbarriers, TMA copies, the tensor-map encoder
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -126,90 +128,12 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kGsMaxFused = 4;  // sweeps one pass fuses
 constexpr int kGsBoxes = 2;     // staged output boxes of the tensor route, kGsBoxes - 1 in flight
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // The 4-byte route: cp.async.ca of 4 bytes; with `valid` false nothing
 // is read and 0 is written.
 __device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The tensor route (TMA): one copy a stage, completed on an mbarrier
-// (loads) or in a bulk group (stores).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// One box of a 2-D tensor map into shared memory at coordinates
-// (column, row), completing on `bar`; elements outside the tensor are
-// zero-filled.
-__device__ __forceinline__ void tensor_load(float* dst, const CUtensorMap* map, int col, int row,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One box from shared memory into a 2-D tensor map at (column, row), in
-// the current bulk group; elements outside the tensor are not written.
-__device__ __forceinline__ void tensor_store(const CUtensorMap* map, int col, int row,
-                                             const float* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(col), "r"(row), "r"(smem_u32(src))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Generic-proxy accesses to shared memory ordered before the bulk
-// copies' (async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The geometry of a pass of F fused sweeps: G halo columns a side; a
@@ -417,30 +341,6 @@ __global__ void __launch_bounds__(32)
     if (lane == 0) bulk_wait_all();
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda
-// link); null where the driver has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                            12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major fp32 map of `rank` (2 or 3) dims, dims[0] the fastest, with
 // boxes of box[0] x box[1] (x box[2]), no swizzle, zeros outside. Returns
 // false where it cannot be made.
@@ -496,18 +396,6 @@ constexpr int kJ3RowStep = kJ3Threads / kJ3X;          // rows between a thread'
 constexpr int kJ3Rows = kJ3Y / kJ3RowStep;             // output rows a thread
 constexpr int kJ3Copies = (kJ3Box + kJ3Threads - 1) / kJ3Threads;  // 4-byte copies a thread a plane
 constexpr long long kJ3Blocks = 16384;                 // blocks the chunks of z aim for
-
-// One box of a 3-D tensor map into shared memory at coordinates (column,
-// row, plane), completing on `bar`; elements outside the tensor are
-// zero-filled.
-__device__ __forceinline__ void tensor_load_3d(float* dst, const CUtensorMap* map, int col,
-                                               int row, int plane, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // o (d-2, h-2, w-2) = the 7-point mean of u (d, h, w)'s interior. Block
 // (tile, chunk): output rows [y0, y0 + kJ3Y) and columns [x0, x0 + kJ3X)

@@ -204,6 +204,41 @@ def test_sass_loops_spans_backward_branches():
     assert chip_smoke.sass_loops(FAKE_SASS, "sum_kernel") == []
 
 
+#: a flash body's SASS and its ptxas report, as the H100's toolkit prints
+#: them (one instance; names cut to one mangled kernel)
+FLASH_KERNEL = ("_ZN40_GLOBAL__N__d12099d2_8_flash_cu_2c13897917flash_bf16_"
+                "kernelILi128ELi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
+                "PKiP6float4Piiiiiiiiif")
+FLASH_SASS = f"""
+\t\tFunction : {FLASH_KERNEL}
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+        /*0030*/                   FMNMX R2, R3, R4, !PT ;
+\t\tFunction : _ZN4_GLOBAL__N_9pi_kernelILb0EEEvxfPfPiS1_
+        /*0000*/                   MUFU.RCP R2, R3 ;
+"""
+FLASH_PTXAS = f"""ptxas info    : Compiling entry function '{FLASH_KERNEL}' for 'sm_90a'
+ptxas info    : Function properties for {FLASH_KERNEL}
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_sass_op_counts_count_hopper_instructions():
+    """``HGMMA`` and ``UTMALDG`` by function, whatever their suffixes."""
+    got = chip_smoke.sass_op_counts(FLASH_SASS)
+    assert got[FLASH_KERNEL] == {"HGMMA": 2, "UTMALDG": 1}
+    assert got["_ZN4_GLOBAL__N_9pi_kernelILb0EEEvxfPfPiS1_"] == {
+        "HGMMA": 0, "UTMALDG": 0}
+
+
+def test_ptxas_kernels_reads_registers_and_spills():
+    """(registers, spill stores, spill loads, stack) by mangled name."""
+    assert chip_smoke.ptxas_kernels(FLASH_PTXAS) == {
+        FLASH_KERNEL: (168, 4, 12, 8)}
+
+
 def test_pi_floors():
     """One MUFU.RCP a point at 16 an SM a clock, and the hot loop's
     instructions at 128 an SM a clock: 2^28 points on 132 SMs at

@@ -261,6 +261,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 16, 256, device=cuda)      # fp32 at Dh=256
     with pytest.raises(ValueError, match="bk"):      # 64 keys do not fit
         ops.flash_attention(q, q, q, bk=64, impl="cuda")
+    qb = q.bfloat16()                                # bf16 at Dh=256
+    with pytest.raises(ValueError, match="bk"):      # 128 keys do not fit
+        ops.flash_attention(qb, qb, qb, bk=128, impl="cuda")
     kc = torch.zeros(1, 8, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         stores.kv_row_update(kc[:, :, :, :16], kc[:, :, :, :16],
@@ -510,9 +513,9 @@ def test_fused_write_refuses_what_it_does_not_take(cuda):
     (32, 4, 509, 128, None, None, 64, True),     # yi-9b heads, ragged
     (32, 4, 512, 128, 256, None, 64, True),      # yi-9b heads, window
 ] + [
-    # the edges of the tensor-core tiling (16 packed rows a warp, 32- or
-    # 64-key tiles), in both bodies (bf16 tensor cores, fp32 scalar): S
-    # of one row, around one and four mma tiles
+    # the edges of the tiling (64 packed rows a consumer warpgroup in
+    # bf16, 16 a thread row in fp32; 32- to 128-key tiles), in both bodies
+    # (bf16 wgmma, fp32 scalar): S of one row, around one and four tiles
     (32, 4, s, 128, None, None, 64, True) for s in (1, 15, 16, 17, 63, 65)
 ] + [
     (2 * g, 2, 100, 64, None, None, 64, True) for g in (1, 2, 4, 8)  # G
@@ -532,6 +535,14 @@ def test_fused_write_refuses_what_it_does_not_take(cuda):
 ] + [
     (8, 4, 300, 256, 40, None, None, True),  # a window
     (8, 4, 100, 256, None, None, None, False),  # no causal mask
+] + [
+    # S = 4096 at yi-9b's and gemma3-4b's heads: many rounds of the stages
+    (32, 4, 4096, 128, None, None, None, True),
+    (8, 4, 4096, 256, None, None, None, True),
+    # key ranges split in two blocks and merged (bf16): under a window,
+    # and every tile of a call without the causal mask
+    (4, 2, 2048, 256, 512, None, None, True),
+    (8, 4, 1024, 256, None, None, None, False),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, h, hkv, s, dh,
                                               window, bq, bk, causal):
