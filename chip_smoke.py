@@ -512,9 +512,11 @@ def device_us(prof, counts: dict | None = None) -> dict:
     return out
 
 
-def runtime_calls(prof) -> dict:
+def runtime_calls(prof, lead: int = 0) -> dict:
     """Host-side events of a profile whose names are host API calls that
-    put work on the card (:data:`HOST_CALLS`), counted by name."""
+    put work on the card (:data:`HOST_CALLS`), counted by name, less the
+    ``lead`` launches of the window's lead kernels (:func:`profiled`),
+    each one call named ``LEAD_LAUNCH`` (or a variant of it)."""
     from torch.autograd import DeviceType
     prefixes = sum(HOST_CALLS.values(), ())
     out = {}
@@ -522,6 +524,17 @@ def runtime_calls(prof) -> dict:
         name = ev.name()
         if ev.device_type() != DeviceType.CUDA and name.startswith(prefixes):
             out[name] = out.get(name, 0) + 1
+    names = sorted((n for n in out if n.startswith(LEAD_LAUNCH)),
+                   key=lambda n: n != LEAD_LAUNCH)
+    check(sum(out[n] for n in names) >= lead,
+          f"a window holds fewer {LEAD_LAUNCH} calls than its {lead} lead "
+          f"kernels: {out}")
+    for name in names:
+        take = min(lead, out[name])
+        lead -= take
+        out[name] -= take
+        if not out[name]:
+            out.pop(name)
     return out
 
 
@@ -562,6 +575,18 @@ def under_bound(by_name_us: dict, bounds_us: dict) -> list:
             and by_name_us[name] < bound]
 
 
+#: short spin kernels (``torch.cuda._sleep``, torch's own test helper)
+#: each profiler window starts with, left out of its readings, device
+#: time and host launch calls alike: the profiler on the card loses the
+#: first few kernel events of a window now and then (15 of 20, 13 of 15,
+#: 1 of 3 recorded), and these are the ones it loses
+WINDOW_LEAD_KERNELS = 8
+WINDOW_LEAD_CYCLES = 2000
+LEAD_KERNEL = re.compile(r"\bspin_kernel\b")
+#: the host call that launches one lead kernel
+LEAD_LAUNCH = "cudaLaunchKernel"
+
+
 def profiled(torch, run, what: str, setup=None, counts=None,
              faults=None, host=None) -> dict:
     """Device microseconds by name over one ``run()``, under
@@ -585,16 +610,23 @@ def profiled(torch, run, what: str, setup=None, counts=None,
         attempt = empty + faulty + 1
         if setup is not None:
             setup()
+        lead = WINDOW_LEAD_KERNELS if torch.cuda.is_available() else 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(WINDOW_LEAD_CYCLES)
             run()
             torch.cuda.synchronize()
         if counts is not None:
             counts.clear()
         by_name = device_us(prof, counts)
+        for name in [n for n in by_name if LEAD_KERNEL.search(n)]:
+            by_name.pop(name)
+            if counts is not None:
+                counts.pop(name, None)
         if host is not None:
             host.clear()
-            host.update(runtime_calls(prof))
+            host.update(runtime_calls(prof, lead))
         if sum(by_name.values()) <= 0:
             print(f"{what}: the profiler saw no device time in window "
                   f"{attempt}")
@@ -1046,6 +1078,37 @@ def phase_flash_sass(build) -> None:
               f"flash: {name} lacks {HOPPER_OPS} in its SASS: {ops}")
 
 
+#: Hopper's instruction every decode instance must hold: the TMA tensor
+#: copy of its ring (cp.async.bulk.tensor)
+DECODE_OPS = ("UTMALDG",)
+
+
+def phase_decode_sass(build) -> None:
+    """Every decode instance (bf16 and fp32, Dh 32-256, dense and paged,
+    writing and not) holds ``DECODE_OPS`` in its SASS and spills
+    nothing."""
+    lib = build.library_path("decode")
+    regs = ptxas_kernels(lib.with_name(lib.name + ".log").read_text())
+    sass = library_sass(build, "decode")
+    ops = sass_op_counts(sass, DECODE_OPS) if sass is not None else {}
+    from torch._C import _demangle
+    named = [(re.search(r"decode_(f32_)?kernel<[^>]*>", _demangle(k)), k, r)
+             for k, r in sorted(regs.items())]
+    named = [(m.group(0), k, r) for m, k, r in named if m]
+    check(bool(named), "decode: no body in the library's ptxas report")
+    lacking = [n for n, k, _ in named
+               if sass is not None and not all(ops.get(k, {}).values())]
+    spilled = [f"{n} {r[1]}/{r[2]}" for n, _, r in named if r[1] or r[2]]
+    print(f"decode sass: {len(named)} instances, {min(r[0] for *_, r in named)}"
+          f"-{max(r[0] for *_, r in named)} registers, spills "
+          f"{spilled or 'none'}; " + (
+              f"each holds {', '.join(DECODE_OPS)}: "
+              f"{'yes' if not lacking else 'NO: ' + ', '.join(lacking)}"
+              if sass is not None else "no cuobjdump"))
+    check(not spilled, f"decode: instances spill: {spilled}")
+    check(not lacking, f"decode: instances lack {DECODE_OPS}: {lacking}")
+
+
 def pi_issue_per_point(build) -> float | None:
     """Instructions a point in ``pi_kernel<true>``'s fast loop (its loop
     with the fewest instructions a MUFU.RCP among those of a whole chunk
@@ -1388,19 +1451,37 @@ SUM_KERNEL = re.compile(r"\bsum_kernel<")
 PI_KERNEL = re.compile(r"\bpi_kernel<")
 
 
+#: calls of ``call()`` in :func:`one_kernel_event`'s window
+ONE_EVENT_CALLS = 16
+
+
 def one_kernel_event(torch, call, what: str, kernel=DECODE_KERNEL) -> None:
-    """One ``call()`` (warm, its counters made) puts exactly one device
-    event, the kernel whose name ``kernel`` matches, in a profiler
-    window."""
+    """One ``call()`` (warm, its library loaded) is one device event, the
+    kernel whose name ``kernel`` matches: ``ONE_EVENT_CALLS`` calls in a
+    profiler window put exactly that many such events and no other; a
+    window with fewer, all of that kernel, lost events to the profiler
+    and is taken again (:func:`profiled`)."""
     call()
     torch.cuda.synchronize()
     counts = {}
-    profiled(torch, call, what, counts=counts)
-    check(sum(counts.values()) == 1 and all(
-        kernel.search(n) for n in counts),
-        f"{what}: one call put {counts} on the card, not one "
-        f"{kernel.pattern} kernel")
-    print(f"{what}: one call is one kernel event ({next(iter(counts))[:60]})")
+
+    def calls():
+        for _ in range(ONE_EVENT_CALLS):
+            call()
+
+    def lost(by_name, cnt):
+        n = sum(cnt.values())
+        if n < ONE_EVENT_CALLS and all(kernel.search(k) for k in cnt):
+            return [f"{n} of {ONE_EVENT_CALLS} calls' events recorded"]
+        return []
+
+    profiled(torch, calls, what, counts=counts, faults=lost)
+    check(sum(counts.values()) == ONE_EVENT_CALLS and all(
+        kernel.search(k) for k in counts),
+        f"{what}: {ONE_EVENT_CALLS} calls put {counts} on the card, not "
+        f"one {kernel.pattern} kernel each")
+    print(f"{what}: one call is one kernel event ({ONE_EVENT_CALLS} calls, "
+          f"{ONE_EVENT_CALLS} events of {next(iter(counts))[:60]})")
 
 
 def decode_bound(b: int, h: int, hkv: int, dh: int, live: int, elt: int,
@@ -1524,8 +1605,8 @@ def phase_decode(torch, D, ops) -> float:
     print(f"decode kernel: {cases} cases vs plain version, max abs err "
           f"{worst:.3g} (tol {DECODE_TOL}, partials merged in fp32), "
           f"finished output {worst_fin:.3g} (fp32 within {DECODE_TOL}, "
-          f"bf16 within one ulp + {DECODE_TOL}; counters 0 after every "
-          f"call, repeats bit-identical), incl. occupancy bounds 512, 384 "
+          f"bf16 within one ulp + {DECODE_TOL}; repeats "
+          f"bit-identical), incl. occupancy bounds 512, 384 "
           f"and 301 of a 2048-row cache, Dh=256 and G*Sq=64 packed rows in "
           f"bf16 and fp32, and in bf16 G=7 (H=28 Hkv=4 Dh=128), G=1 "
           f"(H=Hkv=32 Dh=64), a 1024-row window over 2048 rows at "
@@ -2257,8 +2338,8 @@ def phase_paged_decode(torch, D, ops) -> float:
           f"abs err {worst:.3g}; vs the dense kernel on the same logical "
           f"cache {worst_dense:.3g} (tol {DECODE_TOL}, partials merged in "
           f"fp32); finished output {worst_fin:.3g} (fp32 within "
-          f"{DECODE_TOL}, bf16 within one ulp + {DECODE_TOL}; counters 0 "
-          f"after every call, repeats bit-identical)")
+          f"{DECODE_TOL}, bf16 within one ulp + {DECODE_TOL}; repeats "
+          f"bit-identical)")
     return worst_fin
 
 
@@ -3747,6 +3828,22 @@ def phase_split_sweep(torch, D, ops, eng, reqs) -> float:
               f"{times['default_splits'] * 1e3:.2f} us ({ratio:.3f}x), "
               f"model {plan.seconds * 1e6:.2f} us; {live} live rows at "
               f"Dh={dh}, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        if table is None and label.endswith("served"):
+            # the yardstick the port never calls: one sdpa call over the
+            # same rows, GQA heads and a live-row mask
+            mask = (torch.arange(bound, device="cuda")[None, :]
+                    <= pos[:, None])[:, None, None, :]
+
+            def sdpa():
+                i = layer[0] = (layer[0] + 1) % kk.shape[0]
+                torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), kk[i, :, :bound].transpose(1, 2),
+                    vv[i, :, :bound].transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True)
+            print(f"split sweep: {label}: library (scaled_dot_product_"
+                  f"attention, enable_gqa, a live-row mask over {bound} "
+                  f"rows) {timed(torch, sdpa, SWEEP_ITERS) * 1e3:.2f} us "
+                  f"(device time by profiler; the port never calls it)")
     del gk, gv
     held = [k for k, g in guards.items() if g <= SWEEP_GUARD]
     print(f"split sweep: guard (the tuner's pick over the sweep's fastest "
@@ -4956,7 +5053,7 @@ MESH_FP32_LAYERS = 4
 #: 48 until phase 12 came; cut so that the script stays near 1000 s)
 MESH_BF16_LAYERS = 16
 #: 10b: GB a rank may hold on the card between jobs (the mesh, the
-#: kernels' split counters), so that each job's peak is its own
+#: stream suite's scratch), so that each job's peak is its own
 MESH_HELD_GB = 0.5
 #: 10b's held limits, as max |logit difference| over max |logit| of the
 #: first decode step (8 prompts of 128 tokens, greedy), TP=2 against the
@@ -6760,6 +6857,7 @@ def main() -> int:
     decode_err = phase_decode(torch, D, ops)
     paged_err = phase_paged_decode(torch, D, ops)
     phase_flash_sass(build)
+    phase_decode_sass(build)
     flash_err = phase_flash(torch, ops, R)
     phase_fused_write(torch, D, ops, S_, K)
     writer_launches = phase_stores(torch, S_, K)

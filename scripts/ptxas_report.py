@@ -6,7 +6,7 @@ instructions, counted in its SASS.
 
 Run from the repository root on a machine with ``nvcc``:
 
-    python3 scripts/ptxas_report.py flash [<parent checkout>]
+    python3 scripts/ptxas_report.py flash|decode [<parent checkout>]
 
 The change's library is built by ``build.build`` (its report is the
 ``.log`` kept beside the library); the parent's source is compiled with
@@ -14,7 +14,9 @@ the same flags into a scratch file under the build directory. One line a
 kernel, by demangled name: registers, spill stores/loads in bytes and
 stack frame bytes; a kernel missing on one side shows ``-``. Where the
 toolkit has ``cuobjdump``, each of the change's kernels also shows its
-``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tensor load) instructions.
+Hopper instructions: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tensor
+load) for ``flash``; ``UTMALDG`` (the TMA copies of the ring) for
+``decode`` (``chip_smoke.DECODE_OPS``).
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ def main() -> int:
     by_key = {s: {key(_demangle(k)): r for k, r in side.items()}
               for s, side in sides.items()}
     sass = chip_smoke.library_sass(build, name)
+    wanted = chip_smoke.DECODE_OPS if name == "decode" \
+        else chip_smoke.HOPPER_OPS
     ops = {} if sass is None else {
         key(_demangle(k)): c
-        for k, c in chip_smoke.sass_op_counts(sass).items()}
+        for k, c in chip_smoke.sass_op_counts(sass, wanted).items()}
     order = list(by_key)[::-1]
     print(f"ptxas -v, {name}.cu: " + " | ".join(
         f"{s}: registers, spill stores/loads (bytes), stack" for s in order)
-        + ("; the change's SASS: " + ", ".join(chip_smoke.HOPPER_OPS)
+        + ("; the change's SASS: " + ", ".join(wanted)
            if sass is not None else "; no cuobjdump"))
     for kern in sorted(set().union(*by_key.values())):
         cols = []

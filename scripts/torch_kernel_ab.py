@@ -15,14 +15,24 @@ libraries are built from their own ``csrc``; the change's Python
 wrappers drive the kernels of both, by swapping which library
 ``build.load`` hands them, where their C interfaces are the same. The
 entry points whose interface changed are bound for the parent as the
-parent had them and called directly: the parent's
-``flash_attention_fwd`` takes no block order, split point or split
-scratch (``PARENT_FLASH_SIGNATURE``); it is called at its own default
-tiles (``bq`` as the change's, 64 keys), the change at its own, at
+parent had them and called directly. ``flash_attention`` is timed at
 yi-9b's and gemma3-4b's heads, and both outputs' distance from the fp32
 plain version is printed, as both pi results' from the float64 sum of
-the IEEE fp32 terms. When a library's C interface changes, bind the
-parent's as it was here. Each kernel is
+the IEEE fp32 terms. The parent's decode entry points
+(``PARENT_DECODE_SIGNATURES``, the split counters of the merge through
+L2 after ``out``) are called directly with a zeroed counter tensor and
+the parent's partials workspace, at the parent's split plan (its
+``default_splits`` had no cap at the 8 splits a launch now merges:
+``parent_splits``), the change through its wrappers; the decode cases
+are yi-9b's served shape dense and paged (finished, partials alone, with
+the step's row write), gemma3-4b's
+served shape (the serving path's 128-row plan and the tuner's 64-row
+one, beside one ``scaled_dot_product_attention`` call with
+``enable_gqa`` and a live-row mask, which the port never calls), the
+sequence-sharded path's partials (8 slots, 192 rows, 2 splits, bf16 and
+fp32) and shapes where that cap binds (B = 1 and 2 over 8192
+rows: the parent's 33 and 16 splits against 8). When a library's C
+interface changes, bind the parent's as it was here. Each kernel is
 timed parent, change, change, parent with ``chip_smoke.timed`` (device
 time by torch.profiler) and printed with its two means and their ratio.
 """
@@ -39,12 +49,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 LIBS = ("stream", "stencil", "flash", "decode")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: the parent's flash entry point (before the block order and the split)
-PARENT_FLASH_SIGNATURE = {
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
-                            _I, _I, ctypes.c_float, _P]}
-PARENT_FLASH_BK = 64
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the parent's decode entry points (a split-counter pointer after `out`)
+PARENT_DECODE_SIGNATURES = {
+    "flash_decode": [_P] * 11 + [_I] * 6 + [_L] * 4 + [_I] * 6
+    + [ctypes.c_float, _P],
+    "flash_decode_paged": [_P] * 12 + [_I] * 10 + [_L] * 4 + [_I] * 5
+    + [ctypes.c_float, _P]}
+#: the parent's SMs a wave (its default split count had no merge cap)
+PARENT_SMS = 132
+
+
+def parent_splits(b: int, hkv: int, n_blocks: int) -> int:
+    """The parent's ``default_splits``: the most splits one wave holds."""
+    return max(1, min(n_blocks, PARENT_SMS // (b * hkv)))
 
 
 def parent_libs(build, csrc: str, signatures: dict) -> dict:
@@ -102,12 +120,12 @@ def main() -> int:
             "decode": D._SIGNATURES}
     build.build(LIBS)
     new = {n: build.load(n, sigs[n]) for n in LIBS}
-    old = parent_libs(build, csrc, {**sigs, "flash": PARENT_FLASH_SIGNATURE})
+    old = parent_libs(build, csrc, {**sigs, "decode": PARENT_DECODE_SIGNATURES})
 
     def using(libs, fn):
         def call():
             build._LIBS.update(libs)
-            fn()
+            return fn()
         return call
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -148,7 +166,6 @@ def main() -> int:
                      device="cuda").bfloat16()
     vc = torch.randn_like(kc)
     q = torch.randn(b, 1, hq, dh, generator=gen, device="cuda").bfloat16()
-    bound, sl, ns = D.split_plan(b, hkv, 2048, 128, None, kv_len)
     layer = [0]
 
     ps, npg = 16, 8 * 2048 // 16
@@ -157,54 +174,185 @@ def main() -> int:
     nb = -(-kv_len // ps)
     bt = torch.randperm(npg - 1, generator=torch.Generator().manual_seed(13))[
         :b * nb].reshape(b, nb).int().cuda()
-    pb, psl, pns = D.paged_split_plan(b, hkv, ps, nb, None)
+    counters = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
 
-    def nxt():
-        layer[0] = (layer[0] + 1) % n_layers
+    def nxt(n=n_layers):
+        layer[0] = (layer[0] + 1) % n
         return layer[0]
 
-    dkw = dict(window=None, split_len=sl, n_splits=ns, bound=bound)
-    pkw = dict(window=None, split_len=psl, n_splits=pns, bound=pb)
+    def parent_decode(q, k, v, pos, table=None, *, split_len, n_splits,
+                      bound, finished=True, k_new=None, v_new=None):
+        """One launch of the parent's dense or paged kernel: its output,
+        or its partials' workspace."""
+        b, sq, h, dh = q.shape
+        ws = o = m = l = None
+        if not finished or n_splits > 1 or (q.dtype == torch.float32
+                                            and dh == 256):
+            n, mo, lo = D.workspace_layout(n_splits, b, sq, h, dh)
+            ws = torch.empty(n, dtype=torch.float32, device=q.device)
+            o = ws.data_ptr()
+            m, l = o + 4 * mo, o + 4 * lo
+        out = torch.empty_like(q) if finished else None
+        ptrs = (o, m, l, None if out is None else out.data_ptr(),
+                counters.data_ptr() if finished and n_splits > 1 else None,
+                None if k_new is None else k_new.data_ptr(),
+                None if v_new is None else v_new.data_ptr(),
+                D._DTYPE_CODES[q.dtype], b, sq, h, k.shape[2], dh)
+        tail = (n_splits, split_len, bound, 0, 1.0 / dh ** 0.5,
+                torch.cuda.current_stream().cuda_stream)
+        lib = old["decode"]
+        if table is None:
+            rc = lib.flash_decode(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                *ptrs, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                k.shape[1], 0, *tail)
+        else:
+            rc = lib.flash_decode_paged(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+                pos.data_ptr(), *ptrs, table.stride(0), table.shape[1],
+                k.shape[0], k.shape[1], k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), 0, *tail)
+        build.check(lib, rc, "parent decode")
+        return out if finished else ws
+
     kn = torch.randn(b, 1, hkv, dh, generator=gen, device="cuda").bfloat16()
     vn = torch.randn_like(kn)
     new_rows = dict(k_new=kn, v_new=vn)
-
-    def dense(fused):
-        i = nxt()
-        return D.decode_finished(q, kc[i], vc[i], pos, impl="cuda",
-                                 **dkw, **(new_rows if fused else {}))
-
-    def paged(fused):
-        i = nxt()
-        return D.decode_paged_finished(q, kp[i], vp[i], bt, pos,
-                                       impl="cuda", **pkw,
-                                       **(new_rows if fused else {}))
-
+    nblk = -(-kv_len // 128)
+    bound, sl, ns = D.split_plan(b, hkv, 2048, 128, None, kv_len)
+    pbound, psl, pns = D.split_plan(b, hkv, 2048, 128,
+                                    parent_splits(b, hkv, nblk), kv_len)
+    gb, gsl, gns = D.paged_split_plan(b, hkv, ps, nb, None)
+    pgb, pgsl, pgns = D.paged_split_plan(b, hkv, ps, nb,
+                                         parent_splits(b, hkv, nb))
+    dkw = dict(window=None, split_len=sl, n_splits=ns, bound=bound)
+    dpk = dict(split_len=psl, n_splits=pns, bound=pbound)
+    gkw = dict(window=None, split_len=gsl, n_splits=gns, bound=gb)
+    gpk = dict(split_len=pgsl, n_splits=pgns, bound=pgb)
     decode_cases = {
-        "flash_decode finished": lambda: dense(False),
-        "flash_decode partials alone": lambda: D.decode_partials(
-            q, kc[nxt()], vc[layer[0]], pos, impl="cuda", **dkw),
-        "flash_decode with the step's row write": lambda: dense(True),
-        "flash_decode_paged finished": lambda: paged(False),
-        "flash_decode_paged partials alone": lambda: D.decode_paged_partials(
-            q, kp[nxt()], vp[layer[0]], bt, pos, impl="cuda", **pkw),
-        "flash_decode_paged with the step's row write": lambda: paged(True),
+        "flash_decode finished": (
+            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, **dpk),
+            lambda: D.decode_finished(q, kc[nxt()], vc[layer[0]], pos,
+                                      impl="cuda", **dkw)),
+        "flash_decode partials alone": (
+            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos,
+                                  finished=False, **dpk),
+            lambda: D.decode_partials(q, kc[nxt()], vc[layer[0]], pos,
+                                      impl="cuda", **dkw)),
+        "flash_decode with the step's row write": (
+            lambda: parent_decode(q, kc[nxt()], vc[layer[0]], pos, **dpk,
+                                  **new_rows),
+            lambda: D.decode_finished(q, kc[nxt()], vc[layer[0]], pos,
+                                      impl="cuda", **dkw, **new_rows)),
+        "flash_decode_paged finished": (
+            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, bt,
+                                  **gpk),
+            lambda: D.decode_paged_finished(q, kp[nxt()], vp[layer[0]], bt,
+                                            pos, impl="cuda", **gkw)),
+        "flash_decode_paged partials alone": (
+            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, bt,
+                                  finished=False, **gpk),
+            lambda: D.decode_paged_partials(q, kp[nxt()], vp[layer[0]], bt,
+                                            pos, impl="cuda", **gkw)),
+        "flash_decode_paged with the step's row write": (
+            lambda: parent_decode(q, kp[nxt()], vp[layer[0]], pos, bt,
+                                  **gpk, **new_rows),
+            lambda: D.decode_paged_finished(q, kp[nxt()], vp[layer[0]], bt,
+                                            pos, impl="cuda", **gkw,
+                                            **new_rows)),
     }
-    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16",
-               using(old, fn), using(new, fn), 480)
-              for name, fn in decode_cases.items()]
-    def parent_flash(q, k, v):
-        """The parent's bf16 flash launch, causal, at its default tiles."""
-        b, h, s, d = q.shape
-        o = torch.empty_like(q)
-        st = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v)
-                                      for i in range(3)))
-        build.check(old["flash"], old["flash"].flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, b, h,
-            k.shape[1], s, d, st, FL.default_bq(h, k.shape[1]),
-            PARENT_FLASH_BK, 1, 0, 1.0 / d ** 0.5,
-            torch.cuda.current_stream().cuda_stream), "parent flash")
-        return o
+    timed += [(f"{name} B={b} H={hq} Hkv={hkv} Dh={dh} bf16 "
+               f"({ns} splits; parent {pns if 'paged' not in name else pgns})",
+               pfn, using(new, cfn), 480)
+              for name, (pfn, cfn) in decode_cases.items()]
+
+    # gemma3-4b served: chip_smoke's split-sweep positions (its prompts
+    # plus 32 decoded tokens), 16 random layers, the 1792-row bucket
+    gl = 16
+    gk = torch.randn(gl, b, 2048, 4, 256, generator=gen,
+                     device="cuda").bfloat16()
+    gv = torch.randn_like(gk)
+    gq = torch.randn(b, 1, 8, 256, generator=gen, device="cuda").bfloat16()
+    gpos = torch.randint(*chip_smoke.GEMMA_PROMPT_LENS, (b,),
+                         generator=torch.Generator().manual_seed(23),
+                         dtype=torch.int32).cuda() + 32
+    gbound = min(-(-(int(gpos.max()) + 1) // 128) * 128, 2048)
+    live = int((gpos + 1).clamp(max=gbound).sum())
+    tuner = chip_smoke.tuner_plan(gq, 4, gbound)
+    for what, bk in (("the serving path's 128-row plan", 128),
+                     (f"the tuner's {tuner.bk}-row plan", tuner.bk)):
+        bnd, gs, gn = D.split_plan(b, 4, 2048, bk, None, gbound)
+        _, pgs, pgn = D.split_plan(b, 4, 2048, bk, parent_splits(
+            b, 4, -(-gbound // bk)), gbound)
+        kw = dict(window=None, split_len=gs, n_splits=gn, bound=bnd)
+        pkw = dict(split_len=pgs, n_splits=pgn, bound=bnd)
+        timed.append((
+            f"flash_decode gemma3-4b served B={b} H=8 Hkv=4 Dh=256 bf16, "
+            f"{live} live rows, {what} ({gn} splits; parent {pgn})",
+            lambda pkw=pkw: parent_decode(gq, gk[nxt(gl)], gv[layer[0]],
+                                          gpos, **pkw),
+            using(new, lambda kw=kw: D.decode_finished(
+                gq, gk[nxt(gl)], gv[layer[0]], gpos, impl="cuda", **kw)),
+            480))
+    gmask = (torch.arange(gbound, device="cuda")[None, :]
+             <= gpos[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library_gemma():
+        i = nxt(gl)
+        sdpa(gq.transpose(1, 2), gk[i, :, :gbound].transpose(1, 2),
+             gv[i, :, :gbound].transpose(1, 2), attn_mask=gmask,
+             enable_gqa=True)
+    timed.append((f"library for flash_decode gemma3-4b served: "
+                  f"scaled_dot_product_attention (enable_gqa, a live-row "
+                  f"mask), {gbound} rows, {live} live (both columns the "
+                  f"same call)",
+                  library_gemma, library_gemma, 480))
+
+    # the sequence-sharded path's partials (chip_smoke 11c): 8 slots, 192
+    # rows a rank, every row live, 2 splits
+    for dtype in (torch.bfloat16, torch.float32):
+        sq_ = torch.randn(b, 1, hq, dh, generator=gen, device="cuda").to(
+            dtype)
+        sk = torch.randn(n_layers, b, 192, hkv, dh, generator=gen,
+                         device="cuda").to(dtype)
+        sv = torch.randn_like(sk)
+        spos = torch.full((b,), 383, dtype=torch.int32, device="cuda")
+        sb, ssl, sns = D.split_plan(b, hkv, 192, 128, None, 192)
+        skw = dict(split_len=ssl, n_splits=sns, bound=sb)
+        timed.append((
+            f"flash_decode partials, the sequence-sharded path's shape "
+            f"(8 slots, 192 rows, {sns} splits) {str(dtype)[6:]}",
+            lambda sq_=sq_, sk=sk, sv=sv, spos=spos, skw=skw: parent_decode(
+                sq_, sk[nxt()], sv[layer[0]], spos, finished=False, **skw),
+            using(new, lambda sq_=sq_, sk=sk, sv=sv, spos=spos, skw=skw:
+                  D.decode_partials(sq_, sk[nxt()], sv[layer[0]], spos,
+                                    window=None, impl="cuda", **skw)),
+            480))
+
+    # where the merge cap binds: B = 1 and 2 at yi-9b's heads over 8192
+    # live rows (the parent's default 33 and 16 splits, the change's 8)
+    for cb in (1, 2):
+        ck = torch.randn(8, cb, 8192, hkv, dh, generator=gen,
+                         device="cuda").bfloat16()
+        cv = torch.randn_like(ck)
+        cq = torch.randn(cb, 1, hq, dh, generator=gen,
+                         device="cuda").bfloat16()
+        cpos = torch.full((cb,), 8191, dtype=torch.int32, device="cuda")
+        cbd, csl, cns = D.split_plan(cb, hkv, 8192, 128, None, None)
+        _, pcsl, pcns = D.split_plan(cb, hkv, 8192, 128,
+                                     parent_splits(cb, hkv, 64), None)
+        ckw = dict(window=None, split_len=csl, n_splits=cns, bound=cbd)
+        pckw = dict(split_len=pcsl, n_splits=pcns, bound=cbd)
+        timed.append((
+            f"flash_decode finished, merge cap binding: B={cb} H={hq} "
+            f"Hkv={hkv} Dh={dh} bf16, 8192 live rows ({cns} splits; "
+            f"parent {pcns})",
+            lambda cq=cq, ck=ck, cv=cv, cpos=cpos, pckw=pckw: parent_decode(
+                cq, ck[nxt(8)], cv[layer[0]], cpos, **pckw),
+            using(new, lambda cq=cq, ck=ck, cv=cv, cpos=cpos, ckw=ckw:
+                  D.decode_finished(cq, ck[nxt(8)], cv[layer[0]], cpos,
+                                    impl="cuda", **ckw)), 240))
 
     for fh, fhkv, fdh, s in ((hq, hkv, dh, 512), (hq, hkv, dh, 2048),
                              (8, 4, 256, 2048)):
@@ -215,10 +363,10 @@ def main() -> int:
         fv = torch.randn(1, fhkv, s, fdh, generator=gen,
                          device="cuda").bfloat16()
         fn = lambda fq=fq, fk=fk, fv=fv: FL.flash_attention(fq, fk, fv)  # noqa: E731
-        pfn = lambda fq=fq, fk=fk, fv=fv: parent_flash(fq, fk, fv)  # noqa: E731
+        pfn = using(old, fn)
         want = FL.R.attention(fq.float(), fk.float(), fv.float())
-        build._LIBS.update(new)
-        errs = [(f().float() - want).abs().max().item() for f in (pfn, fn)]
+        errs = [(f().float() - want).abs().max().item()
+                for f in (pfn, using(new, fn))]
         print(f"ab: flash_attention S={s} H={fh} Hkv={fhkv} Dh={fdh}: max "
               f"abs err against the fp32 plain version: parent {errs[0]:.3g},"
               f" change {errs[1]:.3g}")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Parent against change: a full-width yi-9b decode step on one card,
-dense and paged, each checkout in a process of its own.
+dense and paged, and gemma3-4b's dense, each checkout in a process of
+its own.
 
 Run from the repository root of the change on a machine with the card
 and ``nvcc``, with a checkout of the parent commit unpacked somewhere
@@ -12,7 +13,9 @@ Each run imports ``repro_torch`` from one checkout's ``src`` (its
 kernels built from that checkout's ``csrc``), builds chip_smoke's
 engines (yi-9b at full width, random weights from seed 0, 8 slots, a
 2048-row horizon, 8-token chunks; the paged one with pages of 16 and
-320 pages) and measures each with the change's ``chip_smoke.phase_trace``:
+320 pages; then gemma3-4b at full width, weights from seed 4, over
+chip_smoke's 1100-1900-token prompts) and measures each with the
+change's ``chip_smoke.phase_trace``:
 device busy ms a step, device kernels and host launch calls a step,
 wall ms a step and the idle share, over the same 8 requests (an engine
 that replays CUDA graphs captures them all first, outside the timed
@@ -57,6 +60,20 @@ def one(src: str) -> int:
                                   device="cuda")
     chip_smoke.phase_trace(torch, serve, peng, chip_smoke.paged_requests(
         np, serve, cfg.vocab_size, 8, 5, 256, 256, 64), "paged trace")
+    del peng, params
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("gemma3-4b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           device="cuda")
+    rng = np.random.default_rng(22)
+    lens = rng.integers(*chip_smoke.GEMMA_PROMPT_LENS, size=16)
+    news = rng.integers(*chip_smoke.GEMMA_NEW, size=16)
+    reqs = [serve.Request(f"m{i}", tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)), int(m)) for i, (n, m) in
+        enumerate(zip(lens, news))]
+    geng = serve.ServeEngine(cfg, params, max_slots=8, max_len=2048,
+                             chunk=8, device="cuda")
+    chip_smoke.phase_trace(torch, serve, geng, reqs, "gemma3-4b trace")
     return 0
 
 

@@ -11,20 +11,25 @@ the Pallas TPU kernels ``decode.py:flash_decode`` (body
 split, slot) walks only the live rows of its split — rows past
 ``pos + Sq - 1``, before the sliding window, or past the occupancy bound
 are never read — and writes an fp32 partial softmax state ``(o, m, l)``
-per split to scratch; the last block of each (KV head, slot) to finish
-merges the splits by log-sum-exp, in split order, and writes the
-finished output in q's dtype. So :func:`flash_decode` and
-:func:`flash_decode_paged` are one launch a call; :func:`combine_splits`
-is the merge's plain version, and :func:`decode_partials` /
-:func:`decode_paged_partials` return the partials alone for split-level
-checks. On the H100 the kernels are bound by the bytes of the KV rows
-they read, so a block issues its K and V rows all at once as
-``cp.async`` copies and 8 warps split the keys, each with its own
-softmax state. In bf16 the warps run both products on the tensor cores
-(exact bf16 products, P kept at fp32 precision) and merge once a split;
-fp32 stays on the CUDA cores; see the source. Any number of packed query
-rows ``G * Sq`` works: a call of more than ``KERNEL_MAX_ROWS`` runs
-groups of that many rows side by side.
+per split to scratch; the last block of each (KV head, row group, slot)
+to finish (a split counter, :func:`split_counters`) merges the splits by
+log-sum-exp, in split order, and writes the finished output in q's
+dtype. So :func:`flash_decode` and :func:`flash_decode_paged` are one
+launch a call; :func:`combine_splits` is the merge's plain version, and
+:func:`decode_partials` / :func:`decode_paged_partials` return the
+partials alone (any split count) for split-level checks and the
+sequence-sharded decode. The merge loads at most ``MERGE_MAX_SPLITS``
+splits, so a finished launch runs at most that many
+(:func:`kernel_split_plan`). On the H100 the kernels
+are bound by the bytes of the KV rows they read: the rows stream
+through a ring of tiles in shared memory, filled by TMA tensor copies
+(the tensor maps encoded at each launch), while the warps score and
+accumulate the tiles that have landed, each with its own softmax state.
+In bf16 the warps run both products on the tensor cores (exact bf16
+products, P kept at fp32 precision) and merge once a split; fp32 stays
+on the CUDA cores; see the source. Any number of packed query rows
+``G * Sq`` works: a call of more than ``KERNEL_MAX_ROWS`` runs groups of
+that many rows side by side.
 
 Called with the decode step's new rows (``k_new``, ``v_new``), a
 finished call first writes them into the cache in place and then
@@ -39,8 +44,10 @@ The cache is taken whole, with explicit strides: the occupancy bound
 ``kv_len`` is an integer the kernel masks against, so no slice of the
 horizon is copied or padded on any layer of any token. The paged kernel
 takes the page pools whole as well, with the (B, NB) block table: the
-thread that copies a logical row looks up its physical page itself, so
-any page size works and no gathered copy of a slot's cache is made.
+lane that copies a page's rows looks up its physical page itself, so no
+gathered copy of a slot's cache is made. Any page size works: a tile's
+rows come in boxes of ``gcd(page, tile)`` rows (:func:`page_box_rows`),
+none of which crosses a page.
 """
 
 from __future__ import annotations
@@ -63,9 +70,13 @@ H100_SMS = get_machine("h100").cores
 
 #: head dims the kernel is built for
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-#: packed query rows (G * Sq) a thread block takes; a call with more runs
-#: groups of this many side by side, each reading its split's rows
+#: packed query rows (G * Sq) a thread block takes (16 in fp32 at Dh >=
+#: 128 and in bf16 at Dh 256); a call with more runs groups of this many
+#: side by side, each reading its split's rows
 KERNEL_MAX_ROWS = 32
+#: splits one finished launch merges (its last block loads them all at
+#: once)
+MERGE_MAX_SPLITS = 8
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -99,8 +110,9 @@ def launch_ctas(b: int, sq: int, h: int, hkv: int, n_splits: int) -> int:
 
 def default_splits(b: int, hkv: int, n_blocks: int) -> int:
     """Most splits whose thread blocks (:func:`launch_ctas`, one packed
-    row group a KV head) fit in one wave of the SMs; at least one, at
-    most ``n_blocks``.
+    row group a KV head) fit in one wave of the SMs, and no more than a
+    finished launch merges (``MERGE_MAX_SPLITS``); at least one, at most
+    ``n_blocks``.
 
     The serving path's split count, dense and paged: one more split
     would start a second wave (5 splits at B=8, Hkv=4 run 160 blocks on
@@ -109,7 +121,19 @@ def default_splits(b: int, hkv: int, n_blocks: int) -> int:
     count at yi-9b's and gemma3-4b's decode shapes at every ``kv_len``
     bucket from 512 rows up (``tests/test_torch_planner.py``)."""
     per_split = launch_ctas(b, 1, hkv, hkv, 1)
-    return max(1, min(n_blocks, H100_SMS // max(1, per_split)))
+    return max(1, min(n_blocks, MERGE_MAX_SPLITS,
+                      H100_SMS // max(1, per_split)))
+
+
+def kernel_split_plan(split_len: int, n_splits: int) -> tuple:
+    """``(split_len, n_splits)`` a finished launch runs for a plan of
+    ``n_splits`` splits of ``split_len`` rows: the plan itself up to
+    ``MERGE_MAX_SPLITS``, else runs of ``ceil(n_splits / 8)`` adjacent
+    splits merged into one, so that the merge takes them all. The same
+    rows are read and the same function computed, summed in another
+    order; the plain version keeps the plan it was given."""
+    per = math.ceil(n_splits / MERGE_MAX_SPLITS)
+    return split_len * per, math.ceil(n_splits / per)
 
 
 def split_plan(b: int, hkv: int, skv: int, bk: int, n_splits: int | None,
@@ -291,13 +315,10 @@ def split_counters(device, n: int = 0) -> torch.Tensor:
     return c
 
 
-def needs_workspace(dtype, dh: int, n_splits: int, finished: bool) -> bool:
+def needs_workspace(n_splits: int, finished: bool) -> bool:
     """Whether a launch writes fp32 partials: always but for a finished
-    call of one split, which writes its output directly, except in fp32
-    at Dh=256, whose body keeps its partials and merges them back even
-    then (its registers are full; see ``csrc/decode.cu``)."""
-    return (not finished or n_splits > 1
-            or (dtype == torch.float32 and dh == 256))
+    call of one split, which writes its output directly."""
+    return not finished or n_splits > 1
 
 
 def _ptr(x):
@@ -313,7 +334,7 @@ def _launch_buffers(q, hkv: int, n_splits: int, finished: bool) -> tuple:
     b, sq, h, dh = q.shape
     ws = out = cnt = None
     o = m = l = None
-    if needs_workspace(q.dtype, dh, n_splits, finished):
+    if needs_workspace(n_splits, finished):
         n, mo, lo = workspace_layout(n_splits, b, sq, h, dh)
         ws = torch.empty(n, dtype=torch.float32, device=q.device)
         o = ws.data_ptr()
@@ -347,6 +368,8 @@ def _decode_kernel(q, k, v, pos, *, window, split_len: int, n_splits: int,
         raise ValueError(f"{sq} new rows do not fit a {k.shape[1]}-row cache")
     nt = stores.executed_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
+    if finished:
+        split_len, n_splits = kernel_split_plan(split_len, n_splits)
     ws, out, ptrs = _launch_buffers(q, k.shape[2], n_splits, finished)
     rc = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), *ptrs,
@@ -396,8 +419,9 @@ def decode_finished(q, k, v, pos, *, window=None, split_len: int,
                     n_splits: int, bound: int, impl: str = "auto",
                     k_new=None, v_new=None, store_flavor=None):
     """The finished (B, Sq, H, Dh) output in q's dtype under an explicit
-    split plan: one launch of the kernel (splits merged inside it), or
-    the plain partials merged by :func:`combine_splits` and cast.
+    split plan: one launch of the kernel (splits merged inside it, a plan
+    of more than ``MERGE_MAX_SPLITS`` run as :func:`kernel_split_plan`'s),
+    or the plain partials merged by :func:`combine_splits` and cast.
 
     With ``k_new``/``v_new`` (B, Sq, Hkv, Dh) the rows are first written
     into ``k``/``v`` in place, as ``stores.kv_row_update`` writes them
@@ -517,6 +541,19 @@ def ref_decode_paged_partials(q, k_pages, v_pages, block_tables, pos, *,
                                bound=bound)
 
 
+def kernel_tile_rows(dtype, dh: int) -> int:
+    """Rows of a tile of the kernels' ring: 64 in bf16 (32 at Dh 256),
+    32 in fp32 (``csrc/decode.cu``, ``Tile``)."""
+    return 32 if dtype == torch.float32 or dh > 128 else 64
+
+
+def page_box_rows(dtype, dh: int, page_size: int) -> int:
+    """Rows of one copy of the paged kernel (``csrc/decode.cu``,
+    ``page_box_rows``): ``gcd(page_size, tile)``. A split starts on a page
+    and its tiles start a tile apart, so no box crosses a page."""
+    return math.gcd(int(page_size), kernel_tile_rows(dtype, dh))
+
+
 def _check_page_bound(bound: int, ps: int, block_tables) -> None:
     if bound % ps or bound > block_tables.shape[1] * ps:
         raise ValueError(f"bound {bound} is not a whole number of pages "
@@ -540,6 +577,8 @@ def _decode_paged_kernel(q, k_pages, v_pages, block_tables, pos, *, window,
     k_new, v_new = _new_rows(k_pages, q, k_new, v_new)
     nt = stores.executed_flavor(store_flavor) == "nt"
     lib = build.load("decode", _SIGNATURES)
+    if finished:
+        split_len, n_splits = kernel_split_plan(split_len, n_splits)
     ws, out, ptrs = _launch_buffers(q, k_pages.shape[2], n_splits,
                                     finished)
     rc = lib.flash_decode_paged(
@@ -583,8 +622,9 @@ def decode_paged_finished(q, k_pages, v_pages, block_tables, pos, *,
                           bound: int, impl: str = "auto", k_new=None,
                           v_new=None, store_flavor=None):
     """The finished (B, Sq, H, Dh) output in q's dtype over a page pool
-    under an explicit split plan: one launch of the paged kernel, or the
-    plain partials merged by :func:`combine_splits` and cast.
+    under an explicit split plan: one launch of the paged kernel (a plan
+    of more than ``MERGE_MAX_SPLITS`` run as :func:`kernel_split_plan`'s),
+    or the plain partials merged by :func:`combine_splits` and cast.
 
     With ``k_new``/``v_new`` (B, Sq, Hkv, Dh), row 0 of each slot's new
     rows is first written in place at its position, as the reference

@@ -8,7 +8,8 @@ tile tuner, which picks them there, is ported (``kernels/tuning.py``)
 and prices these kernels for the planner; on ``h100`` it prices the
 decode kernels' own grid (``decode.launch_ctas``) in whole waves of the
 SMs and picks ``default_splits``' count (the most splits one wave
-holds) at yi-9b's and gemma3-4b's shapes. The path keeps the defaults,
+holds, at most the 8 a finished launch merges) at yi-9b's and
+gemma3-4b's shapes. The path keeps the defaults,
 which depend on the ``kv_len`` bucket alone, so a decode step's trace
 is the same on the card and off it.
 Each decode router is one kernel launch, and a ``core.trace`` lowering

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
-// cp.async copies into shared memory, committed and waited on as groups;
+// Hopper (sm_90a) building blocks shared by the port's kernels: cp.async
+// copies into shared memory committed and waited on as groups;
 // 16-byte stores, plain or streaming; the ldmatrix / mma.sync.m16n8k16
 // forms of the bf16 tensor core path; and the tensor route: mbarriers,
 // TMA tensor copies (cp.async.bulk.tensor) between device and shared
@@ -17,14 +17,6 @@ namespace {
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 bytes from device memory to shared memory without passing
-// through registers (cp.async.cg: cached in L2 only). With `valid` false
-// no byte is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
 // Close the copies issued since the last commit into one group.
@@ -62,6 +54,22 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+
+// Two 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i (lanes 16-31 unused).
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// The transpose of an 8x8 b16 matrix held as mma fragments: a lane holding
+// elements (g, 2t..2t+1) of it gets elements (2t..2t+1, g).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // c (16x8, fp32) += a (16x16, bf16, row) * b (16x8, bf16, col).
@@ -154,6 +162,17 @@ __device__ __forceinline__ void tensor_load_4d(void* dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -38,7 +38,7 @@ name, shape)``.
 The counterpart of ``repro/kernels/tuning.py``, copied, with one branch
 of its own: on a GPU machine file (``h100``, ``h100_measured``) the
 decode plan is priced on the grid the port's decode kernels launch, in
-whole waves of the SMs, with the split merge through L2
+whole waves of the SMs, with the split merge's measured tail
 (:func:`_decode_tiles_gpu`); the reference's per-core lanes would give
 every extra split a core of its own. The serving path keeps
 ``decode.default_splits`` (``kernels/attention/ops.py``, the most
@@ -111,6 +111,12 @@ FLASH_BQ_CANDIDATES = (1024, 512, 256, 128)
 FLASH_BK_CANDIDATES = (1024, 512, 256, 128)
 DECODE_BK_CANDIDATES = (512, 256, 128, 64)
 DECODE_SPLIT_CANDIDATES = (8, 4, 2, 1)
+#: the GPU decode plan's split merge through L2 (``csrc/decode.cu``): a
+#: launch of more than one split ends this long after its slowest split.
+#: Measured on an H100 (700 W) at yi-9b's served shape by
+#: ``scripts/torch_kernel_ab.py`` as the finished kernel's time less the
+#: partials' alone: 2.39 and 2.26 µs in two runs
+SPLIT_MERGE_S = 2.3e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,24 +349,30 @@ def _decode_tiles_gpu(m, *, skv: int, dh: int, h: int, hkv: int,
 
     The blocks run in whole waves of the SMs: ``ceil(blocks / SMs)``
     waves, each as long as one block streaming its split's K and V rows
-    at the per-block rate of the backing tier (one SM's rate, capped by
-    the tier's shared ceiling over the blocks streaming at once). A
-    block that is not alone in its split writes its fp32 partial
-    ``(acc, m, l)`` to L2, and after the slowest split the merge reads
-    every split's partial back through L2 at one SM's rate. Compute and
-    the per-block bookkeeping of the score tile overlap the stream
-    (their home is an SM's own storage)."""
-    from repro_torch.kernels.attention.decode import (KERNEL_MAX_ROWS,
+    through its ring at the per-block rate of the backing tier (one SM's
+    rate, capped by the tier's shared ceiling over the blocks streaming
+    at once): the first tile of the kernel's ring
+    (``decode.kernel_tile_rows``) loads before any math, and the later
+    tiles load under the math and the per-block bookkeeping of the score
+    tile (their home is an SM's own storage). More than one split adds
+    the merge's measured tail (``SPLIT_MERGE_S``) and the reads of the
+    other splits' fp32 partials at one block's rate."""
+    import torch
+
+    from repro_torch.kernels.attention.decode import (MERGE_MAX_SPLITS,
+                                                      KERNEL_MAX_ROWS,
+                                                      kernel_tile_rows,
                                                       launch_ctas)
     tiers = memtier.tiers_of(m)
     backing = tiers[-1]
-    l2 = next((t for t in tiers if t.name == "L2"), backing)
     eb = dtype_bytes(dtype)
     sms = max(1, m.cores)
     rows = min(KERNEL_MAX_ROWS, max(1, h // max(1, hkv)))
     t_cmp = _mxu_seconds(m, 2.0 * batch * h * skv * dh, backend) \
         + _vpu_seconds(m, batch * h * skv, 3.0, backend)
     partial = rows * (dh + 2) * 4.0
+    tile = kernel_tile_rows(torch.float32 if eb == 4 else torch.bfloat16,
+                            dh)
     best = None
     for bk in DECODE_BK_CANDIDATES:
         cbk = min(bk, max(1, skv))
@@ -368,20 +380,24 @@ def _decode_tiles_gpu(m, *, skv: int, dh: int, h: int, hkv: int,
         ws = _resident_ws(rows, cbk, dh, eb)
         home = memtier.resolve_home(tiers, ws)
         for n_splits in DECODE_SPLIT_CANDIDATES:
-            if n_splits > nb:
+            if n_splits > min(nb, MERGE_MAX_SPLITS):
                 continue
             ctas = launch_ctas(batch, 1, h, hkv, n_splits)
             waves = math.ceil(ctas / sms)
             active = min(ctas, sms)
             split_rows = math.ceil(nb / n_splits) * cbk
             per_cta = memtier.effective_bw(backing, active)[0] / active
-            t_stream = split_rows * 2.0 * dh * eb / per_cta
+            row_s = 2.0 * dh * eb / per_cta
+            t_stream = split_rows * row_s
+            t_fill = min(tile, split_rows) * row_s
             t_res = (split_rows / cbk) * 2.0 * ws / _tier_bw(home)
             merge = 0.0
             if n_splits > 1:
-                # each block writes its partial; the last one reads them all
-                merge = (1 + n_splits) * partial / _tier_bw(l2)
-            total = max(waves * max(t_stream, t_res), t_cmp) + merge
+                # the tail, and the first block's reads of the others'
+                # fp32 partials (acc, m, l) at its share of the rate
+                merge = SPLIT_MERGE_S + (n_splits - 1) * partial / per_cta
+            t_block = max(t_stream, t_fill + t_res)
+            total = max(waves * t_block, t_cmp) + merge
             cand = TilePlan(machine=m.name, bq=1, bk=cbk,
                             n_splits=n_splits, seconds=total,
                             home_tier=home.name, ws_bytes=ws)

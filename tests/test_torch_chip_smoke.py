@@ -5,6 +5,7 @@ operation count) and no other."""
 
 import os
 import sys
+import types
 
 import pytest
 
@@ -233,6 +234,50 @@ def test_sass_op_counts_count_hopper_instructions():
         "HGMMA": 0, "UTMALDG": 0}
 
 
+#: a decode body's SASS and ptxas report, as the H100's toolkit prints them
+DECODE_KERNEL = "_ZN12_GLOBAL__N_113decode_kernelILi128ELi16ELb0ELb1EEEvNS_6ParamsE"
+DECODE_SASS = f"""
+\t\tFunction : {DECODE_KERNEL}
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0010*/                   UTMALDG.4D.SWZ [UR12], [UR6] ;
+        /*0020*/                   UBLKCP.S.G [UR8], [UR10], UR12 ;
+        /*0030*/                   RED.E.ADD.STRONG.GPU [R2.64], R5 ;
+"""
+
+
+def test_sass_op_counts_count_decode_instructions():
+    """The decode bodies' TMA tensor copies (the odd pages' plain bulk
+    copies and the merge's counter are not counted)."""
+    got = chip_smoke.sass_op_counts(DECODE_SASS, chip_smoke.DECODE_OPS)
+    assert got[DECODE_KERNEL] == {"UTMALDG": 2}
+
+
+@pytest.mark.parametrize("sass,spill,ok", [
+    (DECODE_SASS, "0 bytes spill stores, 0 bytes spill loads", True),
+    (DECODE_SASS.replace("UTMALDG", "NOP"),
+     "0 bytes spill stores, 0 bytes spill loads", False),
+    (DECODE_SASS, "8 bytes spill stores, 32 bytes spill loads", False),
+], ids=["whole", "no_tensor_copy", "spill"])
+def test_phase_decode_sass_fails_on_a_spill_or_a_missing_op(
+        tmp_path, monkeypatch, capsys, sass, spill, ok):
+    """chip_smoke's decode SASS phase passes only where every instance
+    holds the TMA tensor copy and spills nothing."""
+    lib = tmp_path / "libdecode.so"
+    (tmp_path / "libdecode.so.log").write_text(
+        f"ptxas info    : Compiling entry function '{DECODE_KERNEL}' for "
+        f"'sm_90a'\nptxas info    : Function properties for "
+        f"{DECODE_KERNEL}\n    0 bytes stack frame, {spill}\nptxas info    "
+        f": Used 168 registers, used 1 barriers\n")
+    build = types.SimpleNamespace(library_path=lambda name: lib)
+    monkeypatch.setattr(chip_smoke, "library_sass", lambda b, n: sass)
+    if ok:
+        chip_smoke.phase_decode_sass(build)
+        assert "each holds UTMALDG: yes" in capsys.readouterr().out
+    else:
+        with pytest.raises(chip_smoke.PhaseError):
+            chip_smoke.phase_decode_sass(build)
+
+
 def test_ptxas_kernels_reads_registers_and_spills():
     """(registers, spill stores, spill loads, stack) by mangled name."""
     assert chip_smoke.ptxas_kernels(FLASH_PTXAS) == {
@@ -308,6 +353,36 @@ def test_runtime_calls_read_only_host_api_events():
                      "cudaLaunchKernel": 1}
     assert chip_smoke.host_launches(calls) == {"kernel": 1, "graph": 1,
                                                "copy": 4}
+
+
+def test_runtime_calls_leave_out_the_window_lead_kernels():
+    """A window as ``profiled`` takes it on the card: its lead spin
+    kernels (one ``cudaLaunchKernel`` each, some of their device events
+    lost) before a graph replay of 48 decode kernels and an eager kernel.
+    The host calls counted are the replay's and the eager launch's only,
+    so a graphed step's launch count does not move; a window with fewer
+    launches than its lead kernels fails."""
+    lead = chip_smoke.WINDOW_LEAD_KERNELS
+    events = ([_Event("cudaLaunchKernel", "CPU")] * lead
+              + [_Event("void at::native::spin_kernel(long)", "CUDA")]
+              * (lead - 3)
+              + [_Event("cudaMemcpyAsync", "CPU"),
+                 _Event("cudaGraphLaunch", "CPU")]
+              + [_Event("void decode_kernel<128, 16, false, true>()",
+                        "CUDA")] * 48
+              + [_Event("cudaLaunchKernel", "CPU")])
+    calls = chip_smoke.runtime_calls(_Profile(events), lead)
+    assert calls == {"cudaMemcpyAsync": 1, "cudaGraphLaunch": 1,
+                     "cudaLaunchKernel": 1}
+    assert chip_smoke.host_launches(calls) == {"kernel": 1, "graph": 1,
+                                               "copy": 1}
+    calls = chip_smoke.runtime_calls(_Profile(events[:lead] + events[-1:]),
+                                     lead)
+    assert calls == {"cudaLaunchKernel": 1}
+    calls = chip_smoke.runtime_calls(_Profile(events[:lead]), lead)
+    assert calls == {}
+    with pytest.raises(chip_smoke.PhaseError):
+        chip_smoke.runtime_calls(_Profile(events[1:lead]), lead)
 
 
 def test_kv_read_bytes_windows_local_layers():

@@ -189,10 +189,112 @@ def test_default_splits_cover_the_sms():
     assert D.default_splits(8, 4, 100) == 4
     assert 8 * 4 * 4 <= D.H100_SMS < 8 * 4 * 5
     assert D.default_splits(8, 4, 3) == 3          # no more than blocks
-    assert D.default_splits(1, 8, 100) == 16       # 128 blocks, not 136
+    assert D.default_splits(1, 8, 100) == 8        # the merge's 8, not 16
     assert D.default_splits(8, 32, 100) == 1       # 256 blocks a split
     bound, split_len, n = D.split_plan(8, 4, 2048, 128, None, 600)
     assert (bound, n) == (600, 4) and split_len * n >= bound
+
+
+@pytest.mark.parametrize("hkv", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_default_splits_stop_at_the_merge_cap(b, hkv):
+    """The serving path's count is the most splits one wave of the SMs
+    holds, but never more than a finished launch merges: the cap binds
+    where B * Hkv <= 16."""
+    wave = D.H100_SMS // (b * hkv)
+    want = max(1, min(D.MERGE_MAX_SPLITS, wave))
+    assert D.default_splits(b, hkv, 10_000) == want
+    assert D.default_splits(b, hkv, 2) == min(2, want)
+    assert D.MERGE_MAX_SPLITS == 8
+    _, _, n = D.split_plan(b, hkv, 65536, 128, None, None)
+    assert n == want
+    _, _, pn = D.paged_split_plan(b, hkv, 16, 4096, None)
+    assert pn == want
+
+
+@pytest.mark.parametrize("n_splits", [1, 5, 8, 9, 16, 17, 64])
+def test_kernel_split_plan_fits_one_merge(n_splits):
+    """A finished launch runs at most the merge's splits: a plan of more
+    merges runs of adjacent splits, reading the same rows (the plan's
+    cover, in contiguous splits whose boundaries are the plan's), and a
+    plan of at most 8 is left as it is."""
+    split_len = 48
+    got_len, got_n = D.kernel_split_plan(split_len, n_splits)
+    assert 1 <= got_n <= D.MERGE_MAX_SPLITS
+    assert got_len % split_len == 0
+    assert got_len * got_n >= split_len * n_splits
+    assert got_len * (got_n - 1) < split_len * n_splits
+    if n_splits <= D.MERGE_MAX_SPLITS:
+        assert (got_len, got_n) == (split_len, n_splits)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_page_boxes_never_cross_a_page(dtype, dh):
+    """The paged kernel's copies (``gcd(page, tile)`` rows, the tile 64
+    bf16 rows, 32 at Dh 256 and in fp32) for every page from 1 to 300
+    rows: the boxes of every tile of every split of the paged plan cover
+    the tile and none crosses a page, so any page size is served."""
+    tile = D.kernel_tile_rows(dtype, dh)
+    assert tile == (32 if dtype == torch.float32 or dh == 256 else 64)
+    for ps in range(1, 301):
+        box = D.page_box_rows(dtype, dh, ps)
+        assert tile % box == 0 and ps % box == 0
+        _, split_len, n = D.paged_split_plan(8, 4, ps, -(-900 // ps), None)
+        for s in range(n):
+            for t0 in range(s * split_len, (s + 1) * split_len, tile):
+                for r in range(t0, t0 + tile, box):
+                    assert r // ps == (r + box - 1) // ps
+
+
+@pytest.mark.parametrize("kv_len", [512, 1792, 4096])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-4b"])
+def test_h100_tuner_picks_one_wave_of_splits(arch, kv_len):
+    """The tuner on ``h100`` at the served buckets (8 slots): 4 splits,
+    the most one wave of the SMs holds (128 blocks on 132) and the
+    serving path's count; fewer splits stream longer, more take a second
+    wave and merge more partials."""
+    from repro_torch.kernels import tuning
+    h, hkv, dh = {"yi-9b": (32, 4, 128), "gemma3-4b": (8, 4, 256)}[arch]
+    plan = tuning.decode_tiles("h100", skv=kv_len, dh=dh, h=h, hkv=hkv,
+                               batch=8, dtype="bfloat16")
+    assert plan.n_splits == 4
+    assert plan.n_splits == D.default_splits(8, hkv, -(-kv_len // 128))
+    assert plan.seconds > tuning.SPLIT_MERGE_S
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 5, 8])
+def test_split_order_merge_equals_combine_splits(n_splits):
+    """The last block of a row group merges the splits one at a time in
+    split order 0 .. S-1 (``csrc/decode.cu``'s ``split_merge_end``), dead
+    splits (m = -1e30, l = 0, o = 0) weighing exactly 0. In plain torch that
+    order gives ``combine_splits``' output up to the order of fp32 sums
+    of at most 8 terms (torch reduces 8 splits in another order than
+    one at a time; one split is the same bits); the kernel also contracts
+    its products and sums into FMAs, so the card's tests hold the two
+    within the decode tolerance."""
+    rng = np.random.default_rng(n_splits)
+    shape = (n_splits, 3, 2, 8)
+    o = torch.tensor(rng.standard_normal(shape + (32,)), dtype=torch.float32)
+    m = torch.tensor(rng.standard_normal(shape) * 4, dtype=torch.float32)
+    l = torch.tensor(rng.random(shape) * 9 + 1, dtype=torch.float32)
+    if n_splits > 1:
+        o[-1], m[-1], l[-1] = 0.0, NEG_INF, 0.0
+    mx = m[0]
+    for s in range(1, n_splits):
+        mx = torch.maximum(mx, m[s])
+    acc = torch.zeros_like(o[0])
+    tot = torch.zeros_like(l[0])
+    for s in range(n_splits):
+        w = torch.exp(m[s] - mx)
+        tot = tot + l[s] * w
+        acc = acc + o[s] * w[..., None]
+    got = acc / tot.clamp_min(1e-30)[..., None]
+    want = D.combine_splits(o, m, l)
+    assert torch.allclose(got, want, rtol=4e-7 * n_splits, atol=1e-7)
+    if n_splits == 1:
+        assert torch.equal(got, want)
+    assert torch.isfinite(got).all()
 
 
 # The fused merge's buffers, sized in pure Python by the wrapper: one fp32
@@ -222,7 +324,10 @@ def test_workspace_layout_is_o_then_m_then_l(ns, b, sq, h, dh):
     (2, 8, 16, 1, 1 * 4 * 2),          # G*Sq = 128
 ])
 def test_counters_needed_one_per_row_group(b, sq, h, hkv, want):
+    """One split counter per (KV head, group of 32 packed rows, slot); a
+    launch runs that many blocks times its splits."""
     assert D.counters_needed(b, sq, h, hkv) == want
+    assert D.launch_ctas(b, sq, h, hkv, 3) == 3 * want
 
 
 @pytest.mark.parametrize("finished,ns", [(False, 1), (False, 4), (True, 1),
@@ -235,7 +340,7 @@ def test_launch_buffers_point_into_one_workspace(finished, ns):
     b, sq, h, hkv, dh = 3, 2, 16, 2, 32
     q = torch.zeros(b, sq, h, dh, dtype=torch.bfloat16)
     ws, out, (o, m, l, outp, cnt) = D._launch_buffers(q, hkv, ns, finished)
-    assert (ws is not None) == D.needs_workspace(q.dtype, dh, ns, finished)
+    assert (ws is not None) == D.needs_workspace(ns, finished)
     if finished and ns == 1:
         assert ws is None and o is m is l is None
     else:
@@ -258,15 +363,20 @@ def test_launch_buffers_point_into_one_workspace(finished, ns):
 
 @pytest.mark.parametrize("dtype,dh,ns,finished,want", [
     (torch.bfloat16, 128, 1, True, False),   # one split writes its output
-    (torch.bfloat16, 128, 5, True, True),
+    (torch.bfloat16, 128, 5, True, True),    # the merge's scratch
     (torch.bfloat16, 128, 1, False, True),   # the partials alone
     (torch.float32, 128, 1, True, False),
     (torch.bfloat16, 256, 1, True, False),
-    (torch.float32, 256, 1, True, True),     # fp32 Dh=256 merges back
+    (torch.float32, 256, 1, True, False),    # every body writes one split
     (torch.float32, 256, 3, True, True),
 ])
 def test_needs_workspace(dtype, dh, ns, finished, want):
-    assert D.needs_workspace(dtype, dh, ns, finished) is want
+    """A launch gets the fp32 partials workspace unless it is a finished
+    call of one split, at every dtype and head dim."""
+    assert D.needs_workspace(ns, finished) is want
+    q = torch.zeros(2, 1, 8, dh, dtype=dtype)
+    ws, _, _ = D._launch_buffers(q, 2, ns, finished)
+    assert (ws is not None) is want
 
 
 def test_split_counters_grow_zeroed_and_are_kept():

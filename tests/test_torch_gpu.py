@@ -6,6 +6,7 @@ file imports no JAX, so it runs where only PyTorch is installed:
 """
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -122,9 +123,11 @@ def _assert_finished(got, want_f32):
 
 def test_decode_counters_reset_and_repeats_bit_identical(cuda):
     """One cached counter tensor across finished calls of other split
-    counts, slot counts and row groups, dense and paged: after each call
-    every counter is 0 again, and a call repeated gives the same bits (the
-    last block merges in split order, whichever block finishes last)."""
+    counts (16 asked for: the kernel's capped plan of 8), slot counts and
+    row groups, dense and paged: after each call every counter is 0
+    again, and a call repeated gives the same bits, as do two replays of
+    a CUDA graph captured over it (the last block merges in split order,
+    whichever block finishes last)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     skv, hkv, dh, ps = 512, 2, 128, 16
     D._COUNTERS.clear()             # made for the first call, grown after
@@ -150,8 +153,142 @@ def test_decode_counters_reset_and_repeats_bit_identical(cuda):
                                first.view(torch.int16))
             torch.cuda.synchronize()
             assert not D.split_counters(q.device).any()
+            stream = torch.cuda.Stream(cuda)
+            stream.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(stream):
+                call()                   # warm-up on the capture stream
+            torch.cuda.current_stream(cuda).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = call()
+            for _ in range(2):
+                out.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out.view(torch.int16),
+                                   first.view(torch.int16))
+                assert not D.split_counters(q.device).any()
     assert D.split_counters(q.device).numel() >= D.counters_needed(2, 4, 32,
                                                                    hkv)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [9, 16, 33])
+def test_decode_splits_past_the_merge_cap(cuda, ns, dtype, paged):
+    """A finished call asked for more splits than a launch merges runs
+    the kernel's own plan (``kernel_split_plan``: runs of adjacent splits
+    merged): one launch, the plain version's output at the plan asked
+    for within the decode tolerance, and the capped plan's bits."""
+    g = torch.Generator(device=cuda).manual_seed(ns)
+    b, skv, h, hkv, dh, ps = 2, 1100, 16, 2, 128, 16
+    q = torch.randn(b, 1, h, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([skv - 1, 530], dtype=torch.int32, device=cuda)
+    if paged:
+        nb = -(-skv // ps)
+        pad = (0, 0, 0, 0, 0, nb * ps - skv)
+        k = torch.nn.functional.pad(k, pad).reshape(-1, ps, hkv, dh)
+        v = torch.nn.functional.pad(v, pad).reshape(-1, ps, hkv, dh)
+        bt = torch.randperm(b * nb, generator=torch.Generator().manual_seed(
+            ns)).int().reshape(b, nb).to(cuda)
+        bound, split_len, n = D.paged_split_plan(b, hkv, ps, nb, ns)
+        fin = functools.partial(D.decode_paged_finished, q, k, v, bt, pos)
+        part = functools.partial(D.decode_paged_partials, q, k, v, bt, pos)
+    else:
+        bound, split_len, n = D.split_plan(b, hkv, skv, 16, ns, None)
+        fin = functools.partial(D.decode_finished, q, k, v, pos)
+        part = functools.partial(D.decode_partials, q, k, v, pos)
+    assert n == ns
+    kw = dict(window=None, bound=bound)
+    K.reset_launches()
+    got = fin(split_len=split_len, n_splits=n, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert sum(K.LAUNCHES[x] for x in ("flash_decode",
+                                       "flash_decode_paged")) == 1
+    _assert_finished(got, D.combine_splits(*part(
+        split_len=split_len, n_splits=n, impl="ref", **kw)))
+    cl, cn = D.kernel_split_plan(split_len, n)
+    assert cn <= D.MERGE_MAX_SPLITS
+    capped = fin(split_len=cl, n_splits=cn, impl="cuda", **kw)
+    assert _same_bytes(got, capped)
+    # the partials alone keep the count asked for
+    o, m, l = part(split_len=split_len, n_splits=n, impl="cuda", **kw)
+    assert o.shape[0] == m.shape[0] == ns
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", ["first", "last"])
+def test_decode_merge_of_dead_splits_but_one(cuda, live, dtype, paged):
+    """A merge of 8 splits of which only one reads a row: the first
+    (every slot's position inside split 0) or the last (a 16-row window
+    at the cache's end). The dead splits weigh exactly 0 in the merge:
+    the finished output is the plain version's, at both dtypes."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, skv, h, hkv, dh, ps, ns = 3, 1024, 8, 4, 256, 16, 8
+    q = torch.randn(b, 1, h, dh, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=g, device=cuda).to(dtype)
+    first = live == "first"
+    pos = torch.tensor([0, 37, 127] if first else [1023, 1020, 1015],
+                       dtype=torch.int32, device=cuda)
+    window = None if first else 16
+    if paged:
+        bt = torch.arange(b * skv // ps, dtype=torch.int32,
+                          device=cuda).reshape(b, -1)
+        kp, vp = (x.reshape(-1, ps, hkv, dh) for x in (k, v))
+        bound, split_len, n = D.paged_split_plan(b, hkv, ps, skv // ps, ns)
+        kw = dict(window=window, split_len=split_len, n_splits=n,
+                  bound=bound)
+        got = D.decode_paged_finished(q, kp, vp, bt, pos, impl="cuda", **kw)
+        o, m, l = D.decode_paged_partials(q, kp, vp, bt, pos, impl="ref",
+                                          **kw)
+    else:
+        bound, split_len, n = D.split_plan(b, hkv, skv, 128, ns, None)
+        kw = dict(window=window, split_len=split_len, n_splits=n,
+                  bound=bound)
+        got = D.decode_finished(q, k, v, pos, impl="cuda", **kw)
+        o, m, l = D.decode_partials(q, k, v, pos, impl="ref", **kw)
+    assert n == ns
+    live_splits = (l > 0).flatten(1).any(1).nonzero().flatten().tolist()
+    assert live_splits == ([0] if first else [ns - 1])
+    _assert_finished(got, D.combine_splits(o, m, l))
+
+
+@pytest.mark.parametrize("ps,dtype,dh", [
+    (24, torch.bfloat16, 128), (48, torch.bfloat16, 128),
+    (96, torch.bfloat16, 128), (24, torch.float32, 128),
+    (48, torch.bfloat16, 256), (5, torch.bfloat16, 32),
+    (3, torch.bfloat16, 64), (5, torch.float32, 32)])
+def test_paged_decode_kernel_at_any_page_size(cuda, ps, dtype, dh):
+    """Pages that neither divide the ring's tile nor are a multiple of it
+    (24, 48 and 96 rows; odd pages, whose 64-byte bf16 rows at Dh 32 come
+    in 16-byte copies): the paged kernel with the step's row written
+    against the plain version, output within the decode tolerance and
+    the pools' bytes equal."""
+    g = torch.Generator(device=cuda).manual_seed(ps + dh)
+    b, h, hkv, nb = 3, 8, 2, -(-700 // ps)
+    q = torch.randn(b, 1, h, dh, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(b * nb + 1, ps, hkv, dh, generator=g,
+                     device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
+    kn = torch.randn(b, 1, hkv, dh, generator=g, device=cuda).to(dtype)
+    vn = torch.randn_like(kn)
+    bt = torch.randperm(b * nb, generator=torch.Generator().manual_seed(
+        ps)).int().reshape(b, nb).to(cuda)
+    pos = torch.tensor([nb * ps - 1, 301, ps + 1], dtype=torch.int32,
+                       device=cuda)
+    outs = {}
+    for impl in ("cuda", "ref"):
+        k, v = kp.clone(), vp.clone()
+        o = D.flash_decode_paged(q, k, v, bt, pos, impl=impl, k_new=kn,
+                                 v_new=vn)
+        outs[impl] = (o, k, v)
+    (got, gk, gv), (want, wk, wv) = outs["cuda"], outs["ref"]
+    _assert_finished(got, want.float())
+    assert _same_bytes(gk, wk) and _same_bytes(gv, wv)
 
 
 @pytest.mark.parametrize("kv_len,rounded", [(472, True), (301, True),
@@ -433,7 +570,6 @@ def test_fused_write_matches_unfused_pair_dense(cuda, flavor, dtype, b, skv,
     assert K.LAUNCHES["kv_row_update"] == 0
     assert _same_bytes(got, want)
     assert _same_bytes(kc, kr) and _same_bytes(vc, vr)
-    assert not D.split_counters(cuda).any()
 
 
 @pytest.mark.parametrize("pos0", [None, -3, -37])
@@ -764,7 +900,7 @@ def test_graphed_engine_matches_eager(cuda, paged, temperature):
     CUDA-graph replays gives the eager chunk's streams token for token,
     greedy and sampled, dense and paged (a fork and a cancel on the
     paged schedule), over prompts whose chunks cross the 128- and
-    256-row buckets; one graph a bucket; split counters 0 after."""
+    256-row buckets; one graph a bucket."""
     cfg, params = _smoke_on_card(cuda)
     rng = np.random.default_rng(8)
     system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
@@ -785,7 +921,6 @@ def test_graphed_engine_matches_eager(cuda, paged, temperature):
     buckets = set(engines[True].graphs.graphs)
     assert len(buckets) >= 2 and buckets <= {128, 256, 300}
     torch.cuda.synchronize()
-    assert not D.split_counters(cuda).any()
 
 
 def test_graphed_engine_batched_admission(cuda):
@@ -810,8 +945,8 @@ def test_graphed_engine_batched_admission(cuda):
 
 def test_chunk_graph_replay_counts_like_the_eager_chunk(cuda):
     """One replay advances ``LAUNCHES`` exactly as one eager call of the
-    same chunk does, gives its tokens and its cache bit for bit, leaves
-    the split counters at 0; a bucket is never captured twice."""
+    same chunk does, gives its tokens and its cache bit for bit; a
+    bucket is never captured twice."""
     cfg, params = _smoke_on_card(cuda)
     b, n = 3, 4
     cache, tokens = _random_chunk_state(cfg, cuda, b, 300, 9)
@@ -835,52 +970,10 @@ def test_chunk_graph_replay_counts_like_the_eager_chunk(cuda):
         got = graphs.run(256, tokens, pos)
         torch.cuda.synchronize()
         assert K.LAUNCHES == eager
-        assert not D.split_counters(cuda).any()
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert all(torch.equal(cache["scan"]["0"][k], eager_cache["scan"]["0"][k])
                for k in ("k", "v"))
     assert list(graphs.graphs) == [256]
-
-
-def test_chunk_graph_survives_split_counters_growth(cuda):
-    """A decode call that needs more split counters than a captured graph
-    was captured with grows them to a new tensor; the graph still
-    replays the eager chunk's tokens and cache bit for bit, with memory
-    handed out after the growth filled with nonzero words, and its own
-    counters back at 0."""
-    cfg, params = _smoke_on_card(cuda)
-    b, n = 3, 4
-    cache, tokens = _random_chunk_state(cfg, cuda, b, 300, 13)
-    pos = torch.tensor([150, 20, 260], dtype=torch.int32, device=cuda)
-    body = SD.make_chunk_body(cfg, n)
-    graphs = SD.ChunkGraphs(body, cfg, params, cache, batch=b, n_tokens=n,
-                            sampled=False, device=cuda)
-    eager_cache = _clone_cache(cache)
-    graphs.load(tokens, pos)
-    graphs.capture(300)
-    # the capture wrote the chunk's rows into the cache: so does the
-    # eager reference, before its own chunk
-    body(params, eager_cache, tokens, pos, None, 300)
-    want = body(params, eager_cache, tokens, pos, None, 300)
-    old = D.split_counters(cuda)
-    # a larger decode call in two splits: one counter a slot, more slots
-    # than there are counters
-    nb = old.numel() + 1
-    q = torch.randn(nb, 1, 1, 32, device=cuda).bfloat16()
-    k = torch.randn(nb, 256, 1, 32, device=cuda).bfloat16()
-    pos_b = torch.full((nb,), 255, dtype=torch.int32, device=cuda)
-    ops.flash_decode(q, k, k, pos_b, n_splits=2, impl="cuda")
-    assert D.split_counters(cuda) is not old
-    del q, k, pos_b
-    junk = [torch.full((old.numel(),), 7, dtype=torch.int32, device=cuda)
-            for _ in range(8)]
-    got = graphs.run(300, tokens, pos)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert all(torch.equal(cache["scan"]["0"][k], eager_cache["scan"]["0"][k])
-               for k in ("k", "v"))
-    assert not old.any() and not D.split_counters(cuda).any()
-    assert all(bool((j == 7).all()) for j in junk)
 
 
 def test_engine_captures_each_bucket_once(cuda):
